@@ -5,11 +5,14 @@
 
 Runs from the repository root (it imports ``src/repro_torch``; it imports
 nothing of JAX or of the JAX package) and needs one CUDA device and
-``nvcc``.  In order it:
+``nvcc``.  Every comparison on the card runs with TF32 off
+(``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.backends.cudnn.allow_tf32`` False).  In order it:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all started together);
+   (one ``nvcc`` per source, all started together): K1 from
+   ``paged_attention.cu``, K2 and K3 from ``lns_matmul.cu``;
 3. holds kernel K1 (LNS paged decode attention) against its plain PyTorch
    version at qwen2-0.5b attention shapes (B=8, KV=2, G=7, hd=64, page 16,
    up to 64 pages per slot, ragged lengths, masked lanes, fresh-page rows,
@@ -27,14 +30,33 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
    plain attention;
 5. traces a short window of the main path with ``torch.profiler`` (card
    busy share, launches per sub-step, the kernels that take the time);
-6. prints one JSON line of per-kernel numbers, then the card line again,
+6. K3 (the paper's LNS matmul): all 65,536 products of every (format,
+   mode) pair bitwise equal to the plain version (NaN as NaN); then K3
+   (e4m3 RNE) and K2 (e5m2 x e4m3, bf16 and float32 compute) against
+   their plain versions at the training path's shapes (M = 1024 tokens,
+   every (K, N) of a qwen2-0.5b layer), each element within the float32
+   summation bound 2 K 2^-24 sum|products|; then their card times per
+   layer (the seven quantized matmuls of one layer's forward) beside the
+   bound, the plain version and, for K2, ``torch.matmul`` on pre-decoded
+   bf16 operands;
+7. trains full-width qwen2-0.5b through the port's CLI
+   (``launch.train.main``, ``--quant fp8_lns_pallas``, batch 8 x seq 128,
+   6 steps, checkpoints every 3): finite losses, 0 restarts, and K3
+   launches = 2 (forward and checkpointed recompute) x 7 matmuls x 24
+   layers x 6 steps; then 3 steps under policy ``train_fp8`` with the K2
+   count derived the same way; then the first step's loss and gradient
+   norm of a float32 2-layer model through the kernels and through their
+   plain versions (loss rtol 1e-4, gradient norm rtol 1e-3), for K3 and
+   K2; then one profiled train step (wall, card-busy share);
+8. prints one JSON line of per-kernel numbers, then the card line again,
    and last ``{"ok": true, "device": {...}}``.
 
 K1's ``ms`` and ``plain_ms`` are card time per call from the profiler
 (the kernel alone; all kernels of the plain version), or from CUDA-graph
 replays timed with events where the profiler records no device time; the
 comment lines also give the per-call time between CUDA events with the
-host's launch overhead included.
+host's launch overhead included.  K2's and K3's numbers are card time per
+layer: the sum over one layer's seven matmul shapes at M = 1024.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line; it also exits non-zero without a GPU, or when run outside the repo.
@@ -43,6 +65,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -53,7 +76,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
-KERNEL_SOURCES = ("paged_attention",)
+KERNEL_SOURCES = ("paged_attention", "lns_matmul")
 
 
 def card_line() -> str:
@@ -417,6 +440,461 @@ def profile_main_path(dev) -> None:
     for key, us, n in top:
         print(f"#   {us / 1e3:10.3f} ms  x{n:<6d} {key[:90]}", flush=True)
 
+# --------------------------------------------------------------------------- #
+# K2 and K3: the quantized matmuls of the training path
+# --------------------------------------------------------------------------- #
+BF16_FLOP_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
+# One transformer layer's seven quantized matmuls at qwen2-0.5b widths:
+# (K, N) -> how many of the layer's matmuls have that shape (wq/wo, wk/wv,
+# w_gate/w_up, w_down).
+LAYER_MATMULS = {(896, 896): 2, (896, 128): 2, (896, 4864): 2,
+                 (4864, 896): 1}
+MATMULS_PER_LAYER = 7      # STE matmuls per layer (the tied unembed is not)
+SMOKE_M = 1024             # batch 8 x seq 128 tokens
+# Instruction rates of the data sheet's card (132 SMs at 1.98 GHz): the
+# 67 TFLOP/s float32 rate is 128 FMA lanes per SM, an FMA counted as two
+# operations, so an SM issues at most 128 thread-instructions per clock;
+# 32-bit integer add, multiply-add, shift, compare and logic run on 64
+# lanes per SM (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0).
+ISSUE_PER_S = F32_FLOP_PER_S / 2
+INT32_PER_S = F32_FLOP_PER_S / 4
+INT32_OPCODES = {"IADD3", "IADD", "VIADD", "IMAD", "LOP3", "SHF", "ISETP",
+                 "LEA", "IMNMX", "VIMNMX", "IABS"}
+
+
+def sass_loop_mix(lib, kernel: str, per: str) -> dict:
+    """Instructions per product in ``kernel``'s innermost loop that holds
+    the opcode ``per`` (one per product: K3's float add of each product):
+    all of them, and those of the 32-bit integer pipe.  Read from the
+    SASS of the built library (``cuobjdump``); uniform-datapath (U*)
+    instructions run on another pipe and are not counted."""
+    import collections
+    import re
+    import shutil
+    from repro_torch.kernels import cuda_build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    (body,) = [f for f in re.split(r"\n\s*Function : ", sass)[1:]
+               if kernel in f.split(None, 1)[0]]
+    ins = [(int(a, 16), re.sub(r"^@!?U?P\w+\s+", "", b.strip()).split()[0]
+            .split(".")[0])
+           for a, b in re.findall(r"/\*([0-9a-f]+)\*/\s+([^;]*);", body)]
+    targets = re.findall(r"/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?BRA\s+"
+                         r"0x([0-9a-f]+)", body)
+    loops = sorted(((int(t, 16), int(a, 16)) for a, t in targets
+                    if int(t, 16) <= int(a, 16)), key=lambda lh: lh[1] - lh[0])
+    for lo, hi in loops:
+        ops = collections.Counter(op for a, op in ins if lo <= a <= hi)
+        if ops[per]:
+            n = ops[per]
+            total = sum(c for op, c in ops.items() if not op.startswith("U"))
+            return dict(per_product=total / n,
+                        int32_per_product=sum(ops[o] for o in INT32_OPCODES)
+                        / n, mix={op: c / n for op, c in ops.most_common()})
+    raise AssertionError(f"no loop with {per} in the SASS of {kernel}")
+
+
+def _nan_aware_bitwise(a, b) -> bool:
+    """Equal bit patterns, except that any NaN equals any NaN (the card's
+    float add returns its canonical NaN, the CPU keeps the operand's)."""
+    import torch
+
+    na, nb = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(na, nb):
+        return False
+    keep = ~na
+    return torch.equal(a[keep].view(torch.int32), b[keep].view(torch.int32))
+
+
+def check_k3_products(dev) -> int:
+    """Phase: every product of the paper's LNS multiply through K3, per
+    format and mode: codes [256, 1] x [1, 256] against the plain version,
+    bit for bit.  Returns the number of products checked."""
+    import torch
+    from repro_torch.core.carry_ins import FACTORED_MUL
+    from repro_torch.kernels import lns_matmul as lm
+
+    codes = torch.arange(256, dtype=torch.uint8, device=dev)
+    x, w = codes[:, None].contiguous(), codes[None, :].contiguous()
+    n = 0
+    for fmt, mode in sorted(FACTORED_MUL):
+        got = lm.lns_product_matmul(x, w, fmt=fmt, mode=mode)
+        want = lm.lns_matmul_plain(x, w, fmt=fmt, mode=mode)
+        torch.cuda.synchronize()
+        if not _nan_aware_bitwise(got, want):
+            raise AssertionError(f"K3 products differ from the plain "
+                                 f"version for {fmt}/{mode}")
+        n += got.numel()
+    print(f"# K3 products: {n} = {len(FACTORED_MUL)} (format, mode) pairs "
+          "x 65536, bitwise equal to the plain version (NaN as NaN)",
+          flush=True)
+    return n
+
+
+def _layer_codes(dev, seed: int, act_fmt: str, w_fmt: str):
+    """FP8 codes of the slice's matmul operands: activations [M, K] and
+    weights [K, N] for each shape of LAYER_MATMULS, quantized as the STE
+    matmul quantizes them (per-tensor / per-output-channel scales)."""
+    import torch
+    from repro_torch.core.quant import quantize
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for K, N in LAYER_MATMULS:
+        x = torch.randn((SMOKE_M, K), generator=g, device=dev)
+        w = torch.randn((K, N), generator=g, device=dev) * 0.02
+        out[K, N] = (quantize(x, act_fmt).codes,
+                     quantize(w, w_fmt, axis=-1).codes)
+    return out
+
+
+def _sum_bound(K, absum):
+    """Float32 summation error bound of a K-term sum: 2 K 2^-24 sum|p|."""
+    return 2 * K * 2.0 ** -24 * absum
+
+
+def _per_layer_ms(fn_of_shape, only, iters, warmup=2):
+    """Card time of one layer's seven matmuls: per-shape card time of
+    ``fn_of_shape(shape)`` times each shape's count in LAYER_MATMULS."""
+    total, how = 0.0, None
+    for shape, count in LAYER_MATMULS.items():
+        ms, how = device_ms(lambda: fn_of_shape(shape), iters=iters,
+                            only=only, warmup=warmup)
+        total += count * ms
+    return total, how
+
+
+def check_matmul_kernels(dev) -> dict:
+    """Phase: K3 and K2 against their plain versions at the training
+    path's shapes (M = 1024, every (K, N) of a qwen2-0.5b layer), then
+    their timings per layer (the seven matmuls of one layer's forward)."""
+    import torch
+    from repro_torch.kernels import lns_matmul as lm
+    from repro_torch.kernels.common import code_to_f32
+
+    res = {}
+    # K3: e4m3 x e4m3, RNE carry-in (--quant fp8_lns_pallas)
+    k3_codes = _layer_codes(dev, 10, "e4m3", "e4m3")
+    err = 0.0
+    for (K, N), (x, w) in k3_codes.items():
+        got = lm.lns_product_matmul(x, w, fmt="e4m3", mode="rne")
+        want = lm.lns_matmul_plain(x, w, fmt="e4m3", mode="rne")
+        absum = lm.lns_matmul_plain(x & 0x7F, w & 0x7F, fmt="e4m3",
+                                    mode="rne")
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        if not torch.isfinite(got).all() or bool(
+                (diff > _sum_bound(K, absum)).any()):
+            raise AssertionError(f"K3 differs from its plain version at "
+                                 f"{SMOKE_M}x{K}x{N}")
+        err = max(err, float(diff.max()))
+        print(f"# K3 {SMOKE_M}x{K}x{N} vs plain: max |err| {err:.3e} within "
+              f"2 K 2^-24 sum|products| (max bound "
+              f"{float(_sum_bound(K, absum).max()):.3e})", flush=True)
+    res["k3_err"] = err
+    # K2: e5m2 activations x e4m3 weights (train_fp8), bf16 and f32 compute
+    k2_codes = _layer_codes(dev, 11, "e5m2", "e4m3")
+    err = 0.0
+    for cd in (torch.bfloat16, torch.float32):
+        for (K, N), (x, w) in k2_codes.items():
+            kw = dict(fmt="e5m2", w_fmt="e4m3", compute_dtype=cd)
+            got = lm.dequant_matmul(x, w, **kw)
+            want = lm.dequant_matmul_plain(x, w, **kw)
+            absum = lm.dequant_matmul_plain(x & 0x7F, w & 0x7F, **kw)
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            if not torch.isfinite(got).all() or bool(
+                    (diff > _sum_bound(K, absum)).any()):
+                raise AssertionError(f"K2 differs from its plain version at "
+                                     f"{SMOKE_M}x{K}x{N} ({cd})")
+            err = max(err, float(diff.max()))
+        print(f"# K2 {cd} vs plain, all four shapes: max |err| {err:.3e} "
+              "within 2 K 2^-24 sum|products|", flush=True)
+    res["k2_err"] = err
+
+    # timings: one layer's seven matmuls at M = 1024
+    def k3(shape):
+        return lm.lns_product_matmul(*k3_codes[shape], fmt="e4m3", mode="rne")
+
+    def k3_plain(shape):
+        return lm.lns_matmul_plain(*k3_codes[shape], fmt="e4m3", mode="rne")
+
+    def k2(shape):
+        return lm.dequant_matmul(*k2_codes[shape], fmt="e5m2", w_fmt="e4m3",
+                                 compute_dtype=torch.bfloat16)
+
+    def k2_plain(shape):
+        return lm.dequant_matmul_plain(*k2_codes[shape], fmt="e5m2",
+                                       w_fmt="e4m3",
+                                       compute_dtype=torch.bfloat16)
+
+    decoded = {s: (code_to_f32(x, "e5m2").to(torch.bfloat16),
+                   code_to_f32(w, "e4m3").to(torch.bfloat16))
+               for s, (x, w) in k2_codes.items()}
+
+    def k2_library(shape):
+        return torch.matmul(*decoded[shape])
+
+    res["k3_ms"], how = _per_layer_ms(k3, "lns_matmul_kernel", iters=20)
+    res["k3_plain_ms"], _ = _per_layer_ms(k3_plain, "", iters=1, warmup=1)
+    res["k2_ms"], _ = _per_layer_ms(k2, "dequant_matmul_kernel", iters=20)
+    res["k2_plain_ms"], _ = _per_layer_ms(k2_plain, "", iters=10)
+    res["k2_library_ms"], _ = _per_layer_ms(k2_library, "", iters=50)
+
+    # least time of one layer's seven matmuls
+    prods = sum(c * SMOKE_M * K * N for (K, N), c in LAYER_MATMULS.items())
+    nbytes = sum(c * (SMOKE_M * K + K * N + 4 * SMOKE_M * N)
+                 for (K, N), c in LAYER_MATMULS.items())
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    # K3: the instructions per product of its compiled inner loop, at the
+    # issue rate (all of them) and at the 32-bit integer rate (the integer
+    # ones); the larger time is its operations bound
+    from repro_torch.kernels import cuda_build
+
+    mix = sass_loop_mix(cuda_build.build(["lns_matmul"])[0],
+                        "lns_matmul_kernel", per="FADD")
+    b_issue = mix["per_product"] * prods / ISSUE_PER_S * 1e3
+    b_int = mix["int32_per_product"] * prods / INT32_PER_S * 1e3
+    b_k3 = max(b_issue, b_int)
+    print("# K3 inner loop (SASS), instructions per product: "
+          + ", ".join(f"{op} {c:.3f}" for op, c in mix["mix"].items())
+          + f"; {mix['per_product']:.3f} in all ({b_issue:.4f} ms per layer "
+          f"at {ISSUE_PER_S:.4g}/s), {mix['int32_per_product']:.3f} on the "
+          f"32-bit integer pipe ({b_int:.4f} ms at {INT32_PER_S:.4g}/s)",
+          flush=True)
+    # K2: a multiply-add per product at the bf16 tensor-core rate
+    b_k2 = 2 * prods / BF16_FLOP_PER_S * 1e3
+    res["k3_bound"] = max(b_bytes, b_k3)
+    res["k3_bound_by"] = "bytes" if b_bytes >= b_k3 else "operations"
+    res["k2_bound"] = max(b_bytes, b_k2)
+    res["k2_bound_by"] = "bytes" if b_bytes >= b_k2 else "operations"
+    print(f"# K3 per layer (7 matmuls, M={SMOKE_M}; card time, {how}): "
+          f"kernel {res['k3_ms']:.4f} ms; plain {res['k3_plain_ms']:.3f} ms; "
+          f"bound {res['k3_bound']:.4f} ms = max({nbytes} B / 3.35 TB/s, "
+          f"{b_issue:.4f} ms issue, {b_int:.4f} ms integer) for {prods} "
+          "products", flush=True)
+    print(f"# K2 per layer (7 matmuls, M={SMOKE_M}, bf16 compute): kernel "
+          f"{res['k2_ms']:.4f} ms; plain {res['k2_plain_ms']:.4f} ms; "
+          f"torch.matmul on pre-decoded bf16 {res['k2_library_ms']:.4f} ms; "
+          f"bound {res['k2_bound']:.4f} ms = max({nbytes} B / 3.35 TB/s, "
+          f"{2 * prods} FLOP / 989 TFLOP/s)", flush=True)
+    return res
+
+
+def _reset_matmul_counts():
+    from repro_torch.kernels import lns_matmul as lm
+
+    lm.lns_product_matmul.launches = 0
+    lm.dequant_matmul.launches = 0
+
+
+def _matmul_counts():
+    from repro_torch.kernels import lns_matmul as lm
+
+    return lm.lns_product_matmul.launches, lm.dequant_matmul.launches
+
+
+def train_main_path(dev) -> dict:
+    """Phase: the training main path, full-width qwen2-0.5b under
+    ``--quant fp8_lns_pallas`` through the port's CLI: 6 steps of batch
+    8 x seq 128, checkpoints every 3 steps.  Every STE matmul runs K3 once
+    forward and once in the checkpointed recompute of its layer."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    cfg = get_config("qwen2-0.5b", quant="fp8_lns_pallas")
+    n_steps = 6
+    want = 2 * MATMULS_PER_LAYER * cfg.n_layers * n_steps
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        torch.cuda.synchronize()
+        _reset_matmul_counts()
+        t0 = time.perf_counter()
+        history = train.main([
+            "--arch", "qwen2-0.5b", "--quant", "fp8_lns_pallas",
+            "--batch", "8", "--seq", "128", "--steps", str(n_steps),
+            "--data", "arith", "--ckpt-every", "3", "--ckpt-dir", tmp,
+            "--seed", "0"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k3, k2 = _matmul_counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = [h["loss"] for h in history]
+    if [h["step"] for h in history] != [3, 6]:
+        raise AssertionError(f"unexpected log points {history}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite training loss {losses}")
+    if history[-1]["restarts"] != 0:
+        raise AssertionError(f"{history[-1]['restarts']} restarts")
+    if k3 != want or k2 != 0:
+        raise AssertionError(f"K3 launches {k3} (want 2 x 7 x "
+                             f"{cfg.n_layers} layers x {n_steps} steps = "
+                             f"{want}), K2 launches {k2} (want 0)")
+    print(f"# train fp8_lns_pallas: {n_steps} full-width steps, losses "
+          f"{losses} at steps 3 and 6, 0 restarts, {k3} K3 launches = 2 x 7 "
+          f"x {cfg.n_layers} x {n_steps}, 0 K2; {wall:.2f} s wall "
+          f"({wall / n_steps:.3f} s per step, init and checkpoints "
+          "included)", flush=True)
+    return dict(launches=k3)
+
+
+def _train_setup(dev, cfg, seed: int = 0, batch: int = 8, seq: int = 128):
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import DataConfig, Dataset
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+
+    model = Model(cfg, max_seq=seq)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = steps.make_train_state(model, gen)
+    step = steps.build_train_step(model, adamw.OptConfig(
+        lr=1e-3, warmup_steps=10, total_steps=100))
+    data = Dataset(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                              global_batch=batch, seed=seed, kind="arith"))
+
+    def batch_of(i):
+        return {k: torch.from_numpy(np.asarray(v)).to(dev)
+                for k, v in data.batch(i).items()}
+
+    return state, step, batch_of
+
+
+def train_k2_path(dev) -> dict:
+    """Phase: 3 full-width train steps under policy train_fp8 (e5m2
+    activations x e4m3 weights, impl auto -> fused_dequant on the card):
+    K2 once forward and once in the recompute of every STE matmul."""
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen2-0.5b", policy="train_fp8")
+    state, step, batch_of = _train_setup(dev, cfg)
+    n_steps = 3
+    want = 2 * MATMULS_PER_LAYER * cfg.n_layers * n_steps
+    torch.cuda.synchronize()
+    _reset_matmul_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        state, metrics = step(state, batch_of(i))
+        losses.append(float(metrics["loss"]))
+    wall = time.perf_counter() - t0
+    k3, k2 = _matmul_counts()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite train_fp8 loss {losses}")
+    if k2 != want or k3 != 0:
+        raise AssertionError(f"K2 launches {k2} (want {want}), K3 {k3}")
+    print(f"# train train_fp8: {n_steps} full-width steps, losses {losses}, "
+          f"{k2} K2 launches = 2 x 7 x {cfg.n_layers} x {n_steps}, 0 K3; "
+          f"{wall / n_steps:.3f} s per step", flush=True)
+    return dict(launches=k2)
+
+
+def profile_train_step(dev) -> None:
+    """One profiled full-width fp8_lns_pallas train step (after a warm-up
+    step): wall time, card-busy share, the kernels that take the time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen2-0.5b", quant="fp8_lns_pallas")
+    state, step, batch_of = _train_setup(dev, cfg)
+    state, _ = step(state, batch_of(0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch_of(1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, getattr(e, "self_device_time_total", None)
+             or e.self_cuda_time_total, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(us for _, us, _ in rows) / 1e6
+    if busy <= 0:
+        print(f"# profiled train step: {wall:.4f} s wall; the profiler "
+              "recorded no device time (busy share not measured)", flush=True)
+        return
+    k3 = sum(us for k, us, _ in rows if "lns_matmul_kernel" in k) / 1e6
+    print(f"# profiled train step (fp8_lns_pallas, full width, batch 8 x "
+          f"seq 128): {wall:.4f} s wall; card busy {busy:.4f} s "
+          f"({100 * busy / wall:.2f}% of the wall); K3 {k3:.4f} s "
+          f"({100 * k3 / busy:.2f}% of busy); "
+          f"{sum(n for _, _, n in rows)} kernel launches", flush=True)
+    for key, us, n in sorted(rows, key=lambda r: -r[1])[:6]:
+        print(f"#   {us / 1e3:10.3f} ms  x{n:<6d} {key[:90]}", flush=True)
+
+
+class _plain_matmuls:
+    """Within the block, the K2/K3 wrappers run their plain versions on
+    the card (for the end-to-end comparison only; the package itself
+    never does this)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import lns_matmul as lm
+
+        self.saved = lm.lns_product_matmul, lm.dequant_matmul
+        lm.lns_product_matmul = lambda x, w, *, fmt, mode="rne": \
+            lm.lns_matmul_plain(x, w, fmt=fmt, mode=mode)
+        lm.dequant_matmul = lambda x, w, **kw: lm.dequant_matmul_plain(x, w,
+                                                                       **kw)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import lns_matmul as lm
+
+        lm.lns_product_matmul, lm.dequant_matmul = self.saved
+        return False
+
+
+def check_train_against_plain(dev) -> None:
+    """Phase: the first step's loss and gradient global norm of a
+    float32, 2-layer, full-width qwen2-0.5b, through the kernels and
+    through their plain versions, for K3 (fp8_lns_pallas) and K2
+    (train_fp8).  Tolerance: loss rtol 1e-4, gradient norm rtol 1e-3 --
+    the float32 sums run in other orders, and a last-bit difference can
+    move an activation code across a rounding boundary."""
+    import torch
+    from repro_torch.configs import get_config
+
+    for label, kw in (("K3 fp8_lns_pallas", dict(quant="fp8_lns_pallas")),
+                      ("K2 train_fp8", dict(policy="train_fp8"))):
+        cfg = dataclasses.replace(get_config("qwen2-0.5b", **kw),
+                                  n_layers=2, param_dtype="float32")
+        out = []
+        for plain in (False, True):
+            state, step, batch_of = _train_setup(dev, cfg, seed=5)
+            before = _matmul_counts()
+            if plain:
+                with _plain_matmuls():
+                    _, metrics = step(state, batch_of(0))
+            else:
+                _, metrics = step(state, batch_of(0))
+            torch.cuda.synchronize()
+            used = [a - b for a, b in zip(_matmul_counts(), before)]
+            if (sum(used) == 0) != plain:
+                raise AssertionError(f"{label}: kernel launches {used} with "
+                                     f"plain={plain}")
+            out.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+        (lk, gk), (lp, gp) = out
+        if not (math.isclose(lk, lp, rel_tol=1e-4)
+                and math.isclose(gk, gp, rel_tol=1e-3)):
+            raise AssertionError(f"{label}: kernels {out[0]} vs plain "
+                                 f"{out[1]}")
+        print(f"# {label}, 2 layers float32, first step: loss {lk:.7f} "
+              f"(kernels) vs {lp:.7f} (plain), grad norm {gk:.6f} vs "
+              f"{gp:.6f}", flush=True)
+
 
 def main() -> int:
     import torch
@@ -426,6 +904,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # full float32 products in every comparison on the card (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = card_line()
     print(card, flush=True)
@@ -444,14 +925,35 @@ def main() -> int:
     served = serve_main_path(dev)
     check_against_plain_engine(dev)
     profile_main_path(dev)
+    check_k3_products(dev)
+    mm = check_matmul_kernels(dev)
+    trained = train_main_path(dev)
+    trained_k2 = train_k2_path(dev)
+    check_train_against_plain(dev)
+    profile_train_step(dev)
 
-    kernels = [dict(
-        name="lns_paged_partials", route="cuda",
-        source="src/repro_torch/kernels/csrc/paged_attention.cu",
-        replaces="src/repro/kernels/paged_attention.py:400",
-        launches=served["launches"], max_abs_err=k1["max_abs_err"],
-        ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-        bound_by=k1["bound_by"], library_ms=None)]
+    src = "src/repro_torch/kernels/csrc/"
+    kernels = [
+        dict(name="lns_paged_partials", route="cuda",
+             source=src + "paged_attention.cu",
+             replaces="src/repro/kernels/paged_attention.py:400",
+             launches=served["launches"], max_abs_err=k1["max_abs_err"],
+             ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
+             bound_by=k1["bound_by"], library_ms=None),
+        dict(name="lns_matmul", route="cuda", source=src + "lns_matmul.cu",
+             replaces="src/repro/kernels/lns_matmul.py:62",
+             launches=trained["launches"], max_abs_err=mm["k3_err"],
+             ms=mm["k3_ms"], plain_ms=mm["k3_plain_ms"],
+             bound_ms=mm["k3_bound"], bound_by=mm["k3_bound_by"],
+             library_ms=None),
+        dict(name="dequant_matmul", route="cuda",
+             source=src + "lns_matmul.cu",
+             replaces="src/repro/kernels/lns_matmul.py:110",
+             launches=trained_k2["launches"], max_abs_err=mm["k2_err"],
+             ms=mm["k2_ms"], plain_ms=mm["k2_plain_ms"],
+             bound_ms=mm["k2_bound"], bound_by=mm["k2_bound_by"],
+             library_ms=mm["k2_library_ms"]),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -14,11 +14,15 @@ directly.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
 import torch
 
 from .formats import FORMATS, FP8Format
 
-__all__ = ["encode", "decode", "decode_lut", "f32_bits", "f32_from_bits"]
+__all__ = ["QTensor", "quantize", "encode", "decode", "decode_lut",
+           "f32_bits", "f32_from_bits"]
 
 
 def f32_bits(x: torch.Tensor) -> torch.Tensor:
@@ -94,3 +98,48 @@ def decode_lut(fmt: FP8Format | str, device=None) -> torch.Tensor:
 def decode(codes: torch.Tensor, fmt: FP8Format | str) -> torch.Tensor:
     """uint8 codes -> float32 by a 256-entry table gather."""
     return decode_lut(fmt, codes.device)[codes.to(torch.int64)]
+
+
+# --------------------------------------------------------------------------- #
+# Scaled tensors
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass
+class QTensor:
+    """FP8-quantized tensor: ``value ~= decode(codes) * scale``.
+
+    ``scale`` broadcasts against the decoded codes (per-tensor scalar or a
+    per-channel vector kept with a size-1 axis); ``fmt`` names the format.
+    """
+
+    codes: torch.Tensor  # uint8
+    scale: torch.Tensor  # float32, broadcastable
+    fmt: str  # "e5m2" | "e4m3"
+
+    def dequantize(self) -> torch.Tensor:
+        return decode(self.codes, self.fmt) * self.scale
+
+
+def quantize(x, fmt: FP8Format | str = "e4m3", *, axis: Optional[int] = None,
+             mode: str = "rne") -> QTensor:
+    """Quantize a float tensor; ``axis`` keeps a per-channel scale along it.
+
+    The scale maps the absmax onto the format's max_normal, so the full
+    exponent range is used; the codes are ``encode(x / scale)`` (a true
+    division, as the reference computes it: a multiply by the reciprocal
+    would move codes).
+    """
+    if isinstance(fmt, str):
+        fmt_obj = FORMATS[fmt]
+    else:
+        fmt_obj, fmt = fmt, fmt.name
+    x = torch.as_tensor(x).to(torch.float32)
+    if axis is None:
+        amax = x.abs().amax()
+    else:
+        keep = axis % x.ndim
+        dims = tuple(i for i in range(x.ndim) if i != keep)
+        amax = x.abs().amax(dim=dims, keepdim=True)
+    amax = torch.clamp_min(amax, 1e-12)
+    scale = amax / fmt_obj.max_normal
+    codes = encode(x / scale, fmt_obj, mode)
+    return QTensor(codes=codes, scale=scale, fmt=fmt)

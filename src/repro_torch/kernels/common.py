@@ -20,7 +20,7 @@ from ..core.lns import LNS_CONSTS
 from ..core.quant import f32_from_bits
 
 __all__ = ["LNSOperand", "code_to_f32", "lns_prepare", "lns_combine",
-           "lns_tables"]
+           "lns_mul_to_f32", "lns_tables", "device_lns_tables"]
 
 
 def _fmt(fmt: FP8Format | str) -> FP8Format:
@@ -101,8 +101,17 @@ def lns_combine(px: LNSOperand, py: LNSOperand,
     return torch.where(px.bad | py.bad, float("nan"), val)
 
 
+def lns_mul_to_f32(X: torch.Tensor, Y: torch.Tensor, fmt: FP8Format | str,
+                   mode: str = "rne") -> torch.Tensor:
+    """The paper's integer-add FP8 product of codes X and Y (broadcast
+    against each other), decoded wide to float32: no saturation, FTZ
+    operands give 0, NaN/inf operands NaN."""
+    return lns_combine(lns_prepare(X, fmt, mode, side="x"),
+                       lns_prepare(Y, fmt, mode, side="y"), fmt)
+
+
 # Bit layout of the packed flag word of ``lns_tables`` (mirrored in
-# csrc/paged_attention.cu): factored carry mask in bits 0..15.
+# csrc/lns_common.cuh): factored carry mask in bits 0..15.
 ZERO_BIT = 1 << 16
 BAD_BIT = 1 << 17
 
@@ -128,3 +137,16 @@ def lns_tables(fmt: FP8Format | str, mode: str,
     # two's-complement narrowing keeps the sign bit of the flags word
     out = torch.where(out >= 2**31, out - 2**32, out)
     return out.to(torch.int32).to(device)
+
+
+_DEVICE_TABLES = {}
+
+
+def device_lns_tables(fmt: str, mode: str, device) -> torch.Tensor:
+    """:func:`lns_tables` on ``device``, built once per (fmt, mode,
+    device) and kept: the kernels read it on every launch."""
+    key = (fmt, mode, torch.device(device))
+    lut = _DEVICE_TABLES.get(key)
+    if lut is None:
+        lut = _DEVICE_TABLES[key] = lns_tables(fmt, mode, device=device)
+    return lut

@@ -30,14 +30,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lns_common.cuh"
+
 namespace {
+
+using lns::lns_product;
 
 constexpr float kNegInf = -2.0e30f;  // finite: the combine needs exp(m - M) == 0
 constexpr int kThreads = 128;
-constexpr int kCarryMask = 0xFFFF;
-constexpr int kZeroBit = 1 << 16;
-constexpr int kBadBit = 1 << 17;
-constexpr unsigned kSignBit = 0x80000000u;
 
 struct Params {
   const uint8_t* q_codes;       // [B, KV*G, hd]
@@ -58,36 +58,10 @@ struct Params {
   float* l_out;                 // [B, maxp, KV, G]
   float* o_out;                 // [B, maxp, KV, G, dv]
   int maxp, page, KV, G, hd, dv;
-  int man_bits, bias, min_normal_code, max_normal_code;
+  lns::Format fmt;
   int window, fused;
   float cap, inv_sqrt_hd;
 };
-
-// The paper's product: one integer add of the prepared magnitudes plus the
-// factored carry bit, placed into the float32 exponent/mantissa fields.
-__device__ __forceinline__ float lns_product(int mx, int fx, int my, int fy,
-                                             int man_bits) {
-  const int mag = mx + my + (((fx & fy) & kCarryMask) != 0);
-  const unsigned bits = ((unsigned)(fx ^ fy) & kSignBit) |
-                        ((unsigned)mag << (23 - man_bits));
-  float v = __uint_as_float(bits);
-  if ((fx | fy) & kZeroBit) v = 0.0f;
-  if ((fx | fy) & kBadBit) v = __uint_as_float(0x7fc00000u);
-  return v;
-}
-
-// FP8 code -> float32 by bit placement; subnormal, NaN and inf codes -> 0.
-__device__ __forceinline__ float code_to_f32(unsigned c, const Params& p) {
-  const unsigned mag = c & 0x7Fu;
-  const unsigned exp = mag >> p.man_bits;
-  const unsigned man = mag & ((1u << p.man_bits) - 1u);
-  const unsigned bits = ((c >> 7) << 31) |
-                        ((unsigned)((int)exp - p.bias + 127) << 23) |
-                        (man << (23 - p.man_bits));
-  const bool normal = mag >= (unsigned)p.min_normal_code &&
-                      mag <= (unsigned)p.max_normal_code;
-  return normal ? __uint_as_float(bits) : 0.0f;
-}
 
 __global__ void __launch_bounds__(kThreads)
 lns_paged_partials_kernel(const Params p) {
@@ -127,7 +101,7 @@ lns_paged_partials_kernel(const Params p) {
     const unsigned c = t == hit_row
         ? p.v_rows[((size_t)b * p.KV + kv) * dv + e]
         : p.v_pages[(((size_t)pid * page + t) * p.KV + kv) * dv + e];
-    vf[i] = code_to_f32(c, p) * vs;
+    vf[i] = lns::code_to_f32(c, p.fmt) * vs;
   }
   __syncthreads();
 
@@ -141,7 +115,7 @@ lns_paged_partials_kernel(const Params p) {
     for (int d = 0; d < hd; ++d) {
       const unsigned c = kr[d];
       acc += lns_product(xm[d], xf[d], ylut[2 * c], ylut[2 * c + 1],
-                         p.man_bits);
+                         p.fmt.man_bits);
     }
     float s = acc * qk;
     if (p.cap != 0.0f) s = tanhf(s / p.cap) * p.cap;
@@ -218,8 +192,7 @@ int lns_paged_partials(
   p.l_out = (float*)l_out;
   p.o_out = (float*)o_out;
   p.maxp = maxp; p.page = page; p.KV = KV; p.G = G; p.hd = hd; p.dv = dv;
-  p.man_bits = man_bits; p.bias = bias;
-  p.min_normal_code = min_normal_code; p.max_normal_code = max_normal_code;
+  p.fmt = lns::Format{man_bits, bias, min_normal_code, max_normal_code};
   p.window = window; p.fused = fused;
   p.cap = cap; p.inv_sqrt_hd = inv_sqrt_hd;
   const dim3 grid(maxp, KV, B);

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes plain ``extern "C"`` entry points (no
 PyTorch headers, so a build takes seconds).  The shared library is built
 on first use into ``_build/`` beside this file (listed in ``.gitignore``),
-named by a hash of the source and flags so an edited source never loads
-a stale build.  Nothing here runs at import time: the CPU tests import
+named by a hash of the source, of every ``csrc/`` header it includes
+(directly or through another header) and of the flags, so an edited source
+or header never loads a stale build.  Nothing here runs at import time: the CPU tests import
 every module and have no ``nvcc``.
 
     from repro_torch.kernels.cuda_build import load
@@ -16,11 +17,13 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 from typing import Dict, Iterable, List
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "ptxas_log"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "KernelLaunchError", "build",
+           "check_launch", "load", "ptxas_log"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
@@ -41,10 +44,42 @@ def _nvcc() -> str:
                        "kernels are built from source on first use")
 
 
+class KernelLaunchError(RuntimeError):
+    """A kernel launch the card refused (``cudaGetLastError() != 0``).
+    Never worth a retry: the training loop re-raises it at once."""
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise :class:`KernelLaunchError` if a C entry point returned a CUDA
+    error code (it returns ``cudaGetLastError()`` right after its launch)."""
+    if err:
+        raise KernelLaunchError(f"{what} launch failed: CUDA error {err}")
+
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> List[pathlib.Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes with
+    quotes, followed through headers that include others."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / inc.decode()).resolve()
+            if dep.is_file() and CSRC in dep.parents:
+                todo.append(dep)
+    return seen
+
+
 def _target(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(_sources(name)):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> List[pathlib.Path]:

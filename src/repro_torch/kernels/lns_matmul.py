@@ -1,0 +1,193 @@
+"""Matrix products of FP8 code matrices: the paper's LNS matmul (K3) and
+the fused-dequant matmul (K2).  Port of ``repro.kernels.lns_matmul``.
+
+Both take uint8 codes ``x [M, K]`` and ``w [K, N]`` and return the float32
+``[M, N]`` sum of the products; the caller (``ops.matmul_q``) applies the
+scales.
+
+* ``impl="lns"`` -- K3, :func:`lns_product_matmul`: each product is the
+  paper's integer add ``X + Y + K + c_in`` of the two codes (with the
+  Table 2/3 carry-in), decoded wide to float32; no float multiplier.  One
+  format for both operands.  Plain version: :func:`lns_matmul_plain`.
+* ``impl="fused_dequant"`` -- K2, :func:`dequant_matmul`: both sides
+  decoded by bit placement, each in its own format (E5M2 activations x
+  E4M3 weights), multiplied with float32 accumulation.  Plain version:
+  :func:`dequant_matmul_plain`.
+* ``impl="lns_loop"`` -- the reference's sequential rank-1 baseline (K4),
+  not ported yet.
+
+Each wrapper launches its hand-written CUDA kernel
+(``csrc/lns_matmul.cu``) for CUDA tensors and counts the launch in its
+``launches`` attribute; for CPU tensors it runs the plain version; any
+other device raises.  There is no fallback from the kernel to the plain
+version.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.formats import FORMATS
+from .common import code_to_f32, device_lns_tables, lns_combine, lns_prepare
+from .cuda_build import check_launch
+
+__all__ = [
+    "lns_matmul",
+    "lns_product_matmul",
+    "dequant_matmul",
+    "lns_matmul_plain",
+    "dequant_matmul_plain",
+]
+
+# Elements of one [M-chunk, K-chunk, N] product tensor of the plain LNS
+# version (each int64 temporary of that shape is 8x this many bytes).
+_PLAIN_CHUNK = 1 << 22
+
+
+def lns_matmul_plain(x_codes, w_codes, *, fmt: str, mode: str = "rne",
+                     chunk: int = _PLAIN_CHUNK):
+    """Plain version of K3: the same integer-add products as the kernel
+    (``lns_prepare``/``lns_combine``), summed over K chunk by chunk and
+    computed over M in chunks, so the ``[M, K, N]`` product tensor never
+    exists whole and full-width shapes fit on the card."""
+    M, K = x_codes.shape
+    N = w_codes.shape[1]
+    px = lns_prepare(x_codes, fmt, mode, side="x")      # fields [M, K]
+    py = lns_prepare(w_codes, fmt, mode, side="y")      # fields [K, N]
+    out = torch.zeros((M, N), dtype=torch.float32, device=x_codes.device)
+    kc = max(1, min(K, 128))
+    mc = max(1, min(M, chunk // max(kc * N, 1)))
+    for m0 in range(0, M, mc):
+        acc = out[m0:m0 + mc]
+        for k0 in range(0, K, kc):
+            sx = type(px)(*(None if f is None else
+                            f[m0:m0 + mc, k0:k0 + kc, None] for f in px))
+            sy = type(py)(*(None if f is None else
+                            f[None, k0:k0 + kc] for f in py))
+            acc += lns_combine(sx, sy, fmt).sum(dim=1)
+    return out
+
+
+def dequant_matmul_plain(x_codes, w_codes, *, fmt: str, w_fmt: str,
+                         compute_dtype=torch.float32):
+    """Plain version of K2: decode each side by bit placement in its own
+    format, round to ``compute_dtype`` (exact for FP8 values) and take one
+    float32 product.  A product of two bf16 values is exact in float32, so
+    this is the reference's ``dot(..., preferred_element_type=float32)``
+    (torch's own bf16 product would round its output to bf16)."""
+    x = code_to_f32(x_codes, fmt).to(compute_dtype).to(torch.float32)
+    w = code_to_f32(w_codes, w_fmt).to(compute_dtype).to(torch.float32)
+    return x @ w
+
+
+def _lib():
+    from .cuda_build import load
+
+    lib = load("lns_matmul")
+    if not getattr(lib, "_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.lns_matmul.argtypes = [vp] * 4 + [ci] * 4 + [vp]
+        lib.lns_matmul.restype = ci
+        lib.dequant_matmul.argtypes = [vp] * 3 + [ci] * 11 + [vp]
+        lib.dequant_matmul.restype = ci
+        lib._typed = True
+    return lib
+
+
+def _operands(x_codes, w_codes, what: str):
+    """Shape, type and device checks of a kernel launch; returns M, N, K."""
+    for t, name in ((x_codes, "x_codes"), (w_codes, "w_codes")):
+        if t.dtype != torch.uint8 or t.ndim != 2:
+            raise ValueError(f"{what}: {name} must be a 2-D uint8 tensor, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    M, K = x_codes.shape
+    K2, N = w_codes.shape
+    if K != K2:
+        raise ValueError(f"{what}: contraction mismatch {tuple(x_codes.shape)}"
+                         f" @ {tuple(w_codes.shape)}")
+    if w_codes.device != x_codes.device:
+        raise ValueError(f"{what}: both operands must be on one device")
+    return M, N, K
+
+
+def _device_type(t: torch.Tensor, what: str) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, not "
+                         f"{t.device}")
+    return t.device.type
+
+
+def lns_product_matmul(x_codes, w_codes, *, fmt: str, mode: str = "rne"):
+    """K3: f32 [M, N] of the paper's LNS products, one format.  CUDA
+    tensors launch the kernel (``lns_product_matmul.launches`` counts it);
+    CPU tensors run :func:`lns_matmul_plain`."""
+    if _device_type(x_codes, "K3") == "cpu":
+        return lns_matmul_plain(x_codes, w_codes, fmt=fmt, mode=mode)
+    M, N, K = _operands(x_codes, w_codes, "K3")
+    dev = x_codes.device
+    lut = device_lns_tables(fmt, mode, dev)
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    err = _lib().lns_matmul(
+        x_codes.data_ptr(), w_codes.data_ptr(), lut.data_ptr(),
+        out.data_ptr(), M, N, K, FORMATS[fmt].man_bits,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(err, "K3")
+    lns_product_matmul.launches += 1
+    return out
+
+
+lns_product_matmul.launches = 0
+
+
+def dequant_matmul(x_codes, w_codes, *, fmt: str, w_fmt: str,
+                   compute_dtype=torch.float32):
+    """K2: f32 [M, N] of the decoded operands' products, each side in its
+    own format.  CUDA tensors launch the kernel (``dequant_matmul.launches``
+    counts it); CPU tensors run :func:`dequant_matmul_plain`.  The kernel's
+    products are exact for ``compute_dtype`` bf16 and float32 alike."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"K2 computes in float32 or bfloat16, not "
+                         f"{compute_dtype}")
+    if _device_type(x_codes, "K2") == "cpu":
+        return dequant_matmul_plain(x_codes, w_codes, fmt=fmt, w_fmt=w_fmt,
+                                    compute_dtype=compute_dtype)
+    M, N, K = _operands(x_codes, w_codes, "K2")
+    dev = x_codes.device
+    fx, fw = FORMATS[fmt], FORMATS[w_fmt]
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    err = _lib().dequant_matmul(
+        x_codes.data_ptr(), w_codes.data_ptr(), out.data_ptr(), M, N, K,
+        fx.man_bits, fx.bias, fx.min_normal_code, fx.max_normal_code,
+        fw.man_bits, fw.bias, fw.min_normal_code, fw.max_normal_code,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(err, "K2")
+    dequant_matmul.launches += 1
+    return out
+
+
+dequant_matmul.launches = 0
+
+
+def lns_matmul(x_codes, w_codes, *, fmt: str = "e4m3", w_fmt: str | None = None,
+               mode: str = "rne", impl: str = "lns",
+               compute_dtype=torch.float32):
+    """f32 [M, N] matmul of uint8 FP8 code matrices (scales applied by the
+    caller).  ``impl``: ``"lns"`` (K3) or ``"fused_dequant"`` (K2);
+    ``w_fmt`` (fused_dequant only) lets the weights use another format."""
+    w_fmt = w_fmt or fmt
+    if impl == "lns_loop":
+        raise NotImplementedError(
+            "impl='lns_loop' (kernel K4, the reference's sequential rank-1 "
+            "baseline) is not ported yet; see ROADMAP.md Queue 2")
+    if impl == "lns":
+        if w_fmt != fmt:
+            raise ValueError("the paper's LNS product is single-format; use "
+                             "fused_dequant")
+        return lns_product_matmul(x_codes, w_codes, fmt=fmt, mode=mode)
+    if impl == "fused_dequant":
+        return dequant_matmul(x_codes, w_codes, fmt=fmt, w_fmt=w_fmt,
+                              compute_dtype=compute_dtype)
+    raise ValueError(f"unknown impl {impl!r}")

@@ -34,7 +34,8 @@ import torch
 
 from ..core.formats import FORMATS
 from ..core.quant import encode
-from .common import code_to_f32, lns_combine, lns_prepare, lns_tables
+from .common import code_to_f32, device_lns_tables, lns_combine, lns_prepare
+from .cuda_build import check_launch
 
 __all__ = [
     "NEG_INF",
@@ -145,7 +146,6 @@ def _check(t: torch.Tensor, dtype: torch.dtype, shape, name: str):
         raise ValueError(f"{name} must be contiguous")
 
 
-_LUTS = {}
 _SMEM_LIMIT = 48 * 1024  # default dynamic shared memory of one block
 
 
@@ -197,10 +197,7 @@ def _launch_k1(q_codes, q_scale, k_pages, v_pages, k_scale, v_scale,
     for t in tensors + [t for t in ins if t is not None]:
         if t.device != dev:
             raise ValueError("all K1 operands must be on one CUDA device")
-    key = (fmt, mode, dev)
-    lut = _LUTS.get(key)
-    if lut is None:
-        lut = _LUTS[key] = lns_tables(fmt, mode, device=dev)
+    lut = device_lns_tables(fmt, mode, dev)
     lib = _lib()
     if lib.lns_paged_partials_smem(page, G, hd, dv) > _SMEM_LIMIT:
         raise ValueError(f"K1 geometry page={page} G={G} hd={hd} dv={dv} "
@@ -215,8 +212,7 @@ def _launch_k1(q_codes, q_scale, k_pages, v_pages, k_scale, v_scale,
         fmt_obj.min_normal_code, fmt_obj.max_normal_code, int(window),
         int(inserts is not None), float(cap), float(hd**-0.5),
         torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"K1 launch failed: CUDA error {err}")
+    check_launch(err, "K1")
     paged_partials.launches += 1
     return m, l, o
 

@@ -1,1 +1,2 @@
-"""Entry points of the port: the serving Engine and its CLI."""
+"""Entry points of the port: the serving Engine and the trainer, with
+their CLIs."""

@@ -1,13 +1,15 @@
-"""GQA decode attention against the paged FP8 cache (serving path).
+"""GQA attention: the full-sequence forward of training and decode against
+the paged FP8 cache (serving).
 
-Port of ``repro.models.attention._gqa_qkv`` and ``gqa_decode_paged``.
+Port of ``repro.models.attention._gqa_qkv``, ``gqa_forward`` and
+``gqa_decode_paged``.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import numerics
-from .layers import qlinear, rms_norm, rope
+from .layers import chunked_attention, qlinear, rms_norm, rope
 
 
 def _gqa_qkv(p, x, cfg, positions, use_rope=True, site="blocks.*.attn"):
@@ -24,6 +26,19 @@ def _gqa_qkv(p, x, cfg, positions, use_rope=True, site="blocks.*.attn"):
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def gqa_forward(p, x, cfg, *, is_global: bool, positions,
+                site="blocks.*.attn"):
+    """Causal full-sequence self-attention (train): x [B, S, D] -> y
+    [B, S, D].  The reference also returns the layer's K/V cache entries
+    for prefill; the port's training forward has no use for them."""
+    q, k, v = _gqa_qkv(p, x, cfg, positions, site=site)
+    window = 0 if is_global else cfg.window
+    out = chunked_attention(q, k, v, window=window, cap=cfg.attn_softcap)
+    B, S = q.shape[:2]
+    return qlinear(out.reshape(B, S, -1), p["wo"], cfg.policy,
+                   site=f"{site}.wo")
 
 
 def gqa_decode_paged(p, x, cfg, *, is_global: bool, cache, paged,

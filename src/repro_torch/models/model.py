@@ -1,9 +1,9 @@
-"""Top-level model API of the port: init, the paged cache and the paged
-decode/mixed steps of the serving path.
+"""Top-level model API of the port: init, the training loss, the paged
+cache and the paged decode/mixed steps of the serving path.
 
-Port of the serving part of ``repro.models.model.Model`` for the dense GQA
-family.  Parameters are a plain dict: ``embed`` [Vp, D], ``final_norm``
-[D], optional ``unembed`` [D, Vp], and ``blocks``, a list of per-layer
+Port of ``repro.models.model.Model`` for the dense GQA family.
+Parameters are a plain dict: ``embed`` [Vp, D], ``final_norm`` [D],
+optional ``unembed`` [D, Vp], and ``blocks``, a list of per-layer
 dicts with the reference's names (``ln1``, ``attn.wq``/``bq``/...,
 ``ln2``, ``ffn.w_gate``/``w_up``/``w_down``).  :func:`params_from_jax`
 carries a reference ``Model.init`` tree across (the tests' route); the
@@ -15,7 +15,7 @@ The paged cache is {"kp", "vp": [n_layers, P, page, KV, hd] uint8,
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -24,9 +24,10 @@ from .. import numerics
 from ..core import prng
 from ..serving.page_pool import kv_noise
 from .layers import rms_norm, softcap
-from .transformer import stack_decode
+from .transformer import stack_decode, stack_forward
 
 NEG = -1.0e30
+AUX0 = {"moe_lb": 0.0, "moe_z": 0.0}
 
 
 def _check_supported(cfg) -> None:
@@ -34,12 +35,8 @@ def _check_supported(cfg) -> None:
             or cfg.n_experts):
         raise NotImplementedError(
             f"{cfg.name!r} (family={cfg.family!r}, attn={cfg.attn_impl!r}) "
-            "is not ported yet; this slice runs dense GQA stacks "
+            "is not ported yet; the port runs dense GQA stacks "
             "(ROADMAP.md Queue 1 item 13)")
-    if not numerics.kv_quantized(cfg.policy):
-        raise NotImplementedError(
-            "float KV pages are not ported yet; serve with an FP8 KV "
-            "policy such as serve_fp8_paged")
 
 
 def params_from_jax(np_params, cfg) -> Dict[str, Any]:
@@ -125,20 +122,62 @@ class Model:
         return x
 
     def _unembed(self, params, x):
-        """Tied or untied LM head; padded vocab columns are set to NEG."""
+        """Tied or untied LM head over [..., D] (2-D decode or 3-D train
+        activations); padded vocab columns are set to NEG."""
         cfg = self.cfg
         w = params.get("unembed")
         logits = (x @ w if w is not None else x @ params["embed"].T)
         logits = softcap(logits.to(torch.float32), cfg.final_softcap)
         if cfg.vocab_padded > cfg.vocab:
-            logits[..., cfg.vocab:] = NEG
+            keep = torch.arange(cfg.vocab_padded,
+                                device=logits.device) < cfg.vocab
+            logits = torch.where(keep, logits, NEG)
         return logits
 
+    def _assemble_inputs(self, params, batch) -> Tuple[Any, Any, Any]:
+        """Returns (x, positions, labels) of a {tokens, labels} batch (the
+        dense family; the reference's VLM and enc-dec inputs are not
+        ported)."""
+        tokens = batch["tokens"]
+        x = self._embed(params, tokens)
+        positions = torch.arange(x.shape[1], device=x.device).expand(
+            x.shape[:2])
+        return x, positions, batch.get("labels")
+
+    # ------------------------------------------------------------------ #
+    def loss_fn(self, params, batch):
+        """Mean next-token cross entropy over the valid positions, and its
+        metrics {ce, moe_lb, moe_z}.  ``labels`` < 0 are ignored, as is the
+        last position (the reference's mask); the CE runs over the padded
+        vocabulary with the padding at NEG.  The dense family has no MoE
+        auxiliary terms: they are zeros, as in the reference."""
+        cfg = self.cfg
+        x, positions, labels = self._assemble_inputs(params, batch)
+        x = stack_forward(params["blocks"], x, cfg, positions=positions)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = self._unembed(params, x)
+        S = x.shape[1]
+        pos = torch.arange(S, device=x.device)[None, :]
+        mask = ((labels >= 0) & (pos < S - 1)).to(torch.float32)
+        safe = torch.clamp_min(labels, 0).to(torch.int64)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+        ce = ((lse - ll) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = {k: zero + v for k, v in AUX0.items()}
+        loss = ce + 0.01 * aux["moe_lb"] + 1e-3 * aux["moe_z"]
+        return loss, {"ce": ce, **aux}
+
+    # ------------------------------------------------------------------ #
     def make_paged_cache(self, num_pages: int, page_size: int,
                          device) -> Dict[str, torch.Tensor]:
         """Zero codes and unit scales for a ``num_pages``-page pool (page 0
         is the reserved null page), stacked over layers."""
         cfg = self.cfg
+        if not numerics.kv_quantized(cfg.policy):
+            raise NotImplementedError(
+                "float KV pages are not ported yet; serve with an FP8 KV "
+                "policy such as serve_fp8_paged")
         shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.hd)
         return {
             "kp": torch.zeros(shape, dtype=torch.uint8, device=device),

@@ -19,6 +19,7 @@ from .api import (
     kv_write_token,
     matmul,
     mul,
+    weight_format,
 )
 
 __all__ = [
@@ -37,4 +38,5 @@ __all__ = [
     "kv_write_token",
     "matmul",
     "mul",
+    "weight_format",
 ]

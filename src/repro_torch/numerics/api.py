@@ -1,11 +1,11 @@
 """The functional numerics API the port's model and serving code call.
 
-Port of the part of ``repro.numerics.api`` on the serving path: every entry
-point takes the value operands plus a :class:`Policy` and an optional
-``site`` name, resolves ``(fmt, mode, impl)`` internally and dispatches to
-the kernels, so call sites never thread numeric strings.  The quantized
-matmul and elementwise branches (STE training, static FP8 weights, LNS
-elementwise) raise until the slices that port kernels K2-K5 land.
+Port of the part of ``repro.numerics.api`` on the serving and training
+paths: every entry point takes the value operands plus a :class:`Policy`
+and an optional ``site`` name, resolves ``(fmt, mode, impl, accum)``
+internally and dispatches to the kernels, so call sites never thread
+numeric strings.  The static-FP8-weight matmul and the LNS elementwise
+branch (kernel K5) raise until the slices that port them land.
 """
 from __future__ import annotations
 
@@ -13,9 +13,10 @@ from typing import Optional
 
 import torch
 
-from .policy import Policy
+from .policy import SINGLE_FORMAT_IMPLS, Policy
 
 __all__ = [
+    "weight_format",
     "matmul",
     "mul",
     "kv_quantized",
@@ -32,15 +33,35 @@ def _later(what: str):
         f"{what} is not ported yet (see ROADMAP.md Queue 1 of the port)")
 
 
+def weight_format(pol: Optional[Policy], site: str = "") -> Optional[str]:
+    """The weight-side FP8 format at ``site`` (None = unquantized)."""
+    if pol is None or not pol.weight_quant:
+        return None
+    return pol.resolve("weights", site).fmt
+
+
 def matmul(x, w, pol: Optional[Policy], *, site: str = "", bias=None):
-    """[..., K] @ [K, N] under the policy; the float branch of the
-    reference's one matmul entry point (plain weights, no STE).  Returns
-    [..., N] in ``x.dtype``."""
-    if pol is not None and pol.ste_weights:
-        raise _later("the FP8 STE matmul")
+    """[..., K] @ [K, N] under the policy; the reference's one matmul entry
+    point for float weights: STE-quantized (activations and weights to FP8
+    codes, product by ``kernels.ops.matmul_q``) when the policy quantizes
+    weights on the fly, a plain product otherwise.  Returns [..., N] in
+    ``x.dtype``."""
     if not isinstance(w, torch.Tensor):
         raise _later("static FP8 weights")
-    y = x @ w
+    if pol is not None and pol.ste_weights:
+        from ..models.layers import _ste_qmatmul
+
+        shape = x.shape
+        mp = pol.resolve("matmul", site)
+        wp = pol.resolve("weights", site)
+        act_fmt = mp.fmt if mp.quantized else wp.fmt
+        if mp.impl in SINGLE_FORMAT_IMPLS and act_fmt != wp.fmt:
+            act_fmt = wp.fmt  # the LNS product is single-format
+        y = _ste_qmatmul(x.reshape(-1, shape[-1]), w, act_fmt, wp.fmt,
+                        mp.impl, mp.quantized, mp.mode, mp.accum)
+        y = y.reshape(*shape[:-1], w.shape[-1]).to(x.dtype)
+    else:
+        y = x @ w
     return y if bias is None else y + bias
 
 

@@ -37,8 +37,11 @@ to policies.  Policies serialize to/from JSON (:meth:`Policy.to_json` /
 
 This is the PyTorch port's copy of ``repro.numerics.policy`` (pure
 Python), with the same presets; ``tests/test_torch_model.py`` pins every
-preset equal to the reference's.  The legacy ``QuantConfig`` bridge is
-not ported: the port has no ``QuantConfig``.
+preset equal to the reference's.  The port has no ``QuantConfig`` class:
+:func:`from_quant_config` maps the legacy flat switches, given as a dict
+of that class's fields, onto the policy tree exactly as the reference's
+bridge does, which is what the deprecated ``--quant`` strings resolve
+through (``configs.legacy_quant_config``).
 """
 from __future__ import annotations
 
@@ -367,6 +370,59 @@ class Policy:
     @classmethod
     def from_json(cls, s: str) -> "Policy":
         return cls.from_dict(json.loads(s))
+
+
+# --------------------------------------------------------------------------- #
+# Legacy flat switches -> Policy
+# --------------------------------------------------------------------------- #
+# The reference's QuantConfig fields and their defaults.
+QUANT_CONFIG_DEFAULTS = dict(
+    enabled=False, act_quant=True, act_fmt="e5m2", weight_fmt="e4m3",
+    mode="rne", matmul_impl="auto", elementwise=False, static_weights=False,
+    kv_cache_fp8=False, kv_fmt="e5m2")
+
+
+def from_quant_config(fields: Mapping[str, Any]) -> Policy:
+    """The policy of a legacy QuantConfig given as a dict of its fields
+    (missing fields take the reference's defaults).
+
+    Field by field as the reference's ``from_quant_config``: activations
+    quantize only when ``enabled and act_quant``; the LNS matmul impls are
+    single-format, so a pinned ``lns`` takes the weight format for the
+    activations; FP8 KV caches write stochastically.
+    """
+    unknown = set(fields) - set(QUANT_CONFIG_DEFAULTS)
+    if unknown:
+        raise TypeError(f"unknown QuantConfig fields {sorted(unknown)}")
+    qc = dict(QUANT_CONFIG_DEFAULTS, **fields)
+    act = qc["enabled"] and qc["act_quant"]
+    weights = qc["enabled"] or qc["static_weights"]
+    act_fmt = qc["act_fmt"]
+    if (act and qc["matmul_impl"] in SINGLE_FORMAT_IMPLS
+            and act_fmt != qc["weight_fmt"]):
+        act_fmt = qc["weight_fmt"]
+    kv = qc["kv_cache_fp8"]
+    kv_fmt = qc["kv_fmt"] if kv else "none"
+    mode = qc["mode"]
+    return Policy(
+        name="from_quant_config",
+        matmul=OpPolicy(fmt=act_fmt if act else "none", mode=mode,
+                        impl=qc["matmul_impl"], accum="bf16"),
+        weights=OpPolicy(fmt=qc["weight_fmt"] if weights else "none",
+                         mode="rne", impl="auto", accum="bf16"),
+        attention_qk=OpPolicy(fmt=kv_fmt, mode=mode, impl="auto",
+                              accum="f32"),
+        attention_pv=OpPolicy(fmt=kv_fmt, mode=mode, impl="auto",
+                              accum="f32"),
+        kv_write=OpPolicy(fmt=kv_fmt, mode="stochastic" if kv else mode,
+                          impl="auto", accum="f32"),
+        kv_rescale=OpPolicy(fmt=kv_fmt, mode="stochastic" if kv else mode,
+                            impl="auto", accum="f32"),
+        elementwise=OpPolicy(
+            fmt=act_fmt if (qc["enabled"] and qc["elementwise"]) else "none",
+            mode=mode, impl="pallas", accum="f32"),
+        static_weights=qc["static_weights"],
+    )
 
 
 # --------------------------------------------------------------------------- #

@@ -1,6 +1,7 @@
-"""PyTorch port: kernel K1 on the card (CUDA) against its plain version.
+"""PyTorch port: kernels K1, K2 and K3 on the card (CUDA) against their
+plain versions.
 
-These tests need an NVIDIA GPU with ``nvcc`` (the kernel is built from
+These tests need an NVIDIA GPU with ``nvcc`` (the kernels are built from
 ``src/repro_torch/kernels/csrc`` on first use); they carry the ``cuda``
 marker and skip on a host without CUDA.  They import no JAX, so they run
 on the GPU machine:
@@ -10,13 +11,19 @@ on the GPU machine:
 Tolerance of the attention output: rtol = atol = 1e-4 — the kernel and
 the plain version sum the exact LNS products over hd, the page rows and
 the pages in different float32 orders, and the card's ``expf`` is not
-torch's ``exp``.  Cache updates and fused == unfused are bitwise.
+torch's ``exp``.  Cache updates and fused == unfused are bitwise.  K3's
+single products are bitwise (NaN as NaN: the card's float add returns its
+own canonical NaN); K2's and K3's sums are held to the float32 summation
+bound 2 K 2^-24 sum|products|, since they add the same exact products in
+another order.  TF32 is off for the plain versions' float32 products.
 """
 import pytest
 import torch
 
 from repro_torch.core import prng
+from repro_torch.core.carry_ins import FACTORED_MUL
 from repro_torch.core.quant import encode
+from repro_torch.kernels import lns_matmul as lm
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.serving.page_pool import kv_noise, write_token_page
 
@@ -27,6 +34,8 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
 
 
@@ -114,3 +123,82 @@ def test_k1_rejects_operands_it_does_not_take(dev):
         pa.paged_partials(codes, qs, c["kp"], c["vp"], c["ks"], c["vs"],
                           c["bt"].long(), c["lengths"], fmt="e5m2",
                           mode="rne", KV=2, G=7)
+
+
+def _nan_aware_equal(a, b):
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(
+        a[~na].view(torch.int32), b[~nb].view(torch.int32))
+
+
+@pytest.mark.parametrize("key", sorted(FACTORED_MUL), ids="-".join)
+def test_k3_every_product_bitwise(dev, key):
+    fmt, mode = key
+    codes = torch.arange(256, dtype=torch.uint8, device=dev)
+    before = lm.lns_product_matmul.launches
+    got = lm.lns_product_matmul(codes[:, None].contiguous(),
+                                codes[None, :].contiguous(), fmt=fmt,
+                                mode=mode)
+    torch.cuda.synchronize()
+    assert lm.lns_product_matmul.launches == before + 1
+    want = lm.lns_matmul_plain(codes[:, None], codes[None, :], fmt=fmt,
+                               mode=mode)
+    assert _nan_aware_equal(got, want)
+
+
+def _codes(g, shape, fmt, dev):
+    c = torch.randint(0, 256, shape, generator=g).to(torch.uint8)
+    mag = c & 0x7F
+    bad = mag >= (0x7C if fmt == "e5m2" else 0x7F)
+    return torch.where(bad, c & 0xF0, c).to(dev)
+
+
+SHAPES = [(1, 1, 1), (5, 7, 3), (64, 32, 64), (65, 33, 129), (130, 96, 200),
+          (1024, 896, 128)]
+
+
+@pytest.mark.parametrize("M,K,N", SHAPES)
+@pytest.mark.parametrize("fmt,mode", [("e4m3", "rne"), ("e5m2", "rz")])
+def test_k3_matches_plain(dev, M, K, N, fmt, mode):
+    g = torch.Generator().manual_seed(M + K + N)
+    x, w = _codes(g, (M, K), fmt, dev), _codes(g, (K, N), fmt, dev)
+    got = lm.lns_matmul(x, w, fmt=fmt, mode=mode, impl="lns")
+    want = lm.lns_matmul_plain(x, w, fmt=fmt, mode=mode)
+    absum = lm.lns_matmul_plain(x & 0x7F, w & 0x7F, fmt=fmt, mode=mode)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N) and torch.isfinite(got).all()
+    assert bool(((got - want).abs() <= 2 * K * 2.0**-24 * absum).all())
+
+
+@pytest.mark.parametrize("M,K,N", SHAPES)
+@pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32])
+def test_k2_matches_plain(dev, M, K, N, cd):
+    g = torch.Generator().manual_seed(M * N + K)
+    x, w = _codes(g, (M, K), "e5m2", dev), _codes(g, (K, N), "e4m3", dev)
+    kw = dict(fmt="e5m2", w_fmt="e4m3", compute_dtype=cd)
+    before = lm.dequant_matmul.launches
+    got = lm.lns_matmul(x, w, impl="fused_dequant", **kw)
+    assert lm.dequant_matmul.launches == before + 1
+    want = lm.dequant_matmul_plain(x, w, **kw)
+    absum = lm.dequant_matmul_plain(x & 0x7F, w & 0x7F, **kw)
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= 2 * K * 2.0**-24 * absum).all())
+
+
+def test_k2_decodes_special_codes_to_zero(dev):
+    x = torch.tensor([[0x01, 0x7F, 0x7C, 0xFD, 0x3C]], dtype=torch.uint8,
+                     device=dev)
+    w = torch.full((5, 1), 0x38, dtype=torch.uint8, device=dev)  # 1.0
+    got = lm.dequant_matmul(x, w, fmt="e5m2", w_fmt="e4m3")
+    assert float(got) == 1.0  # only 0x3C (1.0 in e5m2) counts
+
+
+def test_matmul_kernels_reject_operands_they_do_not_take(dev):
+    x = torch.zeros((4, 8), dtype=torch.uint8, device=dev)
+    w = torch.zeros((8, 4), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        lm.lns_product_matmul(x.t(), x.t(), fmt="e4m3")
+    with pytest.raises(ValueError, match="uint8"):
+        lm.dequant_matmul(x.float(), w, fmt="e5m2", w_fmt="e4m3")
+    with pytest.raises(ValueError, match="contraction"):
+        lm.lns_product_matmul(x, x, fmt="e4m3")

@@ -12,7 +12,8 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together): K1 from
-   ``paged_attention.cu``, K2 and K3 from ``lns_matmul.cu``;
+   ``paged_attention.cu``, K2 and K3 from ``lns_matmul.cu``, K5 from
+   ``fp8_elementwise.cu``;
 3. holds kernel K1 (LNS paged decode attention) against its plain PyTorch
    version at qwen2-0.5b attention shapes (B=8, KV=2, G=7, hd=64, page 16,
    up to 64 pages per slot, ragged lengths, masked lanes, fresh-page rows,
@@ -30,7 +31,22 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
    plain attention;
 5. traces a short window of the main path with ``torch.profiler`` (card
    busy share, launches per sub-step, the kernels that take the time);
-6. K3 (the paper's LNS matmul): all 65,536 products of every (format,
+6. K5 (the paper's six FP8 operations): every one of the 69 supported
+   (format, op, mode) cells over all 256 codes or 65,536 code pairs
+   bitwise against the plain version, and the paper's claim on the card:
+   on the exact rounding oracle's valid domain K5's codes are correctly
+   rounded (faithful for ``faithful``) in 69/69 cells; random codes at
+   the serving (8 x 4864) and training (8 x 128 x 4864) gate shapes and
+   a misaligned ragged view, bitwise; card time of e5m2 mul at both
+   shapes beside the bytes bound, the plain version and the compiled
+   instruction count (SASS);
+7. serves full-width qwen2-0.5b again with the SwiGLU gate product
+   through K5 (serve_fp8_paged with elementwise e5m2; 4 requests, fused
+   on and off): K5 launches = K1 launches = n_layers x sub-steps, fused
+   == unfused token streams; a float32 copy's first-step logits through
+   K5 and through the plain version bitwise equal; a profile of that
+   path (launches per sub-step);
+8. K3 (the paper's LNS matmul): all 65,536 products of every (format,
    mode) pair bitwise equal to the plain version (NaN as NaN); then K3
    (e4m3 RNE) and K2 (e5m2 x e4m3, bf16 and float32 compute) against
    their plain versions at the training path's shapes (M = 1024 tokens,
@@ -39,7 +55,7 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
    layer (the seven quantized matmuls of one layer's forward) beside the
    bound, the plain version and, for K2, ``torch.matmul`` on pre-decoded
    bf16 operands;
-7. trains full-width qwen2-0.5b through the port's CLI
+9. trains full-width qwen2-0.5b through the port's CLI
    (``launch.train.main``, ``--quant fp8_lns_pallas``, batch 8 x seq 128,
    6 steps, checkpoints every 3): finite losses, 0 restarts, and K3
    launches = 2 (forward and checkpointed recompute) x 7 matmuls x 24
@@ -48,15 +64,24 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
    norm of a float32 2-layer model through the kernels and through their
    plain versions (loss rtol 1e-4, gradient norm rtol 1e-3), for K3 and
    K2; then one profiled train step (wall, card-busy share);
-8. prints one JSON line of per-kernel numbers, then the card line again,
-   and last ``{"ok": true, "device": {...}}``.
+10. trains 2 full-width steps under train_fp8_lns with the gate through
+    K5 in e4m3 (``run_training``): finite losses, 0 restarts, 672 K3 and
+    96 K5 launches (forward and recompute); then the first step of a
+    float32 2-layer model through K5 and through the plain version (loss
+    rtol 1e-4, gradient norm rtol 1e-3); then one profiled train step
+    under that policy;
+11. prints one JSON line of per-kernel numbers, then the card line again,
+    and last ``{"ok": true, "device": {...}}``.
 
 K1's ``ms`` and ``plain_ms`` are card time per call from the profiler
 (the kernel alone; all kernels of the plain version), or from CUDA-graph
 replays timed with events where the profiler records no device time; the
 comment lines also give the per-call time between CUDA events with the
 host's launch overhead included.  K2's and K3's numbers are card time per
-layer: the sum over one layer's seven matmul shapes at M = 1024.
+layer: the sum over one layer's seven matmul shapes at M = 1024.  K5's
+are those of e5m2 mul at the training gate shape (4,980,736 codes), its
+launches those of the K5 serving run; its ``max_abs_err`` is in code
+units (0: bitwise).
 
 Any failed check raises, so the script exits non-zero and prints no result
 line; it also exits non-zero without a GPU, or when run outside the repo.
@@ -76,7 +101,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
-KERNEL_SOURCES = ("paged_attention", "lns_matmul")
+KERNEL_SOURCES = ("paged_attention", "lns_matmul", "fp8_elementwise")
 
 
 def card_line() -> str:
@@ -306,19 +331,23 @@ def check_k1(dev) -> dict:
                 bound_by="bytes" if bound_bytes >= bound_ops else "operations")
 
 
-def serve_main_path(dev) -> dict:
-    """Phase 4: the full-width Engine under the continuous scheduler."""
+def serve_main_path(dev, policy="serve_fp8_paged",
+                    plens=(5, 17, 33, 64, 9, 48, 2, 26), gen=24) -> dict:
+    """Phase 4 (and, under the K5 serving policy, phase 10): the
+    full-width Engine under the continuous scheduler, fused decode on and
+    off.  K1 runs once per layer and sub-step, and so does K5 when the
+    policy quantizes the SwiGLU gate product (else never)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import fp8_elementwise as fe
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch.serve import Engine, run_continuous
 
-    cfg = get_config("qwen2-0.5b", policy="serve_fp8_paged")
+    cfg = get_config("qwen2-0.5b", policy=policy)
+    k5_on = cfg.policy.elementwise.quantized
     rng = np.random.default_rng(0)
-    plens = [5, 17, 33, 64, 9, 48, 2, 26]
     queue = [rng.integers(0, cfg.vocab, size=n) for n in plens]
-    gen = 24
     runs = {}
     for fused_on in (True, False):
         eng = Engine(cfg, slots=8, max_seq=max(plens) + gen, page_size=16,
@@ -334,12 +363,14 @@ def serve_main_path(dev) -> dict:
         eng.sync_logits = checked
         torch.cuda.synchronize()
         pa.paged_partials.launches = 0
+        fe.fp8_elementwise.launches = 0
         t0 = time.perf_counter()
         outputs, stats = run_continuous(eng, queue, gen=gen, chunk=4,
                                         quiet=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = pa.paged_partials.launches
+        k5 = fe.fp8_elementwise.launches
         substeps = int(eng.tel.counter_value("serve_substeps_total"))
         if stats["terminal"] != {"finished": len(queue)}:
             raise AssertionError(f"requests not all finished: "
@@ -350,17 +381,39 @@ def serve_main_path(dev) -> dict:
         if launches != cfg.n_layers * substeps:
             raise AssertionError(f"K1 launches {launches} != n_layers "
                                  f"{cfg.n_layers} x sub-steps {substeps}")
-        print(f"# serve fused={fused_on}: {len(queue)} requests finished, "
-              f"{stats['steps']} steps, {substeps} sub-steps, {launches} K1 "
-              f"launches, {wall:.3f} s wall, "
-              f"{stats['decode_tok_s']:.2f} decode tok/s", flush=True)
-        runs[fused_on] = (outputs, launches)
+        if k5 != (launches if k5_on else 0):
+            raise AssertionError(f"K5 launches {k5}, want "
+                                 f"{launches if k5_on else 0}")
+        print(f"# serve {cfg.policy.name}"
+              f"{' + K5 gate' if k5_on else ''} fused={fused_on}: "
+              f"{len(queue)} requests finished, {stats['steps']} steps, "
+              f"{substeps} sub-steps, {launches} K1 and {k5} K5 launches, "
+              f"{wall:.3f} s wall, {stats['decode_tok_s']:.2f} decode tok/s",
+              flush=True)
+        runs[fused_on] = (outputs, launches, k5)
         del eng
     if runs[True][0] != runs[False][0]:
         raise AssertionError("token streams differ with fused decode on/off")
     print("# token streams bitwise equal with fused decode on and off",
           flush=True)
-    return dict(launches=runs[True][1])
+    return dict(launches=runs[True][1], k5_launches=runs[True][2])
+
+
+def _first_step_logits(dev, cfg):
+    """A prefill chunk and one decode step of a 2-slot Engine: logits."""
+    import numpy as np
+    from repro_torch.launch.serve import Engine
+
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab, size=(2, 4)).astype(np.int32)
+    eng = Engine(cfg, slots=2, max_seq=16, page_size=16, rng_seed=3,
+                 device=dev)
+    eng.pool.ensure_capacity_batch(np.asarray([4, 3]))
+    first = eng.step_chunk(toks, np.zeros(2, np.int32),
+                           np.asarray([4, 3], np.int32))
+    second = eng.step_chunk(toks[:, :1], np.asarray([4, 3], np.int32),
+                            np.asarray([1, 1], np.int32))
+    return np.stack([first, second])
 
 
 def check_against_plain_engine(dev) -> None:
@@ -368,35 +421,24 @@ def check_against_plain_engine(dev) -> None:
     the plain attention (policy attention_qk impl="ref") agree."""
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import Engine
 
     base = get_config("qwen2-0.5b", policy="serve_fp8_paged")
     cfg = dataclasses.replace(base, param_dtype="float32")
     ref_pol = base.policy.replace(attention_qk=dataclasses.replace(
         base.policy.attention_qk, impl="ref"))
-    rng = np.random.default_rng(1)
-    toks = rng.integers(0, cfg.vocab, size=(2, 4)).astype(np.int32)
-    logits = []
-    for c in (cfg, dataclasses.replace(cfg, numerics=ref_pol)):
-        eng = Engine(c, slots=2, max_seq=16, page_size=16, rng_seed=3,
-                     device=dev)
-        eng.pool.ensure_capacity_batch(np.asarray([4, 3]))
-        first = eng.step_chunk(toks, np.zeros(2, np.int32),
-                               np.asarray([4, 3], np.int32))
-        second = eng.step_chunk(toks[:, :1], np.asarray([4, 3], np.int32),
-                                np.asarray([1, 1], np.int32))
-        logits.append(np.stack([first, second]))
-        del eng
+    logits = [_first_step_logits(dev, c) for c in
+              (cfg, dataclasses.replace(cfg, numerics=ref_pol))]
     np.testing.assert_allclose(logits[0], logits[1], rtol=1e-3, atol=1e-3)
     print(f"# float32 engine: K1 vs plain-attention logits max diff "
           f"{np.abs(logits[0] - logits[1]).max():.3e}", flush=True)
 
 
-def profile_main_path(dev) -> None:
+def profile_main_path(dev, policy="serve_fp8_paged") -> None:
     """A short traced window of the main path (8 requests, 4-token
     prompts, 4 generated tokens, after a warm-up run): the card's busy
-    share of the window's wall time and the kernels that take it.  CUDA
-    activity only, so the host pays little for the tracing."""
+    share of the window's wall time, the launches per sub-step and the
+    kernels that take the time.  CUDA activity only, so the host pays
+    little for the tracing."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -404,7 +446,7 @@ def profile_main_path(dev) -> None:
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import Engine, run_continuous
 
-    cfg = get_config("qwen2-0.5b", policy="serve_fp8_paged")
+    cfg = get_config("qwen2-0.5b", policy=policy)
     eng = Engine(cfg, slots=8, max_seq=16, page_size=16, rng_seed=0,
                  device=dev)
     rng = np.random.default_rng(2)
@@ -427,18 +469,211 @@ def profile_main_path(dev) -> None:
     if busy <= 0:
         print(f"# profile of the main path: {substeps} sub-steps in "
               f"{wall:.4f} s wall; the profiler recorded no device time "
-              "(busy share not measured)", flush=True)
+              "(busy share and launches not measured)", flush=True)
         return
     k1 = sum(us for k, us, _ in rows if "lns_paged_partials" in k) / 1e6
+    k5 = sum(us for k, us, _ in rows if "fp8_elementwise_kernel" in k) / 1e6
     n_kernels = sum(n for _, _, n in rows)
     top = sorted(rows, key=lambda r: -r[1])[:6]
-    print(f"# profile of the main path: {substeps} sub-steps in "
+    ew = cfg.policy.elementwise
+    label = cfg.policy.name + (f", elementwise {ew.fmt}" if ew.quantized
+                               else "")
+    print(f"# profile of the main path ({label}): {substeps} sub-steps in "
           f"{wall:.4f} s wall; card busy {busy:.4f} s "
           f"({100 * busy / wall:.2f}% of the wall), {n_kernels} kernel "
           f"launches ({n_kernels / max(substeps, 1):.0f} per sub-step); "
-          f"K1 {k1:.5f} s ({100 * k1 / busy:.2f}% of busy)", flush=True)
+          f"K1 {k1:.5f} s ({100 * k1 / busy:.2f}% of busy), K5 {k5:.5f} s "
+          f"({100 * k5 / busy:.2f}%)", flush=True)
     for key, us, n in top:
         print(f"#   {us / 1e3:10.3f} ms  x{n:<6d} {key[:90]}", flush=True)
+
+# --------------------------------------------------------------------------- #
+# K5: the paper's six FP8 operations, through the SwiGLU gate
+# --------------------------------------------------------------------------- #
+K5_SERVE_SHAPE = (8, 4864)         # one decode sub-step's gate product
+K5_TRAIN_SHAPE = (8, 128, 4864)    # batch 8 x seq 128 tokens
+# A lower count of K5's work than its compiled instruction stream: three
+# 32-bit integer operations per element (the paper's add with its
+# constant, the carry-in, the saturation); the instruction stream as
+# compiled is printed beside it (SASS), for PERF.md.
+K5_MIN_OPS_PER_ELEMENT = 3
+
+
+def k5_serve_policy():
+    """serve_fp8_paged with the gate product through K5 in e5m2 (the
+    reference's legacy mapping of QuantConfig(elementwise=True): act_fmt)."""
+    from repro_torch.numerics import OpPolicy, get_policy
+
+    return get_policy("serve_fp8_paged").replace(elementwise=OpPolicy(
+        fmt="e5m2", mode="rne", impl="auto", accum="f32"))
+
+
+def k5_train_policy():
+    """train_fp8_lns with the gate product through K5 in e4m3 (the legacy
+    mapping coerces act_fmt to the weight format under lns)."""
+    from repro_torch.numerics import OpPolicy, get_policy
+
+    return get_policy("train_fp8_lns").replace(elementwise=OpPolicy(
+        fmt="e4m3", mode="rne", impl="auto", accum="f32"))
+
+
+def _k5_operands(op, dev):
+    import torch
+
+    codes = torch.arange(256, dtype=torch.uint8, device=dev)
+    if op in ("mul", "div"):
+        X, Y = torch.meshgrid(codes, codes, indexing="ij")
+        return X.reshape(-1).contiguous(), Y.reshape(-1).contiguous()
+    return codes, None
+
+
+def check_k5_cells(dev) -> dict:
+    """Phase: every supported (format, op, mode) cell of Tables 2/3
+    through K5, over all 256 codes or 65,536 code pairs, bitwise against
+    the plain version; then the paper's claim on the card: on the exact
+    rounding oracle's valid domain, K5's codes are correctly rounded
+    (faithful for ``faithful``) in all 69 cells."""
+    import torch
+    from repro_torch.core.carry_ins import CARRY_INS
+    from repro_torch.core.formats import FORMATS
+    from repro_torch.core.rounding import Oracle
+    from repro_torch.kernels import fp8_elementwise as fe
+
+    cells = passed = checked = 0
+    for (fmt, op), modes in sorted(CARRY_INS.items()):
+        x, y = _k5_operands(op, dev)
+        expected, valid = Oracle(FORMATS[fmt]).quantize_all(
+            op, x.cpu().numpy(), None if y is None else y.cpu().numpy())
+        for mode, spec in modes.items():
+            if spec is None:
+                continue
+            got = fe.fp8_elementwise(op, x, y, fmt=fmt, mode=mode)
+            want = fe.fp8_elementwise_plain(op, x, y, fmt=fmt, mode=mode)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K5 differs from its plain version "
+                                     f"in cell {fmt}/{op}/{mode}")
+            checked += got.numel()
+            got = got.cpu().numpy()
+            if mode == "faithful":
+                ok = (got == expected["rd"]) | (got == expected["ru"])
+            else:
+                ok = got == expected[mode]
+            cells += 1
+            passed += int((~ok & valid).sum()) == 0
+    print(f"# K5 cells: {cells} (format, op, mode) cells, {checked} codes, "
+          "bitwise equal to the plain version", flush=True)
+    print(f"# Tables 2/3 through K5 on the card: {passed}/{cells} cells "
+          "correctly rounded (faithful for faithful) on the oracle's valid "
+          "domain", flush=True)
+    if (passed, cells) != (69, 69):
+        raise AssertionError(f"Tables 2/3 through K5: {passed}/{cells}")
+    return dict(cells=cells, passed=passed)
+
+
+def check_k5_shapes(dev) -> dict:
+    """Phase: K5 against its plain version on random codes at the main
+    paths' shapes (e5m2 and e4m3 mul) and on a ragged, misaligned view;
+    then the card time of e5m2 mul at both shapes beside its bound."""
+    import torch
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import fp8_elementwise as fe
+
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def codes(shape):
+        return torch.randint(0, 256, shape, generator=g, device=dev,
+                             dtype=torch.uint8)
+
+    ops, err = {}, 0
+    for label, shape in (("serve", K5_SERVE_SHAPE), ("train", K5_TRAIN_SHAPE)):
+        x, y = codes(shape), codes(shape)
+        for fmt in ("e5m2", "e4m3"):
+            got = fe.fp8_elementwise("mul", x, y, fmt=fmt, mode="rne")
+            want = fe.fp8_elementwise_plain("mul", x, y, fmt=fmt,
+                                            mode="rne")
+            torch.cuda.synchronize()
+            err = max(err, int((got.int() - want.int()).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"K5 {fmt} mul differs from its plain "
+                                     f"version at {shape}")
+        ops[label] = (x, y)
+    buf = codes((3 * 4099 + 8,))
+    x, y = buf[1:4100], buf[4105:4105 + 4099]   # misaligned, ragged
+    for op in ("mul", "div", "rsqrt"):
+        got = fe.fp8_elementwise(op, x, None if op == "rsqrt" else y,
+                                 fmt="e5m2", mode="rne")
+        want = fe.fp8_elementwise_plain(op, x, None if op == "rsqrt" else y,
+                                        fmt="e5m2", mode="rne")
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K5 {op} differs on a misaligned view")
+    print("# K5 mul at the serving and training shapes (e5m2, e4m3) and "
+          "mul/div/rsqrt on a misaligned 4,099-code view: bitwise equal to "
+          "the plain version", flush=True)
+
+    mix = sass_loop_mix(cuda_build.build(["fp8_elementwise"])[0],
+                        "fp8_elementwise_kernelILi0E", per="STG.E.128")
+    res = dict(max_abs_err=float(err))  # in code units; 0 = bitwise
+    for label, (x, y) in ops.items():
+        n, shape = x.numel(), tuple(x.shape)
+        k5 = lambda: fe.fp8_elementwise("mul", x, y, fmt="e5m2")  # noqa: E731
+        plain = lambda: fe.fp8_elementwise_plain(  # noqa: E731
+            "mul", x, y, fmt="e5m2", mode="rne")
+        ms, how = device_ms(k5, iters=200, only="fp8_elementwise_kernel")
+        plain_ms, _ = device_ms(plain, iters=20)
+        call_ms = cuda_ms(k5, iters=200)
+        b_bytes = 3 * n / HBM_BYTES_PER_S * 1e3
+        b_ops = K5_MIN_OPS_PER_ELEMENT * n / INT32_PER_S * 1e3
+        sass_int = mix["int32_per_product"] * n / 16 / INT32_PER_S * 1e3
+        res[label] = dict(ms=ms, plain_ms=plain_ms,
+                          bound_ms=max(b_bytes, b_ops),
+                          bound_by="bytes" if b_bytes >= b_ops
+                          else "operations")
+        print(f"# K5 e5m2 mul at {shape} ({n} codes; card time, {how}): "
+              f"kernel {ms:.5f} ms; plain {plain_ms:.4f} ms; bound "
+              f"{res[label]['bound_ms']:.5f} ms = max({3 * n} B / 3.35 "
+              f"TB/s, {K5_MIN_OPS_PER_ELEMENT} x {n} int32 ops at "
+              f"{INT32_PER_S:.4g}/s); the compiled integer stream alone "
+              f"{sass_int:.5f} ms; per call incl. host {call_ms:.4f} ms",
+              flush=True)
+    print("# K5 vector loop (SASS), instructions per 16 codes: "
+          + ", ".join(f"{op} {c:.2f}" for op, c in mix["mix"].items())
+          + f"; {mix['per_product']:.2f} in all, "
+          f"{mix['int32_per_product']:.2f} on the 32-bit integer pipe "
+          f"({mix['int32_per_product'] / 16:.2f} per code)", flush=True)
+    return res
+
+
+def check_k5_engine_against_plain(dev) -> None:
+    """Phase: a float32 copy of the model under the K5 serving policy:
+    the first steps' logits with the gate product through K5 (impl
+    "auto") and through the plain version (impl "ref") are bitwise equal,
+    since K5's codes are."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fp8_elementwise as fe
+
+    pol = k5_serve_policy()
+    cfg = dataclasses.replace(get_config("qwen2-0.5b", policy=pol),
+                              param_dtype="float32")
+    ref_pol = pol.replace(elementwise=pol.elementwise.replace(impl="ref"))
+    logits, used = [], []
+    for c in (cfg, dataclasses.replace(cfg, numerics=ref_pol)):
+        before = fe.fp8_elementwise.launches
+        logits.append(_first_step_logits(dev, c))
+        used.append(fe.fp8_elementwise.launches - before)
+    want = 5 * cfg.n_layers  # 4 + 1 sub-steps
+    if used != [want, 0]:
+        raise AssertionError(f"K5 launches {used}, want [{want}, 0]")
+    if not np.array_equal(logits[0], logits[1]):
+        raise AssertionError("float32 engine logits through K5 differ from "
+                             "those through the plain version: max diff "
+                             f"{np.abs(logits[0] - logits[1]).max():.3e}")
+    print(f"# float32 engine (K5 serving policy): first-step logits through "
+          f"K5 ({used[0]} launches) and through the plain version bitwise "
+          "equal", flush=True)
+
 
 # --------------------------------------------------------------------------- #
 # K2 and K3: the quantized matmuls of the training path
@@ -465,10 +700,12 @@ INT32_OPCODES = {"IADD3", "IADD", "VIADD", "IMAD", "LOP3", "SHF", "ISETP",
 
 def sass_loop_mix(lib, kernel: str, per: str) -> dict:
     """Instructions per product in ``kernel``'s innermost loop that holds
-    the opcode ``per`` (one per product: K3's float add of each product):
-    all of them, and those of the 32-bit integer pipe.  Read from the
-    SASS of the built library (``cuobjdump``); uniform-datapath (U*)
-    instructions run on another pipe and are not counted."""
+    the instruction ``per`` (one per product: K3's float add of each
+    product; an opcode such as ``FADD``, or a full mnemonic such as
+    ``STG.E.128``): all of them, and those of the 32-bit integer pipe.
+    Read from the SASS of the built library (``cuobjdump``);
+    uniform-datapath (U*) instructions run on another pipe and are not
+    counted."""
     import collections
     import re
     import shutil
@@ -480,17 +717,17 @@ def sass_loop_mix(lib, kernel: str, per: str) -> dict:
                           text=True, check=True, timeout=120).stdout
     (body,) = [f for f in re.split(r"\n\s*Function : ", sass)[1:]
                if kernel in f.split(None, 1)[0]]
-    ins = [(int(a, 16), re.sub(r"^@!?U?P\w+\s+", "", b.strip()).split()[0]
-            .split(".")[0])
+    ins = [(int(a, 16), re.sub(r"^@!?U?P\w+\s+", "", b.strip()).split()[0])
            for a, b in re.findall(r"/\*([0-9a-f]+)\*/\s+([^;]*);", body)]
     targets = re.findall(r"/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?BRA\s+"
                          r"0x([0-9a-f]+)", body)
     loops = sorted(((int(t, 16), int(a, 16)) for a, t in targets
                     if int(t, 16) <= int(a, 16)), key=lambda lh: lh[1] - lh[0])
     for lo, hi in loops:
-        ops = collections.Counter(op for a, op in ins if lo <= a <= hi)
-        if ops[per]:
-            n = ops[per]
+        body_ins = [m for a, m in ins if lo <= a <= hi]
+        ops = collections.Counter(m.split(".")[0] for m in body_ins)
+        n = sum(m == per or m.split(".")[0] == per for m in body_ins)
+        if n:
             total = sum(c for op, c in ops.items() if not op.startswith("U"))
             return dict(per_product=total / n,
                         int32_per_product=sum(ops[o] for o in INT32_OPCODES)
@@ -800,15 +1037,121 @@ def train_k2_path(dev) -> dict:
     return dict(launches=k2)
 
 
-def profile_train_step(dev) -> None:
-    """One profiled full-width fp8_lns_pallas train step (after a warm-up
-    step): wall time, card-busy share, the kernels that take the time."""
+def train_k5_path(dev) -> dict:
+    """Phase: 2 full-width train steps (batch 8 x seq 128, ``arith``)
+    under train_fp8_lns with the gate product through K5 in e4m3, through
+    ``run_training``: K3 once forward and once in the recompute of every
+    STE matmul, K5 once forward and once in the recompute of every
+    layer's gate (K5 has no backward kernel: the codes carry no gradient)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, Dataset
+    from repro_torch.kernels import fp8_elementwise as fe
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import fault, steps
+
+    cfg = get_config("qwen2-0.5b", policy=k5_train_policy())
+    n_steps = 2
+    want_k3 = 2 * MATMULS_PER_LAYER * cfg.n_layers * n_steps
+    want_k5 = 2 * cfg.n_layers * n_steps
+    model = Model(cfg, max_seq=128)
+    data = Dataset(DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=8,
+                              seed=0, kind="arith"))
+
+    def init_state():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return steps.make_train_state(model, gen)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_k5_")
+    try:
+        torch.cuda.synchronize()
+        _reset_matmul_counts()
+        fe.fp8_elementwise.launches = 0
+        t0 = time.perf_counter()
+        _, history = fault.run_training(
+            train_step=steps.build_train_step(model, adamw.OptConfig(
+                lr=1e-3, warmup_steps=10, total_steps=100)),
+            init_state=init_state, dataset=data, max_steps=n_steps,
+            ckpt_dir=tmp, ckpt_every=n_steps,
+            to_device=lambda b: {k: torch.from_numpy(v).to(dev)
+                                 for k, v in b.items()},
+            log=lambda *a: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        (k3, k2), k5 = _matmul_counts(), fe.fp8_elementwise.launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = [h["loss"] for h in history]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite training loss {losses}")
+    if history[-1]["restarts"] != 0:
+        raise AssertionError(f"{history[-1]['restarts']} restarts")
+    if (k3, k2, k5) != (want_k3, 0, want_k5):
+        raise AssertionError(f"launches K3 {k3} (want {want_k3}), K2 {k2} "
+                             f"(want 0), K5 {k5} (want {want_k5})")
+    print(f"# train train_fp8_lns + K5 gate (e4m3): {n_steps} full-width "
+          f"steps, loss {losses} at step {n_steps}, 0 restarts, {k3} K3 "
+          f"launches = 2 x 7 x {cfg.n_layers} x {n_steps}, {k5} K5 launches "
+          f"= 2 x {cfg.n_layers} x {n_steps}; {wall:.2f} s wall (init and a "
+          "checkpoint included)", flush=True)
+    return dict(launches=k5)
+
+
+def check_train_k5_against_plain(dev) -> None:
+    """Phase: the first step's loss and gradient global norm of a float32,
+    2-layer, full-width qwen2-0.5b under the K5 training policy, with the
+    gate product through K5 (impl "auto") and through the plain version
+    (impl "ref"); K3 runs in both.  Tolerance: loss rtol 1e-4, gradient
+    norm rtol 1e-3, as for K2/K3 (the codes are equal; the float32 sums
+    around them run on the card in the same order, so the two agree far
+    inside it)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fp8_elementwise as fe
+
+    pol = k5_train_policy()
+    out = []
+    for impl in ("auto", "ref"):
+        p = pol.replace(elementwise=pol.elementwise.replace(impl=impl))
+        cfg = dataclasses.replace(get_config("qwen2-0.5b", policy=p),
+                                  n_layers=2, param_dtype="float32")
+        state, step, batch_of = _train_setup(dev, cfg, seed=5)
+        before = fe.fp8_elementwise.launches
+        _, metrics = step(state, batch_of(0))
+        torch.cuda.synchronize()
+        used = fe.fp8_elementwise.launches - before
+        if used != (2 * cfg.n_layers if impl == "auto" else 0):
+            raise AssertionError(f"K5 launches {used} with impl={impl}")
+        out.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+    (lk, gk), (lp, gp) = out
+    if not (math.isclose(lk, lp, rel_tol=1e-4)
+            and math.isclose(gk, gp, rel_tol=1e-3)):
+        raise AssertionError(f"K5: kernel {out[0]} vs plain {out[1]}")
+    print(f"# K5 train_fp8_lns, 2 layers float32, first step: loss "
+          f"{lk:.7f} (K5) vs {lp:.7f} (plain), grad norm {gk:.6f} vs "
+          f"{gp:.6f}", flush=True)
+
+
+def profile_train_step(dev, policy=None) -> None:
+    """One profiled full-width train step (after a warm-up step) under
+    ``--quant fp8_lns_pallas``, or under ``policy``: wall time, card-busy
+    share, launches, the kernels that take the time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
 
-    cfg = get_config("qwen2-0.5b", quant="fp8_lns_pallas")
+    if policy is None:
+        cfg, label = get_config("qwen2-0.5b", quant="fp8_lns_pallas"), \
+            "fp8_lns_pallas"
+    else:
+        cfg = get_config("qwen2-0.5b", policy=policy)
+        label = policy.name + (" + K5 gate" if policy.elementwise.quantized
+                               else "")
     state, step, batch_of = _train_setup(dev, cfg)
     state, _ = step(state, batch_of(0))
     torch.cuda.synchronize()
@@ -826,10 +1169,11 @@ def profile_train_step(dev) -> None:
               "recorded no device time (busy share not measured)", flush=True)
         return
     k3 = sum(us for k, us, _ in rows if "lns_matmul_kernel" in k) / 1e6
-    print(f"# profiled train step (fp8_lns_pallas, full width, batch 8 x "
+    k5 = sum(us for k, us, _ in rows if "fp8_elementwise_kernel" in k) / 1e6
+    print(f"# profiled train step ({label}, full width, batch 8 x "
           f"seq 128): {wall:.4f} s wall; card busy {busy:.4f} s "
           f"({100 * busy / wall:.2f}% of the wall); K3 {k3:.4f} s "
-          f"({100 * k3 / busy:.2f}% of busy); "
+          f"({100 * k3 / busy:.2f}% of busy); K5 {k5:.5f} s; "
           f"{sum(n for _, _, n in rows)} kernel launches", flush=True)
     for key, us, n in sorted(rows, key=lambda r: -r[1])[:6]:
         print(f"#   {us / 1e3:10.3f} ms  x{n:<6d} {key[:90]}", flush=True)
@@ -925,12 +1269,21 @@ def main() -> int:
     served = serve_main_path(dev)
     check_against_plain_engine(dev)
     profile_main_path(dev)
+    check_k5_cells(dev)
+    k5 = check_k5_shapes(dev)
+    served_k5 = serve_main_path(dev, policy=k5_serve_policy(),
+                                plens=(5, 17, 9, 2), gen=8)
+    check_k5_engine_against_plain(dev)
+    profile_main_path(dev, policy=k5_serve_policy())
     check_k3_products(dev)
     mm = check_matmul_kernels(dev)
     trained = train_main_path(dev)
     trained_k2 = train_k2_path(dev)
     check_train_against_plain(dev)
     profile_train_step(dev)
+    train_k5_path(dev)
+    check_train_k5_against_plain(dev)
+    profile_train_step(dev, policy=k5_train_policy())
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -953,6 +1306,14 @@ def main() -> int:
              ms=mm["k2_ms"], plain_ms=mm["k2_plain_ms"],
              bound_ms=mm["k2_bound"], bound_by=mm["k2_bound_by"],
              library_ms=mm["k2_library_ms"]),
+        dict(name="fp8_elementwise", route="cuda",
+             source=src + "fp8_elementwise.cu",
+             replaces="src/repro/kernels/fp8_elementwise.py:29",
+             launches=served_k5["k5_launches"],
+             max_abs_err=k5["max_abs_err"],
+             ms=k5["train"]["ms"], plain_ms=k5["train"]["plain_ms"],
+             bound_ms=k5["train"]["bound_ms"],
+             bound_by=k5["train"]["bound_by"], library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -88,11 +88,21 @@ def encode(x, fmt: FP8Format | str, mode: str = "rne", *,
     return ((sign << 7) | code).to(torch.uint8)
 
 
+_DECODE_LUTS = {}
+
+
 def decode_lut(fmt: FP8Format | str, device=None) -> torch.Tensor:
-    """256-entry float32 decode table (subnormals, NaN and inf kept)."""
+    """256-entry float32 decode table (subnormals, NaN and inf kept),
+    built once per (format, device) and kept: a host-to-device copy on
+    every decode would stall the host on the card's queue."""
     if isinstance(fmt, str):
         fmt = FORMATS[fmt]
-    return torch.from_numpy(fmt.code_to_float32_bits()).to(device)
+    key = (fmt.name, torch.device(device or "cpu"))
+    lut = _DECODE_LUTS.get(key)
+    if lut is None:
+        lut = _DECODE_LUTS[key] = torch.from_numpy(
+            fmt.code_to_float32_bits()).to(device)
+    return lut
 
 
 def decode(codes: torch.Tensor, fmt: FP8Format | str) -> torch.Tensor:

@@ -1,12 +1,14 @@
-"""LNS helpers shared by the paged-attention kernel and its plain version.
+"""LNS helpers shared by the port's kernels and their plain versions.
 
 Port of ``repro.kernels.common``: ``code_to_f32`` decodes FP8 codes by bit
 placement, and ``lns_prepare``/``lns_combine`` split the paper's
 integer-add multiply into per-operand preparation and a cheap per-product
 combine.  ``lns_tables`` packs the prepared fields of all 256 codes into
-the lookup table the CUDA kernel reads, so the kernel serves every
-(format, mode) pair of Tables 2/3 without hard-coding a carry expression.
-All functions are plain torch integer ops and run on any device.
+the lookup table K1 and K3 read, so they serve every (format, mode) pair
+of Tables 2/3 without hard-coding a carry expression; likewise
+``elementwise_carry_table`` gives K5 the carry bit of one (format, op,
+mode) cell for every operand pair.  All functions are plain torch integer
+ops and run on any device.
 """
 from __future__ import annotations
 
@@ -14,13 +16,15 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..core.carry_ins import mul_carry_constant, mul_carry_term_mask
+from ..core.carry_ins import (carry_in, mul_carry_constant,
+                              mul_carry_term_mask)
 from ..core.formats import FORMATS, FP8Format
 from ..core.lns import LNS_CONSTS
 from ..core.quant import f32_from_bits
 
 __all__ = ["LNSOperand", "code_to_f32", "lns_prepare", "lns_combine",
-           "lns_mul_to_f32", "lns_tables", "device_lns_tables"]
+           "lns_mul_to_f32", "lns_tables", "device_lns_tables",
+           "carry_index", "elementwise_carry_table"]
 
 
 def _fmt(fmt: FP8Format | str) -> FP8Format:
@@ -150,3 +154,46 @@ def device_lns_tables(fmt: str, mode: str, device) -> torch.Tensor:
     if lut is None:
         lut = _DEVICE_TABLES[key] = lns_tables(fmt, mode, device=device)
     return lut
+
+
+# --------------------------------------------------------------------------- #
+# Carry bits of the elementwise ops (kernel K5)
+# --------------------------------------------------------------------------- #
+def carry_index(V):
+    """The 5 bits of a code that any Table 2/3 carry-in reads -- bits 0-3
+    and the sign bit 7 -- packed as ``(V & 0xF) | ((V >> 7) << 4)``."""
+    return (V & 0xF) | (((V >> 7) & 1) << 4)
+
+
+def _code_of_index(i):
+    return (i & 0xF) | (((i >> 4) & 1) << 7)
+
+
+_CARRY_TABLES = {}
+
+
+def elementwise_carry_table(fmt: str, op: str, mode: str) -> torch.Tensor:
+    """The carry bit of cell (fmt, op, mode) for every operand pair, as
+    int32 ``[32]``: bit ``carry_index(y)`` of word ``carry_index(x)``.
+
+    Built once per cell, by evaluating the tested :func:`carry_in` on the
+    1,024 (x, y) combinations of the bits it reads (bits 0-3 and 7 of each
+    operand; a unary op's carry ignores y, so every bit of a word is
+    equal).  A constant carry gives an all-0 or all-1 table; a dash cell
+    of Tables 2/3 raises ``Unsupported``.  The table stays on the host:
+    K5 takes its 128 bytes as a kernel parameter, not from device memory.
+    """
+    key = (fmt, op, mode)
+    table = _CARRY_TABLES.get(key)
+    if table is None:
+        idx = torch.arange(32, dtype=torch.int64)
+        X = _code_of_index(idx)[:, None]
+        Y = _code_of_index(idx)[None, :]
+        bits = carry_in(fmt, op, mode, X, Y if op in ("mul", "div") else None)
+        bits = torch.broadcast_to(torch.as_tensor(bits, dtype=torch.int64),
+                                  (32, 32))
+        words = (bits << idx[None, :]).sum(dim=1)
+        # two's-complement narrowing keeps bit 31
+        words = torch.where(words >= 2**31, words - 2**32, words)
+        table = _CARRY_TABLES[key] = words.to(torch.int32)
+    return table

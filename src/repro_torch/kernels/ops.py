@@ -1,6 +1,9 @@
-"""Entry point of the quantized matmul: port of ``repro.kernels.ops``.
+"""Entry points of the quantized ops: port of ``repro.kernels.ops``.
 
-``matmul_q`` dispatches between
+``elementwise_q`` applies one of the paper's six operations to quantized
+tensors in the code domain: ``impl="pallas"`` (the reference's name,
+kept) runs kernel K5 through ``fp8_elementwise``, ``"ref"`` its plain
+version ``ref.fp8_elementwise_ref``.  ``matmul_q`` dispatches between
 
 * ``lns``           -- the paper's integer-add products (kernel K3),
 * ``fused_dequant`` -- decode into a float product (kernel K2),
@@ -11,13 +14,17 @@
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..core.quant import QTensor
+from . import fp8_elementwise as fe
+from . import ref
 from .autotune import choose_matmul_impl
 from .lns_matmul import dequant_matmul_plain, lns_matmul
 
-__all__ = ["matmul_q"]
+__all__ = ["elementwise_q", "matmul_q"]
 
 
 def matmul_q(x: QTensor, w: QTensor, *, impl: str = "xla", mode: str = "rne",
@@ -40,3 +47,37 @@ def matmul_q(x: QTensor, w: QTensor, *, impl: str = "xla", mode: str = "rne",
     if w_scale.ndim:
         w_scale = w_scale.squeeze()[None, ...]
     return acc * x.scale * w_scale
+
+
+def elementwise_q(op: str, x: QTensor, y: Optional[QTensor] = None, *,
+                  mode: str = "rne", impl: str = "pallas") -> QTensor:
+    """Apply a paper op to quantized tensors, staying in the code domain.
+
+    Scale algebra rides along in the LNS view (float32 scalars or vectors,
+    exact ops, no approximation):
+      mul: s = sx*sy | div: sx/sy | square: sx^2 | recip: 1/sx
+      sqrt: sqrt(sx) | rsqrt: 1/sqrt(sx)
+    """
+    yc = None if y is None else y.codes
+    if impl == "pallas":
+        codes = fe.fp8_elementwise(op, x.codes, yc, fmt=x.fmt, mode=mode)
+    elif impl == "ref":
+        codes = ref.fp8_elementwise_ref(op, x.fmt, mode, x.codes, yc)
+    else:
+        raise ValueError(f"unknown elementwise impl {impl!r}")
+    sx = x.scale
+    if op == "mul":
+        scale = sx * y.scale
+    elif op == "div":
+        scale = sx / y.scale
+    elif op == "square":
+        scale = sx * sx
+    elif op == "recip":
+        scale = 1.0 / sx
+    elif op == "sqrt":
+        scale = torch.sqrt(sx)
+    elif op == "rsqrt":
+        scale = torch.rsqrt(sx)
+    else:
+        raise ValueError(op)
+    return QTensor(codes=codes, scale=scale.to(torch.float32), fmt=x.fmt)

@@ -330,7 +330,7 @@ def fused_decode_write_attend(
     reference: equal to write-then-attend on every lane whose
     ``write_mask`` is set.
     """
-    from ..serving.page_pool import token_row_codes
+    from ..serving.page_pool import scatter_token_rows, token_row_codes
 
     _require_fmt(fmt)
     B, one, H, hd = q.shape
@@ -352,8 +352,8 @@ def fused_decode_write_attend(
     v_scale.index_put_((pids_v,), vs_new)
 
     def scatter():
-        k_pages.index_put_((pids_k, rows.to(torch.int64)), k_row)
-        v_pages.index_put_((pids_v, rows.to(torch.int64)), v_row)
+        scatter_token_rows(k_pages, pids_k, rows, k_row, write_mask)
+        scatter_token_rows(v_pages, pids_v, rows, v_row, write_mask)
 
     q_op = quantize_q(q.reshape(B, H, hd), fmt)
     attend_len = lengths + 1

@@ -94,10 +94,15 @@ def _act(x, kind: str):
 
 
 def gated_mlp(x, p, pol, act_fn="silu", site: str = "ffn"):
-    """SwiGLU/GeGLU: down( act(gate(x)) * up(x) )."""
+    """SwiGLU/GeGLU: down( act(gate(x)) * up(x) ).
+
+    When the policy quantizes elementwise ops, the gate*up product runs
+    through the paper's FP8 LNS multiply (kernel K5,
+    ``kernels.fp8_elementwise``) instead of a float multiply.
+    """
     g = _act(qlinear(x, p["w_gate"], pol, site=f"{site}.w_gate"), act_fn)
     u = qlinear(x, p["w_up"], pol, site=f"{site}.w_up")
-    h = numerics.mul(g, u, pol, site=f"{site}.gate_up")
+    h = numerics.elementwise("mul", g, u, pol, site=f"{site}.gate_up")
     return qlinear(h, p["w_down"], pol, site=f"{site}.w_down")
 
 

@@ -12,13 +12,13 @@ from .policy import (
 )
 from .api import (
     attention,
+    elementwise,
     kv_format,
     kv_fused_write_attend,
     kv_quantized,
     kv_stochastic,
     kv_write_token,
     matmul,
-    mul,
     weight_format,
 )
 
@@ -31,12 +31,12 @@ __all__ = [
     "get_policy",
     "register_policy",
     "attention",
+    "elementwise",
     "kv_format",
     "kv_fused_write_attend",
     "kv_quantized",
     "kv_stochastic",
     "kv_write_token",
     "matmul",
-    "mul",
     "weight_format",
 ]

@@ -4,8 +4,8 @@ Port of the part of ``repro.numerics.api`` on the serving and training
 paths: every entry point takes the value operands plus a :class:`Policy`
 and an optional ``site`` name, resolves ``(fmt, mode, impl, accum)``
 internally and dispatches to the kernels, so call sites never thread
-numeric strings.  The static-FP8-weight matmul and the LNS elementwise
-branch (kernel K5) raise until the slices that port them land.
+numeric strings.  The static-FP8-weight matmul raises until the slice
+that ports it lands.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from .policy import SINGLE_FORMAT_IMPLS, Policy
 __all__ = [
     "weight_format",
     "matmul",
-    "mul",
+    "elementwise",
     "kv_quantized",
     "kv_format",
     "kv_stochastic",
@@ -65,12 +65,38 @@ def matmul(x, w, pol: Optional[Policy], *, site: str = "", bias=None):
     return y if bias is None else y + bias
 
 
-def mul(x, y, pol: Optional[Policy], *, site: str = ""):
-    """Elementwise product under the policy (the SwiGLU gate): the
-    full-precision branch of the reference's ``elementwise("mul", ...)``."""
-    if pol is not None and pol.resolve("elementwise", site).quantized:
-        raise _later("the LNS elementwise kernel (K5)")
-    return x * y
+def elementwise(op: str, x, y=None, pol: Optional[Policy] = None, *,
+                site: str = ""):
+    """Paper elementwise op (mul/div/square/recip/sqrt/rsqrt) under the
+    policy: quantize -> LNS code-domain op -> dequantize, or the plain
+    float op when the policy leaves elementwise in full precision.
+    Returns a float tensor in ``x.dtype``.
+
+    Quantized, ``impl="auto"`` resolves to ``"pallas"`` as in the
+    reference, which here is kernel K5 for CUDA tensors (its plain version
+    for CPU tensors); ``"ref"`` runs the plain version on any device.  The
+    codes carry no gradient; the result's gradient flows through the
+    per-tensor scales, as in the reference.
+    """
+    ep = pol.resolve("elementwise", site) if pol is not None else None
+    if ep is None or not ep.quantized:
+        f = {
+            "mul": lambda: x * y,
+            "div": lambda: x / y,
+            "square": lambda: x * x,
+            "recip": lambda: 1.0 / x,
+            "sqrt": lambda: torch.sqrt(x),
+            "rsqrt": lambda: torch.rsqrt(x),
+        }[op]
+        return f()
+    from ..core.quant import quantize
+    from ..kernels import ops as kops
+
+    qx = quantize(x, ep.fmt)
+    qy = None if y is None else quantize(y, ep.fmt)
+    impl = "pallas" if ep.impl == "auto" else ep.impl
+    out = kops.elementwise_q(op, qx, qy, mode=ep.mode, impl=impl)
+    return out.dequantize().to(x.dtype)
 
 
 # --------------------------------------------------------------------------- #

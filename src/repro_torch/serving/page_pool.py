@@ -11,7 +11,10 @@ counts, per-slot block tables (page ids in logical order) and a version
 counter that moves on every block-table change, so the engine uploads the
 tables at most once per mutating step.  Page 0 is the reserved null page:
 unowned block-table entries point at it and masked write lanes are
-redirected into it.  The prefix-cache index, copy-on-write, spill/restore
+redirected into it, where they rewrite the row they hit with its own
+codes (:func:`scatter_token_rows`): the null page keeps its initial zero
+codes and unit scale, so what a masked lane reads there is the same in the
+fused and unfused decode and on every run.  The prefix-cache index, copy-on-write, spill/restore
 and chaos seizures of the reference pool arrive with the next slice; in
 this one every non-null page is either free or owned by exactly one slot.
 
@@ -42,6 +45,7 @@ __all__ = [
     "kv_noise",
     "encode_kv",
     "token_row_codes",
+    "scatter_token_rows",
     "write_token_page",
 ]
 
@@ -288,6 +292,27 @@ def token_row_codes(scales, new, page_ids, rows, *, fmt: str,
     return page_ids, codes, s
 
 
+def scatter_token_rows(pages, page_ids, rows, codes, write_mask=None):
+    """``pages[page_ids, rows] = codes`` in place, for the ids and codes of
+    :func:`token_row_codes`.  A masked lane, redirected to the null page,
+    writes back the codes already there.
+
+    The reference lets masked lanes scatter their rows into the null page,
+    whose contents no contract covers; but an idle slot's attention reads
+    that page, and a per-tensor quantizer downstream (the FP8 gate product)
+    lets an idle row's value move every other row's codes.  Keeping the
+    null page constant makes those reads equal in the fused decode (which
+    reads before its scatter) and the unfused one (which reads after), and
+    leaves no duplicate writes whose order the card does not fix.
+    """
+    rows = rows.to(torch.int64)
+    if write_mask is not None:
+        keep = ~write_mask.to(torch.bool)[:, None, None]
+        codes = torch.where(keep, pages[page_ids, rows], codes)
+    pages.index_put_((page_ids, rows), codes)
+    return pages
+
+
 def write_token_page(pages, scales, new, page_ids, rows, *, fmt: str,
                      mode: str = "stochastic", noise=None, write_mask=None):
     """Scatter one decode token's K or V into its page, per slot, in place.
@@ -295,12 +320,13 @@ def write_token_page(pages, scales, new, page_ids, rows, *, fmt: str,
     pages: [P, page, KV, hd] uint8; scales: [P] float32; new: [B, KV, hd]
     float; page_ids/rows: [B] (physical page and row of each write);
     ``noise``: [B, KV, hd] for stochastic rounding; ``write_mask``: [B]
-    bool — masked lanes land in the null page and never claim a scale.
+    bool — masked lanes land in the null page, never claim a scale and
+    leave it unchanged (see :func:`scatter_token_rows`).
     Returns (pages, scales), the updated inputs.
     """
     page_ids, codes, s = token_row_codes(
         scales, new, page_ids, rows, fmt=fmt, mode=mode, noise=noise,
         write_mask=write_mask)
-    pages.index_put_((page_ids, rows.to(torch.int64)), codes)
+    scatter_token_rows(pages, page_ids, rows, codes, write_mask)
     scales.index_put_((page_ids,), s)
     return pages, scales

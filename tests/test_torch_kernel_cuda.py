@@ -1,5 +1,5 @@
-"""PyTorch port: kernels K1, K2 and K3 on the card (CUDA) against their
-plain versions.
+"""PyTorch port: kernels K1, K2, K3 and K5 on the card (CUDA) against
+their plain versions.
 
 These tests need an NVIDIA GPU with ``nvcc`` (the kernels are built from
 ``src/repro_torch/kernels/csrc`` on first use); they carry the ``cuda``
@@ -16,13 +16,17 @@ single products are bitwise (NaN as NaN: the card's float add returns its
 own canonical NaN); K2's and K3's sums are held to the float32 summation
 bound 2 K 2^-24 sum|products|, since they add the same exact products in
 another order.  TF32 is off for the plain versions' float32 products.
+K5's codes are integer results and compare bitwise in every cell.
 """
+import itertools
+
 import pytest
 import torch
 
 from repro_torch.core import prng
-from repro_torch.core.carry_ins import FACTORED_MUL
+from repro_torch.core.carry_ins import CARRY_INS, FACTORED_MUL, Unsupported
 from repro_torch.core.quant import encode
+from repro_torch.kernels import fp8_elementwise as fe
 from repro_torch.kernels import lns_matmul as lm
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.serving.page_pool import kv_noise, write_token_page
@@ -202,3 +206,66 @@ def test_matmul_kernels_reject_operands_they_do_not_take(dev):
         lm.dequant_matmul(x.float(), w, fmt="e5m2", w_fmt="e4m3")
     with pytest.raises(ValueError, match="contraction"):
         lm.lns_product_matmul(x, x, fmt="e4m3")
+
+
+# --------------------------------------------------------------------------- #
+# K5: the paper's six operations elementwise
+# --------------------------------------------------------------------------- #
+K5_CELLS = [(f, op, m) for (f, op), modes in sorted(CARRY_INS.items())
+            for m, spec in modes.items() if spec is not None]
+
+
+def _k5_operands(op, dev):
+    codes = torch.arange(256, dtype=torch.uint8, device=dev)
+    if op in fe.BINARY_OPS:
+        X, Y = torch.meshgrid(codes, codes, indexing="ij")
+        return X.reshape(-1).contiguous(), Y.reshape(-1).contiguous()
+    return codes, None
+
+
+@pytest.mark.parametrize("fmt,op,mode", K5_CELLS, ids="-".join)
+def test_k5_every_cell_bitwise(dev, fmt, op, mode):
+    x, y = _k5_operands(op, dev)
+    before = fe.fp8_elementwise.launches
+    got = fe.fp8_elementwise(op, x, y, fmt=fmt, mode=mode)
+    want = fe.fp8_elementwise_plain(op, x, y, fmt=fmt, mode=mode)
+    torch.cuda.synchronize()
+    assert fe.fp8_elementwise.launches == before + 1
+    assert got.dtype == torch.uint8 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,off", list(itertools.product(
+    [1, 15, 16, 17, 1000, 4099, 38912], [0, 1, 3])))
+@pytest.mark.parametrize("op", ["mul", "rsqrt"])
+def test_k5_ragged_and_misaligned(dev, n, off, op):
+    g = torch.Generator(device="cpu").manual_seed(n + off)
+    buf = torch.randint(0, 256, (2, n + 32), generator=g,
+                        dtype=torch.uint8).to(dev)
+    x = buf[0, off:off + n]                    # storage offset off
+    y = buf[1, 5:5 + n] if op in fe.BINARY_OPS else None
+    got = fe.fp8_elementwise(op, x, y, fmt="e5m2", mode="rne")
+    want = fe.fp8_elementwise_plain(op, x, y, fmt="e5m2", mode="rne")
+    assert torch.equal(got, want)
+    # a non-contiguous operand of a 2-D shape
+    t = buf[:, :2 * (n // 2 + 1)].reshape(2, -1, 2).transpose(0, 1)
+    got = fe.fp8_elementwise("square", t, fmt="e4m3", mode="rd")
+    assert got.shape == t.shape
+    assert torch.equal(got, fe.fp8_elementwise_plain("square", t,
+                                                     fmt="e4m3", mode="rd"))
+
+
+def test_k5_refusals_launch_nothing(dev):
+    x = torch.zeros(64, dtype=torch.uint8, device=dev)
+    before = fe.fp8_elementwise.launches
+    with pytest.raises(Unsupported):
+        fe.fp8_elementwise("div", x, x, fmt="e4m3", mode="ru")
+    with pytest.raises(ValueError, match="rbits"):
+        fe.fp8_elementwise("mul", x, x, fmt="e5m2", mode="stochastic")
+    with pytest.raises(ValueError, match="uint8"):
+        fe.fp8_elementwise("mul", x.float(), x)
+    with pytest.raises(ValueError, match="shapes differ"):
+        fe.fp8_elementwise("mul", x, x[:8])
+    with pytest.raises(ValueError, match="one device"):
+        fe.fp8_elementwise("mul", x, x.cpu())
+    assert fe.fp8_elementwise.launches == before
+    assert fe.fp8_elementwise("mul", x[:0], x[:0]).numel() == 0

@@ -12,8 +12,8 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together): K1 from
-   ``paged_attention.cu``, K2 and K3 from ``lns_matmul.cu``, K5 from
-   ``fp8_elementwise.cu``;
+   ``paged_attention.cu``, K2, K3 and K4 from ``lns_matmul.cu``, K5 from
+   ``fp8_elementwise.cu``, K6 from ``flash_attention.cu``;
 3. holds kernel K1 (LNS paged decode attention) against its plain PyTorch
    version at qwen2-0.5b attention shapes (B=8, KV=2, G=7, hd=64, page 16,
    up to 64 pages per slot, ragged lengths, masked lanes, fresh-page rows,
@@ -70,7 +70,33 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     float32 2-layer model through K5 and through the plain version (loss
     rtol 1e-4, gradient norm rtol 1e-3); then one profiled train step
     under that policy;
-11. prints one JSON line of per-kernel numbers, then the card line again,
+11. K6 (flash attention) against its plain version: the CPU tests' cases
+    (float32 at rtol = atol = 1e-4, bfloat16 within one bf16 ulp), the
+    rows without an admissible key (sum(v) / padded key length), every
+    candidate tiling of ``flash_blocks``, and the attention geometries of
+    qwen2-0.5b (B 8 x S 128, also against ``chunked_attention``;
+    B 1 x S 8192), gemma2-27b (S 8192, window 4096, cap 50), gemma3-12b
+    (S 4096, hd 256, window 1024) and deepseek-v2-lite (S 4096, hd 192,
+    dv 128) at full width, each in float32 and in bfloat16 (bfloat16:
+    one ulp, or 1e-5 near 0); then K6's times at qwen2-0.5b
+    B 1 x S 8192 bf16 beside its bound, the plain version and
+    ``scaled_dot_product_attention`` (a yardstick the port never calls);
+12. K6's path: ``flash_attention`` with no tiling through the autotuner
+    on a fresh cache file (qwen2-0.5b geometry, S 2048): measured, cached
+    under the card's name, a ``measured`` gauge; a second call answers
+    ``cached``, launches once and is bitwise equal to the pinned tiling
+    and within tolerance of the plain version;
+13. K4 (the seed LNS matmul) bitwise against its plain version at 512^3
+    and at the seven matmul shapes of one qwen2-0.5b layer at M = 1024;
+    its time per layer beside K3's, the plain version and the bound (the
+    fewer SASS instructions per product of K4's and K3's loops, as both
+    compute one function), and K4 / K3 at 512^3;
+14. K4's path: 2 full-width train steps under train_fp8_lns with every
+    matmul through K4 (``run_training``): finite losses, 0 restarts, 672
+    K4 launches and no K3 or K2; then the first step of a float32 2-layer
+    model through K4 and through its plain version (loss rtol 1e-4,
+    gradient norm rtol 1e-3);
+15. prints one JSON line of per-kernel numbers, then the card line again,
     and last ``{"ok": true, "device": {...}}``.
 
 K1's ``ms`` and ``plain_ms`` are card time per call from the profiler
@@ -81,7 +107,13 @@ host's launch overhead included.  K2's and K3's numbers are card time per
 layer: the sum over one layer's seven matmul shapes at M = 1024.  K5's
 are those of e5m2 mul at the training gate shape (4,980,736 codes), its
 launches those of the K5 serving run; its ``max_abs_err`` is in code
-units (0: bitwise).
+units (0: bitwise).  K4's numbers are per layer like K3's, its launches
+those of its training run, its ``max_abs_err`` 0 (bitwise, checked).
+K6 has no model path (no model calls it, as in the reference): its
+launches are those of its path through the autotuner (phase 12,
+measurement included), its times those of qwen2-0.5b B 1 x S 8192 bf16,
+and its ``max_abs_err`` the largest float32 difference from the plain
+version in phase 11.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line; it also exits non-zero without a GPU, or when run outside the repo.
@@ -101,7 +133,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
-KERNEL_SOURCES = ("paged_attention", "lns_matmul", "fp8_elementwise")
+KERNEL_SOURCES = ("paged_attention", "lns_matmul", "fp8_elementwise",
+                  "flash_attention")
 
 
 def card_line() -> str:
@@ -797,12 +830,13 @@ def _sum_bound(K, absum):
 def _per_layer_ms(fn_of_shape, only, iters, warmup=2):
     """Card time of one layer's seven matmuls: per-shape card time of
     ``fn_of_shape(shape)`` times each shape's count in LAYER_MATMULS."""
-    total, how = 0.0, None
+    total, hows = 0.0, []
     for shape, count in LAYER_MATMULS.items():
         ms, how = device_ms(lambda: fn_of_shape(shape), iters=iters,
                             only=only, warmup=warmup)
         total += count * ms
-    return total, how
+        hows.append(how)
+    return total, " / ".join(sorted(set(hows)))
 
 
 def check_matmul_kernels(dev) -> dict:
@@ -906,6 +940,7 @@ def check_matmul_kernels(dev) -> dict:
     # K2: a multiply-add per product at the bf16 tensor-core rate
     b_k2 = 2 * prods / BF16_FLOP_PER_S * 1e3
     res["k3_bound"] = max(b_bytes, b_k3)
+    res["k3_ops_ms"] = b_k3
     res["k3_bound_by"] = "bytes" if b_bytes >= b_k3 else "operations"
     res["k2_bound"] = max(b_bytes, b_k2)
     res["k2_bound_by"] = "bytes" if b_bytes >= b_k2 else "operations"
@@ -1187,17 +1222,21 @@ class _plain_matmuls:
     def __enter__(self):
         from repro_torch.kernels import lns_matmul as lm
 
-        self.saved = lm.lns_product_matmul, lm.dequant_matmul
+        self.saved = (lm.lns_product_matmul, lm.dequant_matmul,
+                      lm.lns_loop_matmul)
         lm.lns_product_matmul = lambda x, w, *, fmt, mode="rne": \
             lm.lns_matmul_plain(x, w, fmt=fmt, mode=mode)
         lm.dequant_matmul = lambda x, w, **kw: lm.dequant_matmul_plain(x, w,
                                                                        **kw)
+        lm.lns_loop_matmul = lambda x, w, *, fmt, mode="rne": \
+            lm.lns_loop_matmul_plain(x, w, fmt=fmt, mode=mode)
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels import lns_matmul as lm
 
-        lm.lns_product_matmul, lm.dequant_matmul = self.saved
+        (lm.lns_product_matmul, lm.dequant_matmul,
+         lm.lns_loop_matmul) = self.saved
         return False
 
 
@@ -1238,6 +1277,488 @@ def check_train_against_plain(dev) -> None:
         print(f"# {label}, 2 layers float32, first step: loss {lk:.7f} "
               f"(kernels) vs {lp:.7f} (plain), grad norm {gk:.6f} vs "
               f"{gp:.6f}", flush=True)
+
+
+# --------------------------------------------------------------------------- #
+# K6: flash attention, through its entry point and the autotuner
+# --------------------------------------------------------------------------- #
+# Attention geometries of the repo's models at full width (only these are
+# used; the configurations themselves are not ported):
+# (label, B, S, H, KV, hd, dv, causal, window, cap), each run in float32
+# and in bfloat16
+K6_GEOMETRIES = (
+    ("qwen2-0.5b", 8, 128, 14, 2, 64, 64, True, 0, 0.0),
+    ("qwen2-0.5b", 1, 8192, 14, 2, 64, 64, True, 0, 0.0),
+    ("gemma2-27b", 1, 8192, 32, 16, 128, 128, True, 4096, 50.0),
+    ("gemma3-12b", 1, 4096, 16, 8, 256, 256, True, 1024, 0.0),
+    ("deepseek-v2-lite", 1, 4096, 16, 16, 192, 128, True, 0, 0.0),
+)
+# bfloat16 outputs: at most one bf16 ulp apart, or at most this far where
+# an output lies so close to 0 that a bf16 ulp is finer than the float32
+# gap of two summation orders (a float32 max |err| of 4.8e-7 at full
+# width on the H100)
+K6_BF16_NEAR_ZERO = 1e-5
+K6_TIMED = (1, 8192, 14, 2, 64, 64)   # qwen2-0.5b: B, S, H, KV, hd, dv
+# The CPU tests' cases at bq = bk = 32:
+# (B, Sq, Sk, H, KV, hd, dv, causal, window, cap)
+K6_SMALL = (
+    (1, 128, 128, 4, 4, 32, 32, True, 0, 0.0),
+    (2, 64, 64, 4, 2, 16, 16, True, 0, 0.0),
+    (1, 128, 128, 2, 1, 64, 64, True, 32, 0.0),
+    (1, 64, 64, 2, 2, 32, 32, True, 0, 30.0),
+    (2, 96, 96, 4, 2, 32, 32, True, 0, 0.0),
+    (1, 64, 128, 2, 2, 32, 32, False, 0, 0.0),
+    (2, 64, 64, 4, 2, 48, 32, True, 0, 0.0),
+    (2, 37, 37, 4, 2, 32, 32, True, 0, 0.0),
+    (1, 96, 30, 2, 1, 16, 16, False, 16, 0.0),   # rows without a key
+)
+
+
+def _k6_qkv(dev, B, Sq, Sk, H, KV, hd, dv, dtype, seed=0):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, dv))]
+
+
+def _bf16_ulps(a, b):
+    """Distance in bf16 ulps of two bfloat16 tensors (+0 == -0)."""
+    import torch
+
+    def ordered(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i >= 0, i, -(i & 0x7FFF))
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _k6_compare(got, want, what) -> float:
+    """K6 against its plain version: float32 at rtol = atol = 1e-4;
+    bfloat16 at most one bf16 ulp apart, or at most ``K6_BF16_NEAR_ZERO``
+    apart (printed when any output needs it).  Returns the max
+    |difference|."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"K6 {what}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"K6 {what}: non-finite output")
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        over = _bf16_ulps(got, want) > 1
+        if bool(over.any()):
+            d, val = diff[over], want.float().abs()[over]
+            print(f"# K6 {what}: {int(over.sum())} of {got.numel()} bf16 "
+                  f"outputs more than one ulp apart, max |diff| "
+                  f"{float(d.max()):.3g} at |value| up to "
+                  f"{float(val.max()):.3g}", flush=True)
+            if float(d.max()) > K6_BF16_NEAR_ZERO:
+                raise AssertionError(f"K6 {what}: bf16 outputs more than "
+                                     "one ulp and more than "
+                                     f"{K6_BF16_NEAR_ZERO} apart")
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
+                                   msg=f"K6 {what}")
+    return float(diff.max())
+
+
+def check_k6(dev) -> dict:
+    """Phase: K6 against its plain version on the card: the CPU tests'
+    cases (float32 and bfloat16), the rows without an admissible key,
+    every candidate tiling of ``flash_blocks``, and the attention
+    geometries of the repo's models at full width (qwen2-0.5b also
+    against the port's ``chunked_attention``), each in float32 and in
+    bfloat16.  All at pinned tilings: these launches are comparisons,
+    not K6's path.  Returns the max |kernel - plain| over all of them;
+    the float32 comparisons' own maximum is printed."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers
+
+    err = err32 = 0.0     # max |kernel - plain|: all; float32 only
+    for i, (B, Sq, Sk, H, KV, hd, dv, causal, window, cap) in \
+            enumerate(K6_SMALL):
+        kw = dict(causal=causal, window=window, cap=cap)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _k6_qkv(dev, B, Sq, Sk, H, KV, hd, dv, dtype, seed=i)
+            got = fa.flash_attention(q, k, v, bq=32, bk=32, **kw)
+            bq, bk = fa.clamp_blocks(Sq, Sk, 32, 32)
+            want = fa.flash_attention_plain(q, k, v, bq=bq, bk=bk, **kw)
+            e = _k6_compare(got, want, f"case {i} {dtype}")
+            err = max(err, e)
+            if dtype == torch.float32:
+                err32 = max(err32, e)
+                if Sk == 30:   # the corner: sum(v) / 32 from row 47 on
+                    corner = (v[0, :, 0].sum(0) / 32).expand(Sq - 47, dv)
+                    torch.testing.assert_close(got[0, 47:, 0], corner,
+                                               rtol=1e-5, atol=1e-6)
+    print(f"# K6 vs plain, the {len(K6_SMALL)} CPU-test cases at bq = bk = 32 "
+          "(float32 and bfloat16): within tolerance; rows without an "
+          "admissible key = sum(v) / padded key length", flush=True)
+
+    q, k, v = _k6_qkv(dev, 1, 600, 600, 14, 2, 64, 64, torch.float32)
+    for bq in (64, 128, 256):
+        for bk in (64, 128, 256):
+            got = fa.flash_attention(q, k, v, bq=bq, bk=bk)
+            want = fa.flash_attention_plain(q, k, v, causal=True, bq=bq,
+                                            bk=bk)
+            e = _k6_compare(got, want, f"tiling {bq}x{bk}")
+            err, err32 = max(err, e), max(err32, e)
+    print("# K6 vs plain, every flash_blocks candidate tiling (bq, bk in "
+          "64/128/256) at 1 x 600 x 14 heads: within tolerance", flush=True)
+
+    for i, (label, B, S, H, KV, hd, dv, causal, window, cap) in \
+            enumerate(K6_GEOMETRIES):
+        kw = dict(causal=causal, window=window, cap=cap, bq=128, bk=128)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _k6_qkv(dev, B, S, S, H, KV, hd, dv, dtype, seed=S)
+            got = fa.flash_attention(q, k, v, **kw)
+            want = fa.flash_attention_plain(q, k, v, **kw)
+            what = f"{label} B{B} S{S} {str(dtype)[6:]}"
+            e = _k6_compare(got, want, what)
+            err = max(err, e)
+            if dtype == torch.float32:
+                err32 = max(err32, e)
+            if dtype == torch.float32 and i == 0:
+                chunked = layers.chunked_attention(q, k, v, causal=causal,
+                                                   window=window, cap=cap)
+                _k6_compare(got, chunked, f"{label} vs chunked_attention")
+            print(f"# K6 {label} (H {H}, KV {KV}, hd {hd}, dv {dv}, window "
+                  f"{window}, cap {cap:g}) B {B} x S {S} {str(dtype)[6:]}, "
+                  f"tiling 128 x 128: max |diff| {e:.3g}, within tolerance "
+                  "of the plain version"
+                  + (" and of chunked_attention"
+                     if dtype == torch.float32 and i == 0 else ""),
+                  flush=True)
+            del q, k, v, got, want
+    print(f"# K6 max |kernel - plain|: {err32:.3g} over the float32 "
+          f"comparisons, {err:.3g} over all", flush=True)
+    return dict(max_abs_err=err)
+
+
+def time_k6(dev) -> dict:
+    """Phase: K6 times at qwen2-0.5b B 1 x S 8192 in bfloat16 (tiling
+    128 x 128): the kernel alone (profiler), the wrapper call with its
+    layout copies, the plain version, the bound, and as a yardstick
+    ``scaled_dot_product_attention`` on the same tensors in its own
+    layout (transposes outside the timing; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    B, S, H, KV, hd, dv = K6_TIMED
+    q, k, v = _k6_qkv(dev, B, S, S, H, KV, hd, dv, torch.bfloat16, seed=1)
+    kw = dict(causal=True, bq=128, bk=128)
+    k6 = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
+    plain = lambda: fa.flash_attention_plain(q, k, v, **kw)  # noqa: E731
+    ms, how = device_ms(k6, iters=10, only="flash_attention_kernel")
+    wrap_ms, _ = device_ms(k6, iters=10)    # the kernel and layout copies
+    call_ms = cuda_ms(k6, iters=10)
+    plain_ms, _ = device_ms(plain, iters=3, warmup=1)
+    pairs = B * H * S * (S + 1) // 2        # admissible (query, key) pairs
+    flops = 2 * (hd + dv) * pairs
+    nbytes = 2 * (B * S * H * hd + B * S * KV * (hd + dv) + B * S * H * dv)
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = flops / BF16_FLOP_PER_S * 1e3
+    computed = 2 * (hd + dv) * B * H * S * S   # every tile, masked ones too
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    try:
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_ms, _ = device_ms(sdpa, iters=20)
+        lib_note = "scaled_dot_product_attention(is_causal, enable_gqa)"
+    except TypeError as exc:    # a torch without enable_gqa
+        lib_ms, lib_note = None, f"not measured: {exc}"
+    print(f"# K6 qwen2-0.5b B {B} x S {S} bf16 causal (card time, {how}): "
+          f"kernel {ms:.4f} ms; wrapper call (the kernel and its layout "
+          f"copies) {wrap_ms:.4f} ms, {call_ms:.4f} ms per call between "
+          f"CUDA events; plain {plain_ms:.3f} ms; bound "
+          f"{max(b_bytes, b_ops):.5f} ms = max({nbytes} B / 3.35 TB/s, "
+          f"{flops:.4g} FLOP ({pairs} admissible pairs x 2 (hd + dv)) / 989 "
+          f"TFLOP/s) -> {'bytes' if b_bytes >= b_ops else 'operations'}; "
+          f"the kernel computes {computed:.4g} FLOP (every tile) = "
+          f"{computed / F32_FLOP_PER_S * 1e3:.4f} ms at 67 TFLOP/s float32; "
+          f"library {lib_note}: "
+          + (f"{lib_ms:.4f} ms" if lib_ms is not None else "null"),
+          flush=True)
+    return dict(ms=ms, plain_ms=plain_ms,
+                bound_ms=max(b_bytes, b_ops),
+                bound_by="bytes" if b_bytes >= b_ops else "operations",
+                library_ms=lib_ms)
+
+
+def k6_autotune_path(dev) -> dict:
+    """Phase: K6's path, the entry point with the autotuner behind it.
+    A fresh cache file; ``flash_attention`` with no tiling at qwen2-0.5b
+    geometry, S 2048, bf16: the tuner measures the candidates with K6,
+    caches the fastest under the card's name and publishes a ``measured``
+    gauge; a second call answers ``cached``, launches K6 once and equals
+    a call with that tiling pinned, bit for bit.  K6's launch count is
+    read over the two calls (measurement included)."""
+    import tempfile
+
+    import torch
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serving.telemetry import default_registry
+
+    S, H, KV, hd = 2048, 14, 2, 64
+    q, k, v = _k6_qkv(dev, 1, S, S, H, KV, hd, hd, torch.bfloat16, seed=2)
+    saved = {n: os.environ.get(n) for n in ("REPRO_AUTOTUNE",
+                                            "REPRO_AUTOTUNE_CACHE")}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    path = os.path.join(tmp, "autotune.json")
+    os.environ["REPRO_AUTOTUNE_CACHE"] = path
+    os.environ.pop("REPRO_AUTOTUNE", None)
+    autotune.clear_memory_cache()
+    try:
+        torch.cuda.synchronize()
+        fa.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        first = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        tuned_s = time.perf_counter() - t0
+        measured = fa.flash_attention.launches
+        second = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        launches = fa.flash_attention.launches
+        with open(path) as f:
+            cache = json.load(f)
+        tail = f"{S}x{S}x{hd}x{hd}"
+        key = f"flash|torch-{dev.type}|{autotune._device_kind(dev)}|{tail}"
+        cands = [[a, b] for a in (64, 128, 256) for b in (64, 128, 256)]
+        if list(cache) != [key] or cache[key] not in cands:
+            raise AssertionError(f"autotune cache {cache}, want one {key} "
+                                 "entry holding a candidate")
+        bq, bk = cache[key]
+        config = f"{bq}x{bk}"
+        reg = default_registry()
+        best_us = reg.gauge_value("autotune_block_us", kernel="flash",
+                                  site=tail, config=config, source="measured")
+        cached = reg.gauge_value("autotune_block_us", kernel="flash",
+                                 site=tail, config=config, source="cached")
+        if not best_us > 0 or cached != -1.0:
+            raise AssertionError(f"autotune gauges: measured {best_us}, "
+                                 f"cached {cached}")
+        if launches != measured + 1:
+            raise AssertionError(f"the cached call launched K6 "
+                                 f"{launches - measured} times, want 1")
+        pinned = fa.flash_attention(q, k, v, bq=bq, bk=bk)
+        torch.cuda.synchronize()
+        if not (torch.equal(second, pinned) and torch.equal(first, second)):
+            raise AssertionError("autotuned K6 output differs from the "
+                                 "pinned tiling's")
+        cbq, cbk = fa.clamp_blocks(S, S, bq, bk)
+        err = _k6_compare(second, fa.flash_attention_plain(
+            q, k, v, causal=True, bq=cbq, bk=cbk), f"autotuned path S {S}")
+    finally:
+        for n, val in saved.items():
+            if val is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = val
+        autotune.clear_memory_cache()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"# K6 through the autotuner (qwen2-0.5b S {S} bf16, fresh cache): "
+          f"measured 9 candidates in {tuned_s:.3f} s ({measured} launches), "
+          f"cached {key} = {config} (best {best_us:.1f} us per call); second "
+          f"call answered 'cached' with 1 launch, bitwise equal to the pinned "
+          f"tiling and within tolerance of the plain version (max |diff| "
+          f"{err:.3g}); {launches} K6 launches on this path", flush=True)
+    return dict(launches=launches, max_abs_err=err)
+
+
+# --------------------------------------------------------------------------- #
+# K4: the seed LNS matmul
+# --------------------------------------------------------------------------- #
+def k4_train_policy():
+    """train_fp8_lns with every STE matmul through K4 (impl lns_loop), as
+    the reference builds such a policy: no preset, flag or --quant."""
+    from repro_torch.numerics import OpPolicy, get_policy
+
+    return get_policy("train_fp8_lns").replace(matmul=OpPolicy(
+        fmt="e4m3", mode="rne", impl="lns_loop", accum="bf16"))
+
+
+def check_k4(dev, k3_layer_ms: float, k3_ops_ms: float) -> dict:
+    """Phase: K4 bitwise against its plain version (NaN as NaN) at BENCH_1's
+    512 x 512 x 512 (e4m3, RNE) and at the seven matmul shapes of one
+    qwen2-0.5b layer at M = 1024 (the codes K3 was timed on); then its
+    card time per layer beside K3's, the plain version's and the bound,
+    and K4 / K3 at 512^3.  K4 computes K3's function (the same products
+    and sums), so its operations bound is the fewer instructions per
+    product of the two compiled loops: ``k3_ops_ms``, K3's operations
+    time per layer, or K4's own, whichever is smaller.  K4's own
+    instruction time is printed beside it."""
+    import torch
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import lns_matmul as lm
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    x512 = torch.randint(0, 256, (512, 512), generator=g, device=dev,
+                         dtype=torch.uint8)
+    w512 = torch.randint(0, 256, (512, 512), generator=g, device=dev,
+                         dtype=torch.uint8)
+    cases = {(512, 512, 512): (x512, w512)}
+    for (K, N), xw in _layer_codes(dev, 10, "e4m3", "e4m3").items():
+        cases[SMOKE_M, K, N] = xw
+    for shape, (x, w) in cases.items():
+        got = lm.lns_loop_matmul(x, w, fmt="e4m3", mode="rne")
+        want = lm.lns_loop_matmul_plain(x, w, fmt="e4m3", mode="rne")
+        torch.cuda.synchronize()
+        if not _nan_aware_bitwise(got, want):
+            raise AssertionError(f"K4 differs from its plain version at "
+                                 f"{shape}")
+    print(f"# K4 vs plain at {', '.join('x'.join(map(str, s)) for s in cases)}"
+          " (e4m3, RNE; 512^3 with every code, NaN included): bitwise "
+          "(NaN as NaN)", flush=True)
+
+    layer = {s[1:]: xw for s, xw in cases.items() if s[0] == SMOKE_M}
+
+    def k4(shape):
+        return lm.lns_loop_matmul(*layer[shape], fmt="e4m3", mode="rne")
+
+    def k4_plain(shape):
+        return lm.lns_loop_matmul_plain(*layer[shape], fmt="e4m3",
+                                        mode="rne")
+
+    ms, how = _per_layer_ms(k4, "lns_loop_matmul_kernel", iters=3)
+    plain_ms, _ = _per_layer_ms(k4_plain, "", iters=1, warmup=1)
+    k4_512, _ = device_ms(lambda: lm.lns_loop_matmul(x512, w512, fmt="e4m3"),
+                          iters=10, only="lns_loop_matmul_kernel")
+    k3_512, _ = device_ms(lambda: lm.lns_product_matmul(x512, w512,
+                                                        fmt="e4m3"),
+                          iters=10, only="lns_matmul_kernel")
+    prods = sum(c * SMOKE_M * K * N for (K, N), c in LAYER_MATMULS.items())
+    nbytes = sum(c * (SMOKE_M * K + K * N + 4 * SMOKE_M * N)
+                 for (K, N), c in LAYER_MATMULS.items())
+    mix = sass_loop_mix(cuda_build.build(["lns_matmul"])[0],
+                        "lns_loop_matmul_kernel", per="FADD")
+    b_issue = mix["per_product"] * prods / ISSUE_PER_S * 1e3
+    b_int = mix["int32_per_product"] * prods / INT32_PER_S * 1e3
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_own = max(b_issue, b_int)           # K4's own instruction stream
+    b_ops = min(b_own, k3_ops_ms)         # what the function needs
+    bound = max(b_bytes, b_ops)
+    print("# K4 k loop (SASS), instructions per product: "
+          + ", ".join(f"{op} {c:.3f}" for op, c in mix["mix"].items())
+          + f"; {mix['per_product']:.3f} in all ({b_issue:.4f} ms per layer "
+          f"at {ISSUE_PER_S:.4g}/s), {mix['int32_per_product']:.3f} on the "
+          f"32-bit integer pipe ({b_int:.4f} ms at {INT32_PER_S:.4g}/s)",
+          flush=True)
+    print(f"# K4 per layer (7 matmuls, M={SMOKE_M}; card time, {how}): "
+          f"kernel {ms:.4f} ms (K3 {k3_layer_ms:.4f} ms, K4/K3 "
+          f"{ms / k3_layer_ms:.3f}); plain {plain_ms:.3f} ms; bound "
+          f"{bound:.4f} ms = max({nbytes} B / 3.35 TB/s, min(K4's own "
+          f"instructions {b_own:.4f} ms, K3's {k3_ops_ms:.4f} ms)) for "
+          f"{prods} products (kernel / bound {ms / bound:.3f}, kernel / "
+          f"K4's own instructions {ms / b_own:.3f}); at 512^3: "
+          f"K4 {k4_512:.4f} ms, K3 {k3_512:.4f} ms, K4/K3 "
+          f"{k4_512 / k3_512:.3f}", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes" if b_bytes >= b_ops else "operations",
+                ratio_512=k4_512 / k3_512)
+
+
+def train_k4_path(dev) -> dict:
+    """Phase: K4's path, 2 full-width qwen2-0.5b train steps (batch 8 x seq
+    128, ``arith``) under the lns_loop policy through ``run_training``:
+    K4 once forward and once in the recompute of every STE matmul, K3 and
+    K2 never."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, Dataset
+    from repro_torch.kernels import lns_matmul as lm
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import fault, steps
+
+    cfg = get_config("qwen2-0.5b", policy=k4_train_policy())
+    n_steps = 2
+    want = 2 * MATMULS_PER_LAYER * cfg.n_layers * n_steps
+    model = Model(cfg, max_seq=128)
+    data = Dataset(DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=8,
+                              seed=0, kind="arith"))
+
+    def init_state():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return steps.make_train_state(model, gen)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_k4_")
+    try:
+        torch.cuda.synchronize()
+        _reset_matmul_counts()
+        lm.lns_loop_matmul.launches = 0
+        t0 = time.perf_counter()
+        _, history = fault.run_training(
+            train_step=steps.build_train_step(model, adamw.OptConfig(
+                lr=1e-3, warmup_steps=10, total_steps=100)),
+            init_state=init_state, dataset=data, max_steps=n_steps,
+            ckpt_dir=tmp, ckpt_every=n_steps,
+            to_device=lambda b: {k: torch.from_numpy(v).to(dev)
+                                 for k, v in b.items()},
+            log=lambda *a: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        (k3, k2), k4 = _matmul_counts(), lm.lns_loop_matmul.launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = [h["loss"] for h in history]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite training loss {losses}")
+    if history[-1]["restarts"] != 0:
+        raise AssertionError(f"{history[-1]['restarts']} restarts")
+    if (k4, k3, k2) != (want, 0, 0):
+        raise AssertionError(f"launches K4 {k4} (want {want}), K3 {k3}, K2 "
+                             f"{k2} (want 0)")
+    print(f"# train train_fp8_lns + matmul lns_loop (K4): {n_steps} "
+          f"full-width steps, loss {losses} at step {n_steps}, 0 restarts, "
+          f"{k4} K4 launches = 2 x 7 x {cfg.n_layers} x {n_steps}, 0 K3, 0 "
+          f"K2; {wall:.2f} s wall (init and a checkpoint included)",
+          flush=True)
+    return dict(launches=k4)
+
+
+def check_train_k4_against_plain(dev) -> None:
+    """Phase: the first step's loss and gradient global norm of a float32,
+    2-layer, full-width qwen2-0.5b under the lns_loop policy, through K4
+    and through its plain version.  Tolerance as for K2/K3: loss rtol
+    1e-4, gradient norm rtol 1e-3 (K4 is bitwise equal to its plain
+    version; the sums around it may run in other orders)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import lns_matmul as lm
+
+    cfg = dataclasses.replace(get_config("qwen2-0.5b",
+                                         policy=k4_train_policy()),
+                              n_layers=2, param_dtype="float32")
+    out = []
+    for plain in (False, True):
+        state, step, batch_of = _train_setup(dev, cfg, seed=5)
+        before = lm.lns_loop_matmul.launches
+        if plain:
+            with _plain_matmuls():
+                _, metrics = step(state, batch_of(0))
+        else:
+            _, metrics = step(state, batch_of(0))
+        torch.cuda.synchronize()
+        used = lm.lns_loop_matmul.launches - before
+        if used != (0 if plain else 2 * MATMULS_PER_LAYER * cfg.n_layers):
+            raise AssertionError(f"K4 launches {used} with plain={plain}")
+        out.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+    (lk, gk), (lp, gp) = out
+    if not (math.isclose(lk, lp, rel_tol=1e-4)
+            and math.isclose(gk, gp, rel_tol=1e-3)):
+        raise AssertionError(f"K4: kernel {out[0]} vs plain {out[1]}")
+    print(f"# K4 lns_loop policy, 2 layers float32, first step: loss "
+          f"{lk:.7f} (K4) vs {lp:.7f} (plain), grad norm {gk:.6f} vs "
+          f"{gp:.6f}", flush=True)
 
 
 def main() -> int:
@@ -1284,6 +1805,12 @@ def main() -> int:
     train_k5_path(dev)
     check_train_k5_against_plain(dev)
     profile_train_step(dev, policy=k5_train_policy())
+    k6 = check_k6(dev)
+    k6.update(time_k6(dev))
+    tuned = k6_autotune_path(dev)
+    k4 = check_k4(dev, mm["k3_ms"], mm["k3_ops_ms"])
+    trained_k4 = train_k4_path(dev)
+    check_train_k4_against_plain(dev)
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -1314,6 +1841,19 @@ def main() -> int:
              ms=k5["train"]["ms"], plain_ms=k5["train"]["plain_ms"],
              bound_ms=k5["train"]["bound_ms"],
              bound_by=k5["train"]["bound_by"], library_ms=None),
+        dict(name="lns_loop_matmul", route="cuda",
+             source=src + "lns_matmul.cu",
+             replaces="src/repro/kernels/lns_matmul.py:91",
+             launches=trained_k4["launches"], max_abs_err=0.0,
+             ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
+             bound_by=k4["bound_by"], library_ms=None),
+        dict(name="flash_attention", route="cuda",
+             source=src + "flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:31",
+             launches=tuned["launches"],
+             max_abs_err=max(k6["max_abs_err"], tuned["max_abs_err"]),
+             ms=k6["ms"], plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
+             bound_by=k6["bound_by"], library_ms=k6["library_ms"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

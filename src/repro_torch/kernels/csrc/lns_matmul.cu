@@ -1,5 +1,6 @@
 // Matrix products of FP8 code matrices for Hopper (sm_90a): the paper's
-// LNS matmul (K3) and the fused-dequant matmul (K2).  Both take uint8 codes
+// LNS matmul (K3), its sequential seed form (K4) and the fused-dequant
+// matmul (K2).  All three take uint8 codes
 // x [M, K] and w [K, N] (row-major, contiguous) and write float32
 // out [M, N] = sum_k product(x[m, k], w[k, n]); the caller applies the
 // scales.
@@ -33,6 +34,23 @@
 // are masked in the kernel: a missing element is a zero operand, whose
 // product is exactly 0.  Later work: pack the fields to cut shared-memory
 // traffic, larger micro-tiles, a split-k or smaller tile for narrow N.
+//
+// K4, lns_loop_matmul_kernel, replaces the Pallas TPU kernel
+// repro/kernels/lns_matmul.py::_lns_loop_kernel (impl "lns_loop"), the
+// seed kernel that K3 is measured against (BENCH_1's speedup row), and
+// keeps its design: each block owns an output tile (16 x 16, one output
+// per thread) and the k loop is a sequential rank-1 update in which every
+// product looks both operands' fields up in the 256-entry tables of
+// kernels/common.py::lns_tables (K3 prepares each tile element once) and
+// combines them with lns::lns_product.  The sums follow the reference's
+// order exactly: k in order within tiles of bk = min(128, K) (K padded by
+// code 0, whose product is +0), each tile's sum started from 0 and added
+// to the output in order, so K4 is bitwise equal to its plain version
+// (kernels/lns_matmul.py::lns_loop_matmul_plain) and to the reference.
+// What bounds it: integer instructions, as K3, but more of them per
+// product (two table lookups each, and the loop's own); chip_smoke.py
+// counts them from the SASS.  The k loop is not unrolled, so that loop is
+// the product count's one instruction stream.
 //
 // K2, dequant_matmul_kernel, replaces repro/kernels/lns_matmul.py::
 // _dequant_kernel (impl "fused_dequant").  Each side is decoded by its own
@@ -120,6 +138,51 @@ lns_matmul_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
   }
 }
 
+constexpr int LT = 16;               // K4 output tile: LT x LT
+constexpr int kLoopBkMax = 128;      // K4's k tile, bk = min(128, K)
+
+__global__ void __launch_bounds__(LT * LT)
+lns_loop_matmul_kernel(const uint8_t* __restrict__ x,
+                       const uint8_t* __restrict__ w,
+                       const int32_t* __restrict__ lut,
+                       float* __restrict__ out, int M, int N, int K, int bk,
+                       int man_bits) {
+  __shared__ int2 tab[2][256];        // (mag, flags) of every code, x and y
+  __shared__ uint8_t xs[LT][kLoopBkMax];   // x codes of the k tile
+  __shared__ uint8_t ws[kLoopBkMax][LT];   // w codes of the k tile
+  const int tid = threadIdx.x;
+  const int tx = tid % LT, ty = tid / LT;
+  const int m0 = blockIdx.y * LT, n0 = blockIdx.x * LT;
+  const int m = m0 + ty, n = n0 + tx;
+
+  for (int i = tid; i < 512; i += LT * LT)
+    tab[i >> 8][i & 255] = make_int2(lut[2 * i], lut[2 * i + 1]);
+  float acc = 0.0f;
+  for (int k0 = 0; k0 < K; k0 += bk) {   // the last tile padded by code 0
+    __syncthreads();
+    for (int i = tid; i < LT * bk; i += LT * LT) {
+      const int r = i / bk, c = i % bk;
+      const int mm = m0 + r, k = k0 + c;
+      xs[r][c] = (mm < M && k < K) ? x[(size_t)mm * K + k] : 0;
+    }
+    for (int i = tid; i < bk * LT; i += LT * LT) {
+      const int r = i / LT, c = i % LT;
+      const int k = k0 + r, nn = n0 + c;
+      ws[r][c] = (k < K && nn < N) ? w[(size_t)k * N + nn] : 0;
+    }
+    __syncthreads();
+    float tile = 0.0f;
+#pragma unroll 1
+    for (int kk = 0; kk < bk; ++kk) {
+      const int2 a = tab[0][xs[ty][kk]];
+      const int2 b = tab[1][ws[kk][tx]];
+      tile += lns::lns_product(a.x, a.y, b.x, b.y, man_bits);
+    }
+    acc += tile;
+  }
+  if (m < M && n < N) out[(size_t)m * N + n] = acc;
+}
+
 __global__ void __launch_bounds__(kThreads)
 dequant_matmul_kernel(const uint8_t* __restrict__ x,
                       const uint8_t* __restrict__ w, float* __restrict__ out,
@@ -192,6 +255,20 @@ int lns_matmul(const void* x, const void* w, const void* lut, void* out,
     lns_matmul_kernel<<<grid_of(M, N), kThreads, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)x, (const uint8_t*)w, (const int32_t*)lut,
         (float*)out, M, N, K, man_bits);
+  return (int)cudaGetLastError();
+}
+
+// K4 on `stream`; `lut` as for K3, bk = min(128, K) the k tile.
+// Returns cudaGetLastError() (0 on success).
+int lns_loop_matmul(const void* x, const void* w, const void* lut,
+                    void* out, int M, int N, int K, int bk, int man_bits,
+                    void* stream) {
+  if (bk < 1 || bk > kLoopBkMax) return (int)cudaErrorInvalidValue;
+  if (M > 0 && N > 0)
+    lns_loop_matmul_kernel<<<dim3((N + LT - 1) / LT, (M + LT - 1) / LT),
+                             LT * LT, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)x, (const uint8_t*)w, (const int32_t*)lut,
+        (float*)out, M, N, K, bk, man_bits);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
-"""Matrix products of FP8 code matrices: the paper's LNS matmul (K3) and
-the fused-dequant matmul (K2).  Port of ``repro.kernels.lns_matmul``.
+"""Matrix products of FP8 code matrices: the paper's LNS matmul (K3), its
+sequential seed form (K4) and the fused-dequant matmul (K2).  Port of
+``repro.kernels.lns_matmul``.
 
-Both take uint8 codes ``x [M, K]`` and ``w [K, N]`` and return the float32
+All take uint8 codes ``x [M, K]`` and ``w [K, N]`` and return the float32
 ``[M, N]`` sum of the products; the caller (``ops.matmul_q``) applies the
 scales.
 
@@ -13,8 +14,14 @@ scales.
   decoded by bit placement, each in its own format (E5M2 activations x
   E4M3 weights), multiplied with float32 accumulation.  Plain version:
   :func:`dequant_matmul_plain`.
-* ``impl="lns_loop"`` -- the reference's sequential rank-1 baseline (K4),
-  not ported yet.
+* ``impl="lns_loop"`` -- K4, :func:`lns_loop_matmul`: the same products
+  as K3 through the reference's seed design, a sequential rank-1 k loop
+  with both operands' fields looked up for every product; the baseline K3
+  is measured against.  Its sums run in the reference's order (k in order
+  within tiles of ``bk = min(128, K)``, each tile's sum added to the
+  output in order), so kernel, plain version and reference agree bit for
+  bit.  One format for both operands.  Plain version:
+  :func:`lns_loop_matmul_plain`.
 
 Each wrapper launches its hand-written CUDA kernel
 (``csrc/lns_matmul.cu``) for CUDA tensors and counts the launch in its
@@ -35,8 +42,10 @@ from .cuda_build import check_launch
 __all__ = [
     "lns_matmul",
     "lns_product_matmul",
+    "lns_loop_matmul",
     "dequant_matmul",
     "lns_matmul_plain",
+    "lns_loop_matmul_plain",
     "dequant_matmul_plain",
 ]
 
@@ -69,6 +78,44 @@ def lns_matmul_plain(x_codes, w_codes, *, fmt: str, mode: str = "rne",
     return out
 
 
+def loop_bk(K: int) -> int:
+    """K4's k tile: the reference's heuristic ``bk = min(128, K)``."""
+    return max(1, min(128, K))
+
+
+def lns_loop_matmul_plain(x_codes, w_codes, *, fmt: str, mode: str = "rne",
+                          chunk: int = _PLAIN_CHUNK):
+    """Plain version of K4, in the reference's order: the products of
+    ``lns_mul_to_f32`` (operand fields prepared once, then one
+    ``lns_combine`` per k), added one ``[M-chunk, N]`` slice per k within
+    tiles of ``bk = min(128, K)`` (K padded by code 0), each tile's sum
+    started from 0 and added to the output in order.  Float32 adds of
+    whole tensors are exact IEEE operations on every device, so this is
+    bitwise the reference's and the kernel's result."""
+    M, K = x_codes.shape
+    N = w_codes.shape[1]
+    bk = loop_bk(K)
+    pad = -K % bk
+    if pad:
+        x_codes = torch.nn.functional.pad(x_codes, (0, pad))
+        w_codes = torch.nn.functional.pad(w_codes, (0, 0, 0, pad))
+    px = lns_prepare(x_codes, fmt, mode, side="x")      # fields [M, Kp]
+    py = lns_prepare(w_codes, fmt, mode, side="y")      # fields [Kp, N]
+    out = torch.zeros((M, N), dtype=torch.float32, device=x_codes.device)
+    mc = max(1, min(M, chunk // max(N, 1)))
+    for m0 in range(0, M, mc):
+        for k0 in range(0, K + pad, bk):
+            tile = torch.zeros_like(out[m0:m0 + mc])
+            for k in range(k0, k0 + bk):
+                sx = type(px)(*(None if f is None else f[m0:m0 + mc, k, None]
+                                for f in px))
+                sy = type(py)(*(None if f is None else f[None, k]
+                                for f in py))
+                tile += lns_combine(sx, sy, fmt)
+            out[m0:m0 + mc] += tile
+    return out
+
+
 def dequant_matmul_plain(x_codes, w_codes, *, fmt: str, w_fmt: str,
                          compute_dtype=torch.float32):
     """Plain version of K2: decode each side by bit placement in its own
@@ -89,6 +136,8 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.lns_matmul.argtypes = [vp] * 4 + [ci] * 4 + [vp]
         lib.lns_matmul.restype = ci
+        lib.lns_loop_matmul.argtypes = [vp] * 4 + [ci] * 5 + [vp]
+        lib.lns_loop_matmul.restype = ci
         lib.dequant_matmul.argtypes = [vp] * 3 + [ci] * 11 + [vp]
         lib.dequant_matmul.restype = ci
         lib._typed = True
@@ -142,6 +191,29 @@ def lns_product_matmul(x_codes, w_codes, *, fmt: str, mode: str = "rne"):
 lns_product_matmul.launches = 0
 
 
+def lns_loop_matmul(x_codes, w_codes, *, fmt: str, mode: str = "rne"):
+    """K4: f32 [M, N] of the paper's LNS products, one format, summed in
+    the reference's seed order.  CUDA tensors launch the kernel
+    (``lns_loop_matmul.launches`` counts it); CPU tensors run
+    :func:`lns_loop_matmul_plain`."""
+    if _device_type(x_codes, "K4") == "cpu":
+        return lns_loop_matmul_plain(x_codes, w_codes, fmt=fmt, mode=mode)
+    M, N, K = _operands(x_codes, w_codes, "K4")
+    dev = x_codes.device
+    lut = device_lns_tables(fmt, mode, dev)
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    err = _lib().lns_loop_matmul(
+        x_codes.data_ptr(), w_codes.data_ptr(), lut.data_ptr(),
+        out.data_ptr(), M, N, K, loop_bk(K), FORMATS[fmt].man_bits,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(err, "K4")
+    lns_loop_matmul.launches += 1
+    return out
+
+
+lns_loop_matmul.launches = 0
+
+
 def dequant_matmul(x_codes, w_codes, *, fmt: str, w_fmt: str,
                    compute_dtype=torch.float32):
     """K2: f32 [M, N] of the decoded operands' products, each side in its
@@ -175,18 +247,16 @@ def lns_matmul(x_codes, w_codes, *, fmt: str = "e4m3", w_fmt: str | None = None,
                mode: str = "rne", impl: str = "lns",
                compute_dtype=torch.float32):
     """f32 [M, N] matmul of uint8 FP8 code matrices (scales applied by the
-    caller).  ``impl``: ``"lns"`` (K3) or ``"fused_dequant"`` (K2);
-    ``w_fmt`` (fused_dequant only) lets the weights use another format."""
+    caller).  ``impl``: ``"lns"`` (K3), ``"lns_loop"`` (K4) or
+    ``"fused_dequant"`` (K2); ``w_fmt`` (fused_dequant only) lets the
+    weights use another format."""
     w_fmt = w_fmt or fmt
-    if impl == "lns_loop":
-        raise NotImplementedError(
-            "impl='lns_loop' (kernel K4, the reference's sequential rank-1 "
-            "baseline) is not ported yet; see ROADMAP.md Queue 2")
-    if impl == "lns":
+    if impl in ("lns", "lns_loop"):
         if w_fmt != fmt:
             raise ValueError("the paper's LNS product is single-format; use "
                              "fused_dequant")
-        return lns_product_matmul(x_codes, w_codes, fmt=fmt, mode=mode)
+        wrapper = lns_product_matmul if impl == "lns" else lns_loop_matmul
+        return wrapper(x_codes, w_codes, fmt=fmt, mode=mode)
     if impl == "fused_dequant":
         return dequant_matmul(x_codes, w_codes, fmt=fmt, w_fmt=w_fmt,
                               compute_dtype=compute_dtype)

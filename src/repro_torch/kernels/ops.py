@@ -6,6 +6,8 @@ kept) runs kernel K5 through ``fp8_elementwise``, ``"ref"`` its plain
 version ``ref.fp8_elementwise_ref``.  ``matmul_q`` dispatches between
 
 * ``lns``           -- the paper's integer-add products (kernel K3),
+* ``lns_loop``      -- the same products through the reference's seed
+                       design, a sequential rank-1 k loop (kernel K4),
 * ``fused_dequant`` -- decode into a float product (kernel K2),
 * ``xla``           -- plain decode + ``torch.matmul`` (the reference
                        leaves this one to XLA, outside any kernel),

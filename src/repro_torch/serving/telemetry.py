@@ -553,7 +553,7 @@ def _profiler_annotation(name: str):
 
 # -- process-global registry ----------------------------------------
 #
-# Engine-independent instrumentation (the kernel autotuner, once ported)
+# Engine-independent instrumentation (the kernel autotuner)
 # records into one shared process registry.  The serve CLI appends its
 # exposition to the per-engine dump so those land in the same file.
 
@@ -569,8 +569,8 @@ def default_registry() -> Telemetry:
 
 def record_autotune(kernel: str, site: str, config: str, best_us: float,
                     source: str) -> None:
-    """Publish one autotune decision (the reference's kernels/autotune.py
-    calls this via a lazy import; the port's autotuner is still to come)."""
+    """Publish one autotune decision (``kernels/autotune.py`` calls this
+    for every tiling it answers)."""
     default_registry().gauge(
         "autotune_block_us", kernel=kernel, site=site,
         config=config, source=source).set(best_us)

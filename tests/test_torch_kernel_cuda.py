@@ -1,5 +1,5 @@
-"""PyTorch port: kernels K1, K2, K3 and K5 on the card (CUDA) against
-their plain versions.
+"""PyTorch port: kernels K1 to K6 on the card (CUDA) against their plain
+versions.
 
 These tests need an NVIDIA GPU with ``nvcc`` (the kernels are built from
 ``src/repro_torch/kernels/csrc`` on first use); they carry the ``cuda``
@@ -16,7 +16,13 @@ single products are bitwise (NaN as NaN: the card's float add returns its
 own canonical NaN); K2's and K3's sums are held to the float32 summation
 bound 2 K 2^-24 sum|products|, since they add the same exact products in
 another order.  TF32 is off for the plain versions' float32 products.
-K5's codes are integer results and compare bitwise in every cell.
+K5's codes are integer results and compare bitwise in every cell.  K4
+sums in the reference's order and is bitwise equal to its plain version
+(NaN as NaN).  K6 is held to rtol = atol = 1e-4 in float32 (the plain
+version's float32 products and sums run in another order, and the card's
+``expf`` is not torch's ``exp``), and to one bf16 ulp in bfloat16, or to
+1e-5 where an output lies so close to 0 that a bf16 ulp is finer than
+the float32 gap of the two summation orders (under 5e-7 in float32).
 """
 import itertools
 
@@ -26,6 +32,8 @@ import torch
 from repro_torch.core import prng
 from repro_torch.core.carry_ins import CARRY_INS, FACTORED_MUL, Unsupported
 from repro_torch.core.quant import encode
+from repro_torch.kernels import autotune
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fp8_elementwise as fe
 from repro_torch.kernels import lns_matmul as lm
 from repro_torch.kernels import paged_attention as pa
@@ -269,3 +277,152 @@ def test_k5_refusals_launch_nothing(dev):
         fe.fp8_elementwise("mul", x, x.cpu())
     assert fe.fp8_elementwise.launches == before
     assert fe.fp8_elementwise("mul", x[:0], x[:0]).numel() == 0
+
+
+# --------------------------------------------------------------------------- #
+# K4: the seed LNS matmul, bitwise
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("key", sorted(FACTORED_MUL), ids="-".join)
+@pytest.mark.parametrize("M,K,N", [(1, 1, 1), (5, 7, 3), (37, 300, 45),
+                                   (65, 257, 129), (16, 896, 17)])
+def test_k4_bitwise_equal_to_plain(dev, key, M, K, N):
+    fmt, mode = key
+    g = torch.Generator().manual_seed(M + K + N)
+    x = torch.randint(0, 256, (M, K), generator=g, dtype=torch.uint8)
+    w = torch.randint(0, 256, (K, N), generator=g, dtype=torch.uint8)
+    x[0, 0] = 0                       # a zero operand
+    x[-1, -1] = 0x7F                  # NaN in both formats
+    x, w = x.to(dev), w.to(dev)
+    before = lm.lns_loop_matmul.launches
+    got = lm.lns_matmul(x, w, fmt=fmt, mode=mode, impl="lns_loop")
+    want = lm.lns_loop_matmul_plain(x, w, fmt=fmt, mode=mode)
+    torch.cuda.synchronize()
+    assert lm.lns_loop_matmul.launches == before + 1
+    assert _nan_aware_equal(got, want)
+
+
+def test_k4_refuses_what_it_does_not_take(dev):
+    x = torch.zeros((4, 8), dtype=torch.uint8, device=dev)
+    before = lm.lns_loop_matmul.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        lm.lns_loop_matmul(x.t(), x.t(), fmt="e4m3")
+    with pytest.raises(ValueError, match="single-format"):
+        lm.lns_matmul(x, x.t().contiguous(), fmt="e5m2", w_fmt="e4m3",
+                      impl="lns_loop")
+    assert lm.lns_loop_matmul.launches == before
+
+
+# --------------------------------------------------------------------------- #
+# K6: flash attention
+# --------------------------------------------------------------------------- #
+def _bf16_ulps(a, b):
+    """Distance in bf16 ulps between two bfloat16 tensors (+0 == -0)."""
+    def ordered(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i >= 0, i, -(i & 0x7FFF))
+    return (ordered(a) - ordered(b)).abs()
+
+
+K6_CASES = [
+    # (B, Sq, Sk, H, KV, hd, dv, causal, window, cap)
+    (1, 128, 128, 4, 4, 32, 32, True, 0, 0.0),
+    (2, 64, 64, 4, 2, 16, 16, True, 0, 0.0),       # GQA
+    (1, 128, 128, 2, 1, 64, 64, True, 32, 0.0),    # sliding window
+    (1, 64, 64, 2, 2, 32, 32, True, 0, 30.0),      # softcap
+    (2, 96, 96, 4, 2, 32, 32, True, 0, 0.0),       # ragged: pad path
+    (1, 64, 128, 2, 2, 32, 32, False, 0, 0.0),     # cross attention
+    (1, 64, 64, 4, 2, 48, 32, True, 0, 0.0),       # dv != hd
+    (2, 37, 45, 4, 2, 32, 32, True, 0, 0.0),       # Sq, Sk not multiples of 8
+    (1, 96, 30, 2, 1, 16, 16, False, 16, 0.0),     # rows without a key
+    (1, 300, 300, 2, 1, 192, 128, True, 0, 0.0),   # MLA widths
+    (1, 300, 300, 2, 2, 256, 256, True, 100, 0.0),  # hd = 256
+]
+
+
+def _k6_inputs(case, dtype, dev, seed=0):
+    B, Sq, Sk, H, KV, hd, dv = case[:7]
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(s, generator=g).to(dtype).to(dev)
+            for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, dv))]
+
+
+def _k6_check(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    if got.dtype == torch.bfloat16:
+        near = (got.float() - want.float()).abs() <= 1e-5
+        assert bool(((_bf16_ulps(got, want) <= 1) | near).all())
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", K6_CASES, ids=[str(i) for i in
+                                                range(len(K6_CASES))])
+@pytest.mark.parametrize("blocks", [(32, 32), (64, 256), (256, 64)])
+def test_k6_matches_plain(dev, case, dtype, blocks):
+    causal, window, cap = case[7:]
+    q, k, v = _k6_inputs(case, dtype, dev)
+    bq, bk = fa.clamp_blocks(q.shape[1], k.shape[1], *blocks)
+    kw = dict(causal=causal, window=window, cap=cap)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, bq=blocks[0], bk=blocks[1], **kw)
+    want = fa.flash_attention_plain(q, k, v, bq=bq, bk=bk, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    _k6_check(got, want)
+
+
+def test_k6_rows_without_a_key_follow_the_padding(dev):
+    """Non-causal, window 16, Sk = 30 padded to bk = 32: rows from 47 on
+    see no admissible key and are sum(v) / 32, as in the reference."""
+    q, k, v = _k6_inputs((1, 96, 30, 2, 1, 16, 16), torch.float32, dev)
+    got = fa.flash_attention(q, k, v, causal=False, window=16, bq=32, bk=32)
+    torch.testing.assert_close(got[0, 47:, 0],
+                               (v[0, :, 0].sum(0) / 32).expand(49, 16),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_k6_every_autotuner_candidate(dev, tmp_path, monkeypatch):
+    """Every (bq, bk) the autotuner may pick, at a shape that admits all
+    nine; then the tuner itself measures, caches under the card's name
+    and replays."""
+    case = (1, 300, 300, 4, 2, 64, 64)
+    q, k, v = _k6_inputs(case, torch.float32, dev)
+    for bq in (64, 128, 256):
+        for bk in (64, 128, 256):
+            got = fa.flash_attention(q, k, v, bq=bq, bk=bk)
+            want = fa.flash_attention_plain(q, k, v, causal=True, bq=bq,
+                                            bk=bk)
+            _k6_check(got, want)
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    monkeypatch.delenv("REPRO_AUTOTUNE", raising=False)
+    autotune.clear_memory_cache()
+    try:
+        first = fa.flash_attention(q, k, v)
+        key = (f"flash|torch-cuda|{autotune._device_kind(dev)}|"
+               "300x300x64x64")
+        blocks = tuple(autotune._load()[key])
+        assert blocks in [(a, b) for a in (64, 128, 256)
+                          for b in (64, 128, 256)]
+        before = fa.flash_attention.launches
+        second = fa.flash_attention(q, k, v)
+        assert fa.flash_attention.launches == before + 1
+        pinned = fa.flash_attention(q, k, v, bq=blocks[0], bk=blocks[1])
+        assert torch.equal(first, second) and torch.equal(second, pinned)
+    finally:
+        autotune.clear_memory_cache()
+
+
+def test_k6_refusals_launch_nothing(dev):
+    q, k, v = _k6_inputs((1, 64, 64, 4, 2, 32, 32), torch.float32, dev)
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_attention(q.half(), k.half(), v.half(), bq=32, bk=32)
+    with pytest.raises(ValueError, match="bq in 8-256"):
+        fa.flash_attention(q, k, v, bq=512, bk=32)
+    with pytest.raises(ValueError, match="multiple of KV"):
+        fa.flash_attention(q[:, :, :3], k, v, bq=32, bk=32)
+    with pytest.raises(ValueError, match="one device"):
+        fa.flash_attention(q, k.cpu(), v, bq=32, bk=32)
+    assert fa.flash_attention.launches == before

@@ -1,11 +1,14 @@
 """PyTorch port: quantize, the LNS product and the quantized matmuls (the
-plain versions of kernels K2 and K3) against the JAX package.
+plain versions of kernels K2, K3 and K4) against the JAX package.
 
 Integer-domain results are bitwise: codes, scales and every single LNS
-product.  Matmul sums are held to the float32 summation bound
+product.  K2's and K3's sums are held to the float32 summation bound
 ``2 K 2^-24 sum_k |product|`` per element: the port and the reference
 add the same exact products in other orders (the reference's Pallas
 kernel in [bm, ck, bn] chunks, the port's plain version in K chunks).
+K4's sums run in the reference's own order (k in order within tiles of
+``min(128, K)``, tiles in order), so its plain version is held to the
+reference bit for bit, NaN as NaN.
 """
 import numpy as np
 import pytest
@@ -114,6 +117,66 @@ def test_plain_k3_matches_reference_kernel(fmt, mode, M, K, N):
         _within_sum_bound(out.numpy(), want, absum, K)
 
 
+def _nan_aware_bits_equal(a, b):
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    nan = np.isnan(b)
+    return np.array_equal(np.isnan(a), nan) and _bits_equal(a[~nan], b[~nan])
+
+
+@pytest.mark.parametrize("K", [128, 257, 300, 896])
+@pytest.mark.parametrize("key", sorted(FACTORED_MUL), ids="-".join)
+def test_plain_k4_bitwise_equal_to_reference_kernel(key, K):
+    """Random codes with zero, negative-zero and NaN codes; odd M and N;
+    K a whole tile, a tile and one, ragged, and qwen2-0.5b's width."""
+    fmt, mode = key
+    rng = np.random.default_rng(K + len(mode))
+    M, N = 5, 7
+    x = rng.integers(0, 256, (M, K)).astype(np.uint8)
+    w = rng.integers(0, 256, (K, N)).astype(np.uint8)
+    x[0, :3] = [0, 0x80, 0x7F]            # 0, -0, NaN (both formats)
+    w[:4, 1] = [0, 0x80, 0xFF, 0x01]      # 0, -0, NaN, subnormal
+    want = jlm.lns_matmul(jnp.asarray(x), jnp.asarray(w), fmt=fmt, mode=mode,
+                          impl="lns_loop", interpret=True)
+    before = lm.lns_loop_matmul.launches
+    got = lm.lns_matmul(torch.from_numpy(x), torch.from_numpy(w), fmt=fmt,
+                        mode=mode, impl="lns_loop")
+    assert lm.lns_loop_matmul.launches == before  # CPU: plain version
+    assert np.isnan(np.asarray(want)).any()
+    assert _nan_aware_bits_equal(got.numpy(), want)
+    chunked = lm.lns_loop_matmul_plain(torch.from_numpy(x),
+                                       torch.from_numpy(w), fmt=fmt,
+                                       mode=mode, chunk=3)
+    assert _nan_aware_bits_equal(chunked.numpy(), want)
+
+
+@pytest.mark.parametrize("fmt,mode", [("e4m3", "rne"), ("e5m2", "rz")])
+def test_plain_k4_within_the_sum_bound_of_plain_k3(fmt, mode):
+    """The same products as K3, summed in another order."""
+    rng = np.random.default_rng(9)
+    x, w = _codes(rng, (33, 300), fmt), _codes(rng, (300, 21), fmt)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    loop = lm.lns_loop_matmul_plain(tx, tw, fmt=fmt, mode=mode)
+    k3 = lm.lns_matmul_plain(tx, tw, fmt=fmt, mode=mode)
+    absum = lm.lns_matmul_plain(tx & 0x7F, tw & 0x7F, fmt=fmt, mode=mode)
+    _within_sum_bound(loop.numpy(), k3.numpy(), 2 * absum.numpy(), 300)
+    assert not torch.equal(loop, k3)  # another order, not the same sums
+
+
+def test_matmul_q_lns_loop_matches_reference():
+    """``matmul_q(impl="lns_loop")``: K4's sums and then the scales in the
+    reference's order, bit for bit."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((19, 300)).astype(np.float32)
+    w = (rng.standard_normal((300, 24)) * 0.05).astype(np.float32)
+    jx = jquant.quantize(jnp.asarray(x), "e4m3")
+    jw = jquant.quantize(jnp.asarray(w), "e4m3", axis=-1)
+    want = jops.matmul_q(jx, jw, impl="lns_loop", mode="rz", interpret=True)
+    qx = quant.quantize(torch.from_numpy(x), "e4m3")
+    qw = quant.quantize(torch.from_numpy(w), "e4m3", axis=-1)
+    got = ops.matmul_q(qx, qw, impl="lns_loop", mode="rz")
+    assert _nan_aware_bits_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
 def test_plain_k2_matches_reference_kernel(cd):
     rng = np.random.default_rng(3)
@@ -177,14 +240,16 @@ def test_auto_impl_resolution():
 def test_lns_matmul_refuses_what_it_does_not_take():
     x = torch.zeros((2, 3), dtype=torch.uint8)
     w = torch.zeros((3, 4), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="K4"):
-        lm.lns_matmul(x, w, impl="lns_loop")
+    with pytest.raises(ValueError, match="single-format"):
+        lm.lns_matmul(x, w, fmt="e5m2", w_fmt="e4m3", impl="lns_loop")
     with pytest.raises(ValueError, match="single-format"):
         lm.lns_matmul(x, w, fmt="e5m2", w_fmt="e4m3", impl="lns")
     with pytest.raises(ValueError, match="unknown impl"):
         lm.lns_matmul(x, w, impl="mxu")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         lm.lns_matmul(x.to("meta"), w.to("meta"), impl="lns")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        lm.lns_matmul(x.to("meta"), w.to("meta"), impl="lns_loop")
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         lm.lns_matmul(x, w, impl="fused_dequant", compute_dtype=torch.half)
 
@@ -210,6 +275,8 @@ def test_build_name_follows_included_headers(tmp_path, monkeypatch):
 
 
 def test_kernel_sources_share_the_lns_header():
+    assert "lns_common.cuh" not in {p.name for p in
+                                    cuda_build._sources("flash_attention")}
     for name in ("paged_attention", "lns_matmul"):
         assert "lns_common.cuh" in {p.name for p in
                                     cuda_build._sources(name)}

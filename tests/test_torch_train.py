@@ -44,6 +44,19 @@ POLICIES = {"train_bf16": dict(policy="train_bf16"),
             "train_fp8": dict(policy="train_fp8")}
 
 
+def _lns_loop_policies():
+    """train_fp8_lns with every STE matmul through K4 (impl "lns_loop"),
+    built as the reference builds a policy: no preset, no flag."""
+    from repro.numerics import policy as jpolicy
+    from repro_torch import numerics
+
+    mm = dict(fmt="e4m3", mode="rne", impl="lns_loop", accum="bf16")
+    return (jpolicy.get_policy("train_fp8_lns").replace(
+                matmul=jpolicy.OpPolicy(**mm)),
+            numerics.get_policy("train_fp8_lns").replace(
+                matmul=numerics.OpPolicy(**mm)))
+
+
 def _f32(x):
     return np.asarray(x, np.float32)
 
@@ -151,8 +164,12 @@ def test_policy_and_quant_together_raise():
 
 
 def _models(key, n_layers=None):
-    kw = POLICIES[key]
-    jcfg = dataclasses.replace(jget_config("qwen2-0.5b", smoke=True, **kw),
+    if key == "lns_loop":
+        jpol, pol = _lns_loop_policies()
+        jkw, kw = dict(policy=jpol), dict(policy=pol)
+    else:
+        jkw = kw = POLICIES[key]
+    jcfg = dataclasses.replace(jget_config("qwen2-0.5b", smoke=True, **jkw),
                                param_dtype="float32")
     cfg = dataclasses.replace(get_config("qwen2-0.5b", smoke=True, **kw),
                               param_dtype="float32")
@@ -178,7 +195,7 @@ def _assert_grads_close(got_tree, jgrads, cfg):
                                    atol=1e-5 * np.abs(b).max() + 1e-12)
 
 
-@pytest.mark.parametrize("key", list(POLICIES))
+@pytest.mark.parametrize("key", list(POLICIES) + ["lns_loop"])
 def test_smoke_loss_and_gradients_match_reference(key):
     jm, jparams, model, params = _models(key)
     batch = _batch(model.cfg)
@@ -226,6 +243,29 @@ def test_k3_launch_count_of_a_train_step(monkeypatch):
     step(state, {k: torch.from_numpy(v)
                  for k, v in _batch(model.cfg).items()})
     assert len(calls) == 2 * 7 * model.cfg.n_layers
+
+
+def test_k4_launch_count_of_a_train_step(monkeypatch):
+    """Under the lns_loop policy every STE matmul calls K4's wrapper once
+    in the forward and once in the recompute, and K3's never."""
+    calls = {"K4": 0, "K3": 0}
+    for name, wrapper in (("K4", "lns_loop_matmul"),
+                          ("K3", "lns_product_matmul")):
+        real = getattr(lm, wrapper)
+
+        def counted(*a, name=name, real=real, **k):
+            calls[name] += 1
+            return real(*a, **k)
+
+        monkeypatch.setattr(lm, wrapper, counted)
+    _, _, model, params = _models("lns_loop")
+    assert model.cfg.policy.matmul.impl == "lns_loop"
+    step = steps.build_train_step(model, adamw.OptConfig())
+    state = steps.make_train_state(model, params=params)
+    _, metrics = step(state, {k: torch.from_numpy(v)
+                              for k, v in _batch(model.cfg).items()})
+    assert np.isfinite(float(metrics["loss"]))
+    assert calls == {"K4": 2 * 7 * model.cfg.n_layers, "K3": 0}
 
 
 def test_three_train_steps_match_reference():

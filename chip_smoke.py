@@ -13,7 +13,9 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
 2. builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together): K1 from
    ``paged_attention.cu``, K2, K3 and K4 from ``lns_matmul.cu``, K5 from
-   ``fp8_elementwise.cu``, K6 from ``flash_attention.cu``;
+   ``fp8_elementwise.cu``, K6 from ``flash_attention.cu``; and checks with
+   ``cuobjdump`` that every instantiation of K2 and of K6's bf16 body
+   holds HMMA (tensor-core) instructions;
 3. holds kernel K1 (LNS paged decode attention) against its plain PyTorch
    version at qwen2-0.5b attention shapes (B=8, KV=2, G=7, hd=64, page 16,
    up to 64 pages per slot, ragged lengths, masked lanes, fresh-page rows,
@@ -54,7 +56,7 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
    summation bound 2 K 2^-24 sum|products|; then their card times per
    layer (the seven quantized matmuls of one layer's forward) beside the
    bound, the plain version and, for K2, ``torch.matmul`` on pre-decoded
-   bf16 operands;
+   bf16 operands, and K2's time and TFLOP/s at each shape;
 9. trains full-width qwen2-0.5b through the port's CLI
    (``launch.train.main``, ``--quant fp8_lns_pallas``, batch 8 x seq 128,
    6 steps, checkpoints every 3): finite losses, 0 restarts, and K3
@@ -63,7 +65,8 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
    count derived the same way; then the first step's loss and gradient
    norm of a float32 2-layer model through the kernels and through their
    plain versions (loss rtol 1e-4, gradient norm rtol 1e-3), for K3 and
-   K2; then one profiled train step (wall, card-busy share);
+   K2; then one profiled train step under each of the two policies
+   (wall, card-busy share, K3's and K2's card time);
 10. trains 2 full-width steps under train_fp8_lns with the gate through
     K5 in e4m3 (``run_training``): finite losses, 0 restarts, 672 K3 and
     96 K5 launches (forward and recompute); then the first step of a
@@ -80,7 +83,9 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     dv 128) at full width, each in float32 and in bfloat16 (bfloat16:
     one ulp, or 1e-5 near 0); then K6's times at qwen2-0.5b
     B 1 x S 8192 bf16 beside its bound, the plain version and
-    ``scaled_dot_product_attention`` (a yardstick the port never calls);
+    ``scaled_dot_product_attention`` (a yardstick the port never calls),
+    the same geometry in float32 and gemma2-27b's windowed geometry in
+    bf16, each with its TFLOP/s and the FLOP of the tiles it visits;
 12. K6's path: ``flash_attention`` with no tiling through the autotuner
     on a fresh cache file (qwen2-0.5b geometry, S 2048): measured, cached
     under the card's name, a ``measured`` gauge; a second call answers
@@ -194,7 +199,10 @@ def device_ms(fn, iters: int, only: str = "", warmup: int = 3):
     """Card time per call: the summed device time of the CUDA kernels
     (whose names contain ``only``, if given) that ``iters`` calls ran,
     from ``torch.profiler``; where the profiler records no device time,
-    the CUDA-graph event timing of :func:`graph_ms`.  Returns (ms, how)."""
+    or, when ``only`` picks kernels, a count of them that is no multiple
+    of ``iters`` (late in a long process it has reported a tenth of a
+    kernel's time, as if it had dropped launches), the CUDA-graph event
+    timing of :func:`graph_ms`.  Returns (ms, how)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -205,9 +213,10 @@ def device_ms(fn, iters: int, only: str = "", warmup: int = 3):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(_device_us(e) for e in prof.key_averages()
-             if only in e.key and _device_us(e) > 0)
-    if us > 0:
+    seen = [e for e in prof.key_averages()
+            if only in e.key and _device_us(e) > 0]
+    us = sum(_device_us(e) for e in seen)
+    if us > 0 and not (only and sum(e.count for e in seen) % iters):
         return us / iters / 1e3, "profiler"
     return graph_ms(fn), "cuda-graph events"
 
@@ -731,6 +740,21 @@ INT32_OPCODES = {"IADD3", "IADD", "VIADD", "IMAD", "LOP3", "SHF", "ISETP",
                  "LEA", "IMNMX", "VIMNMX", "IABS"}
 
 
+def _sass_functions(lib) -> dict:
+    """Each function's SASS in the built library ``lib`` (``cuobjdump``),
+    by mangled name."""
+    import re
+    import shutil
+    from repro_torch.kernels import cuda_build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    return {f.split(None, 1)[0]: f
+            for f in re.split(r"\n\s*Function : ", sass)[1:]}
+
+
 def sass_loop_mix(lib, kernel: str, per: str) -> dict:
     """Instructions per product in ``kernel``'s innermost loop that holds
     the instruction ``per`` (one per product: K3's float add of each
@@ -741,15 +765,9 @@ def sass_loop_mix(lib, kernel: str, per: str) -> dict:
     counted."""
     import collections
     import re
-    import shutil
-    from repro_torch.kernels import cuda_build
 
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.path.dirname(cuda_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True, timeout=120).stdout
-    (body,) = [f for f in re.split(r"\n\s*Function : ", sass)[1:]
-               if kernel in f.split(None, 1)[0]]
+    (body,) = [f for name, f in _sass_functions(lib).items()
+               if kernel in name]
     ins = [(int(a, 16), re.sub(r"^@!?U?P\w+\s+", "", b.strip()).split()[0])
            for a, b in re.findall(r"/\*([0-9a-f]+)\*/\s+([^;]*);", body)]
     targets = re.findall(r"/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?BRA\s+"
@@ -766,6 +784,35 @@ def sass_loop_mix(lib, kernel: str, per: str) -> dict:
                         int32_per_product=sum(ops[o] for o in INT32_OPCODES)
                         / n, mix={op: c / n for op, c in ops.most_common()})
     raise AssertionError(f"no loop with {per} in the SASS of {kernel}")
+
+
+def sass_opcode_counts(lib, kernel: str, opcode: str) -> dict:
+    """How many ``opcode`` instructions (``HMMA``: the tensor cores'
+    warp-level product) the SASS of each function of the built library
+    ``lib`` whose name contains ``kernel`` holds (``cuobjdump``)."""
+    import re
+
+    return {name: sum(
+        re.sub(r"^@!?U?P\w+\s+", "", b.strip()).split()[0].split(".")[0]
+        == opcode for b in re.findall(r"/\*[0-9a-f]+\*/\s+([^;]*);", f))
+        for name, f in _sass_functions(lib).items() if kernel in name}
+
+
+def check_tensor_cores() -> None:
+    """Phase: K2 (every instantiation of ``dequant_matmul_kernel``) and
+    K6's bf16 body (every instantiation of ``flash_attention_bf16_kernel``)
+    run their products on the tensor cores: cuobjdump finds HMMA in each."""
+    from repro_torch.kernels import cuda_build
+
+    for source, kernel in (("lns_matmul", "dequant_matmul_kernel"),
+                           ("flash_attention", "flash_attention_bf16_kernel")):
+        counts = sass_opcode_counts(cuda_build.build([source])[0], kernel,
+                                    "HMMA")
+        if not counts or not all(counts.values()):
+            raise AssertionError(f"no HMMA in the SASS of {kernel}: {counts}")
+        print(f"# SASS: HMMA in all {len(counts)} instantiations of {kernel} "
+              f"({source}.cu): " + ", ".join(str(c) for c in counts.values()),
+              flush=True)
 
 
 def _nan_aware_bitwise(a, b) -> bool:
@@ -915,6 +962,13 @@ def check_matmul_kernels(dev) -> dict:
     res["k2_ms"], _ = _per_layer_ms(k2, "dequant_matmul_kernel", iters=20)
     res["k2_plain_ms"], _ = _per_layer_ms(k2_plain, "", iters=10)
     res["k2_library_ms"], _ = _per_layer_ms(k2_library, "", iters=50)
+    per_shape = {(K, N): device_ms(lambda: k2((K, N)), iters=20,
+                                   only="dequant_matmul_kernel")[0]
+                 for K, N in LAYER_MATMULS}
+    print("# K2 per shape (bf16 compute, card time): " + ", ".join(
+        f"{SMOKE_M}x{K}x{N} {ms:.4f} ms = "
+        f"{2 * SMOKE_M * K * N / ms / 1e9:.1f} TFLOP/s"
+        for (K, N), ms in per_shape.items()), flush=True)
 
     # least time of one layer's seven matmuls
     prods = sum(c * SMOKE_M * K * N for (K, N), c in LAYER_MATMULS.items())
@@ -950,7 +1004,8 @@ def check_matmul_kernels(dev) -> dict:
           f"{b_issue:.4f} ms issue, {b_int:.4f} ms integer) for {prods} "
           "products", flush=True)
     print(f"# K2 per layer (7 matmuls, M={SMOKE_M}, bf16 compute): kernel "
-          f"{res['k2_ms']:.4f} ms; plain {res['k2_plain_ms']:.4f} ms; "
+          f"{res['k2_ms']:.4f} ms = {2 * prods / res['k2_ms'] / 1e9:.1f} "
+          f"TFLOP/s; plain {res['k2_plain_ms']:.4f} ms; "
           f"torch.matmul on pre-decoded bf16 {res['k2_library_ms']:.4f} ms; "
           f"bound {res['k2_bound']:.4f} ms = max({nbytes} B / 3.35 TB/s, "
           f"{2 * prods} FLOP / 989 TFLOP/s)", flush=True)
@@ -1204,11 +1259,13 @@ def profile_train_step(dev, policy=None) -> None:
               "recorded no device time (busy share not measured)", flush=True)
         return
     k3 = sum(us for k, us, _ in rows if "lns_matmul_kernel" in k) / 1e6
+    k2 = sum(us for k, us, _ in rows if "dequant_matmul_kernel" in k) / 1e6
     k5 = sum(us for k, us, _ in rows if "fp8_elementwise_kernel" in k) / 1e6
     print(f"# profiled train step ({label}, full width, batch 8 x "
           f"seq 128): {wall:.4f} s wall; card busy {busy:.4f} s "
           f"({100 * busy / wall:.2f}% of the wall); K3 {k3:.4f} s "
-          f"({100 * k3 / busy:.2f}% of busy); K5 {k5:.5f} s; "
+          f"({100 * k3 / busy:.2f}% of busy); K2 {k2:.4f} s "
+          f"({100 * k2 / busy:.2f}%); K5 {k5:.5f} s; "
           f"{sum(n for _, _, n in rows)} kernel launches", flush=True)
     for key, us, n in sorted(rows, key=lambda r: -r[1])[:6]:
         print(f"#   {us / 1e3:10.3f} ms  x{n:<6d} {key[:90]}", flush=True)
@@ -1438,12 +1495,40 @@ def check_k6(dev) -> dict:
     return dict(max_abs_err=err)
 
 
+def _k6_pairs(B, S, H, causal, window, bq, bk):
+    """(admissible (query, key) pairs, pairs in the key tiles K6 visits) of
+    self-attention over S tokens: the kernel takes the query rows 64 at a
+    time and visits ``key_tile_range``'s tiles for each group."""
+    from repro_torch.kernels import flash_attention as fa
+
+    if not causal:
+        admissible = S * (min(S, window) if window else S)
+    elif window:
+        w = min(window, S)
+        admissible = w * (w + 1) // 2 + (S - w) * w
+    else:
+        admissible = S * (S + 1) // 2
+    nk = -(-S // bk)
+    visited = 0
+    for q0 in range(0, -(-S // bq) * bq, bq):
+        for g0 in range(q0, q0 + bq, 64):
+            rows = min(64, q0 + bq - g0)
+            first, last = fa.key_tile_range(g0, rows, S, S, bk, nk, causal,
+                                            window)
+            visited += (last - first) * bk * 64
+    return B * H * admissible, B * H * visited
+
+
 def time_k6(dev) -> dict:
     """Phase: K6 times at qwen2-0.5b B 1 x S 8192 in bfloat16 (tiling
-    128 x 128): the kernel alone (profiler), the wrapper call with its
-    layout copies, the plain version, the bound, and as a yardstick
-    ``scaled_dot_product_attention`` on the same tensors in its own
-    layout (transposes outside the timing; the port never calls it)."""
+    128 x 128): the kernel alone (CUDA-graph replays), the wrapper call
+    between CUDA events, the plain
+    version, the bound, and as a yardstick ``scaled_dot_product_attention``
+    on the same tensors in its own layout (transposes outside the timing;
+    the port never calls it).  Then the same geometry in float32 (the
+    CUDA-core body) and gemma2-27b's windowed, soft-capped geometry in
+    bfloat16, each with its rate on the admissible FLOP and the FLOP of
+    the tiles the kernel visits."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1453,16 +1538,17 @@ def time_k6(dev) -> dict:
     kw = dict(causal=True, bq=128, bk=128)
     k6 = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
     plain = lambda: fa.flash_attention_plain(q, k, v, **kw)  # noqa: E731
-    ms, how = device_ms(k6, iters=10, only="flash_attention_kernel")
-    wrap_ms, _ = device_ms(k6, iters=10)    # the kernel and layout copies
+    # one kernel per call: CUDA-graph replays time it without the host
+    # (the profiler has under-reported late in this process)
+    ms = graph_ms(k6, launches=20, replays=5)
     call_ms = cuda_ms(k6, iters=10)
     plain_ms, _ = device_ms(plain, iters=3, warmup=1)
-    pairs = B * H * S * (S + 1) // 2        # admissible (query, key) pairs
+    pairs, visited = _k6_pairs(B, S, H, True, 0, 128, 128)
     flops = 2 * (hd + dv) * pairs
+    computed = 2 * (hd + dv) * visited
     nbytes = 2 * (B * S * H * hd + B * S * KV * (hd + dv) + B * S * H * dv)
     b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     b_ops = flops / BF16_FLOP_PER_S * 1e3
-    computed = 2 * (hd + dv) * B * H * S * S   # every tile, masked ones too
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     try:
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -1471,22 +1557,56 @@ def time_k6(dev) -> dict:
         lib_note = "scaled_dot_product_attention(is_causal, enable_gqa)"
     except TypeError as exc:    # a torch without enable_gqa
         lib_ms, lib_note = None, f"not measured: {exc}"
-    print(f"# K6 qwen2-0.5b B {B} x S {S} bf16 causal (card time, {how}): "
-          f"kernel {ms:.4f} ms; wrapper call (the kernel and its layout "
-          f"copies) {wrap_ms:.4f} ms, {call_ms:.4f} ms per call between "
-          f"CUDA events; plain {plain_ms:.3f} ms; bound "
+    print(f"# K6 qwen2-0.5b B {B} x S {S} bf16 causal (card time, "
+          f"CUDA-graph events): kernel {ms:.4f} ms = "
+          f"{flops / ms / 1e9:.1f} TFLOP/s on the admissible FLOP; wrapper "
+          f"call {call_ms:.4f} ms between CUDA events, host included "
+          f"({call_ms / ms:.3f}x the kernel); plain {plain_ms:.3f} ms; bound "
           f"{max(b_bytes, b_ops):.5f} ms = max({nbytes} B / 3.35 TB/s, "
           f"{flops:.4g} FLOP ({pairs} admissible pairs x 2 (hd + dv)) / 989 "
           f"TFLOP/s) -> {'bytes' if b_bytes >= b_ops else 'operations'}; "
-          f"the kernel computes {computed:.4g} FLOP (every tile) = "
-          f"{computed / F32_FLOP_PER_S * 1e3:.4f} ms at 67 TFLOP/s float32; "
-          f"library {lib_note}: "
+          f"the tiles it visits hold {computed:.4g} FLOP "
+          f"({computed / flops:.3f}x the admissible; the P split adds "
+          f"{2 * dv * visited:.4g} more on the tensor cores); library "
+          f"{lib_note}: "
           + (f"{lib_ms:.4f} ms" if lib_ms is not None else "null"),
           flush=True)
+    del q, k, v, qt, kt, vt
+
+    q, k, v = _k6_qkv(dev, B, S, S, H, KV, hd, dv, torch.float32, seed=1)
+    f32_ms = graph_ms(lambda: fa.flash_attention(q, k, v, **kw),
+                      launches=5, replays=2)
+    print(f"# K6 qwen2-0.5b B {B} x S {S} float32 causal (CUDA-core body, "
+          f"card time, CUDA-graph events): {f32_ms:.4f} ms = "
+          f"{flops / f32_ms / 1e9:.2f} TFLOP/s on the admissible FLOP, "
+          f"{computed / f32_ms / 1e9:.2f} on the visited tiles' (67 TFLOP/s "
+          f"float32 peak)", flush=True)
+    del q, k, v
+
+    label, gB, gS, gH, gKV, ghd, gdv, causal, window, cap = K6_GEOMETRIES[2]
+    q, k, v = _k6_qkv(dev, gB, gS, gS, gH, gKV, ghd, gdv, torch.bfloat16,
+                      seed=1)
+    gkw = dict(causal=causal, window=window, cap=cap, bq=128, bk=128)
+    g_ms = graph_ms(lambda: fa.flash_attention(q, k, v, **gkw),
+                    launches=10, replays=3)
+    gpairs, gvisited = _k6_pairs(gB, gS, gH, causal, window, 128, 128)
+    gflops = 2 * (ghd + gdv) * gpairs
+    full = 2 * (ghd + gdv) * gB * gH * gS * gS
+    print(f"# K6 {label} B {gB} x S {gS} bf16 (H {gH}, KV {gKV}, hd {ghd}, "
+          f"window {window}, cap {cap:g}), tiling 128 x 128 (card time, "
+          f"CUDA-graph events): {g_ms:.4f} ms = {gflops / g_ms / 1e9:.1f} "
+          f"TFLOP/s on the "
+          f"admissible {gflops:.4g} FLOP; the visited tiles hold "
+          f"{2 * (ghd + gdv) * gvisited:.4g} FLOP, "
+          f"{gvisited / (gB * gH * gS * gS):.3f} of every tile's "
+          f"{full:.4g}; bound {gflops / BF16_FLOP_PER_S * 1e3:.5f} ms",
+          flush=True)
+    del q, k, v
     return dict(ms=ms, plain_ms=plain_ms,
                 bound_ms=max(b_bytes, b_ops),
                 bound_by="bytes" if b_bytes >= b_ops else "operations",
-                library_ms=lib_ms)
+                library_ms=lib_ms, call_ms=call_ms, f32_ms=f32_ms,
+                gemma2_ms=g_ms)
 
 
 def k6_autotune_path(dev) -> dict:
@@ -1764,6 +1884,7 @@ def check_train_k4_against_plain(dev) -> None:
 def main() -> int:
     import torch
 
+    from repro_torch.numerics import get_policy
     from repro_torch.kernels import cuda_build  # fails outside the repo
 
     if not torch.cuda.is_available():
@@ -1786,6 +1907,7 @@ def main() -> int:
     print(f"# built {len(KERNEL_SOURCES)} kernel sources in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    check_tensor_cores()
     k1 = check_k1(dev)
     served = serve_main_path(dev)
     check_against_plain_engine(dev)
@@ -1802,6 +1924,7 @@ def main() -> int:
     trained_k2 = train_k2_path(dev)
     check_train_against_plain(dev)
     profile_train_step(dev)
+    profile_train_step(dev, policy=get_policy("train_fp8"))
     train_k5_path(dev)
     check_train_k5_against_plain(dev)
     profile_train_step(dev, policy=k5_train_policy())

@@ -15,22 +15,32 @@ keys at a time**, in float32: scores ``(q . k) * hd**-0.5`` (then
 ``tanh(s / cap) * cap``), masked entries set to the finite ``NEG_INF =
 -2e30`` (never -inf), running max, sum and accumulator rescaled by
 ``exp(m_prev - m_new)``, and ``acc / max(l, 1e-37)`` cast to ``q.dtype``.
-Sequences are padded with zeros to multiples of the clamped ``bq``/``bk``
-as the reference pads them.  Because ``NEG_INF`` is finite, a row with no
-admissible key is not 0 or NaN: every entry of it has ``exp(s - m) = 1``,
-so it is the sum of V over the real keys divided by the *padded* key
-length.  Its value depends on ``bk``; the kernel and the plain version
-reproduce it by computing every key tile, masked ones included.
+Sequences act as if padded with zeros to multiples of the clamped
+``bq``/``bk``, as the reference pads them; the kernel reads past the end
+as zeros and copies nothing.  Because ``NEG_INF`` is finite, a row with
+no admissible key is not 0 or NaN: every entry of it has ``exp(s - m) =
+1``, so it is the sum of V over the real keys divided by the *padded* key
+length.  Each block of ``bq`` query rows visits only the key tiles
+:func:`key_tile_range` gives: those holding an admissible key for one of
+its real rows, or every tile when one of them has none.  Skipping the
+others is exact (a masked tile after a row's first admissible key adds
+``exp(NEG_INF - m) = 0`` at ``corr = 1``; one before it is wiped by
+``corr = 0``), so the kernel, the plain version and the reference compute
+one function.
 
 CUDA tensors launch the hand-written kernel (``csrc/flash_attention.cu``;
-``flash_attention.launches`` counts it); CPU tensors run
-:func:`flash_attention_plain`; any other device raises.  Inputs the
-kernel does not take raise ``ValueError`` before any launch, on every
-device: a dtype other than float32 or bfloat16 (one dtype for q, k and
-v), ``hd`` or ``dv`` above 256, ``bq``/``bk`` outside 8-256,
-``H % KV != 0``, an empty sequence, or more than 65,535 (batch, head)
-pairs.  There is no fallback from the kernel to the plain
-version.
+``flash_attention.launches`` counts it): bfloat16 on the tensor cores,
+float32 on the CUDA cores.  It reads q, k and v through their strides and
+writes the output in place, so a view works without a copy as long as
+its feature (last) dimension is contiguous; a view whose last dimension
+is strided raises ``ValueError`` (on every device), and nothing is ever
+copied silently.  CPU tensors run :func:`flash_attention_plain`; any
+other device raises.  Inputs the kernel does not take raise
+``ValueError`` before any launch, on every device: a dtype other than
+float32 or bfloat16 (one dtype for q, k and v), ``hd`` or ``dv`` above
+256, ``bq``/``bk`` outside 8-256, ``H % KV != 0``, an empty sequence, a
+strided last dimension, or more than 65,535 (batch, head) pairs.  There is
+no fallback from the kernel to the plain version.
 """
 from __future__ import annotations
 
@@ -43,7 +53,8 @@ import torch.nn.functional as F
 from ..models.layers import NEG_INF
 from .cuda_build import check_launch
 
-__all__ = ["flash_attention", "flash_attention_plain", "clamp_blocks"]
+__all__ = ["flash_attention", "flash_attention_plain", "clamp_blocks",
+           "key_tile_range"]
 
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -82,6 +93,11 @@ def _check_tensors(q, k, v) -> None:
         raise ValueError("K6: q, k and v must be on one device")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"K6 runs on CUDA or CPU tensors, not {q.device}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"K6 reads {name} through its strides and needs "
+                             f"its last dimension contiguous, got strides "
+                             f"{t.stride()}")
 
 
 def _check_blocks(bq: int, bk: int) -> None:
@@ -95,14 +111,44 @@ def _pad_seq(t: torch.Tensor, to: int) -> torch.Tensor:
     return F.pad(t, (0, 0, 0, 0, 0, pad)) if pad else t
 
 
+def key_tile_range(q0: int, rows: int, Sq0: int, k_len: int, bk: int,
+                   nk: int, causal: bool, window: int) -> Tuple[int, int]:
+    """Key tiles ``[first, last)`` that hold an admissible key for some
+    real row (below ``Sq0``) of the query rows ``[q0, q0 + rows)``; all
+    ``nk`` tiles if a real row has no admissible key (such a row is
+    sum(V) over the real keys divided by ``nk * bk`` and needs every tile);
+    ``(0, 0)`` if no row is real.  Row ``qp`` admits the keys
+    ``[lo(qp), hi(qp)]``, ``lo = max(0, qp - window + 1)`` (0 without a
+    window) and ``hi = min(k_len - 1, qp)`` (``k_len - 1`` without
+    causality).  Both never decrease with ``qp`` and ``hi - lo`` is
+    concave, so the first and last real rows decide.  The same closed form
+    as ``key_tile_range`` in ``csrc/flash_attention.cu``."""
+    qa, qz = q0, min(q0 + rows, Sq0) - 1
+    if qz < qa:
+        return 0, 0
+
+    def lo(qp):
+        return max(0, qp - window + 1) if window else 0
+
+    def hi(qp):
+        return min(k_len - 1, qp) if causal else k_len - 1
+
+    if lo(qa) > hi(qa) or lo(qz) > hi(qz):
+        return 0, nk
+    return lo(qa) // bk, hi(qz) // bk + 1
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                           cap: float = 0.0, bq: int, bk: int):
     """Plain version of K6: the reference's algorithm, vectorised over
     batch, heads and every query row, with a Python loop over the key
     tiles of ``bk`` keys (k and v zero-padded to a multiple of ``bk``)
     and GQA through a ``[B, KV, G, ...]`` view.  ``bq``/``bk`` are the
-    clamped blocks; ``bq`` only pads the query rows, which are
-    independent, so it changes nothing here."""
+    clamped blocks.  Each block of ``bq`` query rows takes only the tiles
+    :func:`key_tile_range` gives it: a tile is computed for every row and
+    its update kept where the row's block visits it, so the result is
+    bit for bit what visiting every tile gives, wherever skipping is
+    exact."""
     B, Sq, H, hd = q.shape
     _, Sk0, KV, dv = v.shape
     G = H // KV
@@ -110,6 +156,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     Sk = nk * bk
     dev = q.device
     scale = hd ** -0.5
+    ranges = [key_tile_range(i, bq, Sq, Sk0, bk, nk, causal, window)
+              for i in range(0, Sq, bq)]
     qf = q.to(torch.float32).reshape(B, Sq, KV, G, hd).permute(0, 2, 3, 1, 4)
     kf = _pad_seq(k, Sk).to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
     vf = _pad_seq(v, Sk).to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
@@ -119,6 +167,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     acc = torch.zeros((B, KV, G, Sq, dv), dtype=torch.float32, device=dev)
     q_pos = torch.arange(Sq, device=dev)[:, None]
     for j in range(nk):
+        visit = [first <= j < last for first, last in ranges]
+        if not any(visit):
+            continue
         k_pos = torch.arange(j * bk, (j + 1) * bk, device=dev)[None, :]
         s = (qf @ kf[..., j * bk:(j + 1) * bk, :].transpose(-1, -2)) * scale
         if cap:
@@ -132,9 +183,15 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp(s - m_new)
         corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1, keepdim=True)
-        acc = acc * corr + p @ vf[..., j * bk:(j + 1) * bk, :]
-        m = m_new
+        l_new = l * corr + p.sum(dim=-1, keepdim=True)
+        acc_new = acc * corr + p @ vf[..., j * bk:(j + 1) * bk, :]
+        if all(visit):
+            m, l, acc = m_new, l_new, acc_new
+            continue
+        rows = torch.tensor(visit, device=dev).repeat_interleave(bq)[:Sq, None]
+        m = torch.where(rows, m_new, m)
+        l = torch.where(rows, l_new, l)
+        acc = torch.where(rows, acc_new, acc)
     out = acc / torch.clamp(l, min=1e-37)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dv).to(q.dtype)
 
@@ -145,32 +202,29 @@ def _lib():
     lib = load("flash_attention")
     if not getattr(lib, "_typed", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention.argtypes = ([vp] * 4 + [ci] * 13 + [cf] * 2
-                                        + [vp])
+        lib.flash_attention.argtypes = ([vp] * 4 + [ci] * 12 + [cf] * 2
+                                        + [ctypes.c_longlong] * 9 + [vp])
         lib.flash_attention.restype = ci
         lib._typed = True
     return lib
 
 
 def _launch(q, k, v, *, causal, window, cap, bq, bk):
-    """Pad and fold to the kernel's layout (q [B*H, Sq, hd], k/v
-    [B*KV, Sk, *], contiguous), launch K6 once, unfold."""
-    B, Sq0, H, hd = q.shape
-    _, Sk0, KV, dv = v.shape
-    Sq, Sk = -(-Sq0 // bq) * bq, -(-Sk0 // bk) * bk
-    qf = _pad_seq(q, Sq).transpose(1, 2).reshape(B * H, Sq, hd).contiguous()
-    kf = _pad_seq(k, Sk).transpose(1, 2).reshape(B * KV, Sk, hd).contiguous()
-    vf = _pad_seq(v, Sk).transpose(1, 2).reshape(B * KV, Sk, dv).contiguous()
-    out = torch.empty((B * H, Sq, dv), dtype=q.dtype, device=q.device)
+    """Allocate the output [B, Sq, H, dv] and launch K6 once on the
+    caller's q, k and v, read through their strides."""
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, dv = v.shape
+    out = torch.empty((B, Sq, H, dv), dtype=q.dtype, device=q.device)
     if out.numel():
         err = _lib().flash_attention(
-            qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, H, KV, Sq, Sk, Sk0, hd, dv, bq, bk,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], B, H, KV, Sq, Sk, hd, dv, bq, bk,
             int(causal), int(window), float(hd ** -0.5), float(cap),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             torch.cuda.current_stream(q.device).cuda_stream)
         check_launch(err, "K6")
         flash_attention.launches += 1
-    return out.reshape(B, H, Sq, dv).transpose(1, 2)[:, :Sq0].contiguous()
+    return out
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

@@ -12,7 +12,9 @@ scales.
   format for both operands.  Plain version: :func:`lns_matmul_plain`.
 * ``impl="fused_dequant"`` -- K2, :func:`dequant_matmul`: both sides
   decoded by bit placement, each in its own format (E5M2 activations x
-  E4M3 weights), multiplied with float32 accumulation.  Plain version:
+  E4M3 weights), to bf16 (exact for FP8 values) and multiplied on the
+  tensor cores with float32 accumulation, in a block tile
+  :func:`dequant_tile` picks per shape.  Plain version:
   :func:`dequant_matmul_plain`.
 * ``impl="lns_loop"`` -- K4, :func:`lns_loop_matmul`: the same products
   as K3 through the reference's seed design, a sequential rank-1 k loop
@@ -47,6 +49,7 @@ __all__ = [
     "lns_matmul_plain",
     "lns_loop_matmul_plain",
     "dequant_matmul_plain",
+    "dequant_tile",
 ]
 
 # Elements of one [M-chunk, K-chunk, N] product tensor of the plain LNS
@@ -128,6 +131,13 @@ def dequant_matmul_plain(x_codes, w_codes, *, fmt: str, w_fmt: str,
     return x @ w
 
 
+def dequant_tile(M: int, N: int, n_sm: int) -> int:
+    """K2's block tile for an [M, N] output on a card of ``n_sm`` SMs:
+    128 (128 x 128) when those tiles fill every SM at least once, else 64
+    (64 x 64), so narrow outputs still spread over the card."""
+    return 128 if -(-M // 128) * -(-N // 128) >= n_sm else 64
+
+
 def _lib():
     from .cuda_build import load
 
@@ -138,7 +148,7 @@ def _lib():
         lib.lns_matmul.restype = ci
         lib.lns_loop_matmul.argtypes = [vp] * 4 + [ci] * 5 + [vp]
         lib.lns_loop_matmul.restype = ci
-        lib.dequant_matmul.argtypes = [vp] * 3 + [ci] * 11 + [vp]
+        lib.dequant_matmul.argtypes = [vp] * 3 + [ci] * 12 + [vp]
         lib.dequant_matmul.restype = ci
         lib._typed = True
     return lib
@@ -234,6 +244,8 @@ def dequant_matmul(x_codes, w_codes, *, fmt: str, w_fmt: str,
         x_codes.data_ptr(), w_codes.data_ptr(), out.data_ptr(), M, N, K,
         fx.man_bits, fx.bias, fx.min_normal_code, fx.max_normal_code,
         fw.man_bits, fw.bias, fw.min_normal_code, fw.max_normal_code,
+        dequant_tile(M, N, torch.cuda.get_device_properties(
+            dev).multi_processor_count),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(err, "K2")
     dequant_matmul.launches += 1

@@ -214,3 +214,110 @@ def test_unsupported_inputs_raise_before_any_work(monkeypatch):
     for args, kw, match in cases:
         with pytest.raises(ValueError, match=match):
             fa.flash_attention(*args, **kw)
+
+
+# --------------------------------------------------------------------------- #
+# The tile skip
+# --------------------------------------------------------------------------- #
+def _admissible(Sq0, Sk0, nk, bk, causal, window):
+    """[Sq0, nk * bk] mask of admissible (query, key) pairs, brute force."""
+    qp = np.arange(Sq0)[:, None]
+    kp = np.arange(nk * bk)[None, :]
+    ok = kp < Sk0
+    if causal:
+        ok = ok & (qp >= kp)
+    if window:
+        ok = ok & (qp - kp < window)
+    return np.broadcast_to(ok, (Sq0, nk * bk))
+
+
+SKIP_LENGTHS = [(1, 1), (37, 45), (96, 30), (64, 128), (200, 64), (300, 300),
+                (129, 257)]
+SKIP_MASKS = [(True, 0), (True, 5), (True, 64), (False, 0), (False, 16),
+              (False, 100)]
+
+
+@pytest.mark.parametrize("bq", [8, 24, 32, 64, 128, 256])
+@pytest.mark.parametrize("bk", [8, 24, 32, 64, 128, 256])
+def test_key_tile_range_against_brute_force(bq, bk):
+    """For every block of real query rows (the wrapper's bq blocks and the
+    kernel's 64-row groups): the range is exactly the tiles holding an
+    admissible pair, or every tile where a real row has none."""
+    for Sq0, Sk0 in SKIP_LENGTHS:
+        nk = -(-Sk0 // bk)
+        for causal, window in SKIP_MASKS:
+            ok = _admissible(Sq0, Sk0, nk, bk, causal, window)
+            for rows in {bq, min(bq, 64)}:
+                for q0 in range(0, -(-Sq0 // bq) * bq, rows):
+                    got = fa.key_tile_range(q0, rows, Sq0, Sk0, bk, nk,
+                                            causal, window)
+                    block = ok[q0:q0 + rows]
+                    if not len(block):
+                        assert got == (0, 0)
+                        continue
+                    if not block.any(axis=1).all():
+                        assert got == (0, nk), (Sq0, Sk0, causal, window, q0)
+                        continue
+                    tiles = np.flatnonzero(
+                        block.reshape(len(block), nk, bk).any(axis=(0, 2)))
+                    assert got == (tiles[0], tiles[-1] + 1), \
+                        (Sq0, Sk0, causal, window, q0)
+
+
+# (B, Sq, Sk, H, KV, hd, dv, causal, window, cap): the chip smoke's cases,
+# then small-width copies of gemma2-27b's (window 4096 in 8192, cap 50)
+# and gemma3-12b's (window 1024 in 4096) masks
+K6_SMALL = [
+    (1, 128, 128, 4, 4, 32, 32, True, 0, 0.0),
+    (2, 64, 64, 4, 2, 16, 16, True, 0, 0.0),
+    (1, 128, 128, 2, 1, 64, 64, True, 32, 0.0),
+    (1, 64, 64, 2, 2, 32, 32, True, 0, 30.0),
+    (2, 96, 96, 4, 2, 32, 32, True, 0, 0.0),
+    (1, 64, 128, 2, 2, 32, 32, False, 0, 0.0),
+    (2, 64, 64, 4, 2, 48, 32, True, 0, 0.0),
+    (2, 37, 37, 4, 2, 32, 32, True, 0, 0.0),
+    (1, 96, 30, 2, 1, 16, 16, False, 16, 0.0),
+    (1, 256, 256, 4, 2, 16, 16, True, 128, 50.0),
+    (1, 256, 256, 4, 2, 32, 32, True, 64, 0.0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", K6_SMALL,
+                         ids=[str(i) for i in range(len(K6_SMALL))])
+@pytest.mark.parametrize("blocks", [(32, 32), (64, 16)])
+def test_plain_skip_is_bitwise_the_full_walk(case, dtype, blocks,
+                                             monkeypatch):
+    """The plain version with its skip equals, bit for bit, the same
+    version with every key tile visited."""
+    B, Sq, Sk, H, KV, hd, dv, causal, window, cap = case
+    q, k, v = (torch.from_numpy(t).to(dtype) for t in
+               _inputs(B, Sq, Sk, H, KV, hd, dv, seed=Sq + Sk + hd))
+    bq, bk = fa.clamp_blocks(Sq, Sk, *blocks)
+    kw = dict(causal=causal, window=window, cap=cap, bq=bq, bk=bk)
+    got = fa.flash_attention_plain(q, k, v, **kw)
+    nk = -(-Sk // bk)
+    skipped = sum(nk - (last - first) for first, last in (
+        fa.key_tile_range(i, bq, Sq, Sk, bk, nk, causal, window)
+        for i in range(0, Sq, bq)))
+    monkeypatch.setattr(fa, "key_tile_range", lambda *a: (0, a[5]))
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got.view(bits), want.view(bits))
+    if causal and Sq == Sk and Sq > bq:
+        assert skipped > 0    # the case really skips
+
+
+def test_views_read_through_their_strides():
+    """A view whose last dimension is contiguous is taken as it is (equal
+    to the contiguous call); one whose last dimension is strided raises."""
+    q, k, v = map(torch.from_numpy, _inputs(1, 64, 64, 4, 2, 32, seed=5))
+    want = fa.flash_attention(q, k, v, bq=32, bk=32)
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)   # [B, H, S, hd]
+    kw = torch.zeros(1, 64, 2, 48)
+    kw[..., :32] = k
+    got = fa.flash_attention(qt, kw[..., :32], v, bq=32, bk=32)
+    assert not qt.is_contiguous() and torch.equal(got, want)
+    vt = v.transpose(-1, -2).contiguous().transpose(-1, -2)
+    with pytest.raises(ValueError, match="last dimension contiguous"):
+        fa.flash_attention(q, k, vt, bq=32, bk=32)

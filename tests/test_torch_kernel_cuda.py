@@ -197,6 +197,28 @@ def test_k2_matches_plain(dev, M, K, N, cd):
     assert bool(((got - want).abs() <= 2 * K * 2.0**-24 * absum).all())
 
 
+# ragged M, N and K in every combination the tiles meet (a partial tile,
+# a partial 16-code chunk, K or N not a multiple of 16: element loads) and
+# N = 128, the narrow outputs of the training path, at both block tiles
+K2_RAGGED = [(1, 1000, 17), (17, 130, 1), (130, 17, 1000), (1000, 1000, 130),
+             (17, 1, 128), (1, 17, 128), (1024, 896, 128), (1024, 4864, 128),
+             (1000, 130, 4864), (1024, 896, 4864)]
+
+
+@pytest.mark.parametrize("M,K,N", K2_RAGGED)
+@pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32])
+def test_k2_ragged_and_narrow_match_plain(dev, M, K, N, cd):
+    g = torch.Generator().manual_seed(M + 3 * K + 7 * N)
+    x, w = _codes(g, (M, K), "e5m2", dev), _codes(g, (K, N), "e4m3", dev)
+    kw = dict(fmt="e5m2", w_fmt="e4m3", compute_dtype=cd)
+    got = lm.dequant_matmul(x, w, **kw)
+    want = lm.dequant_matmul_plain(x, w, **kw)
+    absum = lm.dequant_matmul_plain(x & 0x7F, w & 0x7F, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N) and torch.isfinite(got).all()
+    assert bool(((got - want).abs() <= 2 * K * 2.0**-24 * absum).all())
+
+
 def test_k2_decodes_special_codes_to_zero(dev):
     x = torch.tensor([[0x01, 0x7F, 0x7C, 0xFD, 0x3C]], dtype=torch.uint8,
                      device=dev)
@@ -412,6 +434,54 @@ def test_k6_every_autotuner_candidate(dev, tmp_path, monkeypatch):
         assert torch.equal(first, second) and torch.equal(second, pinned)
     finally:
         autotune.clear_memory_cache()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [K6_CASES[i] for i in (0, 2, 7, 8, 10)],
+                         ids=["0", "2", "7", "8", "10"])
+@pytest.mark.parametrize("blocks", [(32, 8), (24, 24), (64, 24)])
+def test_k6_small_key_tiles_match_plain(dev, case, dtype, blocks):
+    """bk = 8 and 24: tiles narrower than a 16-key fragment, or ending
+    inside one."""
+    causal, window, cap = case[7:]
+    q, k, v = _k6_inputs(case, dtype, dev, seed=3)
+    bq, bk = fa.clamp_blocks(q.shape[1], k.shape[1], *blocks)
+    kw = dict(causal=causal, window=window, cap=cap)
+    got = fa.flash_attention(q, k, v, bq=blocks[0], bk=blocks[1], **kw)
+    want = fa.flash_attention_plain(q, k, v, bq=bq, bk=bk, **kw)
+    torch.cuda.synchronize()
+    _k6_check(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_views_equal_the_contiguous_call(dev, dtype):
+    """K6 reads q, k and v through their strides: views whose last
+    dimension is contiguous (head-major, a slice of wider rows, a row
+    stride that is no multiple of 8, a base off 16 bytes) give the
+    contiguous call's output bit for bit; a strided last dimension raises
+    before any launch."""
+    case = (2, 100, 100, 4, 2, 64, 64)
+    q, k, v = _k6_inputs(case, dtype, dev, seed=4)
+    kw = dict(causal=True, window=0, cap=0.0, bq=64, bk=32)
+    want = fa.flash_attention(q, k, v, **kw)
+    q_heads = q.transpose(1, 2).contiguous().transpose(1, 2)
+    k_wide = torch.zeros((2, 100, 2, 72), dtype=dtype, device=dev)
+    k_wide[..., :64] = k
+    v_odd = torch.zeros((2, 100, 2, 67), dtype=dtype, device=dev)
+    v_odd[..., :64] = v
+    q_off = torch.zeros(q.numel() + 1, dtype=dtype, device=dev)[1:]
+    q_off = q_off.view(q.shape)
+    q_off.copy_(q)
+    for qq, kk, vv in ((q_heads, k, v), (q, k_wide[..., :64], v),
+                       (q, k, v_odd[..., :64]), (q_off, k, v)):
+        got = fa.flash_attention(qq, kk, vv, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    before = fa.flash_attention.launches
+    v_t = v.transpose(-1, -2).contiguous().transpose(-1, -2)
+    with pytest.raises(ValueError, match="last dimension contiguous"):
+        fa.flash_attention(q, k, v_t, **kw)
+    assert fa.flash_attention.launches == before
 
 
 def test_k6_refusals_launch_nothing(dev):

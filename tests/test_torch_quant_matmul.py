@@ -283,3 +283,25 @@ def test_kernel_sources_share_the_lns_header():
     with pytest.raises(cuda_build.KernelLaunchError, match="error 9"):
         cuda_build.check_launch(9, "K3")
     cuda_build.check_launch(0, "K3")
+
+
+def test_tensor_core_kernels_share_the_mma_header():
+    """K2 and K6 both build from mma_bf16.cuh, so an edit of it rebuilds
+    both libraries; the other sources do not include it."""
+    for name in ("flash_attention", "lns_matmul"):
+        assert "mma_bf16.cuh" in {p.name for p in cuda_build._sources(name)}
+    for name in ("paged_attention", "fp8_elementwise"):
+        assert "mma_bf16.cuh" not in {p.name for p in
+                                      cuda_build._sources(name)}
+
+
+@pytest.mark.parametrize("M,N,n_sm,tile", [
+    (1024, 4864, 132, 128),   # 8 x 38 = 304 tiles of 128: fills the card
+    (1024, 896, 132, 64),     # 56 tiles of 128 would leave SMs idle
+    (1024, 128, 132, 64),
+    (4096, 4096, 132, 128),
+    (1, 1, 132, 64),
+    (1024, 896, 56, 128),     # a card of 56 SMs is filled at 128
+])
+def test_dequant_tile_rule(M, N, n_sm, tile):
+    assert lm.dequant_tile(M, N, n_sm) == tile

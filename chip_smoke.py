@@ -23,7 +23,13 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
    within rtol = atol = 1e-4 (float32 sums over hd, page rows and pages in
    another order, and the card's ``expf``), fused == unfused bitwise; then
    times the kernel and the plain version;
-4. serves requests of mixed prompt lengths through the full-width
+4. holds K1's float instance against its plain version on the same
+   geometry with float pages (bf16, float32, and bf16 with window 32 and
+   softcap 50; a float32 query; the new rows in the pages' dtype): new
+   pages bitwise, scales unchanged, output within rtol = atol = 1e-4,
+   fused == unfused bitwise; then times it on bf16 pages beside its byte
+   bound (2-byte page elements) and the plain version;
+5. serves requests of mixed prompt lengths through the full-width
    qwen2-0.5b Engine (policy serve_fp8_paged, continuous scheduler, random
    weights from a seed, a pool that never preempts) with fused decode on
    and off: every request must finish with finite logits, the K1 launch
@@ -31,49 +37,61 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
    runs must be bitwise equal; a float32 copy of the model must give the
    same first-step logits (rtol = atol = 1e-3) through K1 and through the
    plain attention;
-5. traces a short window of the main path with ``torch.profiler`` (card
+6. traces a short window of that path with ``torch.profiler`` (card
    busy share, launches per sub-step, the kernels that take the time);
-6. K5 (the paper's six FP8 operations): every one of the 69 supported
-   (format, op, mode) cells over all 256 codes or 65,536 code pairs
-   bitwise against the plain version, and the paper's claim on the card:
-   on the exact rounding oracle's valid domain K5's codes are correctly
-   rounded (faithful for ``faithful``) in 69/69 cells; random codes at
-   the serving (8 x 4864) and training (8 x 128 x 4864) gate shapes and
-   a misaligned ragged view, bitwise; card time of e5m2 mul at both
-   shapes beside the bytes bound, the plain version and the compiled
-   instruction count (SASS);
-7. serves full-width qwen2-0.5b again with the SwiGLU gate product
-   through K5 (serve_fp8_paged with elementwise e5m2; 4 requests, fused
-   on and off): K5 launches = K1 launches = n_layers x sub-steps, fused
-   == unfused token streams; a float32 copy's first-step logits through
-   K5 and through the plain version bitwise equal; a profile of that
-   path (launches per sub-step);
-8. K3 (the paper's LNS matmul): all 65,536 products of every (format,
-   mode) pair bitwise equal to the plain version (NaN as NaN); then K3
-   (e4m3 RNE) and K2 (e5m2 x e4m3, bf16 and float32 compute) against
-   their plain versions at the training path's shapes (M = 1024 tokens,
-   every (K, N) of a qwen2-0.5b layer), each element within the float32
-   summation bound 2 K 2^-24 sum|products|; then their card times per
-   layer (the seven quantized matmuls of one layer's forward) beside the
-   bound, the plain version and, for K2, ``torch.matmul`` on pre-decoded
-   bf16 operands, and K2's time and TFLOP/s at each shape;
-9. trains full-width qwen2-0.5b through the port's CLI
-   (``launch.train.main``, ``--quant fp8_lns_pallas``, batch 8 x seq 128,
-   6 steps, checkpoints every 3): finite losses, 0 restarts, and K3
-   launches = 2 (forward and checkpointed recompute) x 7 matmuls x 24
-   layers x 6 steps; then 3 steps under policy ``train_fp8`` with the K2
-   count derived the same way; then the first step's loss and gradient
-   norm of a float32 2-layer model through the kernels and through their
-   plain versions (loss rtol 1e-4, gradient norm rtol 1e-3), for K3 and
-   K2; then one profiled train step under each of the two policies
-   (wall, card-busy share, K3's and K2's card time);
-10. trains 2 full-width steps under train_fp8_lns with the gate through
+7. the same under the default policy (the serve CLI's default: float KV
+   pages of the model's dtype, bf16): the same 8 requests fused on and
+   off, bitwise equal streams, K1's float instance launched n_layers x
+   sub-steps times and its LNS instance never, the float32 copy's
+   logits through K1 and through the plain attention;
+8. traces that path as in 6;
+9. preemption at full width, under serve_fp8_paged and under the default
+   policy: the same 8 requests on weights redrawn at std 0.5 from a seed
+   (so that greedy streams follow the context), once with a worst-case
+   pool and once with 15 pages, where the scheduler spills slots to the
+   host and restores them into fresh pages (at least one preemption and
+   one restore): the token streams must be bitwise equal;
+10. K5 (the paper's six FP8 operations): every one of the 69 supported
+    (format, op, mode) cells over all 256 codes or 65,536 code pairs
+    bitwise against the plain version, and the paper's claim on the card:
+    on the exact rounding oracle's valid domain K5's codes are correctly
+    rounded (faithful for ``faithful``) in 69/69 cells; random codes at
+    the serving (8 x 4864) and training (8 x 128 x 4864) gate shapes and
+    a misaligned ragged view, bitwise; card time of e5m2 mul at both
+    shapes beside the bytes bound, the plain version and the compiled
+    instruction count (SASS);
+11. serves full-width qwen2-0.5b again with the SwiGLU gate product
+    through K5 (serve_fp8_paged with elementwise e5m2; 4 requests, fused
+    on and off): K5 launches = K1 launches = n_layers x sub-steps, fused
+    == unfused token streams; a float32 copy's first-step logits through
+    K5 and through the plain version bitwise equal; a profile of that
+    path (launches per sub-step);
+12. K3 (the paper's LNS matmul): all 65,536 products of every (format,
+    mode) pair bitwise equal to the plain version (NaN as NaN); then K3
+    (e4m3 RNE) and K2 (e5m2 x e4m3, bf16 and float32 compute) against
+    their plain versions at the training path's shapes (M = 1024 tokens,
+    every (K, N) of a qwen2-0.5b layer), each element within the float32
+    summation bound 2 K 2^-24 sum|products|; then their card times per
+    layer (the seven quantized matmuls of one layer's forward) beside the
+    bound, the plain version and, for K2, ``torch.matmul`` on pre-decoded
+    bf16 operands, and K2's time and TFLOP/s at each shape;
+13. trains full-width qwen2-0.5b through the port's CLI
+    (``launch.train.main``, ``--quant fp8_lns_pallas``, batch 8 x seq 128,
+    6 steps, checkpoints every 3): finite losses, 0 restarts, and K3
+    launches = 2 (forward and checkpointed recompute) x 7 matmuls x 24
+    layers x 6 steps; then 3 steps under policy ``train_fp8`` with the K2
+    count derived the same way; then the first step's loss and gradient
+    norm of a float32 2-layer model through the kernels and through their
+    plain versions (loss rtol 1e-4, gradient norm rtol 1e-3), for K3 and
+    K2; then one profiled train step under each of the two policies
+    (wall, card-busy share, K3's and K2's card time);
+14. trains 2 full-width steps under train_fp8_lns with the gate through
     K5 in e4m3 (``run_training``): finite losses, 0 restarts, 672 K3 and
     96 K5 launches (forward and recompute); then the first step of a
     float32 2-layer model through K5 and through the plain version (loss
     rtol 1e-4, gradient norm rtol 1e-3); then one profiled train step
     under that policy;
-11. K6 (flash attention) against its plain version: the CPU tests' cases
+15. K6 (flash attention) against its plain version: the CPU tests' cases
     (float32 at rtol = atol = 1e-4, bfloat16 within one bf16 ulp), the
     rows without an admissible key (sum(v) / padded key length), every
     candidate tiling of ``flash_blocks``, and the attention geometries of
@@ -86,39 +104,42 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     ``scaled_dot_product_attention`` (a yardstick the port never calls),
     the same geometry in float32 and gemma2-27b's windowed geometry in
     bf16, each with its TFLOP/s and the FLOP of the tiles it visits;
-12. K6's path: ``flash_attention`` with no tiling through the autotuner
-    on a fresh cache file (qwen2-0.5b geometry, S 2048): measured, cached
-    under the card's name, a ``measured`` gauge; a second call answers
+16. K6's path: ``flash_attention`` with no tiling through the autotuner
+    on a fresh cache file (qwen2-0.5b geometry, S 2048, bf16): measured
+    in bf16, cached under the card's name and ``bf16``, a ``measured``
+    gauge; a second call answers
     ``cached``, launches once and is bitwise equal to the pinned tiling
     and within tolerance of the plain version;
-13. K4 (the seed LNS matmul) bitwise against its plain version at 512^3
+17. K4 (the seed LNS matmul) bitwise against its plain version at 512^3
     and at the seven matmul shapes of one qwen2-0.5b layer at M = 1024;
     its time per layer beside K3's, the plain version and the bound (the
     fewer SASS instructions per product of K4's and K3's loops, as both
     compute one function), and K4 / K3 at 512^3;
-14. K4's path: 2 full-width train steps under train_fp8_lns with every
+18. K4's path: 2 full-width train steps under train_fp8_lns with every
     matmul through K4 (``run_training``): finite losses, 0 restarts, 672
     K4 launches and no K3 or K2; then the first step of a float32 2-layer
     model through K4 and through its plain version (loss rtol 1e-4,
     gradient norm rtol 1e-3);
-15. prints one JSON line of per-kernel numbers, then the card line again,
+19. prints one JSON line of per-kernel numbers, then the card line again,
     and last ``{"ok": true, "device": {...}}``.
 
 K1's ``ms`` and ``plain_ms`` are card time per call from the profiler
 (the kernel alone; all kernels of the plain version), or from CUDA-graph
 replays timed with events where the profiler records no device time; the
 comment lines also give the per-call time between CUDA events with the
-host's launch overhead included.  K2's and K3's numbers are card time per
+host's launch overhead included.  The same holds for K1's float instance
+(``float_paged_partials``, on bf16 pages), whose launches are those of
+the default-policy serving run with fused decode.  K2's and K3's numbers are card time per
 layer: the sum over one layer's seven matmul shapes at M = 1024.  K5's
 are those of e5m2 mul at the training gate shape (4,980,736 codes), its
 launches those of the K5 serving run; its ``max_abs_err`` is in code
 units (0: bitwise).  K4's numbers are per layer like K3's, its launches
 those of its training run, its ``max_abs_err`` 0 (bitwise, checked).
 K6 has no model path (no model calls it, as in the reference): its
-launches are those of its path through the autotuner (phase 12,
+launches are those of its path through the autotuner (phase 16,
 measurement included), its times those of qwen2-0.5b B 1 x S 8192 bf16,
 and its ``max_abs_err`` the largest float32 difference from the plain
-version in phase 11.
+version in phase 15.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line; it also exits non-zero without a GPU, or when run outside the repo.
@@ -250,21 +271,37 @@ def k1_inputs(dev, seed: int = 0):
         vs=(2.0 ** torch.randint(-2, 3, (P,), generator=g)).float().to(dev),
         bt=bt.to(torch.int32).to(dev), lengths=lengths.to(torch.int32).to(dev),
         mask=mask.to(dev), k_noise=noise[0].to(dev), v_noise=noise[1].to(dev),
-        KV=KV, G=G, hd=hd, page=page, maxp=maxp, B=B)
+        KV=KV, G=G, hd=hd, page=page, maxp=maxp, B=B, fmt="e5m2")
 
 
-def fused(c, impl):
+def k1_float_inputs(dev, pdt, seed: int = 0):
+    """``k1_inputs``' geometry, lengths and mask with float pages of
+    ``pdt`` and the new K/V rows in that dtype (as the model writes them);
+    the query stays float32, and float pages draw no noise."""
+    import torch
+
+    c = k1_inputs(dev, seed)
+    g = torch.Generator(device="cpu").manual_seed(seed + 7)
+    for name in ("kp", "vp"):
+        c[name] = torch.randn(c[name].shape, generator=g).to(dev, pdt)
+    for name in ("k_new", "v_new"):
+        c[name] = c[name].to(pdt)
+    c.update(fmt=None, k_noise=None, v_noise=None)
+    return c
+
+
+def fused(c, impl, window=0, cap=0.0):
     from repro_torch.kernels.paged_attention import fused_decode_write_attend
 
     kp, vp, ks, vs = (c[n].clone() for n in ("kp", "vp", "ks", "vs"))
     return fused_decode_write_attend(
         c["q"], c["k_new"], c["v_new"], kp, vp, ks, vs, c["bt"],
-        c["lengths"], fmt="e5m2", n_kv_heads=c["KV"], kv_mode="stochastic",
+        c["lengths"], fmt=c["fmt"], n_kv_heads=c["KV"], kv_mode="stochastic",
         k_noise=c["k_noise"], v_noise=c["v_noise"], write_mask=c["mask"],
-        impl=impl)
+        window=window, cap=cap, impl=impl)
 
 
-def unfused(c):
+def unfused(c, window=0, cap=0.0):
     import torch
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.serving.page_pool import write_token_page
@@ -273,13 +310,13 @@ def unfused(c):
     logical = torch.div(c["lengths"], c["page"], rounding_mode="floor")
     rows = c["lengths"] - logical * c["page"]
     pids = c["bt"].gather(1, logical[:, None].long())[:, 0]
-    write_token_page(kp, ks, c["k_new"], pids, rows, fmt="e5m2",
+    write_token_page(kp, ks, c["k_new"], pids, rows, fmt=c["fmt"],
                      noise=c["k_noise"], write_mask=c["mask"])
-    write_token_page(vp, vs, c["v_new"], pids, rows, fmt="e5m2",
+    write_token_page(vp, vs, c["v_new"], pids, rows, fmt=c["fmt"],
                      noise=c["v_noise"], write_mask=c["mask"])
     out = paged_decode_attention(c["q"], kp, vp, ks, vs, c["bt"],
-                                 c["lengths"] + 1, fmt="e5m2",
-                                 n_kv_heads=c["KV"])
+                                 c["lengths"] + 1, fmt=c["fmt"],
+                                 n_kv_heads=c["KV"], window=window, cap=cap)
     return out, kp, ks, vp, vs
 
 
@@ -373,12 +410,118 @@ def check_k1(dev) -> dict:
                 bound_by="bytes" if bound_bytes >= bound_ops else "operations")
 
 
-def serve_main_path(dev, policy="serve_fp8_paged",
-                    plens=(5, 17, 33, 64, 9, 48, 2, 26), gen=24) -> dict:
-    """Phase 4 (and, under the K5 serving policy, phase 10): the
-    full-width Engine under the continuous scheduler, fused decode on and
-    off.  K1 runs once per layer and sub-step, and so does K5 when the
-    policy quantizes the SwiGLU gate product (else never)."""
+FLOAT_K1_CASES = (("bfloat16", 0, 0.0), ("float32", 0, 0.0),
+                  ("bfloat16", 32, 50.0))     # page dtype, window, softcap
+
+
+def check_k1_float(dev) -> dict:
+    """Phase: K1's float instance against its plain version on
+    ``k1_inputs``' geometry with float pages (bf16 and float32, and bf16
+    with window 32 and softcap 50): new pages bitwise, scales unchanged,
+    output within rtol = atol = 1e-4, fused == unfused bitwise; then its
+    times on bf16 pages (the serving path's) beside the byte bound."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+
+    err = 0.0
+    for pdt, window, cap in FLOAT_K1_CASES:
+        c = k1_float_inputs(dev, getattr(torch, pdt))
+        act = c["mask"]
+        before = pa.paged_partials.float_launches
+        kern, plain = fused(c, "auto", window, cap), fused(c, "ref",
+                                                            window, cap)
+        torch.cuda.synchronize()
+        if pa.paged_partials.float_launches != before + 1:
+            raise AssertionError("K1 float: the fused call did not launch "
+                                 "the float instance once")
+        for i, name in ((1, "k_pages"), (3, "v_pages")):
+            if not torch.equal(kern[i][1:], plain[i][1:]):
+                raise AssertionError(f"K1 float {pdt}: new {name} differ "
+                                     "from the plain version")
+        for i, name in ((2, "ks"), (4, "vs")):
+            if not torch.equal(kern[i], c[name]):
+                raise AssertionError(f"K1 float {pdt}: {name} changed")
+        out_k, out_p = kern[0][act], plain[0][act]
+        if not torch.isfinite(out_k).all():
+            raise AssertionError("K1 float: non-finite attention output")
+        case_err = float((out_k - out_p).abs().max())
+        err = max(err, case_err)
+        torch.testing.assert_close(out_k, out_p, rtol=1e-4, atol=1e-4)
+        unf = unfused(c, window, cap)
+        if not torch.equal(kern[0][act], unf[0][act]):
+            raise AssertionError(f"K1 float {pdt}: fused != unfused output")
+        for i in (1, 2, 3, 4):
+            if not torch.equal(kern[i][1:], unf[i][1:]):
+                raise AssertionError(f"K1 float {pdt}: fused != unfused "
+                                     "cache update")
+        print(f"# K1 float vs plain ({pdt} pages, window {window}, cap "
+              f"{cap}): pages bitwise, scales unchanged, max |out err| "
+              f"{case_err:.3e}, fused == unfused bitwise", flush=True)
+
+    # timings on the fused form's inputs as the serving path builds them:
+    # bf16 pages, the new rows in bf16, a float32 query
+    c = k1_float_inputs(dev, torch.bfloat16)
+    q, _ = pa.query_operand(c["q"][:, 0], None)
+    ln = c["lengths"] + 1
+    logical = torch.div(c["lengths"], c["page"], rounding_mode="floor")
+    rows = c["lengths"] - logical * c["page"]
+    ins = (c["k_new"], c["v_new"], logical, rows, c["mask"].to(torch.int32))
+    args = (q, None, c["kp"], c["vp"], c["ks"], c["vs"], c["bt"], ln)
+    kw = dict(fmt=None, mode="rne", KV=c["KV"], G=c["G"], inserts=ins)
+    torch.testing.assert_close(
+        pa._combine_partials(*pa.paged_partials(*args, **kw)),
+        pa._combine_partials(*pa.page_partials_plain(*args, **kw)),
+        rtol=1e-4, atol=1e-4)
+    k1 = lambda: pa.paged_partials(*args, **kw)  # noqa: E731
+    plain = lambda: pa.page_partials_plain(*args, **kw)  # noqa: E731
+    ms, how = device_ms(k1, iters=200, only="float_paged_partials")
+    plain_ms, plain_how = device_ms(plain, iters=10)
+    call_ms, plain_call_ms = cuda_ms(k1, iters=200), cuda_ms(plain, iters=10)
+
+    # bytes it must move: the float32 query, the bf16 pages the lengths
+    # reach (no scales), block tables, lengths, the inserted rows and their
+    # indices; the partials written once
+    B, KV, G, hd, page, maxp = (c[n] for n in
+                                ("B", "KV", "G", "hd", "page", "maxp"))
+    pages_needed = int(((ln + page - 1) // page).sum())
+    tokens = int(ln.sum())
+    dv = c["vp"].shape[-1]
+    el = c["kp"].element_size()
+    bytes_in = (4 * B * KV * G * hd                    # float32 q
+                + pages_needed * page * KV * (hd + dv) * el  # K, V pages
+                + 4 * B * maxp + 4 * B                 # block tables, lengths
+                + B * KV * (hd + dv) * el + 3 * 4 * B)  # inserted rows
+    bytes_out = 4 * B * maxp * KV * G * (2 + dv)       # m, l, o
+    ops = 2 * KV * G * tokens * (hd + dv)              # q.k and p.v FMAs
+    bound_bytes = (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3
+    bound_ops = ops / F32_FLOP_PER_S * 1e3
+    print(f"# K1 float card time ({how}, bf16 pages): kernel {ms:.5f} ms; "
+          f"plain {plain_ms:.4f} ms ({plain_how}, all its kernels); bound "
+          f"{max(bound_bytes, bound_ops):.5f} ms = max({bytes_in + bytes_out}"
+          f" B / 3.35 TB/s, {ops} ops / 67 TFLOP/s); per call incl. host: "
+          f"kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms",
+          flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(bound_bytes, bound_ops),
+                bound_by="bytes" if bound_bytes >= bound_ops else "operations")
+
+
+SERVE_PLENS = (5, 17, 33, 64, 9, 48, 2, 26)   # the serving phases' prompts
+
+
+def _policy_label(cfg, policy) -> str:
+    return cfg.policy.name if policy is not None else "default policy " \
+        f"({str(cfg.pdtype).split('.')[-1]} KV pages)"
+
+
+def serve_main_path(dev, policy="serve_fp8_paged", plens=SERVE_PLENS,
+                    gen=24) -> dict:
+    """Phases 5, 7 and 11: the full-width Engine under the continuous
+    scheduler, fused decode on and off.  K1 runs once per layer and
+    sub-step, its LNS instance on FP8 pages, its float instance on float
+    pages (``policy=None``, the CLI's default), the other instance never;
+    K5 runs as often as K1 when the policy quantizes the SwiGLU gate
+    product (else never)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -388,6 +531,8 @@ def serve_main_path(dev, policy="serve_fp8_paged",
 
     cfg = get_config("qwen2-0.5b", policy=policy)
     k5_on = cfg.policy.elementwise.quantized
+    fp8 = cfg.policy.kv_quantized
+    label = _policy_label(cfg, policy)
     rng = np.random.default_rng(0)
     queue = [rng.integers(0, cfg.vocab, size=n) for n in plens]
     runs = {}
@@ -405,13 +550,16 @@ def serve_main_path(dev, policy="serve_fp8_paged",
         eng.sync_logits = checked
         torch.cuda.synchronize()
         pa.paged_partials.launches = 0
+        pa.paged_partials.float_launches = 0
         fe.fp8_elementwise.launches = 0
         t0 = time.perf_counter()
         outputs, stats = run_continuous(eng, queue, gen=gen, chunk=4,
                                         quiet=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = pa.paged_partials.launches
+        lns, flt = (pa.paged_partials.launches,
+                    pa.paged_partials.float_launches)
+        launches, other = (lns, flt) if fp8 else (flt, lns)
         k5 = fe.fp8_elementwise.launches
         substeps = int(eng.tel.counter_value("serve_substeps_total"))
         if stats["terminal"] != {"finished": len(queue)}:
@@ -420,18 +568,21 @@ def serve_main_path(dev, policy="serve_fp8_paged",
         if sorted(outputs) != list(range(len(queue))) or any(
                 len(o) != gen for o in outputs.values()):
             raise AssertionError("missing or short token streams")
-        if launches != cfg.n_layers * substeps:
-            raise AssertionError(f"K1 launches {launches} != n_layers "
-                                 f"{cfg.n_layers} x sub-steps {substeps}")
+        if launches != cfg.n_layers * substeps or other:
+            raise AssertionError(
+                f"K1 {'LNS' if fp8 else 'float'} launches {launches} != "
+                f"n_layers {cfg.n_layers} x sub-steps {substeps}, or "
+                f"{other} launches of the other instance")
         if k5 != (launches if k5_on else 0):
             raise AssertionError(f"K5 launches {k5}, want "
                                  f"{launches if k5_on else 0}")
-        print(f"# serve {cfg.policy.name}"
+        print(f"# serve {label}"
               f"{' + K5 gate' if k5_on else ''} fused={fused_on}: "
               f"{len(queue)} requests finished, {stats['steps']} steps, "
-              f"{substeps} sub-steps, {launches} K1 and {k5} K5 launches, "
-              f"{wall:.3f} s wall, {stats['decode_tok_s']:.2f} decode tok/s",
-              flush=True)
+              f"{substeps} sub-steps, {lns} K1 LNS, {flt} K1 float and {k5} "
+              f"K5 launches, {wall:.3f} s wall, "
+              f"{stats['decode_tok_s']:.2f} decode tok/s, cache "
+              f"{stats['cache_bytes_per_token']:.0f} B/token", flush=True)
         runs[fused_on] = (outputs, launches, k5)
         del eng
     if runs[True][0] != runs[False][0]:
@@ -439,6 +590,86 @@ def serve_main_path(dev, policy="serve_fp8_paged",
     print("# token streams bitwise equal with fused decode on and off",
           flush=True)
     return dict(launches=runs[True][1], k5_launches=runs[True][2])
+
+
+PREEMPT_PAGES = 16   # 15 usable pages against a worst case of 48
+
+
+def _lively(eng, seed: int = 0):
+    """Redraw every parameter at std 0.5 from a seed, on the card, so that
+    greedy tokens follow the context (the seed init's zero gains and 0.02
+    weights repeat each prompt's last token), which makes equal token
+    streams a sharp test."""
+    import torch
+
+    g = torch.Generator(device=eng.device).manual_seed(seed)
+
+    def redraw(t):
+        if isinstance(t, dict):
+            return {k: redraw(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [redraw(v) for v in t]
+        return (torch.randn(t.shape, generator=g, device=t.device)
+                * 0.5).to(t.dtype)
+
+    eng.params = redraw(eng.params)
+    return eng
+
+
+def preemption_path(dev, policy) -> dict:
+    """Phase: preemption at full width.  The serving phases' 8 requests on
+    lively weights, fused decode, once with a worst-case pool and once
+    with ``PREEMPT_PAGES`` pages: the small pool makes the scheduler spill
+    slots to the host and restore them into fresh pages; every request
+    finishes and the token streams equal the worst-case run's bit for
+    bit."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Engine, run_continuous
+
+    cfg = get_config("qwen2-0.5b", policy=policy)
+    label = _policy_label(cfg, policy)
+    gen = 24
+    rng = np.random.default_rng(0)
+    queue = [rng.integers(0, cfg.vocab, size=n) for n in SERVE_PLENS]
+    runs = []
+    for pages in (None, PREEMPT_PAGES):
+        eng = _lively(Engine(cfg, slots=8, max_seq=max(SERVE_PLENS) + gen,
+                             page_size=16, num_pages=pages, rng_seed=0,
+                             device=dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outputs, stats = run_continuous(eng, queue, gen=gen, chunk=4,
+                                        quiet=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if stats["terminal"] != {"finished": len(queue)}:
+            raise AssertionError(f"preemption run ({label}, {pages} pages): "
+                                 f"{stats['statuses']}")
+        eng.pool.assert_invariants()
+        print(f"# preemption run {label}, pool "
+              f"{eng.pool.num_pages - 1} pages: {stats['steps']} steps, "
+              f"{stats['preemptions']} preemptions, {stats['restores']} "
+              f"restores, {wall:.3f} s wall", flush=True)
+        runs.append((outputs, stats))
+        del eng
+    (full, s_full), (small, s_small) = runs
+    if s_full["preemptions"] or s_small["preemptions"] < 1 \
+            or s_small["restores"] < 1:
+        raise AssertionError(f"preemptions {s_full['preemptions']} / "
+                             f"{s_small['preemptions']}, restores "
+                             f"{s_small['restores']}: want 0, then >= 1")
+    if not any(len(set(o)) > 1 for o in full.values()):
+        raise AssertionError("degenerate token streams: the check would "
+                             "be weak")
+    if small != full:
+        raise AssertionError(f"{label}: token streams differ with "
+                             "preemption")
+    print(f"# preempt/restore == uninterrupted ({label}): token streams "
+          "bitwise equal", flush=True)
+    return dict(preemptions=s_small["preemptions"],
+                restores=s_small["restores"])
 
 
 def _first_step_logits(dev, cfg):
@@ -458,20 +689,22 @@ def _first_step_logits(dev, cfg):
     return np.stack([first, second])
 
 
-def check_against_plain_engine(dev) -> None:
+def check_against_plain_engine(dev, policy="serve_fp8_paged") -> None:
     """Float32 copy of the model: first-step logits through K1 and through
-    the plain attention (policy attention_qk impl="ref") agree."""
+    the plain attention (policy attention_qk impl="ref") agree; FP8 pages
+    under serve_fp8_paged, float32 pages under the default policy."""
     import numpy as np
     from repro_torch.configs import get_config
 
-    base = get_config("qwen2-0.5b", policy="serve_fp8_paged")
+    base = get_config("qwen2-0.5b", policy=policy)
     cfg = dataclasses.replace(base, param_dtype="float32")
     ref_pol = base.policy.replace(attention_qk=dataclasses.replace(
         base.policy.attention_qk, impl="ref"))
     logits = [_first_step_logits(dev, c) for c in
               (cfg, dataclasses.replace(cfg, numerics=ref_pol))]
     np.testing.assert_allclose(logits[0], logits[1], rtol=1e-3, atol=1e-3)
-    print(f"# float32 engine: K1 vs plain-attention logits max diff "
+    print(f"# float32 engine ({_policy_label(base, policy)}): K1 vs "
+          f"plain-attention logits max diff "
           f"{np.abs(logits[0] - logits[1]).max():.3e}", flush=True)
 
 
@@ -513,13 +746,13 @@ def profile_main_path(dev, policy="serve_fp8_paged") -> None:
               f"{wall:.4f} s wall; the profiler recorded no device time "
               "(busy share and launches not measured)", flush=True)
         return
-    k1 = sum(us for k, us, _ in rows if "lns_paged_partials" in k) / 1e6
+    k1 = sum(us for k, us, _ in rows if "paged_partials" in k) / 1e6
     k5 = sum(us for k, us, _ in rows if "fp8_elementwise_kernel" in k) / 1e6
     n_kernels = sum(n for _, _, n in rows)
     top = sorted(rows, key=lambda r: -r[1])[:6]
     ew = cfg.policy.elementwise
-    label = cfg.policy.name + (f", elementwise {ew.fmt}" if ew.quantized
-                               else "")
+    label = _policy_label(cfg, policy) + (f", elementwise {ew.fmt}"
+                                          if ew.quantized else "")
     print(f"# profile of the main path ({label}): {substeps} sub-steps in "
           f"{wall:.4f} s wall; card busy {busy:.4f} s "
           f"({100 * busy / wall:.2f}% of the wall), {n_kernels} kernel "
@@ -1612,8 +1845,9 @@ def time_k6(dev) -> dict:
 def k6_autotune_path(dev) -> dict:
     """Phase: K6's path, the entry point with the autotuner behind it.
     A fresh cache file; ``flash_attention`` with no tiling at qwen2-0.5b
-    geometry, S 2048, bf16: the tuner measures the candidates with K6,
-    caches the fastest under the card's name and publishes a ``measured``
+    geometry, S 2048, bf16: the tuner measures the candidates with K6 on
+    bf16 operands (the tensor-core body the call runs), caches the
+    fastest under the card's name and ``bf16`` and publishes a ``measured``
     gauge; a second call answers ``cached``, launches K6 once and equals
     a call with that tiling pinned, bit for bit.  K6's launch count is
     read over the two calls (measurement included)."""
@@ -1647,7 +1881,8 @@ def k6_autotune_path(dev) -> dict:
         with open(path) as f:
             cache = json.load(f)
         tail = f"{S}x{S}x{hd}x{hd}"
-        key = f"flash|torch-{dev.type}|{autotune._device_kind(dev)}|{tail}"
+        key = (f"flash|torch-{dev.type}|{autotune._device_kind(dev)}|bf16|"
+               f"{tail}")
         cands = [[a, b] for a in (64, 128, 256) for b in (64, 128, 256)]
         if list(cache) != [key] or cache[key] not in cands:
             raise AssertionError(f"autotune cache {cache}, want one {key} "
@@ -1909,9 +2144,15 @@ def main() -> int:
 
     check_tensor_cores()
     k1 = check_k1(dev)
+    k1f = check_k1_float(dev)
     served = serve_main_path(dev)
     check_against_plain_engine(dev)
     profile_main_path(dev)
+    served_float = serve_main_path(dev, policy=None)
+    check_against_plain_engine(dev, policy=None)
+    profile_main_path(dev, policy=None)
+    preemption_path(dev, "serve_fp8_paged")
+    preemption_path(dev, None)
     check_k5_cells(dev)
     k5 = check_k5_shapes(dev)
     served_k5 = serve_main_path(dev, policy=k5_serve_policy(),
@@ -1977,6 +2218,13 @@ def main() -> int:
              max_abs_err=max(k6["max_abs_err"], tuned["max_abs_err"]),
              ms=k6["ms"], plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
              bound_by=k6["bound_by"], library_ms=k6["library_ms"]),
+        dict(name="float_paged_partials", route="cuda",
+             source=src + "paged_attention.cu",
+             replaces="src/repro/kernels/paged_attention.py:400",
+             launches=served_float["launches"],
+             max_abs_err=k1f["max_abs_err"], ms=k1f["ms"],
+             plain_ms=k1f["plain_ms"], bound_ms=k1f["bound_ms"],
+             bound_by=k1f["bound_by"], library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

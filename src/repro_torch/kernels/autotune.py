@@ -7,12 +7,14 @@ asks for it when the caller pins none), from, in order:
   1. the on-disk cache: one JSON file, keyed by kernel kind, the port's
      backend tag (``torch-cuda`` or ``torch-cpu``), the device's name
      (``torch.cuda.get_device_name``: a tiling measured on one card is
-     never replayed on another sharing the file) and the problem shape.
+     never replayed on another sharing the file), the operands' dtype
+     (K6 runs another body for bf16 than for float32, so a tiling tuned
+     for one is never replayed for the other) and the problem shape.
      The backend tag keeps the port's entries apart from the JAX
      package's, so a file shared between the two never replays one's
      tiling in the other;
-  2. live measurement over a candidate grid, on CUDA devices or when
-     forced;
+  2. live measurement over a candidate grid, in the caller's dtype, on
+     CUDA devices or when forced;
   3. the reference's heuristic default.
 
 Knobs (environment):
@@ -38,7 +40,7 @@ the CPU, ``fused_dequant`` on CUDA (for mixed formats because the LNS
 product is single-format, and otherwise as the reference's default).
 The reference's ``matmul_blocks``, ``elementwise_block_rows``,
 ``paged_blocks`` and the measured branch of ``choose_matmul_impl`` wait
-for kernels that take a tiling (ROADMAP.md Queue 1 item 8).
+for kernels that take a tiling (ROADMAP.md Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -182,13 +184,18 @@ def _flash_default(Sq: int, Sk: int) -> Tuple[int, int]:
             min(128, Sk) if Sk % 8 == 0 else 128)
 
 
-def flash_blocks(Sq: int, Sk: int, hd: int, dv: int, *,
-                 device) -> Tuple[int, int]:
+_DTYPE_TAGS = {torch.float32: "f32", torch.bfloat16: "bf16"}  # K6's dtypes
+
+
+def flash_blocks(Sq: int, Sk: int, hd: int, dv: int, *, device,
+                 dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
     """(bq, bk) tiling for ``flash_attention`` at this shape on
-    ``device``."""
+    ``device`` for operands of ``dtype``: measured, when it measures, on
+    operands of that dtype, and cached under a key that names it."""
     backend = f"torch-{torch.device(device).type}"
     tail = f"{Sq}x{Sk}x{hd}x{dv}"
-    key = f"flash|{backend}|{_device_kind(device)}|{tail}"
+    key = (f"flash|{backend}|{_device_kind(device)}|{_DTYPE_TAGS[dtype]}|"
+           f"{tail}")
     cached = _load().get(key)
     if cached is not None:
         _publish("flash", tail, tuple(cached), None, "cached")
@@ -201,7 +208,7 @@ def flash_blocks(Sq: int, Sk: int, hd: int, dv: int, *,
     from .flash_attention import flash_attention
 
     gen = torch.Generator(device="cpu").manual_seed(0)
-    q, k, v = (torch.randn((1, S, 4, d), generator=gen).to(device)
+    q, k, v = (torch.randn((1, S, 4, d), generator=gen).to(device, dtype)
                for S, d in ((Sq, hd), (Sk, hd), (Sk, dv)))
     candidates = [(bq, bk) for bq in (64, 128, 256) for bk in (64, 128, 256)
                   if bq <= Sq and bk <= Sk] or [default]

@@ -232,14 +232,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     bk: Optional[int] = None):
     """K6: q [B, Sq, H, hd], k/v [B, Sk, KV, hd|dv] -> [B, Sq, H, dv] in
     ``q.dtype``.  ``bq``/``bk`` default to ``autotune.flash_blocks`` for
-    (Sq, Sk, hd, dv) on q's device; pass them to pin the tiling.  CUDA
+    (Sq, Sk, hd, dv) on q's device and in q's dtype; pass them to pin the tiling.  CUDA
     tensors launch the kernel, CPU tensors run the plain version."""
     _check_tensors(q, k, v)
     if bq is None or bk is None:
         from . import autotune
 
         abq, abk = autotune.flash_blocks(q.shape[1], k.shape[1], q.shape[-1],
-                                         v.shape[-1], device=q.device)
+                                         v.shape[-1], device=q.device,
+                                         dtype=q.dtype)
         bq = abq if bq is None else bq
         bk = abk if bk is None else bk
     _check_blocks(bq, bk)

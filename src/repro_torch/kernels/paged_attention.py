@@ -1,29 +1,35 @@
 """Paged decode attention with integer-domain (LNS) QK^T, in PyTorch.
 
 Port of ``repro.kernels.paged_attention``.  The KV cache is a pool of
-fixed-size pages of raw FP8 codes plus one float32 scale per page
+fixed-size pages, either raw FP8 codes plus one float32 scale per page, or
+float pages (the model's dtype; their scales are never read) when the
+policy leaves the KV cache unquantized (``fmt=None``)
 (:mod:`repro_torch.serving.page_pool`).  Attention is flash-decoding in
 two phases, as in the reference:
 
   1. per (slot, page): softmax partials (m, l, unnormalised o) of the
      slot's one decode query against the page, with every q·k product the
-     paper's integer add plus carry-in (``lns_prepare``/``lns_combine``);
+     paper's integer add plus carry-in (``lns_prepare``/``lns_combine``)
+     on FP8 pages, or a float32 product on float pages;
   2. a log-sum-exp combine of the partials over pages
      (:func:`_combine_partials`, plain torch here as in the reference).
 
 Phase 1 is kernel K1.  :func:`paged_partials` is its wrapper: for CUDA
-tensors it launches the hand-written kernel ``csrc/paged_attention.cu``
-(and counts the launch in ``paged_partials.launches``); for CPU tensors it
-runs :func:`page_partials_plain`, the plain version the CPU tests and the
-chip smoke hold the kernel against.  There is no fallback: a CUDA tensor
+tensors it launches the hand-written kernel ``csrc/paged_attention.cu``,
+its LNS instance on FP8 pages (counted in ``paged_partials.launches``) or
+its float instance on bf16 or float32 pages (counted in
+``paged_partials.float_launches``); for CPU tensors it runs
+:func:`page_partials_plain`, the plain version the CPU tests and the chip
+smoke hold the kernel against.  There is no fallback: a CUDA tensor
 either launches the kernel or raises.
 
 :func:`fused_decode_write_attend` is the decode hot path's entry: it
-encodes the new token's K/V row codes once, attends with the row spliced
-into the gathered page (the kernel never reads the scattered cache), and
-scatters the row into the cache.  JAX's functional ``.at[].set`` updates
-become in-place ``index_put_`` on the page and scale tensors here; the
-caller's tensors are updated and also returned.
+encodes the new token's K/V row once (codes, or the float row cast to the
+pages' dtype), attends with the row spliced into the gathered page (the
+kernel never reads the scattered cache), and scatters the row into the
+cache.  JAX's functional ``.at[].set`` updates become in-place
+``index_put_`` on the page and scale tensors here; the caller's tensors
+are updated and also returned.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from .cuda_build import check_launch
 __all__ = [
     "NEG_INF",
     "quantize_q",
+    "query_operand",
     "page_partials_plain",
     "paged_partials",
     "paged_attention_ref",
@@ -79,30 +86,31 @@ def _insert_rows(gathered, row, logical, rows, mask):
 
 def page_partials_plain(
     q_codes, q_scale, k_pages, v_pages, k_scale, v_scale, block_tables,
-    lengths, *, fmt: str, mode: str, KV: int, G: int, window: int = 0,
-    cap: float = 0.0, inserts=None,
+    lengths, *, fmt: Optional[str], mode: str, KV: int, G: int,
+    window: int = 0, cap: float = 0.0, inserts=None,
 ):
     """Plain version of K1: every (slot, page) softmax partial at once.
 
-    q_codes: [B, KV*G, hd] uint8, q_scale: [B]; pages [P, page, KV, hd]
-    uint8 codes with scales [P]; block_tables [B, maxp]; lengths [B] valid
-    tokens.  ``inserts`` = (k_row, v_row, logical, rows, mask) splices the
-    fused form's new row into the gathered pages.  Returns (m, l, o)
-    shaped [B, maxp, KV, G(, dv)].  A fully masked page has m = NEG_INF
-    (finite), so it drops out of the combine with weight exactly 0.
+    FP8 pages (``fmt`` names the format): q_codes [B, KV*G, hd] uint8,
+    q_scale [B]; pages [P, page, KV, hd] uint8 codes with scales [P].
+    Float pages (``fmt=None``): q_codes is the float32 query [B, KV*G, hd],
+    the pages are float (bf16 or float32), and q_scale and the page scales
+    are not read.  block_tables [B, maxp]; lengths [B] valid tokens.
+    ``inserts`` = (k_row, v_row, logical, rows, mask) splices the fused
+    form's new row into the gathered pages.  Returns (m, l, o) shaped
+    [B, maxp, KV, G(, dv)].  A fully masked page has m = NEG_INF (finite),
+    so it drops out of the combine with weight exactly 0.
     """
     B, maxp = block_tables.shape
     bt = block_tables.to(torch.int64)
     kg, vg = k_pages[bt], v_pages[bt]          # [B, maxp, page, KV, hd]
-    ksg, vsg = k_scale[bt], v_scale[bt]        # [B, maxp]
+    ksg, vsg = (None, None) if fmt is None else (k_scale[bt], v_scale[bt])
     page = kg.shape[2]
     if inserts is not None:
         k_row, v_row, logical, rows, imask = inserts
         kg = _insert_rows(kg, k_row, logical, rows, imask)
         vg = _insert_rows(vg, v_row, logical, rows, imask)
     hd = q_codes.shape[-1]
-    px = lns_prepare(q_codes.reshape(B, KV, G, hd), fmt, mode, side="x")
-    py = lns_prepare(kg, fmt, mode, side="y")
 
     def ex(f):  # [B, KV, G, hd] -> [B, 1, KV, G, 1, hd]
         return None if f is None else f[:, None, :, :, None, :]
@@ -110,10 +118,24 @@ def page_partials_plain(
     def ey(f):  # [B, maxp, page, KV, hd] -> [B, maxp, KV, 1, page, hd]
         return None if f is None else f.permute(0, 1, 3, 2, 4)[:, :, :, None]
 
-    prod = lns_combine(type(px)(*map(ex, px)), type(py)(*map(ey, py)), fmt)
-    qk = q_scale[:, None] * ksg * hd**-0.5                 # [B, maxp]
-    s = prod.sum(-1) * qk[:, :, None, None, None]          # [B,maxp,KV,G,page]
-    vf = code_to_f32(vg, fmt) * vsg[:, :, None, None, None]
+    if fmt is None:
+        # q.k as an explicit sum over hd in order, like the kernel (no
+        # batched BLAS product: see the P.V loop below)
+        qx = ex(q_codes.to(torch.float32).reshape(B, KV, G, hd))
+        ky = ey(kg.to(torch.float32))
+        s = qx[..., 0] * ky[..., 0]
+        for d in range(1, hd):
+            s = s + qx[..., d] * ky[..., d]
+        s = s * hd**-0.5                                   # [B,maxp,KV,G,page]
+        vf = vg.to(torch.float32)
+    else:
+        px = lns_prepare(q_codes.reshape(B, KV, G, hd), fmt, mode, side="x")
+        py = lns_prepare(kg, fmt, mode, side="y")
+        prod = lns_combine(type(px)(*map(ex, px)), type(py)(*map(ey, py)),
+                           fmt)
+        qk = q_scale[:, None] * ksg * hd**-0.5             # [B, maxp]
+        s = prod.sum(-1) * qk[:, :, None, None, None]      # [B,maxp,KV,G,page]
+        vf = code_to_f32(vg, fmt) * vsg[:, :, None, None, None]
     if cap:
         s = torch.tanh(s / cap) * cap
     dev = s.device
@@ -146,6 +168,23 @@ def _check(t: torch.Tensor, dtype: torch.dtype, shape, name: str):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _fused_operands(inserts, row_dtype, B, KV, hd, dv, dev):
+    """The fused form's five operands, checked (rows in the pages'
+    dtype), or five Nones for the unfused form."""
+    if inserts is None:
+        return [None] * 5
+    k_row, v_row, logical, rows, imask = inserts
+    imask = (torch.ones((B,), dtype=torch.int32, device=dev)
+             if imask is None else imask.to(torch.int32))
+    ins = [k_row, v_row, logical, rows, imask]
+    for t, dt, shp, nm in zip(
+            ins, (row_dtype, row_dtype) + (torch.int32,) * 3,
+            ((B, KV, hd), (B, KV, dv), (B,), (B,), (B,)),
+            ("k_row", "v_row", "logical", "rows", "mask")):
+        _check(t, dt, shp, nm)
+    return ins
+
+
 _SMEM_LIMIT = 48 * 1024  # default dynamic shared memory of one block
 
 
@@ -160,6 +199,11 @@ def _lib():
         lib.lns_paged_partials.restype = ci
         lib.lns_paged_partials_smem.argtypes = [ci] * 4
         lib.lns_paged_partials_smem.restype = ci
+        lib.float_paged_partials.argtypes = (
+            [vp] * 13 + [ci] * 10 + [cf, cf, vp])
+        lib.float_paged_partials.restype = ci
+        lib.float_paged_partials_smem.argtypes = [ci] * 4
+        lib.float_paged_partials_smem.restype = ci
         lib._typed = True
     return lib
 
@@ -182,18 +226,7 @@ def _launch_k1(q_codes, q_scale, k_pages, v_pages, k_scale, v_scale,
     _check(lengths, torch.int32, (B,), "lengths")
     tensors = [q_codes, q_scale, k_pages, v_pages, k_scale, v_scale,
                block_tables, lengths]
-    if inserts is not None:
-        k_row, v_row, logical, rows, imask = inserts
-        imask = (torch.ones((B,), dtype=torch.int32, device=dev)
-                 if imask is None else imask.to(torch.int32))
-        ins = [k_row, v_row, logical, rows, imask]
-        for t, dt, shp, nm in zip(
-                ins, (torch.uint8, torch.uint8) + (torch.int32,) * 3,
-                ((B, KV, hd), (B, KV, dv), (B,), (B,), (B,)),
-                ("k_row", "v_row", "logical", "rows", "mask")):
-            _check(t, dt, shp, nm)
-    else:
-        ins = [None] * 5
+    ins = _fused_operands(inserts, torch.uint8, B, KV, hd, dv, dev)
     for t in tensors + [t for t in ins if t is not None]:
         if t.device != dev:
             raise ValueError("all K1 operands must be on one CUDA device")
@@ -217,15 +250,58 @@ def _launch_k1(q_codes, q_scale, k_pages, v_pages, k_scale, v_scale,
     return m, l, o
 
 
+_FLOAT_PAGES = {torch.bfloat16: 1, torch.float32: 0}  # dtype -> bf16 flag
+
+
+def _launch_k1_float(q, k_pages, v_pages, block_tables, lengths, *, KV, G,
+                     window, cap, inserts):
+    dev = q.device
+    B, maxp = block_tables.shape
+    P, page, _, hd = k_pages.shape
+    dv = v_pages.shape[-1]
+    dt = k_pages.dtype
+    if dt not in _FLOAT_PAGES:
+        raise ValueError(f"K1's float instance takes bf16 or float32 pages, "
+                         f"got {dt}")
+    _check(q, torch.float32, (B, KV * G, hd), "q")
+    _check(k_pages, dt, (P, page, KV, hd), "k_pages")
+    _check(v_pages, dt, (P, page, KV, dv), "v_pages")
+    _check(block_tables, torch.int32, (B, maxp), "block_tables")
+    _check(lengths, torch.int32, (B,), "lengths")
+    tensors = [q, k_pages, v_pages, block_tables, lengths]
+    ins = _fused_operands(inserts, dt, B, KV, hd, dv, dev)
+    for t in tensors + [t for t in ins if t is not None]:
+        if t.device != dev:
+            raise ValueError("all K1 operands must be on one CUDA device")
+    lib = _lib()
+    if lib.float_paged_partials_smem(page, G, hd, dv) > _SMEM_LIMIT:
+        raise ValueError(f"K1 geometry page={page} G={G} hd={hd} dv={dv} "
+                         "exceeds one block's shared memory")
+    m = torch.empty((B, maxp, KV, G), dtype=torch.float32, device=dev)
+    l = torch.empty_like(m)
+    o = torch.empty((B, maxp, KV, G, dv), dtype=torch.float32, device=dev)
+    ptr = [None if t is None else t.data_ptr()
+           for t in tensors + ins + [m, l, o]]
+    err = lib.float_paged_partials(
+        *ptr, B, maxp, page, KV, G, hd, dv, int(window),
+        int(inserts is not None), _FLOAT_PAGES[dt], float(cap),
+        float(hd**-0.5), torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(err, "K1 (float pages)")
+    paged_partials.float_launches += 1
+    return m, l, o
+
+
 def paged_partials(
     q_codes, q_scale, k_pages, v_pages, k_scale, v_scale, block_tables,
-    lengths, *, fmt: str, mode: str, KV: int, G: int, window: int = 0,
-    cap: float = 0.0, inserts=None,
+    lengths, *, fmt: Optional[str], mode: str, KV: int, G: int,
+    window: int = 0, cap: float = 0.0, inserts=None,
 ):
     """K1: the (slot, page) softmax partials, same contract as
     :func:`page_partials_plain`.  CUDA tensors launch the hand-written
-    kernel (and bump ``paged_partials.launches``); CPU tensors run the
-    plain version.  Any other device raises."""
+    kernel: its LNS instance on FP8 pages (bumping
+    ``paged_partials.launches``), its float instance on float pages
+    (``fmt=None``; bumping ``paged_partials.float_launches``).  CPU tensors
+    run the plain version.  Any other device raises."""
     kw = dict(fmt=fmt, mode=mode, KV=KV, G=G, window=window, cap=cap,
               inserts=inserts)
     args = (q_codes, q_scale, k_pages, v_pages, k_scale, v_scale,
@@ -235,10 +311,15 @@ def paged_partials(
     if q_codes.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or CPU tensors, not "
                          f"{q_codes.device}")
+    if fmt is None:
+        return _launch_k1_float(q_codes, k_pages, v_pages, block_tables,
+                                lengths, KV=KV, G=G, window=window, cap=cap,
+                                inserts=inserts)
     return _launch_k1(*args, **kw)
 
 
 paged_partials.launches = 0
+paged_partials.float_launches = 0
 
 
 def _combine_partials(m, l, o):
@@ -257,18 +338,19 @@ def paged_attention_ref(q_op, k_pages, v_pages, k_scale, v_scale,
                         block_tables, lengths, *, fmt, mode, KV, G,
                         window=0, cap=0.0):
     """The plain oracle: plain partials over the pages as they are, then
-    the combine.  ``q_op`` = (codes [B, H, hd], scale [B])."""
+    the combine.  ``q_op`` = :func:`query_operand`'s pair."""
     m, l, o = page_partials_plain(
         *q_op, k_pages, v_pages, k_scale, v_scale, block_tables, lengths,
         fmt=fmt, mode=mode, KV=KV, G=G, window=window, cap=cap)
     return _combine_partials(m, l, o)
 
 
-def _require_fmt(fmt):
+def query_operand(q, fmt: Optional[str]):
+    """K1's query operand of q [B, H, hd]: (codes [B, H, hd] uint8, scale
+    [B]) for FP8 pages, (q in float32, None) for float pages."""
     if fmt is None:
-        raise NotImplementedError(
-            "float (unquantized) KV pages are not ported yet; this slice "
-            "serves FP8 pages (policy serve_fp8_paged)")
+        return q.to(torch.float32), None
+    return quantize_q(q, fmt)
 
 
 def paged_decode_attention(
@@ -278,17 +360,18 @@ def paged_decode_attention(
 ):
     """Decode attention against the paged cache.
 
-    q: [B, 1, H, hd] float; k/v pages [P, page, KV, hd] uint8 codes with
-    scales [P]; block_tables [B, maxp] int32; lengths [B] int32 valid
-    tokens.  ``impl``: "kernel"/"auto" (the K1 wrapper) or "ref" (plain
-    partials on any device).  Returns [B, 1, H, dv] in q.dtype.
+    q: [B, 1, H, hd] float; k/v pages [P, page, KV, hd]: uint8 codes with
+    scales [P] when ``fmt`` names a format, float (bf16 or float32) with
+    the scales unread when ``fmt`` is None; block_tables [B, maxp] int32;
+    lengths [B] int32 valid tokens.  ``impl``: "kernel"/"auto" (the K1
+    wrapper) or "ref" (plain partials on any device).  Returns
+    [B, 1, H, dv] in q.dtype.
     """
-    _require_fmt(fmt)
     B, one, H, hd = q.shape
     if one != 1:
         raise ValueError("paged decode attention is single-position")
     KV, G = n_kv_heads, H // n_kv_heads
-    q_op = quantize_q(q.reshape(B, H, hd), fmt)
+    q_op = query_operand(q.reshape(B, H, hd), fmt)
     kw = dict(fmt=fmt, mode=mode, KV=KV, G=G, window=window, cap=cap)
     if impl == "ref":
         out = paged_attention_ref(q_op, k_pages, v_pages, k_scale, v_scale,
@@ -316,7 +399,9 @@ def fused_decode_write_attend(
     uniform integers for ``kv_mode="stochastic"`` (drawn by the caller with
     the threefry twin, position-addressed like the reference's per-slot
     keys).  ``write_mask`` [B] bool redirects masked lanes to the null page
-    0 without claiming a page scale.
+    0 without claiming a page scale.  With ``fmt=None`` (float pages) the
+    row is the new K/V cast to the pages' dtype, no noise is read and the
+    scales are left as they are.
 
     Order of effects, equal to the reference's functional version: row
     codes and page scales are computed from the old scales; the new scales
@@ -332,7 +417,6 @@ def fused_decode_write_attend(
     """
     from ..serving.page_pool import scatter_token_rows, token_row_codes
 
-    _require_fmt(fmt)
     B, one, H, hd = q.shape
     if one != 1:
         raise ValueError("fused decode write+attend is single-position")
@@ -344,18 +428,19 @@ def fused_decode_write_attend(
     page_ids = block_tables.gather(1, logical[:, None].to(torch.int64))[:, 0]
     pids_k, k_row, ks_new = token_row_codes(
         k_scale, k_new, page_ids, rows, fmt=fmt, mode=kv_mode,
-        noise=k_noise, write_mask=write_mask)
+        noise=k_noise, write_mask=write_mask, store_dtype=k_pages.dtype)
     pids_v, v_row, vs_new = token_row_codes(
         v_scale, v_new, page_ids, rows, fmt=fmt, mode=kv_mode,
-        noise=v_noise, write_mask=write_mask)
-    k_scale.index_put_((pids_k,), ks_new)
-    v_scale.index_put_((pids_v,), vs_new)
+        noise=v_noise, write_mask=write_mask, store_dtype=v_pages.dtype)
+    if fmt is not None:
+        k_scale.index_put_((pids_k,), ks_new)
+        v_scale.index_put_((pids_v,), vs_new)
 
     def scatter():
         scatter_token_rows(k_pages, pids_k, rows, k_row, write_mask)
         scatter_token_rows(v_pages, pids_v, rows, v_row, write_mask)
 
-    q_op = quantize_q(q.reshape(B, H, hd), fmt)
+    q_op = query_operand(q.reshape(B, H, hd), fmt)
     attend_len = lengths + 1
     kw = dict(fmt=fmt, mode=mode, KV=KV, G=G, window=window, cap=cap)
     if impl == "ref":

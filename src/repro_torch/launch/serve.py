@@ -1,19 +1,22 @@
-"""Serving entry point of the port: the paged FP8 Engine under the continuous
+"""Serving entry point of the port: the paged Engine under the continuous
 scheduler.
 
 Port of ``repro.launch.serve`` for its main path: ``Engine`` with the paged
-cache, fused or unfused decode, block tables uploaded at most once per
-mutating step; ``sample``; ``run_continuous``; and the CLI.  Every token,
-prefill or decode, is a single-token sub-step of ``Model.step_paged``,
-whose attention layers launch the hand-written CUDA kernel K1
-(``kernels/paged_attention.py``).
+cache (float pages of the model's dtype by default, FP8 pages under a
+policy that quantizes the KV cache, e.g. ``serve_fp8_paged``), fused or
+unfused decode, block tables uploaded at most once per mutating step,
+preemption (a slot's pages copied verbatim to the host and restored into
+fresh pages, bit for bit); ``sample``; ``run_continuous``; and the CLI.
+Every token, prefill or decode, is a single-token sub-step of
+``Model.step_paged``, whose attention layers launch the hand-written CUDA
+kernel K1 (``kernels/paged_attention.py``: its float instance on float
+pages, its LNS instance on FP8 pages).
 
 The engine runs on the card unless the caller passes ``device="cpu"``
 (the tests), and raises when no GPU is present — there is no silent CPU
-fallback.  Prefix caching, preemption (page spill/restore), the bucketed
-scheduler, the dense cache, chaos, snapshots, tensor parallelism and
-static FP8 weights arrive with later slices and raise
-``NotImplementedError`` here.
+fallback.  Prefix caching, the bucketed scheduler, the dense cache,
+chaos, snapshots, tensor parallelism and static FP8 weights arrive with
+later slices and raise ``NotImplementedError`` here.
 
     python -m repro_torch.launch.serve --arch qwen2-0.5b --requests 6 \\
         --slots 2 --gen 16 --prompt-len 4,12,8
@@ -38,8 +41,8 @@ __all__ = ["Engine", "sample", "run_continuous", "main"]
 
 def _later(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet: it arrives with the next slice of the "
-        "port (ROADMAP.md Queue 1 item 7)")
+        f"{what} is not ported yet: it arrives with a later slice of the "
+        "port (ROADMAP.md Queue 1 items 4 and 7)")
 
 
 def _resolve_device(device) -> torch.device:
@@ -61,6 +64,7 @@ class Engine:
     def __init__(self, cfg, *, slots: int, max_seq: int,
                  cache_impl: str = "paged", page_size: int = 16,
                  num_pages: Optional[int] = None, rng_seed: int = 0,
+                 stochastic_kv: Optional[bool] = None,
                  prefix_cache: bool = False, fused_decode: bool = True,
                  telemetry: Optional[Telemetry] = None,
                  device="cuda"):
@@ -80,11 +84,15 @@ class Engine:
         self.slots = slots
         gen = torch.Generator(device=self.device).manual_seed(rng_seed)
         self.params = self.model.init(gen)
-        # host-side stream key (the reference's fold_in(PRNGKey(seed + 17), 0))
+        # stochastic-rounding KV writes only matter for FP8 pages; the
+        # policy's kv_write mode carries the default.  Host-side stream key
+        # (the reference's fold_in(PRNGKey(seed + 17), 0)).
+        if stochastic_kv is None:
+            stochastic_kv = numerics.kv_stochastic(cfg.policy)
         self._token_key = (
             prng.fold_in(prng.prng_key(rng_seed + 17),
                          self._STREAM_TOKEN_WRITE)
-            if numerics.kv_stochastic(cfg.policy) else None)
+            if stochastic_kv else None)
         self.page_size = page_size
         self.max_pages_per_slot = -(-max_seq // page_size)
         if num_pages is None:
@@ -114,12 +122,39 @@ class Engine:
     def note_prefilled(self, slot: int, n_prefilled: int) -> None:
         return None
 
+    # ------------------------------------------------------------------ #
+    # Preemption
+    # ------------------------------------------------------------------ #
     def preempt_slot(self, slot: int) -> dict:
-        raise _later("preemption (page spill/restore); size the pool so "
-                     "the scheduler never preempts")
+        """Spill ``slot`` to the host: copy its pages' contents (codes and
+        scales, or float rows) out of every layer verbatim, never
+        re-quantized, then free the pages, so a later
+        :meth:`restore_slot` is bit-identical.  Returns the spill
+        record."""
+        with self.tel.span("preempt", slot=slot):
+            return self._preempt_slot(slot)
+
+    def _preempt_slot(self, slot: int) -> dict:
+        spilled, pinned = self.pool.spill_plan(slot)
+        ids = torch.as_tensor(spilled, dtype=torch.int64, device=self.device)
+        # the index gather copies, so the host tensors never alias the cache
+        state = {name: t[:, ids].cpu() for name, t in self.cache.items()}
+        self.pool.spill_slot(slot)
+        return {"n_pages": len(spilled), "pinned": pinned, "state": state}
 
     def restore_slot(self, slot: int, record: dict) -> None:
-        raise _later("preemption (page spill/restore)")
+        """Re-admit a preempted request into ``slot``: fresh pages (ids may
+        differ from the spilled ones), the saved contents scattered back
+        into every layer."""
+        with self.tel.span("restore", slot=slot):
+            self._restore_slot(slot, record)
+
+    def _restore_slot(self, slot: int, record: dict) -> None:
+        new_ids = self.pool.restore_slot(slot, record["n_pages"],
+                                         record.get("pinned", ()))
+        ids = torch.as_tensor(new_ids, dtype=torch.int64, device=self.device)
+        for name, saved in record["state"].items():
+            self.cache[name][:, ids] = saved.to(self.device)
 
     # ------------------------------------------------------------------ #
     def _assert_writable(self, lengths: np.ndarray, n_new: np.ndarray) -> None:
@@ -251,6 +286,7 @@ def run_continuous(eng: Engine, queue: List[np.ndarray], *, gen: int,
         slot_occupancy=sched.occupied_slot_steps / max(sched.steps * eng.slots, 1),
         mean_latency_steps=sched.mean_latency_steps(),
         preemptions=sched.preemptions,
+        restores=sched.restores,
         shed=sched.shed,
         admission_pauses=sched.admission_pauses,
         terminal=dict(sched.terminal_counts),
@@ -266,7 +302,8 @@ def run_continuous(eng: Engine, queue: List[np.ndarray], *, gen: int,
         print(f"[serve:continuous:{eng.device}] {len(queue)} requests, "
               f"{sched.steps} steps, {stats['tok_s']:.1f} tok/s e2e "
               f"({stats['decode_tok_s']:.1f} decode-only), occupancy "
-              f"{stats['slot_occupancy']:.2f}, cache "
+              f"{stats['slot_occupancy']:.2f}, {sched.preemptions} "
+              f"preemptions, {sched.restores} restores, cache "
               f"{stats['cache_bytes'] / 1e6:.2f} MB "
               f"({stats['cache_bytes_per_token']:.0f} B/token capacity)")
     return outputs, stats
@@ -274,13 +311,21 @@ def run_continuous(eng: Engine, queue: List[np.ndarray], *, gen: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="Serve random prompts through the paged FP8 LNS engine "
-                    "(PyTorch/CUDA port; continuous scheduler).")
+        description="Serve random prompts through the paged LNS engine "
+                    "(PyTorch/CUDA port; continuous scheduler).",
+        epilog="The continuous scheduler admits with chunked prefill, "
+               "joins requests mid-flight and preempts (page spill/restore) "
+               "when --pages is below the worst case.")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--policy", default="serve_fp8_paged",
-                    help="named numerics policy preset with an FP8 KV "
-                         "cache (default serve_fp8_paged)")
+    ap.add_argument("--policy", default=None,
+                    help="named numerics policy preset (e.g. "
+                         "serve_fp8_paged for the FP8 KV cache; default: "
+                         "none, float KV pages of the model's dtype)")
+    ap.add_argument("--quant", default=None,
+                    help="DEPRECATED alias for --policy; legacy flat "
+                         "quant flag, mapped through the legacy "
+                         "QuantConfig fields")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "versions of the kernels)")
@@ -306,18 +351,47 @@ def main(argv=None):
                     help="print each token the step it is sampled")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--deadline-steps", type=int, default=0,
+                    help="per-request scheduler-step budget from arrival "
+                         "(0 = unbounded); blown deadlines time the "
+                         "request out individually")
+    ap.add_argument("--max-tokens", type=int, default=0,
+                    help="hard cap on any request's generation budget "
+                         "(0 = uncapped)")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bound on arrived-but-unadmitted requests; "
+                         "overflow is load-shed (0 = unbounded)")
+    ap.add_argument("--watermark-high", type=float, default=1.0,
+                    help="page-pool occupancy fraction that pauses new "
+                         "admissions")
+    ap.add_argument("--watermark-low", type=float, default=0.75,
+                    help="occupancy fraction that resumes admissions")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write the Prometheus text exposition to PATH")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write a Chrome-trace JSON of the phase spans")
+    ap.add_argument("--profile-spans", action="store_true",
+                    help="wrap each phase span in a "
+                         "torch.profiler.record_function range so host "
+                         "phases line up with device traces")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch, smoke=args.smoke, policy=args.policy)
+    if args.policy is not None:
+        if args.quant not in (None, "none"):
+            ap.error("--policy and the deprecated --quant are exclusive")
+        cfg = get_config(args.arch, smoke=args.smoke, policy=args.policy)
+    else:
+        quant = args.quant or "none"
+        if quant != "none":
+            print(f"# --quant {quant} is deprecated; use --policy (mapped "
+                  "through the legacy QuantConfig fields)")
+        cfg = get_config(args.arch, smoke=args.smoke, quant=quant)
     plens = [int(s) for s in str(args.prompt_len).split(",") if s]
     max_seq = max(plens) + args.gen
     eng = Engine(cfg, slots=args.slots, max_seq=max_seq,
                  page_size=args.page_size, num_pages=args.pages or None,
                  rng_seed=args.seed, fused_decode=args.fused_decode == "on",
+                 telemetry=Telemetry(profile=args.profile_spans),
                  device=args.device)
     rng = np.random.default_rng(args.seed)
     queue = [rng.integers(0, cfg.vocab, size=plens[i % len(plens)])
@@ -333,7 +407,11 @@ def main(argv=None):
     outputs, stats = run_continuous(
         eng, queue, gen=args.gen, temperature=args.temperature,
         seed=args.seed, arrivals=arrivals, chunk=args.chunk,
-        on_token=on_token)
+        on_token=on_token, deadline_steps=args.deadline_steps or None,
+        max_tokens=args.max_tokens or None,
+        max_queue=args.max_queue or None,
+        watermark_high=args.watermark_high,
+        watermark_low=args.watermark_low)
     for rid in sorted(outputs):
         print(f"  req{rid}: {outputs[rid][:10]}...")
     for rid, (state, reason) in sorted(stats["statuses"].items()):

@@ -1,5 +1,5 @@
 """GQA attention: the full-sequence forward of training and decode against
-the paged FP8 cache (serving).
+the paged cache (serving; FP8 codes or float pages, as the policy says).
 
 Port of ``repro.models.attention._gqa_qkv``, ``gqa_forward`` and
 ``gqa_decode_paged``.
@@ -49,8 +49,8 @@ def gqa_decode_paged(p, x, cfg, *, is_global: bool, cache, paged,
     "vs"}, updated in place; paged: the step's shared state
     {"block_tables" [B, maxp] int32, "lengths" [B] int32 (context length
     BEFORE this token), "page_size", "noise" (this layer's [2, B, KV, hd]
-    stochastic-rounding noise for K and V, or None), "active" (optional
-    [B] bool write mask), "fused"}.
+    stochastic-rounding noise for K and V, or None: always None for float
+    pages), "active" (optional [B] bool write mask), "fused"}.
 
     The reference derives each slot's KV-write PRNG key here (split the
     layer key, fold in the write position); the port receives the bits

@@ -10,8 +10,10 @@ carries a reference ``Model.init`` tree across (the tests' route); the
 chip has no JAX, so :meth:`Model.init` draws the same distributions from
 a torch ``Generator``.
 
-The paged cache is {"kp", "vp": [n_layers, P, page, KV, hd] uint8,
-"ks", "vs": [n_layers, P] float32}; the steps update it in place.
+The paged cache is {"kp", "vp": [n_layers, P, page, KV, hd], "ks", "vs":
+[n_layers, P] float32}: uint8 FP8 codes with their page scales when the
+policy quantizes the KV cache, pages of the parameters' dtype (scales
+unread) otherwise; the steps update it in place.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ def _check_supported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name!r} (family={cfg.family!r}, attn={cfg.attn_impl!r}) "
             "is not ported yet; the port runs dense GQA stacks "
-            "(ROADMAP.md Queue 1 item 13)")
+            "(ROADMAP.md Queue 1 items 3 and 11)")
 
 
 def params_from_jax(np_params, cfg) -> Dict[str, Any]:
@@ -171,17 +173,16 @@ class Model:
     # ------------------------------------------------------------------ #
     def make_paged_cache(self, num_pages: int, page_size: int,
                          device) -> Dict[str, torch.Tensor]:
-        """Zero codes and unit scales for a ``num_pages``-page pool (page 0
-        is the reserved null page), stacked over layers."""
+        """Zero pages and unit scales for a ``num_pages``-page pool (page 0
+        is the reserved null page), stacked over layers: uint8 codes when
+        the policy quantizes the KV cache, else ``cfg.pdtype``."""
         cfg = self.cfg
-        if not numerics.kv_quantized(cfg.policy):
-            raise NotImplementedError(
-                "float KV pages are not ported yet; serve with an FP8 KV "
-                "policy such as serve_fp8_paged")
+        dt = (torch.uint8 if numerics.kv_quantized(cfg.policy)
+              else cfg.pdtype)
         shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.hd)
         return {
-            "kp": torch.zeros(shape, dtype=torch.uint8, device=device),
-            "vp": torch.zeros(shape, dtype=torch.uint8, device=device),
+            "kp": torch.zeros(shape, dtype=dt, device=device),
+            "vp": torch.zeros(shape, dtype=dt, device=device),
             "ks": torch.ones((cfg.n_layers, num_pages), dtype=torch.float32,
                              device=device),
             "vs": torch.ones((cfg.n_layers, num_pages), dtype=torch.float32,
@@ -208,12 +209,16 @@ class Model:
         self._key_cache = ((words, device), keys)
         return keys
 
-    def kv_noise(self, key: torch.Tensor, positions: torch.Tensor):
+    def kv_noise(self, key, positions: torch.Tensor):
         """Stochastic-rounding noise of every KV write of a step, in one
         batched draw: positions [..., B] (each slot's write position) ->
         int64 [..., n_layers, 2, B, KV, hd].  Equal to the reference's
-        ``randint(fold_in(k_or_v_key, position), (KV, hd), ...)``."""
+        ``randint(fold_in(k_or_v_key, position), (KV, hd), ...)``.  None
+        without a key or when the pages are float (their writes draw no
+        noise)."""
         cfg = self.cfg
+        if key is None or not numerics.kv_quantized(cfg.policy):
+            return None
         keys = self.kv_write_keys(key, positions.device)        # [L, 2, 2]
         lead = positions.shape[:-1]
         pos = positions.reshape(*lead, 1, 1, positions.shape[-1])
@@ -242,7 +247,7 @@ class Model:
         ``active``: optional [B] bool write mask.  Returns (logits, cache)
         with the cache updated in place."""
         lengths = lengths.to(torch.int32)
-        noise = None if key is None else self.kv_noise(key, lengths)
+        noise = self.kv_noise(key, lengths)
         logits = self._paged_token_step(
             params, cache, tokens, lengths, block_tables,
             page_size=page_size, noise=noise, active=active, fused=fused)
@@ -265,7 +270,7 @@ class Model:
         lengths = lengths.to(torch.int32)
         t = torch.arange(T, dtype=torch.int32, device=tokens.device)[:, None]
         pos = lengths + torch.minimum(t, torch.clamp_min(n_new - 1, 0))
-        noise = None if key is None else self.kv_noise(key, pos)
+        noise = self.kv_noise(key, pos)
         last = torch.zeros((B, cfg.vocab_padded), dtype=torch.float32,
                            device=tokens.device)
         for i in range(T):

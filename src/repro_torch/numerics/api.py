@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from .policy import SINGLE_FORMAT_IMPLS, Policy
+from .policy import SINGLE_FORMAT_IMPLS, OpPolicy, Policy
 
 __all__ = [
     "weight_format",
@@ -117,9 +117,13 @@ def kv_stochastic(pol: Optional[Policy]) -> bool:
             and pol.kv_write.mode == "stochastic")
 
 
-def _kv_mode(pol: Policy, op: str, has_noise: bool) -> str:
+def _kv_mode(pol: Optional[Policy], op: str, has_noise: bool) -> str:
     """Resolved rounding mode of a KV write: stochastic needs its noise;
-    without it the write falls back to the attention-read mode."""
+    without it the write falls back to the attention-read mode.  No
+    policy: round to nearest (the pages are float then, and no mode is
+    read)."""
+    if pol is None:
+        return "rne"
     mode = pol.resolve(op).mode
     if mode == "stochastic" and not has_noise:
         mode = pol.resolve("attention_qk").mode
@@ -128,10 +132,12 @@ def _kv_mode(pol: Policy, op: str, has_noise: bool) -> str:
     return mode
 
 
-def kv_write_token(pol: Policy, pages, scales, new, page_ids, rows, *,
-                   noise=None, write_mask=None):
+def kv_write_token(pol: Optional[Policy], pages, scales, new, page_ids,
+                   rows, *, noise=None, write_mask=None):
     """One decode token's K or V into its page, in place (see
-    ``serving.page_pool.write_token_page``); fmt/mode resolved here."""
+    ``serving.page_pool.write_token_page``); fmt/mode resolved here: FP8
+    codes when the policy quantizes the KV cache, else the float row in
+    the pages' dtype (``fmt=None``)."""
     from ..serving.page_pool import write_token_page
 
     return write_token_page(
@@ -140,18 +146,20 @@ def kv_write_token(pol: Policy, pages, scales, new, page_ids, rows, *,
         write_mask=write_mask)
 
 
-def _attention_qk(pol: Policy, site: str):
-    qk = pol.resolve("attention_qk", site)
+def _attention_qk(pol: Optional[Policy], site: str):
+    qk = pol.resolve("attention_qk", site) if pol is not None else OpPolicy()
     mode = qk.mode if qk.mode != "stochastic" else "rne"
     impl = qk.impl if qk.impl in ("kernel", "ref") else "auto"
     return mode, impl
 
 
 def attention(q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths,
-              pol: Policy, *, n_kv_heads: int, window: int = 0,
+              pol: Optional[Policy], *, n_kv_heads: int, window: int = 0,
               cap: float = 0.0, site: str = ""):
-    """Paged decode attention under the policy (QK^T in the LNS integer
-    domain off the page codes).  Returns [B, 1, H, dv] in q.dtype."""
+    """Paged decode attention under the policy: QK^T in the LNS integer
+    domain off the page codes when the KV cache is quantized, a float
+    product off float pages otherwise.  Returns [B, 1, H, dv] in
+    q.dtype."""
     from ..kernels.paged_attention import paged_decode_attention
 
     mode, impl = _attention_qk(pol, site)
@@ -162,7 +170,8 @@ def attention(q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths,
 
 
 def kv_fused_write_attend(q, k_new, v_new, k_pages, v_pages, k_scale,
-                          v_scale, block_tables, lengths, pol: Policy, *,
+                          v_scale, block_tables, lengths,
+                          pol: Optional[Policy], *,
                           n_kv_heads: int, k_noise=None, v_noise=None,
                           write_mask=None, window: int = 0, cap: float = 0.0,
                           site: str = ""):

@@ -14,9 +14,12 @@ unowned block-table entries point at it and masked write lanes are
 redirected into it, where they rewrite the row they hit with its own
 codes (:func:`scatter_token_rows`): the null page keeps its initial zero
 codes and unit scale, so what a masked lane reads there is the same in the
-fused and unfused decode and on every run.  The prefix-cache index, copy-on-write, spill/restore
-and chaos seizures of the reference pool arrive with the next slice; in
-this one every non-null page is either free or owned by exactly one slot.
+fused and unfused decode and on every run.  Preemption spills a slot's
+pages (:meth:`PagePool.spill_slot`; the engine copies their contents to
+the host first) and restores them into fresh ids.  The prefix-cache
+index, copy-on-write, the spill pins of shared prefix pages and chaos
+seizures of the reference pool arrive with later slices; in this one
+every non-null page is either free or owned by exactly one slot.
 
 Per-page scales are powers of two chosen from the page's first write
 (:func:`pow2_page_scale`, integer bit arithmetic), and every float -> code
@@ -29,7 +32,7 @@ from __future__ import annotations
 
 import os
 from collections import Counter
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -84,6 +87,8 @@ class PagePool:
         self.peak_used_pages = 0
         self.used_page_steps = 0
         self.observed_steps = 0
+        self.spills = 0
+        self.restores = 0
 
     # ------------------------------------------------------------------ #
     @property
@@ -111,6 +116,9 @@ class PagePool:
         tel.gauge("pool_free_pages").set(len(self._free))
         tel.gauge("pool_used_pages").set(self.used_pages)
         tel.gauge("pool_utilization").set(self.used_pages / usable)
+        for name, v in (("pool_spills_total", self.spills),
+                        ("pool_restores_total", self.restores)):
+            tel.counter(name).value = float(v)
 
     def pages_needed(self, n_tokens: int) -> int:
         return -(-n_tokens // self.page_size)
@@ -205,6 +213,69 @@ class PagePool:
         return mask
 
     # ------------------------------------------------------------------ #
+    # Preemption
+    # ------------------------------------------------------------------ #
+    def spill_plan(self, slot: int) -> Tuple[List[int], List[Tuple[int, int]]]:
+        """What :meth:`spill_slot` will do: ``(spilled, pinned)``, the
+        slot's page ids in logical order (the caller copies their contents
+        out) and the ``(logical_idx, page_id)`` pairs of shared prefix
+        pages that would stay resident under a pin.  This pool has no
+        prefix index, so every page is spilled and ``pinned`` is empty."""
+        return list(self.pages_of[slot]), []
+
+    def spill_slot(self, slot: int) -> Tuple[List[int], List[Tuple[int, int]]]:
+        """Preemption: release ``slot``'s pages after the caller copied
+        their contents out; returns :meth:`spill_plan`'s pair.
+
+        The freed ids are prepended to the free list (:meth:`_take_free`
+        pops from the end), so an immediate re-allocation prefers other
+        pages: a restore through the same physical pages would hide
+        block-table faults in tests."""
+        spilled, pinned = self.spill_plan(slot)
+        for pid in spilled:
+            self.ref[pid] -= 1
+            if self.ref[pid] != 0:
+                raise RuntimeError(f"spilled page {pid} still referenced")
+        self.pages_of[slot] = []
+        self.block_tables[slot] = 0
+        self.version += 1
+        spilled_set = set(spilled)
+        self._free = spilled + [i for i in self._free if i not in spilled_set]
+        self.spills += 1
+        return spilled, pinned
+
+    def restore_slot(self, slot: int, n: int,
+                     pinned: Sequence[Tuple[int, int]] = ()) -> List[int]:
+        """Re-admit a preempted request into ``slot``: allocate ``n`` fresh
+        pages for its spilled contents (ids may differ from the spilled
+        ones; the caller scatters the saved bytes back).  Returns the fresh
+        ids in logical order.  ``pinned`` takes a spill record's pinned
+        prefix pages, of which this pool makes none."""
+        if self.pages_of[slot]:
+            raise RuntimeError(f"restore target slot {slot} is not empty")
+        _no_pins(pinned)
+        if n > self.max_pages_per_slot:
+            raise RuntimeError(
+                f"slot {slot} exceeds max_pages_per_slot="
+                f"{self.max_pages_per_slot}"
+            )
+        fresh = self._take_free(n)
+        for pid in fresh:
+            self.ref[pid] = 1
+        self.pages_of[slot] = list(fresh)
+        self.block_tables[slot, :n] = fresh
+        self.version += 1
+        self.peak_used_pages = max(self.peak_used_pages, self.used_pages)
+        self.restores += 1
+        return fresh
+
+    def unpin(self, pinned: Sequence[Tuple[int, int]]) -> None:
+        """Drop a discarded spill record's pins (the preempted request
+        ended and will never restore).  This pool pins nothing, so the
+        record holds none."""
+        _no_pins(pinned)
+
+    # ------------------------------------------------------------------ #
     def assert_invariants(self) -> None:
         """Every non-null page is either free or referenced (never both),
         and refcounts and block tables agree with the owner lists."""
@@ -229,6 +300,13 @@ class PagePool:
             if (self.block_tables[slot, :n].tolist() != owned
                     or self.block_tables[slot, n:].any()):
                 raise AssertionError(f"slot {slot}: block table desync")
+
+
+def _no_pins(pinned) -> None:
+    if len(pinned):
+        raise RuntimeError(
+            f"pinned prefix pages {list(pinned)}: this pool has no prefix "
+            "index, so no spill record can hold a pin")
 
 
 # --------------------------------------------------------------------------- #
@@ -272,17 +350,24 @@ def encode_kv(x, scale, fmt: str, mode: str = "stochastic", noise=None):
     return encode(xs, fmt, mode)
 
 
-def token_row_codes(scales, new, page_ids, rows, *, fmt: str,
-                    mode: str = "stochastic", noise=None, write_mask=None):
+def token_row_codes(scales, new, page_ids, rows, *, fmt: Optional[str],
+                    mode: str = "stochastic", noise=None, write_mask=None,
+                    store_dtype=None):
     """The per-row half of :func:`write_token_page`: everything but the
     scatter.  Returns ``(page_ids [B] int64 with masked lanes redirected to
     the null page, row codes [B, KV, hd] uint8, page scale [B])``.  A row-0
     write claims the page's scale from the token's absmax only when its
-    lane is unmasked; later rows reuse the page's scale."""
+    lane is unmasked; later rows reuse the page's scale.  Float pages
+    (``fmt=None``): the row is ``new`` cast to ``store_dtype`` (the pages'
+    dtype, when given), no noise is read, and the scales are the pages'
+    own, untouched."""
     page_ids = page_ids.to(torch.int64)
     if write_mask is not None:
         write_mask = write_mask.to(torch.bool)
         page_ids = torch.where(write_mask, page_ids, 0)
+    if fmt is None:
+        row = new if store_dtype is None else new.to(store_dtype)
+        return page_ids, row, scales[page_ids]
     amax = new.to(torch.float32).abs().amax(dim=(1, 2))
     fresh = rows == 0
     if write_mask is not None:
@@ -313,11 +398,13 @@ def scatter_token_rows(pages, page_ids, rows, codes, write_mask=None):
     return pages
 
 
-def write_token_page(pages, scales, new, page_ids, rows, *, fmt: str,
-                     mode: str = "stochastic", noise=None, write_mask=None):
+def write_token_page(pages, scales, new, page_ids, rows, *,
+                     fmt: Optional[str], mode: str = "stochastic",
+                     noise=None, write_mask=None):
     """Scatter one decode token's K or V into its page, per slot, in place.
 
-    pages: [P, page, KV, hd] uint8; scales: [P] float32; new: [B, KV, hd]
+    pages: [P, page, KV, hd] uint8 codes (float when ``fmt`` is None);
+    scales: [P] float32 (left unchanged for float pages); new: [B, KV, hd]
     float; page_ids/rows: [B] (physical page and row of each write);
     ``noise``: [B, KV, hd] for stochastic rounding; ``write_mask``: [B]
     bool — masked lanes land in the null page, never claim a scale and
@@ -326,7 +413,8 @@ def write_token_page(pages, scales, new, page_ids, rows, *, fmt: str,
     """
     page_ids, codes, s = token_row_codes(
         scales, new, page_ids, rows, fmt=fmt, mode=mode, noise=noise,
-        write_mask=write_mask)
+        write_mask=write_mask, store_dtype=pages.dtype)
     scatter_token_rows(pages, page_ids, rows, codes, write_mask)
-    scales.index_put_((page_ids,), s)
+    if fmt is not None:
+        scales.index_put_((page_ids,), s)
     return pages, scales

@@ -62,9 +62,8 @@ needs ``slots``, ``pool``, ``step_chunk``, ``preempt_slot``,
 ``admit_prefix`` / ``note_prefilled`` (see ``launch.serve.Engine``).
 
 This is the PyTorch port's verbatim copy of ``repro.serving.scheduler``.
-In this slice of the port the engine's prefix cache is always off and its
-``preempt_slot`` raises ``NotImplementedError`` (spill/restore arrives
-with the next slice), so a pool must be sized to never run dry.
+The port's engine has no prefix cache yet (its prefix plans are empty);
+preemption spills and restores pages as described above.
 """
 from __future__ import annotations
 

@@ -68,7 +68,7 @@ def test_heuristic_without_measurement(tuner_cache):
 
 
 def test_cache_roundtrip_and_persistence(tuner_cache):
-    key = "flash|torch-cpu|cpu|64x64x32x32"
+    key = "flash|torch-cpu|cpu|f32|64x64x32x32"
     autotune._store(key, (32, 64))
     autotune.clear_memory_cache()   # a fresh view must re-read the file
     assert tuner_cache.exists()
@@ -87,7 +87,7 @@ def test_forced_measurement_populates_cache(tuner_cache, monkeypatch):
     assert blocks in [(64, 64), (64, 128), (128, 64), (128, 128)]
     assert fa.flash_attention.launches == before
     (key,) = json.loads(tuner_cache.read_text())
-    assert key == f"flash|torch-cpu|{autotune._device_kind('cpu')}|" \
+    assert key == f"flash|torch-cpu|{autotune._device_kind('cpu')}|f32|" \
         "128x128x16x16"
     assert key.startswith("flash|torch-cpu|cpu|")
     assert _gauge("128x128x16x16", "x".join(map(str, blocks)),
@@ -105,22 +105,51 @@ def test_unpinned_wrapper_call_asks_the_tuner(tuner_cache, monkeypatch):
     k = v = torch.randn(1, 64, 1, 16)
     out = fa.flash_attention(q, k, v)
     (key, blocks), = json.loads(tuner_cache.read_text()).items()
-    assert key == "flash|torch-cpu|cpu|64x64x16x16" and blocks == [64, 64]
+    assert key == "flash|torch-cpu|cpu|f32|64x64x16x16" and blocks == [64, 64]
     torch.testing.assert_close(out, fa.flash_attention(q, k, v, bq=64, bk=64),
                                rtol=0, atol=0)
+
+
+def test_forced_measurement_runs_in_the_callers_dtype(tuner_cache,
+                                                     monkeypatch):
+    """A bf16 call measures its candidates on bf16 operands (K6 runs
+    another body for bf16 than for float32) and caches under a key that
+    names bf16; a float32 call at the same shape measures again in
+    float32 and keys apart."""
+    monkeypatch.setenv("REPRO_AUTOTUNE", "force")
+    real = fa.flash_attention
+    seen = []
+
+    def spy(q, k, v, **kw):
+        seen.append((q.dtype, k.dtype, v.dtype))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(fa, "flash_attention", spy)
+    q = torch.randn(1, 64, 2, 16).to(torch.bfloat16)
+    k = v = torch.randn(1, 64, 1, 16).to(torch.bfloat16)
+    real(q, k, v)
+    assert seen and set(seen) == {(torch.bfloat16,) * 3}
+    assert list(json.loads(tuner_cache.read_text())) == [
+        "flash|torch-cpu|cpu|bf16|64x64x16x16"]
+    seen.clear()
+    real(q.float(), k.float(), v.float())
+    assert seen and set(seen) == {(torch.float32,) * 3}
+    assert sorted(json.loads(tuner_cache.read_text())) == [
+        "flash|torch-cpu|cpu|bf16|64x64x16x16",
+        "flash|torch-cpu|cpu|f32|64x64x16x16"]
 
 
 def test_device_names_key_apart(tuner_cache, monkeypatch):
     """A tiling cached for one card is not replayed on another."""
     monkeypatch.setenv("REPRO_AUTOTUNE", "0")
-    autotune._store("flash|torch-cuda|NVIDIA_A100|64x64x32x32", (64, 64))
+    autotune._store("flash|torch-cuda|NVIDIA_A100|f32|64x64x32x32", (64, 64))
     monkeypatch.setattr(torch.cuda, "get_device_name",
                         lambda *a: "NVIDIA H100 80GB HBM3")
     dev = torch.device("cuda", 0)
     assert autotune._device_kind(dev) == "NVIDIA_H100_80GB_HBM3"
     assert autotune.flash_blocks(64, 64, 32, 32, device=dev) == (64, 64)
     assert _gauge("64x64x32x32", "64x64", "heuristic") == -1.0
-    autotune._store("flash|torch-cuda|NVIDIA_H100_80GB_HBM3|64x64x32x32",
+    autotune._store("flash|torch-cuda|NVIDIA_H100_80GB_HBM3|f32|64x64x32x32",
                     (32, 32))
     assert autotune.flash_blocks(64, 64, 32, 32, device=dev) == (32, 32)
 
@@ -134,7 +163,7 @@ def test_jax_and_port_entries_never_replay_each_other(tuner_cache,
     jautotune._store(jkey, (8, 8))
     autotune.clear_memory_cache()
     assert autotune.flash_blocks(64, 64, 32, 32, device="cpu") == (64, 64)
-    autotune._store("flash|torch-cpu|cpu|48x48x32x32", (16, 16))
+    autotune._store("flash|torch-cpu|cpu|f32|48x48x32x32", (16, 16))
     jautotune.clear_memory_cache()
     assert jautotune.flash_blocks(48, 48, 32, 32, interpret=True) == (48, 48)
     assert jautotune.flash_blocks(64, 64, 32, 32, interpret=True) == (8, 8)

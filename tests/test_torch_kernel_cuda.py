@@ -11,7 +11,9 @@ on the GPU machine:
 Tolerance of the attention output: rtol = atol = 1e-4 — the kernel and
 the plain version sum the exact LNS products over hd, the page rows and
 the pages in different float32 orders, and the card's ``expf`` is not
-torch's ``exp``.  Cache updates and fused == unfused are bitwise.  K3's
+torch's ``exp``; the same for K1's float instance (bf16 and float32
+pages), whose q.k products are float32 FMAs on the card.  Cache updates
+and fused == unfused are bitwise.  K3's
 single products are bitwise (NaN as NaN: the card's float add returns its
 own canonical NaN); K2's and K3's sums are held to the float32 summation
 bound 2 K 2^-24 sum|products|, since they add the same exact products in
@@ -135,6 +137,90 @@ def test_k1_rejects_operands_it_does_not_take(dev):
         pa.paged_partials(codes, qs, c["kp"], c["vp"], c["ks"], c["vs"],
                           c["bt"].long(), c["lengths"], fmt="e5m2",
                           mode="rne", KV=2, G=7)
+
+
+def _float_case(seed, dev, *, G, hd, page, pdt):
+    """``_case`` with float pages of ``pdt`` and new rows in that dtype
+    (as the model writes them); the query stays float32."""
+    c = _case(seed, dev, G=G, hd=hd, page=page, fmt="e5m2")
+    g = torch.Generator().manual_seed(seed + 7)
+    for name in ("kp", "vp"):
+        c[name] = torch.randn(c[name].shape, generator=g).to(dev, pdt)
+    for name in ("k_new", "v_new"):
+        c[name] = c[name].to(pdt)
+    c.update(fmt=None, k_noise=None, v_noise=None)
+    return c
+
+
+PAGE_DTYPES = [torch.bfloat16, torch.float32]
+FLOAT_GEOS = [{k: v for k, v in g.items() if k != "fmt"} for g in GEOS]
+
+
+@pytest.mark.parametrize("pdt", PAGE_DTYPES, ids=str)
+@pytest.mark.parametrize("geo", FLOAT_GEOS,
+                         ids=lambda g: "-".join(map(str, g.values())))
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (5, 25.0)])
+def test_k1_float_matches_plain(dev, geo, window, cap, pdt):
+    c = _float_case(4, dev, **geo, pdt=pdt)
+    before = (pa.paged_partials.launches, pa.paged_partials.float_launches)
+    kern = _fused(c, "auto", window, cap)
+    plain = _fused(c, "ref", window, cap)
+    torch.cuda.synchronize()
+    assert (pa.paged_partials.launches,
+            pa.paged_partials.float_launches) == (before[0], before[1] + 1)
+    for i in (1, 3):
+        assert kern[i].dtype == pdt
+        assert torch.equal(kern[i][1:], plain[i][1:])
+    for i, name in ((2, "ks"), (4, "vs")):
+        assert torch.equal(kern[i], c[name])   # float pages keep scales
+    act = c["mask"]
+    assert torch.isfinite(kern[0][act]).all()
+    torch.testing.assert_close(kern[0][act], plain[0][act], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("pdt", PAGE_DTYPES, ids=str)
+@pytest.mark.parametrize("geo", FLOAT_GEOS,
+                         ids=lambda g: "-".join(map(str, g.values())))
+def test_k1_float_fused_equals_unfused(dev, geo, pdt):
+    c = _float_case(5, dev, **geo, pdt=pdt)
+    fused = _fused(c, "auto", 5, 30.0)
+    kp, vp, ks, vs = (c[n].clone() for n in ("kp", "vp", "ks", "vs"))
+    logical = torch.div(c["lengths"], c["page"], rounding_mode="floor")
+    rows = c["lengths"] - logical * c["page"]
+    pids = c["bt"].gather(1, logical[:, None].long())[:, 0]
+    write_token_page(kp, ks, c["k_new"], pids, rows, fmt=None,
+                     write_mask=c["mask"])
+    write_token_page(vp, vs, c["v_new"], pids, rows, fmt=None,
+                     write_mask=c["mask"])
+    out = pa.paged_decode_attention(c["q"], kp, vp, ks, vs, c["bt"],
+                                    c["lengths"] + 1, fmt=None,
+                                    n_kv_heads=c["KV"], window=5, cap=30.0)
+    act = c["mask"]
+    assert torch.equal(fused[0][act], out[act])
+    for got, want in zip(fused[1:], (kp, ks, vp, vs)):
+        assert torch.equal(got[1:], want[1:])
+
+
+def test_k1_float_rejects_operands_it_does_not_take(dev):
+    c = _float_case(6, dev, G=7, hd=64, page=16, pdt=torch.bfloat16)
+    q, _ = pa.query_operand(c["q"][:, 0], None)
+    kw = dict(fmt=None, mode="rne", KV=2, G=7)
+    before = pa.paged_partials.float_launches
+    with pytest.raises(ValueError, match="bf16 or float32"):
+        pa.paged_partials(q, None, c["kp"].half(), c["vp"].half(), c["ks"],
+                          c["vs"], c["bt"], c["lengths"], **kw)
+    with pytest.raises(ValueError, match="v_pages"):
+        pa.paged_partials(q, None, c["kp"], c["vp"].float(), c["ks"],
+                          c["vs"], c["bt"], c["lengths"], **kw)
+    strided = c["kp"].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.paged_partials(q, None, strided, c["vp"], c["ks"], c["vs"],
+                          c["bt"], c["lengths"], **kw)
+    with pytest.raises(ValueError, match="q"):
+        pa.paged_partials(q.to(torch.bfloat16), None, c["kp"], c["vp"],
+                          c["ks"], c["vs"], c["bt"], c["lengths"], **kw)
+    assert pa.paged_partials.float_launches == before
 
 
 def _nan_aware_equal(a, b):
@@ -422,7 +508,7 @@ def test_k6_every_autotuner_candidate(dev, tmp_path, monkeypatch):
     autotune.clear_memory_cache()
     try:
         first = fa.flash_attention(q, k, v)
-        key = (f"flash|torch-cuda|{autotune._device_kind(dev)}|"
+        key = (f"flash|torch-cuda|{autotune._device_kind(dev)}|f32|"
                "300x300x64x64")
         blocks = tuple(autotune._load()[key])
         assert blocks in [(a, b) for a in (64, 128, 256)

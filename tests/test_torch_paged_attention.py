@@ -11,6 +11,12 @@ KV-write + attend) against the JAX package, on the CPU.
 * Fused == unfused is bitwise *within the port* over random geometries,
   including the qwen2-0.5b head grouping G=7 with hd=64.
 
+Float pages (``fmt=None``, float32 or bf16, the reference CLI's default
+cache): the pages after the write are bitwise equal to JAX's, the output
+within rtol = atol = 1e-5 of JAX's ``ref``, ``batch`` and interpreted
+``kernel`` impls (float32 q.k sums over hd in another order, and ``exp``),
+and fused == unfused is bitwise within the port.
+
 The null page 0 is excluded from cache comparisons: masked lanes all
 write into it, in an order the reference leaves unspecified.
 """
@@ -294,10 +300,195 @@ def test_cpu_wrapper_runs_the_plain_version_and_counts_no_launch():
     assert pa.paged_partials.launches == before
 
 
-def test_float_pages_not_ported_yet():
-    case = _case(7, fmt="e5m2")
+# --------------------------------------------------------------------------- #
+# Float pages (fmt=None)
+# --------------------------------------------------------------------------- #
+PAGE_DTYPES = {"float32": (torch.float32, jnp.float32),
+               "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def _float_case(seed, pdt, **geo):
+    """``_case``'s geometry, lengths, mask and query with float pages of
+    ``pdt``: pages and new rows hold values exact in that dtype (as the
+    model's bf16 K/V are), the query stays float32."""
+    case = _case(seed, fmt="e5m2", **geo)
+    rng = np.random.default_rng(seed + 7)
+    tdt = PAGE_DTYPES[pdt][0]
+
+    def exact(x):
+        return torch.from_numpy(x).to(tdt).to(torch.float32).numpy()
+
+    for name in ("kp", "vp"):
+        case[name] = exact(rng.standard_normal(case["kp"].shape)
+                           .astype(np.float32))
+    for name in ("k_new", "v_new"):
+        case[name] = exact(case[name])
+    case["pdt"] = pdt
+    return case
+
+
+def _ft(case):
+    """Torch operands of a float case: pages and rows in the page dtype."""
+    tdt = PAGE_DTYPES[case["pdt"]][0]
     c = _t(case)
-    with pytest.raises(NotImplementedError):
-        pa.paged_decode_attention(
-            c["q"], c["kp"], c["vp"], c["ks"], c["vs"], c["bt"],
-            c["lengths"] + 1, fmt=None, n_kv_heads=case["KV"])
+    for name in ("kp", "vp", "k_new", "v_new"):
+        c[name] = c[name].to(tdt)
+    return c
+
+
+def _fj(case, name):
+    jdt = PAGE_DTYPES[case["pdt"]][1]
+    return jnp.asarray(case[name], jdt)
+
+
+def _port_float(case, fused, impl="auto"):
+    c = _ft(case)
+    if fused:
+        return pa.fused_decode_write_attend(
+            c["q"], c["k_new"], c["v_new"], c["kp"], c["vp"], c["ks"],
+            c["vs"], c["bt"], c["lengths"], fmt=None,
+            n_kv_heads=case["KV"], write_mask=c["mask"],
+            window=case["window"], cap=case["cap"], impl=impl)
+    logical = c["lengths"] // case["page"]
+    rows = c["lengths"] - logical * case["page"]
+    pids = c["bt"].gather(1, logical[:, None].long())[:, 0]
+    for pages, scales, new in (("kp", "ks", "k_new"), ("vp", "vs", "v_new")):
+        page_pool.write_token_page(c[pages], c[scales], c[new], pids, rows,
+                                   fmt=None, write_mask=c["mask"])
+    out = pa.paged_decode_attention(
+        c["q"], c["kp"], c["vp"], c["ks"], c["vs"], c["bt"],
+        c["lengths"] + 1, fmt=None, n_kv_heads=case["KV"],
+        window=case["window"], cap=case["cap"], impl=impl)
+    return out, c["kp"], c["ks"], c["vp"], c["vs"]
+
+
+def _assert_float_matches_jax(port, ref, case):
+    mask = case["mask"]
+    np.testing.assert_allclose(port[0].numpy()[mask],
+                               np.asarray(ref[0])[mask], rtol=RTOL,
+                               atol=ATOL)
+    for i, name in ((1, "kp"), (3, "vp")):
+        np.testing.assert_array_equal(
+            port[i].to(torch.float32).numpy()[1:],
+            np.asarray(ref[i], np.float32)[1:], err_msg=name)
+    for i, name in ((2, "ks"), (4, "vs")):
+        np.testing.assert_array_equal(port[i].numpy(), case[name])
+
+
+@pytest.mark.parametrize("jimpl", ["ref", "batch", "kernel"])
+@pytest.mark.parametrize("pdt", list(PAGE_DTYPES))
+@pytest.mark.parametrize("seed", range(3))
+def test_float_fused_matches_jax(seed, pdt, jimpl):
+    """K1's float branch, fused: the port's fused form against JAX's
+    ``fused_decode_write_attend(fmt=None)`` in each of its impls (the
+    kernel interpreted), ragged lengths, masked lanes; seed 1 with a
+    window and a cap at qwen2-0.5b head geometry."""
+    geo = dict(G=7, hd=64, page=16) if seed == 1 else {}
+    case = _float_case(300 + seed, pdt, **geo)
+    if seed == 1:
+        case["window"], case["cap"] = 5, 25.0
+    ref = jpa.fused_decode_write_attend(
+        jnp.asarray(case["q"]), _fj(case, "k_new"), _fj(case, "v_new"),
+        _fj(case, "kp"), _fj(case, "vp"), jnp.asarray(case["ks"]),
+        jnp.asarray(case["vs"]), jnp.asarray(case["bt"]),
+        jnp.asarray(case["lengths"]), fmt=None, n_kv_heads=case["KV"],
+        write_mask=jnp.asarray(case["mask"]), window=case["window"],
+        cap=case["cap"], impl=jimpl,
+        interpret=True if jimpl == "kernel" else None)
+    for impl in ("auto", "ref"):
+        _assert_float_matches_jax(_port_float(case, True, impl), ref, case)
+
+
+@pytest.mark.parametrize("pdt", list(PAGE_DTYPES))
+@pytest.mark.parametrize("seed", range(3))
+def test_float_decode_attention_matches_jax(seed, pdt):
+    """K1's float branch, unfused: ``paged_decode_attention(fmt=None)``
+    against JAX's ``ref`` and interpreted ``kernel``, every slot (no
+    write), with a window and a cap on odd seeds."""
+    case = _float_case(400 + seed, pdt, G=7, hd=64, page=16)
+    case["window"], case["cap"] = (7, 30.0) if seed % 2 else (0, 0.0)
+    ln = case["lengths"] + 1
+    c = _ft(case)
+    port = {impl: pa.paged_decode_attention(
+        c["q"], c["kp"], c["vp"], c["ks"], c["vs"], c["bt"],
+        torch.from_numpy(ln), fmt=None, n_kv_heads=case["KV"],
+        window=case["window"], cap=case["cap"], impl=impl)
+        for impl in ("auto", "ref")}
+    for jimpl in ("ref", "kernel"):
+        ref = jpa.paged_decode_attention(
+            jnp.asarray(case["q"]), _fj(case, "kp"), _fj(case, "vp"),
+            jnp.asarray(case["ks"]), jnp.asarray(case["vs"]),
+            jnp.asarray(case["bt"]), jnp.asarray(ln), fmt=None,
+            n_kv_heads=case["KV"], window=case["window"], cap=case["cap"],
+            impl=jimpl, interpret=True if jimpl == "kernel" else None)
+        for out in port.values():
+            np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                                       rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("pdt", list(PAGE_DTYPES))
+def test_float_pages_after_the_write_match_jax(pdt):
+    """``write_token_page(fmt=None)``: the row cast to the pages' dtype,
+    masked lanes into the null page, the scales untouched; bitwise equal
+    to JAX's on every page but the null page.  A float32 row into bf16
+    pages rounds as JAX's cast does."""
+    case = _float_case(77, pdt, G=7, hd=64, page=16)
+    rng = np.random.default_rng(5)
+    new = (rng.standard_normal(case["k_new"].shape) * 3).astype(np.float32)
+    pids = case["bt"][np.arange(len(case["lengths"])),
+                      case["lengths"] // case["page"]]
+    rows = case["lengths"] % case["page"]
+    jp, js = jpool.write_token_page(
+        _fj(case, "kp"), jnp.asarray(case["ks"]), jnp.asarray(new),
+        jnp.asarray(pids), jnp.asarray(rows), fmt=None,
+        write_mask=jnp.asarray(case["mask"]))
+    c = _ft(case)
+    tp, ts = page_pool.write_token_page(
+        c["kp"], c["ks"], torch.from_numpy(new), torch.from_numpy(pids),
+        torch.from_numpy(rows), fmt=None,
+        write_mask=torch.from_numpy(case["mask"]))
+    assert tp.dtype == PAGE_DTYPES[pdt][0]
+    np.testing.assert_array_equal(tp.to(torch.float32).numpy()[1:],
+                                  np.asarray(jp, np.float32)[1:])
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(ts.numpy(), case["ks"])
+    assert torch.equal(tp[0], _ft(case)["kp"][0])   # the null page kept
+
+
+@pytest.mark.parametrize("pdt", list(PAGE_DTYPES))
+@pytest.mark.parametrize("seed", range(6))
+def test_float_fused_equals_unfused_within_port(seed, pdt):
+    """Float pages: the fused form (the row, in the pages' dtype, spliced
+    into the gathered old pages) equals write-then-attend bit for bit on
+    active lanes, pages included, for the plain partials and the ref
+    oracle; at qwen2-0.5b head geometry on even seeds, with a window and
+    a cap on seeds 2 and 3."""
+    geo = dict(G=7, hd=64, page=16) if seed % 2 == 0 else {}
+    case = _float_case(500 + seed, pdt, **geo)
+    if seed in (2, 3):
+        case["window"], case["cap"] = 6, 20.0
+    act = case["mask"]
+    unfused = _port_float(case, False)
+    for impl in ("auto", "ref"):
+        fused = _port_float(case, True, impl)
+        np.testing.assert_array_equal(fused[0].numpy()[act],
+                                      unfused[0].numpy()[act])
+        for i in (1, 2, 3, 4):
+            assert torch.equal(fused[i][1:], unfused[i][1:])
+
+
+def test_float_cpu_wrapper_runs_the_plain_version_and_counts_no_launch():
+    case = _float_case(8, "bfloat16", G=7, hd=64, page=16)
+    c = _ft(case)
+    q, none = pa.query_operand(c["q"][:, 0], None)
+    assert q.dtype == torch.float32 and none is None
+    args = (q, None, c["kp"], c["vp"], c["ks"], c["vs"], c["bt"],
+            c["lengths"] + 1)
+    before = (pa.paged_partials.launches, pa.paged_partials.float_launches)
+    got = pa.paged_partials(*args, fmt=None, mode="rne", KV=case["KV"], G=7)
+    want = pa.page_partials_plain(*args, fmt=None, mode="rne",
+                                  KV=case["KV"], G=7)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (pa.paged_partials.launches,
+            pa.paged_partials.float_launches) == before

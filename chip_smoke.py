@@ -14,8 +14,8 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
    (one ``nvcc`` per source, all started together): K1 from
    ``paged_attention.cu``, K2, K3 and K4 from ``lns_matmul.cu``, K5 from
    ``fp8_elementwise.cu``, K6 from ``flash_attention.cu``; and checks with
-   ``cuobjdump`` that every instantiation of K2 and of K6's bf16 body
-   holds HMMA (tensor-core) instructions;
+   ``cuobjdump`` that every instantiation of K2, of K3 and of K6's bf16
+   body holds HMMA (tensor-core) instructions;
 3. holds kernel K1 (LNS paged decode attention) against its plain PyTorch
    version at qwen2-0.5b attention shapes (B=8, KV=2, G=7, hd=64, page 16,
    up to 64 pages per slot, ragged lengths, masked lanes, fresh-page rows,
@@ -68,13 +68,21 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     path (launches per sub-step);
 12. K3 (the paper's LNS matmul): all 65,536 products of every (format,
     mode) pair bitwise equal to the plain version (NaN as NaN); then K3
-    (e4m3 RNE) and K2 (e5m2 x e4m3, bf16 and float32 compute) against
-    their plain versions at the training path's shapes (M = 1024 tokens,
-    every (K, N) of a qwen2-0.5b layer), each element within the float32
-    summation bound 2 K 2^-24 sum|products|; then their card times per
-    layer (the seven quantized matmuls of one layer's forward) beside the
-    bound, the plain version and, for K2, ``torch.matmul`` on pre-decoded
-    bf16 operands, and K2's time and TFLOP/s at each shape;
+    (e4m3 RNE, and e5m2 ``ru``, whose planes carry x's sign) and K2 (e5m2
+    x e4m3, bf16 and float32 compute) against their plain versions at the
+    training path's shapes (M = 1024 tokens, every (K, N) of a qwen2-0.5b
+    layer), each element within the float32 summation bound 2 K 2^-24
+    sum|products|; then their card times per layer (the seven quantized
+    matmuls of one layer's forward) beside the bound, the plain version
+    and, for K2, ``torch.matmul`` on pre-decoded bf16 operands; K2's and
+    K3's time and TFLOP/s at each shape (K3's both of the function, 2 M K
+    N, and of its R planes), and beside K3 the same-shape bf16
+    ``torch.matmul`` [M, R K] x [R K, N] as a yardstick of the GEMM's
+    shape (no PyTorch call computes LNS products, so K3 has no library
+    time).  K3's bound is the function's, whatever implements it: the
+    larger of its bytes over the memory rate and its 2 M K N operations
+    over the dense 8-bit tensor rate; the integer route's floor and the
+    plane GEMM's dense bf16 time are printed beside it;
 13. trains full-width qwen2-0.5b through the port's CLI
     (``launch.train.main``, ``--quant fp8_lns_pallas``, batch 8 x seq 128,
     6 steps, checkpoints every 3): finite losses, 0 restarts, and K3
@@ -112,9 +120,9 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     and within tolerance of the plain version;
 17. K4 (the seed LNS matmul) bitwise against its plain version at 512^3
     and at the seven matmul shapes of one qwen2-0.5b layer at M = 1024;
-    its time per layer beside K3's, the plain version and the bound (the
-    fewer SASS instructions per product of K4's and K3's loops, as both
-    compute one function), and K4 / K3 at 512^3;
+    its time per layer beside K3's, the plain version and the bound (K3's:
+    both compute one function), its own SASS instructions per product,
+    and K4 / K3 at 512^3;
 18. K4's path: 2 full-width train steps under train_fp8_lns with every
     matmul through K4 (``run_training``): finite losses, 0 restarts, 672
     K4 launches and no K3 or K2; then the first step of a float32 2-layer
@@ -954,6 +962,7 @@ def check_k5_engine_against_plain(dev) -> None:
 # K2 and K3: the quantized matmuls of the training path
 # --------------------------------------------------------------------------- #
 BF16_FLOP_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
+INT8_OPS_PER_S = 1979e12   # H100 SXM fp8 and int8 tensor cores, dense
 # One transformer layer's seven quantized matmuls at qwen2-0.5b widths:
 # (K, N) -> how many of the layer's matmuls have that shape (wq/wo, wk/wv,
 # w_gate/w_up, w_down).
@@ -1032,12 +1041,14 @@ def sass_opcode_counts(lib, kernel: str, opcode: str) -> dict:
 
 
 def check_tensor_cores() -> None:
-    """Phase: K2 (every instantiation of ``dequant_matmul_kernel``) and
-    K6's bf16 body (every instantiation of ``flash_attention_bf16_kernel``)
-    run their products on the tensor cores: cuobjdump finds HMMA in each."""
+    """Phase: K2 (every instantiation of ``dequant_matmul_kernel``), K3
+    (of ``lns_matmul_kernel``) and K6's bf16 body (of
+    ``flash_attention_bf16_kernel``) run their products on the tensor
+    cores: cuobjdump finds HMMA in each."""
     from repro_torch.kernels import cuda_build
 
     for source, kernel in (("lns_matmul", "dequant_matmul_kernel"),
+                           ("lns_matmul", "lns_matmul_kernel"),
                            ("flash_attention", "flash_attention_bf16_kernel")):
         counts = sass_opcode_counts(cuda_build.build([source])[0], kernel,
                                     "HMMA")
@@ -1085,6 +1096,12 @@ def check_k3_products(dev) -> int:
     return n
 
 
+def _n_sm(dev) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _layer_codes(dev, seed: int, act_fmt: str, w_fmt: str):
     """FP8 codes of the slice's matmul operands: activations [M, K] and
     weights [K, N] for each shape of LAYER_MATMULS, quantized as the STE
@@ -1107,6 +1124,22 @@ def _sum_bound(K, absum):
     return 2 * K * 2.0 ** -24 * absum
 
 
+def lns_function_bound() -> dict:
+    """The least time of one layer's seven LNS matmuls at M = SMOKE_M
+    (K3's function, which K4 computes too), whatever implements them: the
+    larger of the bytes they must move (codes in, float32 out) over the
+    memory rate and their operations (a multiply and an add of two 8-bit
+    operands per product) over the card's fastest dense 8-bit rate."""
+    prods = sum(c * SMOKE_M * K * N for (K, N), c in LAYER_MATMULS.items())
+    nbytes = sum(c * (SMOKE_M * K + K * N + 4 * SMOKE_M * N)
+                 for (K, N), c in LAYER_MATMULS.items())
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = 2 * prods / INT8_OPS_PER_S * 1e3
+    return dict(ms=max(b_bytes, b_ops), prods=prods, nbytes=nbytes,
+                bytes_ms=b_bytes, ops_ms=b_ops,
+                bound_by="bytes" if b_bytes >= b_ops else "operations")
+
+
 def _per_layer_ms(fn_of_shape, only, iters, warmup=2):
     """Card time of one layer's seven matmuls: per-shape card time of
     ``fn_of_shape(shape)`` times each shape's count in LAYER_MATMULS."""
@@ -1120,33 +1153,41 @@ def _per_layer_ms(fn_of_shape, only, iters, warmup=2):
 
 
 def check_matmul_kernels(dev) -> dict:
-    """Phase: K3 and K2 against their plain versions at the training
-    path's shapes (M = 1024, every (K, N) of a qwen2-0.5b layer), then
-    their timings per layer (the seven matmuls of one layer's forward)."""
+    """Phase: K3 (e4m3 RNE, and e5m2 RU) and K2 against their plain
+    versions at the training path's shapes (M = 1024, every (K, N) of a
+    qwen2-0.5b layer), then their timings per layer (the seven matmuls of
+    one layer's forward) beside the bounds."""
     import torch
     from repro_torch.kernels import lns_matmul as lm
-    from repro_torch.kernels.common import code_to_f32
+    from repro_torch.kernels.common import code_to_f32, lns_plane_tables
 
     res = {}
-    # K3: e4m3 x e4m3, RNE carry-in (--quant fp8_lns_pallas)
+    # K3: e4m3 x e4m3, RNE carry-in (--quant fp8_lns_pallas); then e5m2
+    # RU, whose carry-in reads the signs (8 planes: mantissa and sign)
     k3_codes = _layer_codes(dev, 10, "e4m3", "e4m3")
-    err = 0.0
-    for (K, N), (x, w) in k3_codes.items():
-        got = lm.lns_product_matmul(x, w, fmt="e4m3", mode="rne")
-        want = lm.lns_matmul_plain(x, w, fmt="e4m3", mode="rne")
-        absum = lm.lns_matmul_plain(x & 0x7F, w & 0x7F, fmt="e4m3",
-                                    mode="rne")
-        torch.cuda.synchronize()
-        diff = (got - want).abs()
-        if not torch.isfinite(got).all() or bool(
-                (diff > _sum_bound(K, absum)).any()):
-            raise AssertionError(f"K3 differs from its plain version at "
-                                 f"{SMOKE_M}x{K}x{N}")
-        err = max(err, float(diff.max()))
-        print(f"# K3 {SMOKE_M}x{K}x{N} vs plain: max |err| {err:.3e} within "
-              f"2 K 2^-24 sum|products| (max bound "
-              f"{float(_sum_bound(K, absum).max()):.3e})", flush=True)
-    res["k3_err"] = err
+    err = {}
+    for fmt, mode, cases in (
+            ("e4m3", "rne", k3_codes),
+            ("e5m2", "ru", _layer_codes(dev, 12, "e5m2", "e5m2"))):
+        for (K, N), (x, w) in cases.items():
+            got = lm.lns_product_matmul(x, w, fmt=fmt, mode=mode)
+            want = lm.lns_matmul_plain(x, w, fmt=fmt, mode=mode)
+            absum = lm.lns_matmul_plain(x & 0x7F, w & 0x7F, fmt=fmt,
+                                        mode=mode)
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            if not torch.isfinite(got).all() or bool(
+                    (diff > _sum_bound(K, absum)).any()):
+                raise AssertionError(f"K3 differs from its plain version at "
+                                     f"{SMOKE_M}x{K}x{N} ({fmt} {mode})")
+            err[fmt, mode] = max(err.get((fmt, mode), 0.0),
+                                 float(diff.max()))
+            print(f"# K3 {fmt} {mode} {SMOKE_M}x{K}x{N} (tile "
+                  f"{lm.lns_tile(SMOKE_M, N, _n_sm(dev))}) vs plain: max "
+                  f"|err| {float(diff.max()):.3e} within 2 K 2^-24 "
+                  f"sum|products| (max bound "
+                  f"{float(_sum_bound(K, absum).max()):.3e})", flush=True)
+    res["k3_err"] = err["e4m3", "rne"]     # the training path's cell
     # K2: e5m2 activations x e4m3 weights (train_fp8), bf16 and f32 compute
     k2_codes = _layer_codes(dev, 11, "e5m2", "e4m3")
     err = 0.0
@@ -1190,8 +1231,39 @@ def check_matmul_kernels(dev) -> dict:
     def k2_library(shape):
         return torch.matmul(*decoded[shape])
 
+    # K3's GEMM shape as one bf16 product, [M, R K] x [R K, N]: its planes
+    # expanded beforehand (a yardstick of the shape, not of the function)
+    pt = lns_plane_tables("e4m3", "rne")
+    B = pt.B.to(dev)
+    A = pt.A.to(dev).to(torch.bfloat16)
+    cls = pt.cls.to(dev)
+
+    def planes(shape):
+        x, w = k3_codes[shape]
+        xi, wi = x.long(), w.long()
+        xp = torch.zeros((SMOKE_M, shape[0], pt.R), dtype=torch.bfloat16,
+                         device=dev)
+        xp.scatter_(2, cls[xi][..., None], A[xi][..., None])
+        return (xp.reshape(SMOKE_M, -1),
+                B[:, wi].permute(1, 0, 2).reshape(-1, shape[1]))
+
+    expanded = {s: planes(s) for s in LAYER_MATMULS}
+
+    def k3_yardstick(shape):
+        return torch.matmul(*expanded[shape])
+
     res["k3_ms"], how = _per_layer_ms(k3, "lns_matmul_kernel", iters=20)
     res["k3_plain_ms"], _ = _per_layer_ms(k3_plain, "", iters=1, warmup=1)
+    yard_ms, _ = _per_layer_ms(k3_yardstick, "", iters=20)
+    k3_shape = {(K, N): device_ms(lambda: k3((K, N)), iters=20,
+                                  only="lns_matmul_kernel")[0]
+                for K, N in LAYER_MATMULS}
+    print(f"# K3 per shape (e4m3 RNE, R = {pt.R} planes, card time): "
+          + ", ".join(
+              f"{SMOKE_M}x{K}x{N} tile {lm.lns_tile(SMOKE_M, N, _n_sm(dev))}"
+              f" {ms:.4f} ms = {2 * SMOKE_M * K * N / ms / 1e9:.1f} TFLOP/s "
+              f"of the function, {pt.R * 2 * SMOKE_M * K * N / ms / 1e9:.1f}"
+              " of planes" for (K, N), ms in k3_shape.items()), flush=True)
     res["k2_ms"], _ = _per_layer_ms(k2, "dequant_matmul_kernel", iters=20)
     res["k2_plain_ms"], _ = _per_layer_ms(k2_plain, "", iters=10)
     res["k2_library_ms"], _ = _per_layer_ms(k2_library, "", iters=50)
@@ -1204,38 +1276,32 @@ def check_matmul_kernels(dev) -> dict:
         for (K, N), ms in per_shape.items()), flush=True)
 
     # least time of one layer's seven matmuls
-    prods = sum(c * SMOKE_M * K * N for (K, N), c in LAYER_MATMULS.items())
-    nbytes = sum(c * (SMOKE_M * K + K * N + 4 * SMOKE_M * N)
-                 for (K, N), c in LAYER_MATMULS.items())
-    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    # K3: the instructions per product of its compiled inner loop, at the
-    # issue rate (all of them) and at the 32-bit integer rate (the integer
-    # ones); the larger time is its operations bound
-    from repro_torch.kernels import cuda_build
-
-    mix = sass_loop_mix(cuda_build.build(["lns_matmul"])[0],
-                        "lns_matmul_kernel", per="FADD")
-    b_issue = mix["per_product"] * prods / ISSUE_PER_S * 1e3
-    b_int = mix["int32_per_product"] * prods / INT32_PER_S * 1e3
-    b_k3 = max(b_issue, b_int)
-    print("# K3 inner loop (SASS), instructions per product: "
-          + ", ".join(f"{op} {c:.3f}" for op, c in mix["mix"].items())
-          + f"; {mix['per_product']:.3f} in all ({b_issue:.4f} ms per layer "
-          f"at {ISSUE_PER_S:.4g}/s), {mix['int32_per_product']:.3f} on the "
-          f"32-bit integer pipe ({b_int:.4f} ms at {INT32_PER_S:.4g}/s)",
-          flush=True)
+    fb = lns_function_bound()
+    prods, nbytes, b_bytes = fb["prods"], fb["nbytes"], fb["bytes_ms"]
+    # beside K3's bound, never as it: the integer route's floor (two issue
+    # slots per product) and the plane GEMM's dense bf16 time
+    b_int = 2 * prods / ISSUE_PER_S * 1e3
+    b_planes = pt.R * 2 * prods / BF16_FLOP_PER_S * 1e3
     # K2: a multiply-add per product at the bf16 tensor-core rate
     b_k2 = 2 * prods / BF16_FLOP_PER_S * 1e3
-    res["k3_bound"] = max(b_bytes, b_k3)
-    res["k3_ops_ms"] = b_k3
-    res["k3_bound_by"] = "bytes" if b_bytes >= b_k3 else "operations"
+    res["k3_bound"] = fb["ms"]
+    res["k3_bound_by"] = fb["bound_by"]
     res["k2_bound"] = max(b_bytes, b_k2)
     res["k2_bound_by"] = "bytes" if b_bytes >= b_k2 else "operations"
     print(f"# K3 per layer (7 matmuls, M={SMOKE_M}; card time, {how}): "
-          f"kernel {res['k3_ms']:.4f} ms; plain {res['k3_plain_ms']:.3f} ms; "
-          f"bound {res['k3_bound']:.4f} ms = max({nbytes} B / 3.35 TB/s, "
-          f"{b_issue:.4f} ms issue, {b_int:.4f} ms integer) for {prods} "
-          "products", flush=True)
+          f"kernel {res['k3_ms']:.4f} ms = "
+          f"{2 * prods / res['k3_ms'] / 1e9:.1f} TFLOP/s of the function, "
+          f"{pt.R * 2 * prods / res['k3_ms'] / 1e9:.1f} of planes; plain "
+          f"{res['k3_plain_ms']:.3f} ms; bound {res['k3_bound']:.5f} ms = "
+          f"max({nbytes} B / 3.35 TB/s = {b_bytes:.5f} ms, {2 * prods} "
+          f"operations / 1979 TOP/s = {fb['ops_ms']:.5f} ms) -> "
+          f"{res['k3_bound_by']} (kernel / bound "
+          f"{res['k3_ms'] / res['k3_bound']:.2f}); beside it: the integer "
+          f"route's floor {b_int:.4f} ms (2 issue slots per product at "
+          f"{ISSUE_PER_S:.4g}/s), the plane GEMM's dense bf16 time "
+          f"{b_planes:.4f} ms ({pt.R} x {2 * prods} FLOP / 989 TFLOP/s); "
+          f"yardstick (not K3's library time): bf16 torch.matmul "
+          f"[M, {pt.R} K] x [{pt.R} K, N] {yard_ms:.4f} ms", flush=True)
     print(f"# K2 per layer (7 matmuls, M={SMOKE_M}, bf16 compute): kernel "
           f"{res['k2_ms']:.4f} ms = {2 * prods / res['k2_ms'] / 1e9:.1f} "
           f"TFLOP/s; plain {res['k2_plain_ms']:.4f} ms; "
@@ -1938,16 +2004,16 @@ def k4_train_policy():
         fmt="e4m3", mode="rne", impl="lns_loop", accum="bf16"))
 
 
-def check_k4(dev, k3_layer_ms: float, k3_ops_ms: float) -> dict:
+def check_k4(dev, k3_layer_ms: float, k3_bound: float) -> dict:
     """Phase: K4 bitwise against its plain version (NaN as NaN) at BENCH_1's
     512 x 512 x 512 (e4m3, RNE) and at the seven matmul shapes of one
     qwen2-0.5b layer at M = 1024 (the codes K3 was timed on); then its
     card time per layer beside K3's, the plain version's and the bound,
     and K4 / K3 at 512^3.  K4 computes K3's function (the same products
-    and sums), so its operations bound is the fewer instructions per
-    product of the two compiled loops: ``k3_ops_ms``, K3's operations
-    time per layer, or K4's own, whichever is smaller.  K4's own
-    instruction time is printed beside it."""
+    and sums), so its bound is ``k3_bound``, the function's
+    (:func:`lns_function_bound`) per layer.  K4's own compiled
+    instructions per product, and their time at the issue and integer
+    rates, are printed beside it."""
     import torch
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels import lns_matmul as lm
@@ -1987,17 +2053,14 @@ def check_k4(dev, k3_layer_ms: float, k3_ops_ms: float) -> dict:
     k3_512, _ = device_ms(lambda: lm.lns_product_matmul(x512, w512,
                                                         fmt="e4m3"),
                           iters=10, only="lns_matmul_kernel")
-    prods = sum(c * SMOKE_M * K * N for (K, N), c in LAYER_MATMULS.items())
-    nbytes = sum(c * (SMOKE_M * K + K * N + 4 * SMOKE_M * N)
-                 for (K, N), c in LAYER_MATMULS.items())
+    fb = lns_function_bound()
+    prods, nbytes = fb["prods"], fb["nbytes"]
     mix = sass_loop_mix(cuda_build.build(["lns_matmul"])[0],
                         "lns_loop_matmul_kernel", per="FADD")
     b_issue = mix["per_product"] * prods / ISSUE_PER_S * 1e3
     b_int = mix["int32_per_product"] * prods / INT32_PER_S * 1e3
-    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     b_own = max(b_issue, b_int)           # K4's own instruction stream
-    b_ops = min(b_own, k3_ops_ms)         # what the function needs
-    bound = max(b_bytes, b_ops)
+    bound = k3_bound
     print("# K4 k loop (SASS), instructions per product: "
           + ", ".join(f"{op} {c:.3f}" for op, c in mix["mix"].items())
           + f"; {mix['per_product']:.3f} in all ({b_issue:.4f} ms per layer "
@@ -2007,15 +2070,14 @@ def check_k4(dev, k3_layer_ms: float, k3_ops_ms: float) -> dict:
     print(f"# K4 per layer (7 matmuls, M={SMOKE_M}; card time, {how}): "
           f"kernel {ms:.4f} ms (K3 {k3_layer_ms:.4f} ms, K4/K3 "
           f"{ms / k3_layer_ms:.3f}); plain {plain_ms:.3f} ms; bound "
-          f"{bound:.4f} ms = max({nbytes} B / 3.35 TB/s, min(K4's own "
-          f"instructions {b_own:.4f} ms, K3's {k3_ops_ms:.4f} ms)) for "
-          f"{prods} products (kernel / bound {ms / bound:.3f}, kernel / "
-          f"K4's own instructions {ms / b_own:.3f}); at 512^3: "
+          f"{bound:.5f} ms, K3's (the function's: max({nbytes} B / 3.35 "
+          f"TB/s, {2 * prods} operations / 1979 TOP/s)) (kernel / bound "
+          f"{ms / bound:.1f}); K4's own instructions {b_own:.4f} ms (kernel "
+          f"/ them {ms / b_own:.3f}); at 512^3: "
           f"K4 {k4_512:.4f} ms, K3 {k3_512:.4f} ms, K4/K3 "
           f"{k4_512 / k3_512:.3f}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="bytes" if b_bytes >= b_ops else "operations",
-                ratio_512=k4_512 / k3_512)
+                bound_by=fb["bound_by"], ratio_512=k4_512 / k3_512)
 
 
 def train_k4_path(dev) -> dict:
@@ -2172,7 +2234,7 @@ def main() -> int:
     k6 = check_k6(dev)
     k6.update(time_k6(dev))
     tuned = k6_autotune_path(dev)
-    k4 = check_k4(dev, mm["k3_ms"], mm["k3_ops_ms"])
+    k4 = check_k4(dev, mm["k3_ms"], mm["k3_bound"])
     trained_k4 = train_k4_path(dev)
     check_train_k4_against_plain(dev)
 

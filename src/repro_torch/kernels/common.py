@@ -4,8 +4,11 @@ Port of ``repro.kernels.common``: ``code_to_f32`` decodes FP8 codes by bit
 placement, and ``lns_prepare``/``lns_combine`` split the paper's
 integer-add multiply into per-operand preparation and a cheap per-product
 combine.  ``lns_tables`` packs the prepared fields of all 256 codes into
-the lookup table K1 and K3 read, so they serve every (format, mode) pair
-of Tables 2/3 without hard-coding a carry expression; likewise
+the lookup table K1 and K4 read, so they serve every (format, mode) pair
+of Tables 2/3 without hard-coding a carry expression;
+``lns_plane_tables`` factors the same product into a power of two of x
+and a bf16 table of (class of x, y), the exact one-hot planes K3
+multiplies on the tensor cores; likewise
 ``elementwise_carry_table`` gives K5 the carry bit of one (format, op,
 mode) cell for every operand pair.  All functions are plain torch integer
 ops and run on any device.
@@ -24,6 +27,7 @@ from ..core.quant import f32_from_bits
 
 __all__ = ["LNSOperand", "code_to_f32", "lns_prepare", "lns_combine",
            "lns_mul_to_f32", "lns_tables", "device_lns_tables",
+           "PlaneTables", "lns_plane_tables", "device_plane_table",
            "carry_index", "elementwise_carry_table"]
 
 
@@ -154,6 +158,94 @@ def device_lns_tables(fmt: str, mode: str, device) -> torch.Tensor:
     if lut is None:
         lut = _DEVICE_TABLES[key] = lns_tables(fmt, mode, device=device)
     return lut
+
+
+# --------------------------------------------------------------------------- #
+# The product factored over one-hot planes (kernel K3)
+# --------------------------------------------------------------------------- #
+class PlaneTables(NamedTuple):
+    """The paper's product of codes x and y as ``A(x) * B[cls(x), y]``
+    (see :func:`lns_plane_tables`)."""
+
+    R: int                 # number of classes (planes)
+    cls: torch.Tensor      # int64 [256]: the class of every code as x
+    A: torch.Tensor        # float32 [256]: A(x), NaN for a NaN/inf code
+    B: torch.Tensor        # bfloat16 [R, 256]: B[r, y]
+    sign_classes: bool     # the class holds x's sign (its carry reads it)
+    bad_min: int           # smallest NaN/inf magnitude code (7 bits)
+
+
+_PLANE_TABLES = {}
+
+
+def lns_plane_tables(fmt: FP8Format | str, mode: str) -> PlaneTables:
+    """The paper's product ``P(x, y)`` (:func:`lns_mul_to_f32`) factored
+    exactly as ``A(x) * B[cls(x), y]``.
+
+    ``A(x)`` is x with its mantissa bits cleared, decoded: ``sign *
+    2**(e - bias)``, 0 for a zero or subnormal code and NaN for a NaN/inf
+    code (marked: decoding its bits would give a number, 256 for e4m3's
+    0x7F).  ``cls(x)`` is x's mantissa field, with x's sign above it where
+    the mode's carry-in reads x's sign (e5m2 ``ru``/``rd``), so
+    ``R = 2**man_bits`` classes, twice that with the sign.  ``B[r, y] =
+    P(rep_r, y) / A(rep_r)`` for the class's code ``rep_r`` of exponent
+    ``bias`` (``A = +-1``): the carry-in, the folded LNS constant and the
+    mantissa overflow all live in B, which is NaN in every class for a
+    NaN/inf y and 0 for a zero or subnormal y.  Every B entry holds
+    ``man_bits + 1`` significant bits, so it is exact in bf16 and every
+    product ``A * B`` is exact in float32.  Both facts, and ``A * B == P``
+    in value on all 65,536 pairs (NaN exactly where P is NaN), are
+    asserted.  Built once per (fmt, mode) and kept."""
+    fmt = _fmt(fmt)
+    key = (fmt.name, mode)
+    tables = _PLANE_TABLES.get(key)
+    if tables is not None:
+        return tables
+    codes = torch.arange(256, dtype=torch.int64)
+    px = lns_prepare(codes, fmt, mode, side="x")
+    sign_classes = px.cmask is not None and bool(
+        (px.cmask != px.cmask[codes ^ 0x80]).any())
+    cls = codes & fmt.man_mask
+    if sign_classes:
+        cls = cls | ((codes >> 7) << fmt.man_bits)
+    R = (fmt.man_mask + 1) << int(sign_classes)
+    exp = (codes & 0x7F) >> fmt.man_bits
+    sign = 1.0 - 2.0 * ((codes >> 7) & 1).to(torch.float32)
+    A = sign * torch.exp2((exp - fmt.bias).to(torch.float32))
+    A = torch.where(px.zero, 0.0, A)
+    A = torch.where(px.bad, float("nan"), A)
+    r = torch.arange(R, dtype=torch.int64)
+    rep = ((r & fmt.man_mask) | (fmt.bias << fmt.man_bits)
+           | ((r >> fmt.man_bits) << 7))
+    Bf = lns_mul_to_f32(rep[:, None], codes[None, :], fmt, mode)
+    Bf = Bf * A[rep, None]                      # A(rep_r) = +-1
+    B = Bf.to(torch.bfloat16)
+    nan = torch.isnan(Bf)
+    assert torch.equal(torch.isnan(B), nan) and torch.equal(
+        B.float()[~nan], Bf[~nan]), "a plane entry is not exact in bf16"
+    P = lns_mul_to_f32(codes[:, None], codes[None, :], fmt, mode)
+    AB = A[:, None] * B.float()[cls]
+    pnan = torch.isnan(P)
+    assert torch.equal(torch.isnan(AB), pnan) and torch.equal(
+        AB[~pnan], P[~pnan]), "the product does not factor over the planes"
+    bad_min = int(codes[px.bad & (codes < 0x80)].min())
+    tables = _PLANE_TABLES[key] = PlaneTables(
+        R=R, cls=cls, A=A, B=B, sign_classes=sign_classes, bad_min=bad_min)
+    return tables
+
+
+_DEVICE_PLANES = {}
+
+
+def device_plane_table(fmt: str, mode: str, device) -> torch.Tensor:
+    """The B table of :func:`lns_plane_tables` (bf16 ``[R, 256]``) on
+    ``device``, built once per (fmt, mode, device) and kept: K3 reads it
+    on every launch."""
+    key = (fmt, mode, torch.device(device))
+    B = _DEVICE_PLANES.get(key)
+    if B is None:
+        B = _DEVICE_PLANES[key] = lns_plane_tables(fmt, mode).B.to(device)
+    return B
 
 
 # --------------------------------------------------------------------------- #

@@ -6,34 +6,61 @@
 // scales.
 //
 // K3, lns_matmul_kernel, replaces the Pallas TPU kernel
-// repro/kernels/lns_matmul.py::_lns_kernel (impl "lns").  Each product is
-// the paper's integer add of the two operands' prepared magnitudes plus
-// the Table 2/3 carry-in bit, placed into the float32 exponent and
-// mantissa fields (lns::lns_product, shared with K1); no float multiplier
-// is used.  The operands' prepared fields come from the 256-entry tables
-// of kernels/common.py::lns_tables (side x = activations, side y =
-// weights; the carry masks differ by side), so one kernel serves every
-// (format, mode) pair.  Products are bit-exact against the plain version;
-// the float32 sum over k runs in k order inside each thread, another
-// order than the TPU's chunked [bm, ck, bn] sum, so sums are allclose.
+// repro/kernels/lns_matmul.py::_lns_kernel (impl "lns"), the paper's LNS
+// matmul: each product is the integer add of the two codes' magnitudes
+// plus the Table 2/3 carry-in bit, decoded wide to float32.  On this card
+// it runs as one bf16 tensor-core GEMM over exact one-hot planes.  The
+// product factors exactly as P(x, y) = A(x) * B[r(x), y]
+// (kernels/common.py::lns_plane_tables): A(x) is x with its mantissa bits
+// cleared, decoded (sign * 2^(e - bias); 0 for a zero or subnormal code;
+// NaN for a NaN/inf code, which is marked, since its bits would decode to
+// a number), r(x) is x's class (its mantissa field, and its sign where the
+// carry-in reads the sign: e5m2 ru/rd), and B[r, y] = P(rep_r, y) /
+// A(rep_r), where the carry-in, the folded LNS constant and the mantissa
+// overflow all live.  So the paper's integer expression is evaluated once
+// per (class, code) into B and by bit placement into A: every B entry
+// holds man_bits + 1 significant bits and is exact in bf16, A is a power
+// of two, and the card's multipliers see only exact operands, whose
+// products are exact in float32.  With R classes (8 for e4m3 and for
+// e5m2 ru/rd, 4 for the other e5m2 modes) the matmul is
+//   out = [A_0 | ... | A_{R-1}] [B_0; ...; B_{R-1}],
+// A_r[m, k] = A(x_mk) where r(x_mk) = r and 0 elsewhere: each output sums
+// its K products exactly, plus zeros.  Special values follow lns_combine:
+// a NaN/inf x is NaN in its plane, a NaN/inf y NaN in every plane, so NaN
+// times a zero operand stays NaN.  Products are bitwise the plain
+// version's (kernels/lns_matmul.py::lns_matmul_plain); the float32 sums run
+// in another order (the tensor cores' over each 16-deep plane step), so
+// sums are within the float32 summation bound.
 //
-// What bounds K3 on this card: integer operations.  M*N*K products, each
-// compiled to nine 32-bit integer instructions in the inner loop (five
-// LOP3 for the carry, zero and NaN tests and the sign merge, two IMAD and
-// one VIADD for the adds and the carry select, one SHF), two FSEL and one
-// float add; chip_smoke.py counts them from the SASS.  The card runs
-// 32-bit integer instructions on 64 lanes per SM, half its float32 lanes,
-// so at the chip smoke's 1024 x 896 x 4864 the ~4e10 integer instructions
-// against ~2 MB of codes set the time.  Design, first version: a 2-D
-// tiled kernel, one 256-thread block per 64 x 64 output tile; per 32-deep
-// k step the block turns its x and w code tiles into prepared (mag, flags)
-// pairs in shared memory through the tables (the per-operand work is done
-// once per tile element, not once per product), and each thread keeps a
-// 4 x 4 register micro-tile, so each product costs two shared-memory
-// reads shared by four products plus the integer combine.  Ragged edges
-// are masked in the kernel: a missing element is a zero operand, whose
-// product is exactly 0.  Later work: pack the fields to cut shared-memory
-// traffic, larger micro-tiles, a split-k or smaller tile for narrow N.
+// What bounds K3: the function's bytes (codes in, float32 out) against
+// its 2 M K N multiply-adds of 8-bit operands at the card's dense 8-bit
+// rate, the same figure whatever implements it; at the training shapes
+// (M = 1024, qwen2-0.5b's widths) the bytes, 0.023 ms a layer.  The plane
+// GEMM does R times the function's multiply-adds at the bf16 rate (0.25
+// ms a layer at R = 8).  What holds it below that is not measured (no
+// profiler of the card's stalls here); both operands are R-fold expanded
+// in shared memory and read by ldmatrix, and the table reads meet bank
+// conflicts, which is why x is decoded by bit placement and not through
+// a table.  Design:
+// warp-level mma.sync m16n8k16 (mma_bf16.cuh) over a plane order
+// k' = k R + r, 64 plane columns (64 / R codes) per k step.  Each block
+// copies B, w's R plane values of every code, into a 256-entry table in
+// shared memory (4 KB at R = 8).  The uint8 codes stream into registers
+// two k steps ahead, zero past the ragged edge (code 0 is 0 in every
+// plane).  Before the warps multiply step k, each thread turns its codes
+// of step k + 1 into plane rows in the other of two bf16 plane buffers,
+// one 16-byte store per code: x's one-hot row by bit placement (A(x) in
+// the plane of its class, 0 in the others; in registers, no table), w's
+// through the table, x row-major and w n-major, so ldmatrix reads both
+// without a transpose and neither operand's planes ever exist in device
+// memory.  The wrapper picks the block tile per shape (lns_tile): 128 x
+// 128 (8 warps of 64 x 32) when those tiles fill the card's SMs at least
+// once, else 64 x 64 (4 warps of 32 x 32), else 32 x 32 (2 warps of 16 x
+// 32), so the narrow outputs (N = 128) still spread over the card.  No
+// split-k: every output's sum runs in one fixed order, the same in every
+// tile.  Later work: warpgroup wgmma fed by TMA with a producer warp, and
+// fewer planes per k (a plane step holds at most 64 / R nonzero products
+// per row).
 //
 // K4, lns_loop_matmul_kernel, replaces the Pallas TPU kernel
 // repro/kernels/lns_matmul.py::_lns_loop_kernel (impl "lns_loop"), the
@@ -41,16 +68,16 @@
 // keeps its design: each block owns an output tile (16 x 16, one output
 // per thread) and the k loop is a sequential rank-1 update in which every
 // product looks both operands' fields up in the 256-entry tables of
-// kernels/common.py::lns_tables (K3 prepares each tile element once) and
-// combines them with lns::lns_product.  The sums follow the reference's
+// kernels/common.py::lns_tables and combines them with lns::lns_product.  The sums follow the reference's
 // order exactly: k in order within tiles of bk = min(128, K) (K padded by
 // code 0, whose product is +0), each tile's sum started from 0 and added
 // to the output in order, so K4 is bitwise equal to its plain version
 // (kernels/lns_matmul.py::lns_loop_matmul_plain) and to the reference.
-// What bounds it: integer instructions, as K3, but more of them per
-// product (two table lookups each, and the loop's own); chip_smoke.py
-// counts them from the SASS.  The k loop is not unrolled, so that loop is
-// the product count's one instruction stream.
+// What bounds it: K3's bound, as it computes K3's function (the bytes at
+// the training shapes).  What sets its time: integer instructions, two
+// table lookups and the integer combine per product, and the loop's own;
+// chip_smoke.py counts them from the SASS.  The k loop is not unrolled,
+// so that loop is the product count's one instruction stream.
 //
 // K2, dequant_matmul_kernel, replaces repro/kernels/lns_matmul.py::
 // _dequant_kernel (impl "fused_dequant").  Each side is decoded by its own
@@ -80,75 +107,264 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "lns_common.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int TM = 4, TN = 4;
-constexpr int RX = BN / TN;          // 16 threads across a tile's columns
-constexpr int kThreads = (BM / TM) * RX;  // 256
+// K3's x decode by bit placement: the bf16 bits of A(c) and the class of
+// code c (kernels/common.py::lns_plane_tables holds the same rule).
+struct PlaneX {
+  int man_bits, bias, min_normal_code, bad_min, sign_classes;
+};
 
-__global__ void __launch_bounds__(kThreads)
+// R bf16 plane values of one code: 16 bytes at R = 8, 8 at R = 4.
+template <int R>
+using PlaneRow = typename std::conditional<R == 8, uint4, uint2>::type;
+
+template <int R>
+__device__ __forceinline__ PlaneRow<R> plane_row(const uint32_t (&v)[R / 2]) {
+  if constexpr (R == 8) {
+    return make_uint4(v[0], v[1], v[2], v[3]);
+  } else {
+    return make_uint2(v[0], v[1]);
+  }
+}
+
+// x's one-hot plane row of code c: A(c) as bf16 bits (sign and exponent
+// placed, the mantissa cleared) in the plane of its class, 0 in the others.
+template <int R>
+__device__ __forceinline__ PlaneRow<R> x_plane_row(uint32_t c,
+                                                   const PlaneX& px) {
+  const uint32_t mag = c & 0x7F, sgn = c >> 7;
+  uint32_t a = (sgn << 15) |
+               (((mag >> px.man_bits) + 127u - (uint32_t)px.bias) << 7);
+  if (mag < (uint32_t)px.min_normal_code) a = 0;
+  if (mag >= (uint32_t)px.bad_min) a = 0x7FC0u;  // NaN: marked
+  const uint32_t r = (mag & ((1u << px.man_bits) - 1u)) |
+                     (px.sign_classes ? sgn << px.man_bits : 0u);
+  uint32_t v[R / 2];
+#pragma unroll
+  for (int i = 0; i < R / 2; ++i)
+    v[i] = (r >> 1) == (uint32_t)i ? a << ((r & 1) * 16) : 0u;
+  return plane_row<R>(v);
+}
+
+constexpr int kPlaneK = 64;           // K3: plane columns per k step
+constexpr int kPlaneLd = kPlaneK + 8;  // padded bf16 rows: an odd number
+                                       // of 16-byte chunks
+
+template <int R, int BM_, int BN_>
+constexpr int plane_smem() {
+  return 256 * R * 2 + 2 * 2 * (BM_ + BN_) * kPlaneLd;
+}
+
+// K3: a BM x BN output tile per block of WM x WN warps, R planes.  Each
+// thread loads, and turns into plane rows, one chunk of XC codes of x and
+// one of WC codes of w per k step, two steps ahead in registers.  VEC: K
+// and N are multiples of 16 and both bases 16-byte aligned, so the chunks
+// load as words; else byte by byte.
+template <int R, int BM_, int BN_, int WM, int WN, bool VEC>
+__global__ void __launch_bounds__(WM * WN * 32, 512 / (WM * WN * 32))
 lns_matmul_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
-                  const int32_t* __restrict__ lut, float* __restrict__ out,
-                  int M, int N, int K, int man_bits) {
-  __shared__ int2 tab[2][256];        // (mag, flags) of every code, x and y
-  __shared__ int2 xs[BK][BM + 1];     // prepared x tile, k-major (+1: banks)
-  __shared__ int2 ws[BK][BN];         // prepared w tile
-  const int tid = threadIdx.x;
-  const int tx = tid % RX, ty = tid / RX;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int2 zero = make_int2(0, lns::kZeroBit);  // masked edge operand
+                  const uint16_t* __restrict__ planes,
+                  float* __restrict__ out, int M, int N, int K, PlaneX px) {
+  static_assert(R == 4 || R == 8, "4 or 8 planes");
+  constexpr int T = WM * WN * 32;
+  constexpr int KC = kPlaneK / R;           // codes per k step
+  constexpr int XC = BM_ * KC / T;          // x codes per thread and step
+  constexpr int WC = KC * BN_ / T;          // w codes per thread and step
+  constexpr int XT = KC / XC;               // threads per x row
+  constexpr int TM = BM_ / WM / 16;         // m16 tiles per warp
+  constexpr int TN = BN_ / WN / 8;          // n8 tiles per warp
+  static_assert(XC % 4 == 0 && WC % 4 == 0 && XC * T == BM_ * KC &&
+                    WC * T == KC * BN_ && XC <= KC,
+                "whole 32-bit words of codes per thread and k step");
+  static_assert(TN % 2 == 0, "B fragments load in pairs of n8 tiles");
+  using Row = PlaneRow<R>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Row* wtab = reinterpret_cast<Row*>(smem);     // [256] w's plane values
+  __nv_bfloat16* xs =                           // [2][BM][kPlaneLd]
+      reinterpret_cast<__nv_bfloat16*>(wtab + 256);
+  __nv_bfloat16* ws = xs + 2 * BM_ * kPlaneLd;  // [2][BN][kPlaneLd]
 
-  for (int i = tid; i < 512; i += kThreads)
-    tab[i >> 8][i & 255] = make_int2(lut[2 * i], lut[2 * i + 1]);
-  float acc[TM][TN];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m0 = blockIdx.y * BM_, n0 = blockIdx.x * BN_;
+  const int wr = (warp / WN) * (BM_ / WM), wc0 = (warp % WN) * (BN_ / WN);
+
+  // w's table, code-major: B [R, 256] transposed
+  for (int c = tid; c < 256; c += T) {
+    uint32_t v[R / 2];
+#pragma unroll
+    for (int i = 0; i < R / 2; ++i)
+      v[i] = (uint32_t)planes[2 * i * 256 + c] |
+             (uint32_t)planes[(2 * i + 1) * 256 + c] << 16;
+    wtab[c] = plane_row<R>(v);
+  }
+
+  // this thread's chunks: x row xr, codes [xk, xk + XC) of each k step;
+  // w row wk of each k step, columns [wn, wn + WC)
+  const int xr = tid / XT, xk = (tid % XT) * XC;
+  const int wk = tid % KC, wn = (tid / KC) * WC;
+  const bool x_row = m0 + xr < M, w_col = n0 + wn < N;
+  const uint8_t* xsrc = x + (size_t)(x_row ? m0 + xr : 0) * K + xk;
+  const uint8_t* wsrc = w + (size_t)wk * N + (w_col ? n0 + wn : 0);
+  // the codes of the next k step to decode, and of the one after
+  uint32_t xc[XC / 4], wcodes[WC / 4], xc2[XC / 4] = {}, wcodes2[WC / 4] = {};
+
+  // codes of k step kt into (xr_, wr_), zeros past the ragged edge
+  auto load = [&](int kt, uint32_t(&xr_)[XC / 4], uint32_t(&wr_)[WC / 4]) {
+    const int k0 = kt * KC;
+    const uint8_t* xp = xsrc + k0;
+    const uint8_t* wp = wsrc + (size_t)k0 * N;
+    if (VEC) {
+      const bool xo = x_row && k0 + xk < K, wo = w_col && k0 + wk < K;
+#pragma unroll
+      for (int i = 0; i < XC / 4; ++i)
+        xr_[i] = xo ? reinterpret_cast<const uint32_t*>(xp)[i] : 0u;
+#pragma unroll
+      for (int i = 0; i < WC / 4; ++i)
+        wr_[i] = wo ? reinterpret_cast<const uint32_t*>(wp)[i] : 0u;
+    } else {
+#pragma unroll
+      for (int i = 0; i < XC / 4; ++i) {
+        uint32_t v = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (x_row && k0 + xk + 4 * i + e < K)
+            v |= (uint32_t)xp[4 * i + e] << (8 * e);
+        xr_[i] = v;
+      }
+#pragma unroll
+      for (int i = 0; i < WC / 4; ++i) {
+        uint32_t v = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + wk < K && n0 + wn + 4 * i + e < N)
+            v |= (uint32_t)wp[4 * i + e] << (8 * e);
+        wr_[i] = v;
+      }
+    }
+  };
+  // the codes in (xc, wcodes) -> plane buffer buf: x row-major by bit
+  // placement, w n-major through its table
+  auto decode = [&](int buf) {
+    Row* xd = reinterpret_cast<Row*>(xs + buf * BM_ * kPlaneLd +
+                                     xr * kPlaneLd) + xk;
+#pragma unroll
+    for (int j = 0; j < XC; ++j)
+      xd[j] = x_plane_row<R>((xc[j / 4] >> (8 * (j % 4))) & 0xFF, px);
+    __nv_bfloat16* wd = ws + buf * BN_ * kPlaneLd + wn * kPlaneLd;
+#pragma unroll
+    for (int j = 0; j < WC; ++j)
+      reinterpret_cast<Row*>(wd + j * kPlaneLd)[wk] =
+          wtab[(wcodes[j / 4] >> (8 * (j % 4))) & 0xFF];
+  };
+
+  float acc[TM][TN][4];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-  __syncthreads();
+    for (int j = 0; j < TN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += kThreads) {
-      const int r = i / BK, c = i % BK;
-      const int m = m0 + r, k = k0 + c;
-      xs[c][r] = (m < M && k < K) ? tab[0][x[(size_t)m * K + k]] : zero;
-    }
-    for (int i = tid; i < BK * BN; i += kThreads) {
-      const int r = i / BN, c = i % BN;
-      const int k = k0 + r, n = n0 + c;
-      ws[r][c] = (k < K && n < N) ? tab[1][w[(size_t)k * N + n]] : zero;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      int2 a[TM], b[TN];
+  const int nkt = (K + KC - 1) / KC;
+  if (nkt > 0) load(0, xc, wcodes);
+  __syncthreads();     // w's table is in
+  if (nkt > 0) decode(0);
+  if (nkt > 1) load(1, xc, wcodes);
+  if (nkt > 2) load(2, xc2, wcodes2);
+  __syncthreads();
+  for (int kt = 0; kt < nkt; ++kt) {
+    // step kt + 1's planes into the other buffer, which step kt - 1 read
+    // before the last barrier; its codes arrived during step kt - 1
+    if (kt + 1 < nkt) decode((kt + 1) & 1);
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty + i * (BM / TM)];
+    for (int i = 0; i < XC / 4; ++i) xc[i] = xc2[i];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = ws[kk][tx + j * RX];
+    for (int i = 0; i < WC / 4; ++i) wcodes[i] = wcodes2[i];
+    if (kt + 3 < nkt) load(kt + 3, xc2, wcodes2);
+    const __nv_bfloat16* xb = xs + (kt & 1) * BM_ * kPlaneLd;
+    const __nv_bfloat16* wb = ws + (kt & 1) * BN_ * kPlaneLd;
+#pragma unroll
+    for (int kk = 0; kk < kPlaneK; kk += 16) {
+      uint32_t a[TM][4], b[TN][2];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        mma::ldmatrix_x4(a[i], xb + (wr + i * 16 + mma::a_row(lane)) *
+                                        kPlaneLd + kk + mma::a_col(lane));
+#pragma unroll
+      for (int j = 0; j < TN; j += 2) {
+        uint32_t bb[4];
+        mma::ldmatrix_x4(bb, wb + (wc0 + j * 8 + mma::bn_row(lane)) *
+                                      kPlaneLd + kk + mma::bn_col(lane));
+        b[j][0] = bb[0];
+        b[j][1] = bb[1];
+        b[j + 1][0] = bb[2];
+        b[j + 1][1] = bb[3];
+      }
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j)
-          acc[i][j] += lns::lns_product(a[i].x, a[i].y, b[j].x, b[j].y,
-                                        man_bits);
+          mma::mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
     }
     __syncthreads();
   }
 
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + i * (BM / TM);
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + j * RX;
-      if (m < M && n < N) out[(size_t)m * N + n] = acc[i][j];
-    }
+    for (int j = 0; j < TN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + wr + i * 16 + (lane >> 2) + (e >> 1) * 8;
+        const int n = n0 + wc0 + j * 8 + 2 * (lane & 3) + (e & 1);
+        // + 0.0f: a zero sum is +0, as the plain version's
+        if (m < M && n < N) out[(size_t)m * N + n] = acc[i][j][e] + 0.0f;
+      }
+}
+
+template <int R, int BM_, int BN_, int WM, int WN, bool VEC>
+int launch_lns(const uint8_t* x, const uint8_t* w, const uint16_t* planes,
+               float* out, int M, int N, int K, const PlaneX& px,
+               cudaStream_t stream) {
+  constexpr int bytes = plane_smem<R, BM_, BN_>();
+  auto kernel = lns_matmul_kernel<R, BM_, BN_, WM, WN, VEC>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
   }
+  const dim3 grid((N + BN_ - 1) / BN_, (M + BM_ - 1) / BM_);
+  kernel<<<grid, WM * WN * 32, bytes, stream>>>(x, w, planes, out, M, N, K,
+                                                px);
+  return (int)cudaGetLastError();
+}
+
+template <int R>
+int launch_lns(const uint8_t* x, const uint8_t* w, const uint16_t* planes,
+               float* out, int M, int N, int K, const PlaneX& px, int tile,
+               cudaStream_t s) {
+  const bool vec = K % 16 == 0 && N % 16 == 0 &&
+                   ((uintptr_t)x & 15) == 0 && ((uintptr_t)w & 15) == 0;
+  if (tile == 128)
+    return vec ? launch_lns<R, 128, 128, 2, 4, true>(x, w, planes, out, M, N,
+                                                     K, px, s)
+               : launch_lns<R, 128, 128, 2, 4, false>(x, w, planes, out, M,
+                                                      N, K, px, s);
+  if (tile == 64)
+    return vec ? launch_lns<R, 64, 64, 2, 2, true>(x, w, planes, out, M, N,
+                                                   K, px, s)
+               : launch_lns<R, 64, 64, 2, 2, false>(x, w, planes, out, M, N,
+                                                    K, px, s);
+  return vec ? launch_lns<R, 32, 32, 2, 1, true>(x, w, planes, out, M, N, K,
+                                                 px, s)
+             : launch_lns<R, 32, 32, 2, 1, false>(x, w, planes, out, M, N, K,
+                                                  px, s);
 }
 
 constexpr int LT = 16;               // K4 output tile: LT x LT
@@ -404,23 +620,28 @@ int launch_dequant(const uint8_t* x, const uint8_t* w, float* out, int M,
                                                        fx, fw, stream);
 }
 
-dim3 grid_of(int M, int N) {
-  return dim3((N + BN - 1) / BN, (M + BM - 1) / BM);
-}
-
 }  // namespace
 
 extern "C" {
 
-// K3 on `stream`; `lut` is lns_tables(fmt, mode): int32 [2, 256, 2].
+// K3 on `stream`: `planes` is lns_plane_tables(fmt, mode).B, bf16 [R, 256]
+// (R = 4 or 8); x's bit rule from (man_bits, bias, min_normal_code,
+// bad_min, sign_classes); `tile` the block tile, 128, 64 or 32.
 // Returns cudaGetLastError() (0 on success).
-int lns_matmul(const void* x, const void* w, const void* lut, void* out,
-               int M, int N, int K, int man_bits, void* stream) {
-  if (M > 0 && N > 0)
-    lns_matmul_kernel<<<grid_of(M, N), kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)x, (const uint8_t*)w, (const int32_t*)lut,
-        (float*)out, M, N, K, man_bits);
-  return (int)cudaGetLastError();
+int lns_matmul(const void* x, const void* w, const void* planes, void* out,
+               int M, int N, int K, int R, int man_bits, int bias,
+               int min_normal_code, int bad_min, int sign_classes, int tile,
+               void* stream) {
+  if ((R != 4 && R != 8) || (tile != 128 && tile != 64 && tile != 32))
+    return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0) return (int)cudaGetLastError();
+  const PlaneX px{man_bits, bias, min_normal_code, bad_min, sign_classes};
+  const uint8_t* xc = (const uint8_t*)x;
+  const uint8_t* wc = (const uint8_t*)w;
+  const uint16_t* p = (const uint16_t*)planes;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return R == 8 ? launch_lns<8>(xc, wc, p, (float*)out, M, N, K, px, tile, s)
+                : launch_lns<4>(xc, wc, p, (float*)out, M, N, K, px, tile, s);
 }
 
 // K4 on `stream`; `lut` as for K3, bk = min(128, K) the k tile.

@@ -8,8 +8,12 @@ scales.
 
 * ``impl="lns"`` -- K3, :func:`lns_product_matmul`: each product is the
   paper's integer add ``X + Y + K + c_in`` of the two codes (with the
-  Table 2/3 carry-in), decoded wide to float32; no float multiplier.  One
-  format for both operands.  Plain version: :func:`lns_matmul_plain`.
+  Table 2/3 carry-in), decoded wide to float32.  One format for both
+  operands.  The kernel evaluates that integer expression once per
+  (class of x, code of y) into the exact bf16 table of
+  ``common.lns_plane_tables`` and multiplies one-hot planes of x's power
+  of two by it on the tensor cores, in a block tile :func:`lns_tile`
+  picks per shape.  Plain version: :func:`lns_matmul_plain`.
 * ``impl="fused_dequant"`` -- K2, :func:`dequant_matmul`: both sides
   decoded by bit placement, each in its own format (E5M2 activations x
   E4M3 weights), to bf16 (exact for FP8 values) and multiplied on the
@@ -38,7 +42,8 @@ import ctypes
 import torch
 
 from ..core.formats import FORMATS
-from .common import code_to_f32, device_lns_tables, lns_combine, lns_prepare
+from .common import (code_to_f32, device_lns_tables, device_plane_table,
+                     lns_combine, lns_plane_tables, lns_prepare)
 from .cuda_build import check_launch
 
 __all__ = [
@@ -50,6 +55,7 @@ __all__ = [
     "lns_loop_matmul_plain",
     "dequant_matmul_plain",
     "dequant_tile",
+    "lns_tile",
 ]
 
 # Elements of one [M-chunk, K-chunk, N] product tensor of the plain LNS
@@ -138,13 +144,27 @@ def dequant_tile(M: int, N: int, n_sm: int) -> int:
     return 128 if -(-M // 128) * -(-N // 128) >= n_sm else 64
 
 
+LNS_TILES = (128, 64, 32)
+
+
+def lns_tile(M: int, N: int, n_sm: int) -> int:
+    """K3's block tile for an [M, N] output on a card of ``n_sm`` SMs: the
+    largest of 128 (128 x 128), 64 (64 x 64) whose tiles fill every SM at
+    least once, else 32 (32 x 32), so narrow outputs still spread over
+    the card."""
+    for t in LNS_TILES[:-1]:
+        if -(-M // t) * -(-N // t) >= n_sm:
+            return t
+    return LNS_TILES[-1]
+
+
 def _lib():
     from .cuda_build import load
 
     lib = load("lns_matmul")
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.lns_matmul.argtypes = [vp] * 4 + [ci] * 4 + [vp]
+        lib.lns_matmul.argtypes = [vp] * 4 + [ci] * 10 + [vp]
         lib.lns_matmul.restype = ci
         lib.lns_loop_matmul.argtypes = [vp] * 4 + [ci] * 5 + [vp]
         lib.lns_loop_matmul.restype = ci
@@ -179,19 +199,29 @@ def _device_type(t: torch.Tensor, what: str) -> str:
     return t.device.type
 
 
-def lns_product_matmul(x_codes, w_codes, *, fmt: str, mode: str = "rne"):
+def lns_product_matmul(x_codes, w_codes, *, fmt: str, mode: str = "rne",
+                       tile: int | None = None):
     """K3: f32 [M, N] of the paper's LNS products, one format.  CUDA
-    tensors launch the kernel (``lns_product_matmul.launches`` counts it);
-    CPU tensors run :func:`lns_matmul_plain`."""
+    tensors launch the kernel (``lns_product_matmul.launches`` counts it)
+    in the block tile ``tile`` (128, 64 or 32; :func:`lns_tile` picks it
+    when None); CPU tensors run :func:`lns_matmul_plain`."""
     if _device_type(x_codes, "K3") == "cpu":
         return lns_matmul_plain(x_codes, w_codes, fmt=fmt, mode=mode)
     M, N, K = _operands(x_codes, w_codes, "K3")
     dev = x_codes.device
-    lut = device_lns_tables(fmt, mode, dev)
+    if tile is None:
+        tile = lns_tile(M, N, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+    elif tile not in LNS_TILES:
+        raise ValueError(f"K3: tile must be one of {LNS_TILES}, not {tile}")
+    pt = lns_plane_tables(fmt, mode)
+    f = FORMATS[fmt]
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     err = _lib().lns_matmul(
-        x_codes.data_ptr(), w_codes.data_ptr(), lut.data_ptr(),
-        out.data_ptr(), M, N, K, FORMATS[fmt].man_bits,
+        x_codes.data_ptr(), w_codes.data_ptr(),
+        device_plane_table(fmt, mode, dev).data_ptr(), out.data_ptr(), M, N,
+        K, pt.R, f.man_bits, f.bias, f.min_normal_code, pt.bad_min,
+        int(pt.sign_classes), tile,
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(err, "K3")
     lns_product_matmul.launches += 1

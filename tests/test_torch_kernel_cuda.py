@@ -17,7 +17,8 @@ and fused == unfused are bitwise.  K3's
 single products are bitwise (NaN as NaN: the card's float add returns its
 own canonical NaN); K2's and K3's sums are held to the float32 summation
 bound 2 K 2^-24 sum|products|, since they add the same exact products in
-another order.  TF32 is off for the plain versions' float32 products.
+another order (K3 in every block tile and (format, mode) cell, NaN/inf
+against zero NaN as in the plain version).  TF32 is off for the plain versions' float32 products.
 K5's codes are integer results and compare bitwise in every cell.  K4
 sums in the reference's order and is bitwise equal to its plain version
 (NaN as NaN).  K6 is held to rtol = atol = 1e-4 in float32 (the plain
@@ -266,6 +267,62 @@ def test_k3_matches_plain(dev, M, K, N, fmt, mode):
     torch.cuda.synchronize()
     assert got.shape == (M, N) and torch.isfinite(got).all()
     assert bool(((got - want).abs() <= 2 * K * 2.0**-24 * absum).all())
+
+
+@pytest.mark.parametrize("tile", lm.LNS_TILES)
+@pytest.mark.parametrize("M,K,N", SHAPES)
+@pytest.mark.parametrize("key", sorted(FACTORED_MUL), ids="-".join)
+def test_k3_every_tile_matches_plain(dev, key, M, K, N, tile):
+    """K3's one-hot plane GEMM in each block tile the rule can pick, in
+    every (format, mode) cell (4 or 8 planes, with or without the sign
+    in the class), one launch per call."""
+    fmt, mode = key
+    g = torch.Generator().manual_seed(M + K + N + len(mode))
+    x, w = _codes(g, (M, K), fmt, dev), _codes(g, (K, N), fmt, dev)
+    before = lm.lns_product_matmul.launches
+    got = lm.lns_product_matmul(x, w, fmt=fmt, mode=mode, tile=tile)
+    assert lm.lns_product_matmul.launches == before + 1
+    want = lm.lns_matmul_plain(x, w, fmt=fmt, mode=mode)
+    absum = lm.lns_matmul_plain(x & 0x7F, w & 0x7F, fmt=fmt, mode=mode)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N) and torch.isfinite(got).all()
+    assert bool(((got - want).abs() <= 2 * K * 2.0**-24 * absum).all())
+
+
+@pytest.mark.parametrize("key", sorted(FACTORED_MUL), ids="-".join)
+def test_k3_nan_and_inf_against_zero(dev, key):
+    """A NaN/inf code times a zero or subnormal code is NaN, on either
+    side, and NaN spreads over its row or column; every other output
+    equals the plain version's."""
+    fmt, mode = key
+    bad = [0x7C, 0x7D, 0xFC, 0xFF] if fmt == "e5m2" else [0x7F, 0xFF]
+    zero = [0x00, 0x80, 0x01, 0x83]
+    g = torch.Generator().manual_seed(len(bad) + len(mode))
+    M, K, N = 40, 70, 36
+    x, w = _codes(g, (M, K), fmt, "cpu"), _codes(g, (K, N), fmt, "cpu")
+    x[:, 5] = torch.tensor(zero * (M // 4), dtype=torch.uint8)
+    w[5, :] = torch.tensor(zero * (N // 4), dtype=torch.uint8)
+    for i, c in enumerate(bad):
+        x[i, 5] = c                    # NaN/inf x times a zero y ...
+        w[5, N - 1 - i] = c            # ... and a zero x times NaN/inf y
+    x, w = x.to(dev), w.to(dev)
+    got = lm.lns_product_matmul(x, w, fmt=fmt, mode=mode)
+    want = lm.lns_matmul_plain(x, w, fmt=fmt, mode=mode)
+    absum = lm.lns_matmul_plain(x & 0x7F, w & 0x7F, fmt=fmt, mode=mode)
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    assert nan[:len(bad)].all() and nan[:, N - len(bad):].all()
+    assert torch.equal(torch.isnan(got), nan)
+    assert bool(((got - want).abs()[~nan]
+                 <= (2 * K * 2.0**-24 * absum)[~nan]).all())
+
+
+def test_k3_refuses_a_tile_it_has_not(dev):
+    x = torch.zeros((4, 8), dtype=torch.uint8, device=dev)
+    before = lm.lns_product_matmul.launches
+    with pytest.raises(ValueError, match="tile"):
+        lm.lns_product_matmul(x, x.t().contiguous(), fmt="e4m3", tile=16)
+    assert lm.lns_product_matmul.launches == before
 
 
 @pytest.mark.parametrize("M,K,N", SHAPES)

@@ -16,19 +16,26 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
    ``fp8_elementwise.cu``, K6 from ``flash_attention.cu``; and checks with
    ``cuobjdump`` that every instantiation of K2, of K3 and of K6's bf16
    body holds HMMA (tensor-core) instructions;
-3. holds kernel K1 (LNS paged decode attention) against its plain PyTorch
-   version at qwen2-0.5b attention shapes (B=8, KV=2, G=7, hd=64, page 16,
-   up to 64 pages per slot, ragged lengths, masked lanes, fresh-page rows,
-   e5m2 pages, stochastic writes): new pages and scales bitwise, output
-   within rtol = atol = 1e-4 (float32 sums over hd, page rows and pages in
-   another order, and the card's ``expf``), fused == unfused bitwise; then
-   times the kernel and the plain version;
+3. holds kernel K1 (LNS paged decode attention, one launch per call that
+   reads only the admissible pages and combines on the chip) against its
+   plain PyTorch version (the per-page partials and their combine) at
+   qwen2-0.5b attention shapes (B=8, KV=2, G=7, hd=64, page 16, up to 64
+   pages per slot, ragged lengths, masked lanes, fresh-page rows, e5m2
+   pages, stochastic writes): new pages and scales bitwise, output within
+   rtol = atol = 1e-4 (float32 sums over hd, page rows and pages in
+   another order, and the card's ``expf``), fused == unfused bitwise;
+   slots of length 0 and a window that skips leading pages against the
+   plain version, pages outside every slot's admissible range poisoned
+   (output finite and bitwise unchanged), two calls bitwise equal; then
+   times the kernel and the plain version beside the function's bound
+   (its bytes in, and the attention written once);
 4. holds K1's float instance against its plain version on the same
    geometry with float pages (bf16, float32, and bf16 with window 32 and
    softcap 50; a float32 query; the new rows in the pages' dtype): new
    pages bitwise, scales unchanged, output within rtol = atol = 1e-4,
-   fused == unfused bitwise; then times it on bf16 pages beside its byte
-   bound (2-byte page elements) and the plain version;
+   fused == unfused bitwise, and the cases of 3 on bf16 and float32
+   pages; then times it on bf16 pages beside its byte bound (2-byte page
+   elements) and the plain version;
 5. serves requests of mixed prompt lengths through the full-width
    qwen2-0.5b Engine (policy serve_fp8_paged, continuous scheduler, random
    weights from a seed, a pool that never preempts) with fused decode on
@@ -132,7 +139,8 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     and last ``{"ok": true, "device": {...}}``.
 
 K1's ``ms`` and ``plain_ms`` are card time per call from the profiler
-(the kernel alone; all kernels of the plain version), or from CUDA-graph
+(the kernel alone; all kernels of the plain version, partials and
+combine), or from CUDA-graph
 replays timed with events where the profiler records no device time; the
 comment lines also give the per-call time between CUDA events with the
 host's launch overhead included.  The same holds for K1's float instance
@@ -328,6 +336,88 @@ def unfused(c, window=0, cap=0.0):
     return out, kp, ks, vp, vs
 
 
+def _partials_note(bytes_in, B, maxp, KV, G, dv) -> str:
+    """The bound a design that writes per-page partials would have had
+    (the parent's): information only, never the bound."""
+    partials = 4 * B * maxp * KV * G * (2 + dv)      # m, l, o per page
+    return (f"with per-page partials written ({partials} B) it would read "
+            f"{(bytes_in + partials) / HBM_BYTES_PER_S * 1e3:.6f} ms "
+            "(information, not the bound)")
+
+
+def check_k1_edges(c, label: str) -> float:
+    """The cases that reading only the admissible pages must get right,
+    through ``paged_decode_attention`` on ``c``'s pool (FP8 or float
+    pages), each call one launch: slots of length 0 (the reference reads
+    every page with every position masked: the mean of all V rows) and a
+    window of 32 that skips leading pages, against the plain version at
+    rtol = atol = 1e-4; pages outside every slot's admissible range
+    poisoned (NaN on float pages, random codes on FP8 pages, NaN/inf codes
+    among them), with and without the window: a finite output bitwise
+    equal to the clean pool's, so those pages are not read; and two calls
+    on the same inputs bitwise equal.  Returns the largest |kernel -
+    plain|."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+
+    fmt, KV, page, maxp = c["fmt"], c["KV"], c["page"], c["maxp"]
+    ln = c["lengths"] + 1                     # the attended lengths
+    zero = ln.clone()
+    zero[0] = zero[3] = 0
+    count = "launches" if fmt else "float_launches"
+
+    def attend(kp, vp, lengths, window, impl="auto"):
+        return pa.paged_decode_attention(
+            c["q"], kp, vp, c["ks"], c["vs"], c["bt"], lengths, fmt=fmt,
+            n_kv_heads=KV, window=window, impl=impl)
+
+    err = 0.0
+    for lengths, window, what in ((zero, 0, "two slots of length 0"),
+                                  (ln, 32, "window 32")):
+        before = getattr(pa.paged_attend, count)
+        got = attend(c["kp"], c["vp"], lengths, window)
+        again = attend(c["kp"], c["vp"], lengths, window)
+        want = attend(c["kp"], c["vp"], lengths, window, impl="ref")
+        torch.cuda.synchronize()
+        if getattr(pa.paged_attend, count) != before + 2:
+            raise AssertionError(f"{label}: {what}: not one launch a call")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{label}: {what}: non-finite output")
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{label}: {what}: two calls differ")
+        err = max(err, float((got - want).abs().max()))
+    g = torch.Generator(device="cpu").manual_seed(11)
+    bt, lens = c["bt"].cpu(), ln.cpu()
+    for window in (0, 32):
+        kp, vp = c["kp"].clone(), c["vp"].clone()
+        pids = []
+        for b in range(bt.shape[0]):
+            first, last = pa.admissible_pages(int(lens[b]), window, page,
+                                              maxp)
+            pids += [int(bt[b, j]) for j in range(maxp)
+                     if not first <= j <= last]
+        for t in (kp, vp):
+            if fmt is None:
+                t[pids] = float("nan")
+            else:
+                t[pids] = torch.randint(0, 256, t[pids].shape, generator=g,
+                                        dtype=torch.uint8).to(t.device)
+        clean = attend(c["kp"], c["vp"], ln, window)
+        dirty = attend(kp, vp, ln, window)
+        if not (torch.isfinite(dirty).all() and torch.equal(clean, dirty)):
+            raise AssertionError(f"{label}: window {window}: poisoned pages "
+                                 "outside the admissible range changed "
+                                 "the output")
+        print(f"# {label}: {len(pids)} pages outside the admissible ranges "
+              f"poisoned (window {window}): output finite and unchanged",
+              flush=True)
+    print(f"# {label}: two slots of length 0 and window 32 within rtol = "
+          f"atol = 1e-4 of the plain version (max |err| {err:.3e}), two "
+          "calls bitwise equal", flush=True)
+    return err
+
+
 def check_k1(dev) -> dict:
     """Phase 3: K1 against its plain version, then its timings."""
     import torch
@@ -356,6 +446,7 @@ def check_k1(dev) -> dict:
             raise AssertionError("K1: fused != unfused cache update")
     print(f"# K1 vs plain: pages/scales bitwise, max |out err| {err:.3e}, "
           "fused == unfused bitwise", flush=True)
+    err = max(err, check_k1_edges(c, "K1"))
 
     # timings of the kernel proper, on the fused form's inputs as the
     # main path builds them (old pages, new scales, the new rows)
@@ -377,20 +468,18 @@ def check_k1(dev) -> dict:
     ins = (*new_rows, logical, rows, c["mask"].to(torch.int32))
     args = (codes, qs, c["kp"], c["vp"], *scales, c["bt"], ln)
     kw = dict(fmt="e5m2", mode="rne", KV=c["KV"], G=c["G"], inserts=ins)
-    m_k, l_k, o_k = pa.paged_partials(*args, **kw)
-    m_p, l_p, o_p = pa.page_partials_plain(*args, **kw)
-    torch.testing.assert_close(pa._combine_partials(m_k, l_k, o_k),
-                               pa._combine_partials(m_p, l_p, o_p),
-                               rtol=1e-4, atol=1e-4)
-    k1 = lambda: pa.paged_partials(*args, **kw)  # noqa: E731
-    plain = lambda: pa.page_partials_plain(*args, **kw)  # noqa: E731
+    k1 = lambda: pa.paged_attend(*args, **kw)  # noqa: E731
+    plain = lambda: pa._combine_partials(  # noqa: E731
+        *pa.page_partials_plain(*args, **kw))
+    torch.testing.assert_close(k1(), plain(), rtol=1e-4, atol=1e-4)
     ms, how = device_ms(k1, iters=200, only="lns_paged_partials")
     plain_ms, plain_how = device_ms(plain, iters=10)
     call_ms, plain_call_ms = cuda_ms(k1, iters=200), cuda_ms(plain, iters=10)
 
-    # least time for the same work: bytes it must move (each input read
-    # once: the query, the pages the lengths reach, their scales, the
-    # block tables, lengths and inserted rows; each output written once)
+    # least time for the same work, the function's whatever computes it:
+    # bytes it must move (each input read once: the query, the pages the
+    # lengths reach, their scales, the block tables, lengths and inserted
+    # rows; its output, the attention [B, KV*G, dv] float32, written once)
     B, KV, G, hd, page, maxp = (c[n] for n in
                                 ("B", "KV", "G", "hd", "page", "maxp"))
     pages_needed = int(((ln + page - 1) // page).sum())
@@ -402,7 +491,7 @@ def check_k1(dev) -> dict:
                 + 4 * B * maxp + 4 * B             # block tables, lengths
                 + B * KV * (hd + dv) + 3 * 4 * B   # inserted rows
                 + 2 * 256 * 2 * 4)                 # operand tables
-    bytes_out = 4 * B * maxp * KV * G * (2 + dv)   # m, l, o
+    bytes_out = 4 * B * KV * G * dv                # the attention
     # per (head, valid token): hd LNS products + their sum, and dv p*v
     # multiply-adds; ``tokens`` already sums over the slots
     ops = 2 * KV * G * tokens * (hd + dv)
@@ -410,9 +499,10 @@ def check_k1(dev) -> dict:
     bound_ops = ops / F32_FLOP_PER_S * 1e3
     print(f"# K1 card time ({how}): kernel {ms:.5f} ms; plain "
           f"{plain_ms:.4f} ms ({plain_how}, all its kernels); bound "
-          f"{max(bound_bytes, bound_ops):.5f} ms = max({bytes_in + bytes_out} B / 3.35 TB/s, {ops} ops / 67 "
-          f"TFLOP/s); per call incl. host: kernel {call_ms:.4f} ms, plain "
-          f"{plain_call_ms:.4f} ms", flush=True)
+          f"{max(bound_bytes, bound_ops):.6f} ms = max({bytes_in + bytes_out}"
+          f" B / 3.35 TB/s, {ops} ops / 67 TFLOP/s); per call incl. host: "
+          f"kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms; "
+          f"{_partials_note(bytes_in, B, maxp, KV, G, dv)}", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=max(bound_bytes, bound_ops),
                 bound_by="bytes" if bound_bytes >= bound_ops else "operations")
@@ -435,11 +525,11 @@ def check_k1_float(dev) -> dict:
     for pdt, window, cap in FLOAT_K1_CASES:
         c = k1_float_inputs(dev, getattr(torch, pdt))
         act = c["mask"]
-        before = pa.paged_partials.float_launches
+        before = pa.paged_attend.float_launches
         kern, plain = fused(c, "auto", window, cap), fused(c, "ref",
                                                             window, cap)
         torch.cuda.synchronize()
-        if pa.paged_partials.float_launches != before + 1:
+        if pa.paged_attend.float_launches != before + 1:
             raise AssertionError("K1 float: the fused call did not launch "
                                  "the float instance once")
         for i, name in ((1, "k_pages"), (3, "v_pages")):
@@ -465,6 +555,8 @@ def check_k1_float(dev) -> dict:
         print(f"# K1 float vs plain ({pdt} pages, window {window}, cap "
               f"{cap}): pages bitwise, scales unchanged, max |out err| "
               f"{case_err:.3e}, fused == unfused bitwise", flush=True)
+        if not window:
+            err = max(err, check_k1_edges(c, f"K1 float ({pdt} pages)"))
 
     # timings on the fused form's inputs as the serving path builds them:
     # bf16 pages, the new rows in bf16, a float32 query
@@ -476,19 +568,17 @@ def check_k1_float(dev) -> dict:
     ins = (c["k_new"], c["v_new"], logical, rows, c["mask"].to(torch.int32))
     args = (q, None, c["kp"], c["vp"], c["ks"], c["vs"], c["bt"], ln)
     kw = dict(fmt=None, mode="rne", KV=c["KV"], G=c["G"], inserts=ins)
-    torch.testing.assert_close(
-        pa._combine_partials(*pa.paged_partials(*args, **kw)),
-        pa._combine_partials(*pa.page_partials_plain(*args, **kw)),
-        rtol=1e-4, atol=1e-4)
-    k1 = lambda: pa.paged_partials(*args, **kw)  # noqa: E731
-    plain = lambda: pa.page_partials_plain(*args, **kw)  # noqa: E731
+    k1 = lambda: pa.paged_attend(*args, **kw)  # noqa: E731
+    plain = lambda: pa._combine_partials(  # noqa: E731
+        *pa.page_partials_plain(*args, **kw))
+    torch.testing.assert_close(k1(), plain(), rtol=1e-4, atol=1e-4)
     ms, how = device_ms(k1, iters=200, only="float_paged_partials")
     plain_ms, plain_how = device_ms(plain, iters=10)
     call_ms, plain_call_ms = cuda_ms(k1, iters=200), cuda_ms(plain, iters=10)
 
     # bytes it must move: the float32 query, the bf16 pages the lengths
     # reach (no scales), block tables, lengths, the inserted rows and their
-    # indices; the partials written once
+    # indices; the attention [B, KV*G, dv] float32 written once
     B, KV, G, hd, page, maxp = (c[n] for n in
                                 ("B", "KV", "G", "hd", "page", "maxp"))
     pages_needed = int(((ln + page - 1) // page).sum())
@@ -499,16 +589,16 @@ def check_k1_float(dev) -> dict:
                 + pages_needed * page * KV * (hd + dv) * el  # K, V pages
                 + 4 * B * maxp + 4 * B                 # block tables, lengths
                 + B * KV * (hd + dv) * el + 3 * 4 * B)  # inserted rows
-    bytes_out = 4 * B * maxp * KV * G * (2 + dv)       # m, l, o
+    bytes_out = 4 * B * KV * G * dv                    # the attention
     ops = 2 * KV * G * tokens * (hd + dv)              # q.k and p.v FMAs
     bound_bytes = (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3
     bound_ops = ops / F32_FLOP_PER_S * 1e3
     print(f"# K1 float card time ({how}, bf16 pages): kernel {ms:.5f} ms; "
           f"plain {plain_ms:.4f} ms ({plain_how}, all its kernels); bound "
-          f"{max(bound_bytes, bound_ops):.5f} ms = max({bytes_in + bytes_out}"
+          f"{max(bound_bytes, bound_ops):.6f} ms = max({bytes_in + bytes_out}"
           f" B / 3.35 TB/s, {ops} ops / 67 TFLOP/s); per call incl. host: "
-          f"kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms",
-          flush=True)
+          f"kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms; "
+          f"{_partials_note(bytes_in, B, maxp, KV, G, dv)}", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=max(bound_bytes, bound_ops),
                 bound_by="bytes" if bound_bytes >= bound_ops else "operations")
@@ -557,16 +647,16 @@ def serve_main_path(dev, policy="serve_fp8_paged", plens=SERVE_PLENS,
 
         eng.sync_logits = checked
         torch.cuda.synchronize()
-        pa.paged_partials.launches = 0
-        pa.paged_partials.float_launches = 0
+        pa.paged_attend.launches = 0
+        pa.paged_attend.float_launches = 0
         fe.fp8_elementwise.launches = 0
         t0 = time.perf_counter()
         outputs, stats = run_continuous(eng, queue, gen=gen, chunk=4,
                                         quiet=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        lns, flt = (pa.paged_partials.launches,
-                    pa.paged_partials.float_launches)
+        lns, flt = (pa.paged_attend.launches,
+                    pa.paged_attend.float_launches)
         launches, other = (lns, flt) if fp8 else (flt, lns)
         k5 = fe.fp8_elementwise.launches
         substeps = int(eng.tel.counter_value("serve_substeps_total"))

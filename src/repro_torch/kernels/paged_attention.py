@@ -4,24 +4,25 @@ Port of ``repro.kernels.paged_attention``.  The KV cache is a pool of
 fixed-size pages, either raw FP8 codes plus one float32 scale per page, or
 float pages (the model's dtype; their scales are never read) when the
 policy leaves the KV cache unquantized (``fmt=None``)
-(:mod:`repro_torch.serving.page_pool`).  Attention is flash-decoding in
-two phases, as in the reference:
+(:mod:`repro_torch.serving.page_pool`).  Attention is flash-decoding, as
+in the reference:
 
   1. per (slot, page): softmax partials (m, l, unnormalised o) of the
      slot's one decode query against the page, with every q·k product the
      paper's integer add plus carry-in (``lns_prepare``/``lns_combine``)
      on FP8 pages, or a float32 product on float pages;
-  2. a log-sum-exp combine of the partials over pages
-     (:func:`_combine_partials`, plain torch here as in the reference).
+  2. a log-sum-exp combine of the partials over pages.
 
-Phase 1 is kernel K1.  :func:`paged_partials` is its wrapper: for CUDA
-tensors it launches the hand-written kernel ``csrc/paged_attention.cu``,
-its LNS instance on FP8 pages (counted in ``paged_partials.launches``) or
-its float instance on bf16 or float32 pages (counted in
-``paged_partials.float_launches``); for CPU tensors it runs
-:func:`page_partials_plain`, the plain version the CPU tests and the chip
-smoke hold the kernel against.  There is no fallback: a CUDA tensor
-either launches the kernel or raises.
+Kernel K1 does both in one launch.  :func:`paged_attend` is its wrapper:
+for CUDA tensors it launches the hand-written kernel
+``csrc/paged_attention.cu``, its LNS instance on FP8 pages (counted in
+``paged_attend.launches``) or its float instance on bf16 or float32 pages
+(counted in ``paged_attend.float_launches``), which reads only the pages
+:func:`admissible_pages` names and combines on the chip; for CPU tensors
+it runs the plain version, :func:`page_partials_plain` then
+:func:`_combine_partials`, which the CPU tests and the chip smoke hold the
+kernel against.  There is no fallback: a CUDA tensor either launches the
+kernel or raises.
 
 :func:`fused_decode_write_attend` is the decode hot path's entry: it
 encodes the new token's K/V row once (codes, or the float row cast to the
@@ -47,8 +48,9 @@ __all__ = [
     "NEG_INF",
     "quantize_q",
     "query_operand",
+    "admissible_pages",
     "page_partials_plain",
-    "paged_partials",
+    "paged_attend",
     "paged_attention_ref",
     "paged_decode_attention",
     "fused_decode_write_attend",
@@ -65,6 +67,26 @@ def quantize_q(q: torch.Tensor, fmt: str, mode: str = "rne"):
     amax = torch.clamp_min(qf.abs().amax(dim=(1, 2)), 1e-12)
     scale = amax / fmt_obj.max_normal
     return encode(qf / scale[:, None, None], fmt_obj, mode), scale
+
+
+def admissible_pages(length: int, window: int, page: int, maxp: int):
+    """(first, last): the block-table pages that hold a position the masks
+    admit, the only ones K1 reads (its ``page_range`` mirrors this).
+
+    ``last = (length - 1) // page``, ``first = max(0, length - window) //
+    page`` with a window, else 0.  Every page outside has every score at
+    the finite ``NEG_INF``, so its combine weight is exactly 0.  With no
+    admissible position in the table (``length`` 0) the whole table is
+    read with every position masked: each page then has m = ``NEG_INF``
+    and weight 1, and the output is the mean of all its V rows, as the
+    reference's."""
+    first, last = 0, -1
+    if length > 0:
+        last = min((length - 1) // page, maxp - 1)
+        first = max(0, length - window) // page if window else 0
+    if first > last:
+        return 0, maxp - 1
+    return first, last
 
 
 def _insert_rows(gathered, row, logical, rows, mask):
@@ -185,7 +207,7 @@ def _fused_operands(inserts, row_dtype, B, KV, hd, dv, dev):
     return ins
 
 
-_SMEM_LIMIT = 48 * 1024  # default dynamic shared memory of one block
+_SMEM_LIMIT = 232448  # dynamic shared memory one H100 block can use
 
 
 def _lib():
@@ -195,14 +217,14 @@ def _lib():
     if not getattr(lib, "_typed", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.lns_paged_partials.argtypes = (
-            [vp] * 17 + [ci] * 13 + [cf, cf, vp])
+            [vp] * 15 + [ci] * 13 + [cf, cf, vp])
         lib.lns_paged_partials.restype = ci
-        lib.lns_paged_partials_smem.argtypes = [ci] * 4
+        lib.lns_paged_partials_smem.argtypes = [ci] * 5
         lib.lns_paged_partials_smem.restype = ci
         lib.float_paged_partials.argtypes = (
-            [vp] * 13 + [ci] * 10 + [cf, cf, vp])
+            [vp] * 11 + [ci] * 10 + [cf, cf, vp])
         lib.float_paged_partials.restype = ci
-        lib.float_paged_partials_smem.argtypes = [ci] * 4
+        lib.float_paged_partials_smem.argtypes = [ci] * 6
         lib.float_paged_partials_smem.restype = ci
         lib._typed = True
     return lib
@@ -232,22 +254,20 @@ def _launch_k1(q_codes, q_scale, k_pages, v_pages, k_scale, v_scale,
             raise ValueError("all K1 operands must be on one CUDA device")
     lut = device_lns_tables(fmt, mode, dev)
     lib = _lib()
-    if lib.lns_paged_partials_smem(page, G, hd, dv) > _SMEM_LIMIT:
+    if lib.lns_paged_partials_smem(page, G, hd, dv, maxp) > _SMEM_LIMIT:
         raise ValueError(f"K1 geometry page={page} G={G} hd={hd} dv={dv} "
                          "exceeds one block's shared memory")
-    m = torch.empty((B, maxp, KV, G), dtype=torch.float32, device=dev)
-    l = torch.empty_like(m)
-    o = torch.empty((B, maxp, KV, G, dv), dtype=torch.float32, device=dev)
+    out = torch.empty((B, KV * G, dv), dtype=torch.float32, device=dev)
     ptr = [None if t is None else t.data_ptr()
-           for t in tensors + ins + [lut, m, l, o]]
+           for t in tensors + ins + [lut, out]]
     err = lib.lns_paged_partials(
         *ptr, B, maxp, page, KV, G, hd, dv, fmt_obj.man_bits, fmt_obj.bias,
         fmt_obj.min_normal_code, fmt_obj.max_normal_code, int(window),
         int(inserts is not None), float(cap), float(hd**-0.5),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(err, "K1")
-    paged_partials.launches += 1
-    return m, l, o
+    paged_attend.launches += 1
+    return out
 
 
 _FLOAT_PAGES = {torch.bfloat16: 1, torch.float32: 0}  # dtype -> bf16 flag
@@ -274,40 +294,41 @@ def _launch_k1_float(q, k_pages, v_pages, block_tables, lengths, *, KV, G,
         if t.device != dev:
             raise ValueError("all K1 operands must be on one CUDA device")
     lib = _lib()
-    if lib.float_paged_partials_smem(page, G, hd, dv) > _SMEM_LIMIT:
+    if lib.float_paged_partials_smem(page, G, hd, dv, maxp,
+                                     _FLOAT_PAGES[dt]) > _SMEM_LIMIT:
         raise ValueError(f"K1 geometry page={page} G={G} hd={hd} dv={dv} "
                          "exceeds one block's shared memory")
-    m = torch.empty((B, maxp, KV, G), dtype=torch.float32, device=dev)
-    l = torch.empty_like(m)
-    o = torch.empty((B, maxp, KV, G, dv), dtype=torch.float32, device=dev)
+    out = torch.empty((B, KV * G, dv), dtype=torch.float32, device=dev)
     ptr = [None if t is None else t.data_ptr()
-           for t in tensors + ins + [m, l, o]]
+           for t in tensors + ins + [out]]
     err = lib.float_paged_partials(
         *ptr, B, maxp, page, KV, G, hd, dv, int(window),
         int(inserts is not None), _FLOAT_PAGES[dt], float(cap),
         float(hd**-0.5), torch.cuda.current_stream(dev).cuda_stream)
     check_launch(err, "K1 (float pages)")
-    paged_partials.float_launches += 1
-    return m, l, o
+    paged_attend.float_launches += 1
+    return out
 
 
-def paged_partials(
+def paged_attend(
     q_codes, q_scale, k_pages, v_pages, k_scale, v_scale, block_tables,
     lengths, *, fmt: Optional[str], mode: str, KV: int, G: int,
     window: int = 0, cap: float = 0.0, inserts=None,
 ):
-    """K1: the (slot, page) softmax partials, same contract as
-    :func:`page_partials_plain`.  CUDA tensors launch the hand-written
-    kernel: its LNS instance on FP8 pages (bumping
-    ``paged_partials.launches``), its float instance on float pages
-    (``fmt=None``; bumping ``paged_partials.float_launches``).  CPU tensors
-    run the plain version.  Any other device raises."""
+    """K1: the attention of each query row, [B, KV*G, dv] float32, with
+    the operands of :func:`page_partials_plain`.  CUDA tensors launch the
+    hand-written kernel, one launch that reads only the admissible pages
+    and combines on the chip: its LNS instance on FP8 pages (bumping
+    ``paged_attend.launches``), its float instance on float pages
+    (``fmt=None``; bumping ``paged_attend.float_launches``).  CPU tensors
+    run the plain version, ``_combine_partials(page_partials_plain(...))``.
+    Any other device raises."""
     kw = dict(fmt=fmt, mode=mode, KV=KV, G=G, window=window, cap=cap,
               inserts=inserts)
     args = (q_codes, q_scale, k_pages, v_pages, k_scale, v_scale,
             block_tables, lengths)
     if q_codes.device.type == "cpu":
-        return page_partials_plain(*args, **kw)
+        return _combine_partials(*page_partials_plain(*args, **kw))
     if q_codes.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or CPU tensors, not "
                          f"{q_codes.device}")
@@ -318,13 +339,14 @@ def paged_partials(
     return _launch_k1(*args, **kw)
 
 
-paged_partials.launches = 0
-paged_partials.float_launches = 0
+paged_attend.launches = 0
+paged_attend.float_launches = 0
 
 
 def _combine_partials(m, l, o):
     """Log-sum-exp combine over pages: m, l [B, maxp, KV, G], o [B, maxp,
-    KV, G, dv] -> [B, KV*G, dv]."""
+    KV, G, dv] -> [B, KV*G, dv].  With :func:`page_partials_plain`, K1's
+    plain version."""
     M = m.amax(dim=1)
     w = torch.exp(m - M[:, None])
     l_tot = (w * l).sum(dim=1)
@@ -364,7 +386,7 @@ def paged_decode_attention(
     scales [P] when ``fmt`` names a format, float (bf16 or float32) with
     the scales unread when ``fmt`` is None; block_tables [B, maxp] int32;
     lengths [B] int32 valid tokens.  ``impl``: "kernel"/"auto" (the K1
-    wrapper) or "ref" (plain partials on any device).  Returns
+    wrapper, :func:`paged_attend`) or "ref" (plain partials on any device).  Returns
     [B, 1, H, dv] in q.dtype.
     """
     B, one, H, hd = q.shape
@@ -377,9 +399,8 @@ def paged_decode_attention(
         out = paged_attention_ref(q_op, k_pages, v_pages, k_scale, v_scale,
                                   block_tables, lengths, **kw)
     elif impl in ("kernel", "auto"):
-        out = _combine_partials(*paged_partials(
-            *q_op, k_pages, v_pages, k_scale, v_scale, block_tables,
-            lengths, **kw))
+        out = paged_attend(*q_op, k_pages, v_pages, k_scale, v_scale,
+                           block_tables, lengths, **kw)
     else:
         raise ValueError(f"unknown impl {impl!r}")
     return out.reshape(B, 1, H, -1).to(q.dtype)
@@ -449,9 +470,9 @@ def fused_decode_write_attend(
                                   block_tables, attend_len, **kw)
     elif impl in ("kernel", "auto"):
         mask = None if write_mask is None else write_mask.to(torch.bool)
-        out = _combine_partials(*paged_partials(
-            *q_op, k_pages, v_pages, k_scale, v_scale, block_tables,
-            attend_len, inserts=(k_row, v_row, logical, rows, mask), **kw))
+        out = paged_attend(*q_op, k_pages, v_pages, k_scale, v_scale,
+                           block_tables, attend_len,
+                           inserts=(k_row, v_row, logical, rows, mask), **kw)
         scatter()
     else:
         raise ValueError(f"unknown impl {impl!r}")

@@ -54,9 +54,9 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _case(seed, dev, *, G, hd, page, fmt):
+def _case(seed, dev, *, G, hd, page, fmt, maxp=4):
     g = torch.Generator().manual_seed(seed)
-    B, KV, maxp = 3, 2, 4
+    B, KV = 3, 2
     P = B * maxp + 1
     bt = (torch.randperm(P - 1, generator=g) + 1).reshape(B, maxp)
     lengths = torch.randint(0, maxp * page, (B,), generator=g)
@@ -75,7 +75,7 @@ def _case(seed, dev, *, G, hd, page, fmt):
              bt=bt.to(torch.int32), lengths=lengths.to(torch.int32),
              mask=mask, k_noise=noise[0], v_noise=noise[1])
     c = {k: v.to(dev) for k, v in c.items()}
-    c.update(KV=KV, page=page, fmt=fmt)
+    c.update(KV=KV, page=page, fmt=fmt, maxp=maxp)
     return c
 
 
@@ -97,11 +97,11 @@ GEOS = [dict(G=7, hd=64, page=16, fmt="e5m2"),
 @pytest.mark.parametrize("window,cap", [(0, 0.0), (5, 25.0)])
 def test_k1_matches_plain(dev, geo, window, cap):
     c = _case(1, dev, **geo)
-    before = pa.paged_partials.launches
+    before = pa.paged_attend.launches
     kern = _fused(c, "auto", window, cap)
     plain = _fused(c, "ref", window, cap)
     torch.cuda.synchronize()
-    assert pa.paged_partials.launches == before + 1
+    assert pa.paged_attend.launches == before + 1
     for i in (1, 2, 3, 4):
         assert torch.equal(kern[i][1:], plain[i][1:])
     act = c["mask"]
@@ -135,15 +135,15 @@ def test_k1_rejects_operands_it_does_not_take(dev):
     c = _case(3, dev, **GEOS[0])
     codes, qs = pa.quantize_q(c["q"][:, 0], "e5m2")
     with pytest.raises(ValueError, match="block_tables"):
-        pa.paged_partials(codes, qs, c["kp"], c["vp"], c["ks"], c["vs"],
-                          c["bt"].long(), c["lengths"], fmt="e5m2",
-                          mode="rne", KV=2, G=7)
+        pa.paged_attend(codes, qs, c["kp"], c["vp"], c["ks"], c["vs"],
+                        c["bt"].long(), c["lengths"], fmt="e5m2",
+                        mode="rne", KV=2, G=7)
 
 
-def _float_case(seed, dev, *, G, hd, page, pdt):
+def _float_case(seed, dev, *, G, hd, page, pdt, maxp=4):
     """``_case`` with float pages of ``pdt`` and new rows in that dtype
     (as the model writes them); the query stays float32."""
-    c = _case(seed, dev, G=G, hd=hd, page=page, fmt="e5m2")
+    c = _case(seed, dev, G=G, hd=hd, page=page, fmt="e5m2", maxp=maxp)
     g = torch.Generator().manual_seed(seed + 7)
     for name in ("kp", "vp"):
         c[name] = torch.randn(c[name].shape, generator=g).to(dev, pdt)
@@ -163,12 +163,12 @@ FLOAT_GEOS = [{k: v for k, v in g.items() if k != "fmt"} for g in GEOS]
 @pytest.mark.parametrize("window,cap", [(0, 0.0), (5, 25.0)])
 def test_k1_float_matches_plain(dev, geo, window, cap, pdt):
     c = _float_case(4, dev, **geo, pdt=pdt)
-    before = (pa.paged_partials.launches, pa.paged_partials.float_launches)
+    before = (pa.paged_attend.launches, pa.paged_attend.float_launches)
     kern = _fused(c, "auto", window, cap)
     plain = _fused(c, "ref", window, cap)
     torch.cuda.synchronize()
-    assert (pa.paged_partials.launches,
-            pa.paged_partials.float_launches) == (before[0], before[1] + 1)
+    assert (pa.paged_attend.launches,
+            pa.paged_attend.float_launches) == (before[0], before[1] + 1)
     for i in (1, 3):
         assert kern[i].dtype == pdt
         assert torch.equal(kern[i][1:], plain[i][1:])
@@ -207,21 +207,97 @@ def test_k1_float_rejects_operands_it_does_not_take(dev):
     c = _float_case(6, dev, G=7, hd=64, page=16, pdt=torch.bfloat16)
     q, _ = pa.query_operand(c["q"][:, 0], None)
     kw = dict(fmt=None, mode="rne", KV=2, G=7)
-    before = pa.paged_partials.float_launches
+    before = pa.paged_attend.float_launches
     with pytest.raises(ValueError, match="bf16 or float32"):
-        pa.paged_partials(q, None, c["kp"].half(), c["vp"].half(), c["ks"],
-                          c["vs"], c["bt"], c["lengths"], **kw)
+        pa.paged_attend(q, None, c["kp"].half(), c["vp"].half(), c["ks"],
+                        c["vs"], c["bt"], c["lengths"], **kw)
     with pytest.raises(ValueError, match="v_pages"):
-        pa.paged_partials(q, None, c["kp"], c["vp"].float(), c["ks"],
-                          c["vs"], c["bt"], c["lengths"], **kw)
+        pa.paged_attend(q, None, c["kp"], c["vp"].float(), c["ks"],
+                        c["vs"], c["bt"], c["lengths"], **kw)
     strided = c["kp"].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
-        pa.paged_partials(q, None, strided, c["vp"], c["ks"], c["vs"],
-                          c["bt"], c["lengths"], **kw)
+        pa.paged_attend(q, None, strided, c["vp"], c["ks"], c["vs"],
+                        c["bt"], c["lengths"], **kw)
     with pytest.raises(ValueError, match="q"):
-        pa.paged_partials(q.to(torch.bfloat16), None, c["kp"], c["vp"],
-                          c["ks"], c["vs"], c["bt"], c["lengths"], **kw)
-    assert pa.paged_partials.float_launches == before
+        pa.paged_attend(q.to(torch.bfloat16), None, c["kp"], c["vp"],
+                        c["ks"], c["vs"], c["bt"], c["lengths"], **kw)
+    assert pa.paged_attend.float_launches == before
+
+
+# The one-launch design: each (slot, KV head) is a cluster of min(8, maxp)
+# blocks sharing the admissible pages; these cases cover every cluster
+# size, shares of unequal length and ranks with no page.
+K1_KINDS = ["e5m2", torch.bfloat16, torch.float32]
+
+
+def _k1_kind_case(seed, dev, kind, maxp, page=8):
+    geo = dict(G=7, hd=64, page=page, maxp=maxp)
+    if isinstance(kind, str):
+        return _case(seed, dev, fmt=kind, **geo)
+    return _float_case(seed, dev, pdt=kind, **geo)
+
+
+def _attend(c, kp, vp, lengths, window=0, impl="auto"):
+    return pa.paged_decode_attention(
+        c["q"], kp, vp, c["ks"], c["vs"], c["bt"], lengths, fmt=c["fmt"],
+        n_kv_heads=c["KV"], window=window, impl=impl)
+
+
+@pytest.mark.parametrize("kind", K1_KINDS, ids=str)
+@pytest.mark.parametrize("maxp", [1, 2, 7, 8, 9, 64])
+def test_k1_every_cluster_size_matches_plain(dev, kind, maxp):
+    """Lengths 0 (the mean of all V rows), 1, a random one and the whole
+    table, without and with a window that skips leading pages: one launch
+    a call within tolerance of the plain version, two calls bitwise
+    equal."""
+    c = _k1_kind_case(7, dev, kind, maxp)
+    full = maxp * c["page"]
+    g = torch.Generator().manual_seed(maxp)
+    lengths = torch.tensor([0, 1, int(torch.randint(1, full + 1, (1,),
+                                                    generator=g)), full],
+                           dtype=torch.int32, device=dev)
+    c["bt"] = torch.cat([c["bt"], c["bt"][:1]])   # slot 3 shares slot 0's
+    c["q"] = torch.cat([c["q"], c["q"][:1]])
+    count = "launches" if c["fmt"] else "float_launches"
+    for window in (0, 2 * c["page"] + 3):
+        before = getattr(pa.paged_attend, count)
+        got = _attend(c, c["kp"], c["vp"], lengths, window)
+        again = _attend(c, c["kp"], c["vp"], lengths, window)
+        want = _attend(c, c["kp"], c["vp"], lengths, window, impl="ref")
+        torch.cuda.synchronize()
+        assert getattr(pa.paged_attend, count) == before + 2
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("kind", K1_KINDS, ids=str)
+@pytest.mark.parametrize("window", [0, 11])
+def test_k1_reads_only_the_admissible_pages(dev, kind, window):
+    """Every page outside each slot's admissible range poisoned (NaN on
+    float pages; random codes, NaN/inf codes among them, on FP8 pages):
+    the output stays finite and bitwise equal to the clean pool's."""
+    c = _k1_kind_case(8, dev, kind, maxp=9, page=4)
+    lengths = torch.tensor([3, 17, 36], dtype=torch.int32, device=dev)
+    kp, vp = c["kp"].clone(), c["vp"].clone()
+    pids = []
+    for b in range(3):
+        first, last = pa.admissible_pages(int(lengths[b]), window, 4, 9)
+        pids += [int(c["bt"][b, j]) for j in range(9)
+                 if not first <= j <= last]
+    assert pids
+    g = torch.Generator().manual_seed(window)
+    for t in (kp, vp):
+        if c["fmt"] is None:
+            t[pids] = float("nan")
+        else:
+            t[pids] = torch.randint(0, 256, t[pids].shape, generator=g,
+                                    dtype=torch.uint8).to(dev)
+    clean = _attend(c, c["kp"], c["vp"], lengths, window)
+    dirty = _attend(c, kp, vp, lengths, window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dirty).all()
+    assert torch.equal(clean, dirty)
 
 
 def _nan_aware_equal(a, b):

@@ -29,7 +29,10 @@ import torch
 from repro.core.quant import encode as jencode
 from repro.kernels import paged_attention as jpa
 from repro.serving import page_pool as jpool
+from repro_torch.core.carry_ins import FACTORED_MUL
+from repro_torch.core.formats import FORMATS
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels.common import lns_combine, lns_prepare, lns_tables
 from repro_torch.serving import page_pool
 
 RTOL = ATOL = 1e-5
@@ -286,18 +289,125 @@ def test_fully_masked_page_partials_are_finite():
 
 
 def test_cpu_wrapper_runs_the_plain_version_and_counts_no_launch():
+    """On CPU tensors K1's wrapper is its plain version, the partials and
+    their combine, bit for bit, and counts no launch."""
     case = _case(6, fmt="e5m2", G=7, hd=64, page=16)
     c = _t(case)
     codes, qs = pa.quantize_q(c["q"][:, 0], "e5m2")
     args = (codes, qs, c["kp"], c["vp"], c["ks"], c["vs"], c["bt"],
             c["lengths"] + 1)
-    before = pa.paged_partials.launches
-    got = pa.paged_partials(*args, fmt="e5m2", mode="rne", KV=case["KV"], G=7)
-    want = pa.page_partials_plain(*args, fmt="e5m2", mode="rne",
-                                  KV=case["KV"], G=7)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    assert pa.paged_partials.launches == before
+    before = pa.paged_attend.launches
+    got = pa.paged_attend(*args, fmt="e5m2", mode="rne", KV=case["KV"], G=7)
+    want = pa._combine_partials(*pa.page_partials_plain(
+        *args, fmt="e5m2", mode="rne", KV=case["KV"], G=7))
+    assert torch.equal(got, want)
+    assert pa.paged_attend.launches == before
+
+
+@pytest.mark.parametrize("window", [0, 1, 5, 32])
+@pytest.mark.parametrize("page", [4, 8, 16])
+def test_admissible_pages(page, window):
+    """The pages K1 reads: over every length of a 5-page table, each page
+    outside ``admissible_pages`` has every position masked (so with a
+    length above 0 its combine weight in the plain version is exactly 0),
+    each page inside has an admissible position, and a length of 0 gives
+    the whole table."""
+    maxp = 5
+    lengths = np.arange(maxp * page + 1, dtype=np.int32)
+    B = len(lengths)
+    rng = np.random.default_rng(page * 100 + window)
+    q = torch.from_numpy(rng.standard_normal((B, 1, 4)).astype(np.float32))
+    kp = torch.from_numpy(
+        rng.standard_normal((B * maxp + 1, page, 1, 4)).astype(np.float32))
+    bt = torch.arange(1, B * maxp + 1, dtype=torch.int32).reshape(B, maxp)
+    m, _, _ = pa.page_partials_plain(
+        q, None, kp, kp, None, None, bt, torch.from_numpy(lengths),
+        fmt=None, mode="rne", KV=1, G=1, window=window)
+    w = torch.exp(m - m.amax(dim=1, keepdim=True))[:, :, 0, 0]
+    for b, n in enumerate(lengths):
+        first, last = pa.admissible_pages(int(n), window, page, maxp)
+        if n == 0:
+            assert (first, last) == (0, maxp - 1)
+            continue
+        for j in range(maxp):
+            pos = np.arange(j * page, (j + 1) * page)
+            ok = (pos < n) & (((n - 1 - pos) < window) if window else True)
+            assert ok.any() == (first <= j <= last), (n, j)
+            if not first <= j <= last:
+                assert w[b, j] == 0, (n, j)
+
+
+def _add_form(t, man_bits):
+    """csrc/paged_attention.cu::add_form of one side of ``lns_tables``."""
+    Z, B, S = 1 << 16, 1 << 17, 0x80000000
+    mag, flags = t[:, 0] & 0xFFFFFFFF, t[:, 1] & 0xFFFFFFFF
+    mag = torch.where(mag >= 2**31, mag - 2**32, mag)
+    special = (flags & (Z | B)) != 0
+    m = torch.where(special, 0, ((flags & S) + (mag << (23 - man_bits)))
+                    & 0xFFFFFFFF)
+    c = torch.where(special, 0, flags & 0xFFFF)
+    z = torch.where((flags & B) != 0, float("nan"),
+                    torch.where((flags & Z) != 0, 0.0, 1.0))
+    return m, c, z.to(torch.float32)
+
+
+@pytest.mark.parametrize("cell", sorted(FACTORED_MUL), ids="-".join)
+def test_add_form_product_equals_the_plain_product(cell):
+    """K1's card kernel computes the paper's product in an add-only form:
+    from ``lns_tables``' (mag, flags), m = sign << 31 + mag << (23 -
+    man_bits) (mod 2^32), c the carry mask and z = 1, or 0 for a zero
+    code and NaN for a NaN/inf code (whose m and c are 0); the product
+    is as_float(m_x + m_y + carry << (23 - man_bits)) * z_x * z_y.  This
+    mirror of it equals the plain version's product (``lns_combine``) on
+    all 65,536 code pairs, NaN as NaN (a zero may come out as -0, which
+    leaves every sum unchanged)."""
+    fmt, mode = cell
+    mb = FORMATS[fmt].man_bits
+    tab = lns_tables(fmt, mode).to(torch.int64)
+    mx, cx, zx = _add_form(tab[0], mb)
+    my, cy, zy = _add_form(tab[1], mb)
+    carry = ((cx[:, None] & cy[None, :]) != 0).to(torch.int64) << (23 - mb)
+    bits = (mx[:, None] + my[None, :] + carry) & 0xFFFFFFFF
+    bits = torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32)
+    got = bits.view(torch.float32) * (zx[:, None] * zy[None, :])
+    codes = torch.arange(256)
+    want = lns_combine(lns_prepare(codes[:, None], fmt, mode, side="x"),
+                       lns_prepare(codes[None, :], fmt, mode, side="y"), fmt)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    assert torch.equal(got[ok], want[ok])
+
+
+@pytest.mark.parametrize("fmt", ["e5m2", None])
+def test_length_zero_slot_matches_jax(fmt):
+    """A slot with no admissible position: the reference reads its whole
+    block table with every position masked, so its output is the mean of
+    all maxp x page V rows; the port's plain path gives the same."""
+    case = _case(9, fmt="e5m2", G=7, hd=64, page=16)
+    ln = case["lengths"] + 1
+    ln[0] = 0
+    if fmt is None:
+        for name in ("kp", "vp"):
+            shape = case[name].shape
+            case[name] = np.random.default_rng(10).standard_normal(
+                shape).astype(np.float32)
+    ref = jpa.paged_decode_attention(
+        jnp.asarray(case["q"]), jnp.asarray(case["kp"]),
+        jnp.asarray(case["vp"]), jnp.asarray(case["ks"]),
+        jnp.asarray(case["vs"]), jnp.asarray(case["bt"]), jnp.asarray(ln),
+        fmt=fmt, n_kv_heads=case["KV"], impl="ref")
+    c = _t(case)
+    port = pa.paged_decode_attention(
+        c["q"], c["kp"], c["vp"], c["ks"], c["vs"], c["bt"],
+        torch.from_numpy(ln), fmt=fmt, n_kv_heads=case["KV"])
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=RTOL,
+                               atol=ATOL)
+    vf = (c["vp"].to(torch.float32) if fmt is None else
+          pa.code_to_f32(c["vp"], fmt) * c["vs"][:, None, None, None])
+    mean = vf[c["bt"][0].long()].mean(dim=(0, 1))          # [KV, dv]
+    G = case["q"].shape[2] // case["KV"]
+    want = mean.repeat_interleave(G, dim=0)
+    torch.testing.assert_close(port[0, 0], want, rtol=RTOL, atol=ATOL)
 
 
 # --------------------------------------------------------------------------- #
@@ -484,11 +594,10 @@ def test_float_cpu_wrapper_runs_the_plain_version_and_counts_no_launch():
     assert q.dtype == torch.float32 and none is None
     args = (q, None, c["kp"], c["vp"], c["ks"], c["vs"], c["bt"],
             c["lengths"] + 1)
-    before = (pa.paged_partials.launches, pa.paged_partials.float_launches)
-    got = pa.paged_partials(*args, fmt=None, mode="rne", KV=case["KV"], G=7)
-    want = pa.page_partials_plain(*args, fmt=None, mode="rne",
-                                  KV=case["KV"], G=7)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    assert (pa.paged_partials.launches,
-            pa.paged_partials.float_launches) == before
+    before = (pa.paged_attend.launches, pa.paged_attend.float_launches)
+    got = pa.paged_attend(*args, fmt=None, mode="rne", KV=case["KV"], G=7)
+    want = pa._combine_partials(*pa.page_partials_plain(
+        *args, fmt=None, mode="rne", KV=case["KV"], G=7))
+    assert torch.equal(got, want)
+    assert (pa.paged_attend.launches,
+            pa.paged_attend.float_launches) == before

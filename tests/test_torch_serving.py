@@ -322,9 +322,9 @@ def test_engine_block_tables_upload_once_per_mutating_step():
 
 
 def test_engine_cpu_runs_count_no_kernel_launch():
-    before = pa.paged_partials.launches
+    before = pa.paged_attend.launches
     serve.run_continuous(_engine(), QUEUE[:2], gen=2, quiet=True)
-    assert pa.paged_partials.launches == before
+    assert pa.paged_attend.launches == before
 
 
 def test_engine_defaults_to_cuda_and_refuses_a_cpu_only_host():

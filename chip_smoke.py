@@ -126,10 +126,13 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     ``cached``, launches once and is bitwise equal to the pinned tiling
     and within tolerance of the plain version;
 17. K4 (the seed LNS matmul) bitwise against its plain version at 512^3
-    and at the seven matmul shapes of one qwen2-0.5b layer at M = 1024;
-    its time per layer beside K3's, the plain version and the bound (K3's:
-    both compute one function), its own SASS instructions per product,
-    and K4 / K3 at 512^3;
+    and at the seven matmul shapes of one qwen2-0.5b layer at M = 1024
+    (the narrow ones split over k tiles), two calls bitwise equal; its
+    time per layer (its kernel and, where it splits, the launch that adds
+    the tiles' sums) beside K3's, the plain version and the bound (K3's:
+    both compute one function), its own SASS instructions per product
+    (per FFMA), its shared loads per product and the floor they set, and
+    K4 / K3 at 512^3;
 18. K4's path: 2 full-width train steps under train_fp8_lns with every
     matmul through K4 (``run_training``): finite losses, 0 restarts, 672
     K4 launches and no K3 or K2; then the first step of a float32 2-layer
@@ -1014,7 +1017,9 @@ def check_k5_shapes(dev) -> dict:
           + ", ".join(f"{op} {c:.2f}" for op, c in mix["mix"].items())
           + f"; {mix['per_product']:.2f} in all, "
           f"{mix['int32_per_product']:.2f} on the 32-bit integer pipe "
-          f"({mix['int32_per_product'] / 16:.2f} per code)", flush=True)
+          f"({mix['int32_per_product'] / 16:.2f} per code; "
+          f"{(mix['int32_per_product'] + mix['mix'].get('PRMT', 0)) / 16:.2f}"
+          " with the byte permutes)", flush=True)
     return res
 
 
@@ -1068,6 +1073,8 @@ SMOKE_M = 1024             # batch 8 x seq 128 tokens
 # throughput, compute capability 9.0).
 ISSUE_PER_S = F32_FLOP_PER_S / 2
 INT32_PER_S = F32_FLOP_PER_S / 4
+SM_CLOCK_HZ = 1.98e9       # the data sheet's boost clock
+SHARED_LANES_PER_CLOCK = 32  # one 32-bank wavefront per SM a clock
 INT32_OPCODES = {"IADD3", "IADD", "VIADD", "IMAD", "LOP3", "SHF", "ISETP",
                  "LEA", "IMNMX", "VIMNMX", "IABS"}
 
@@ -2102,8 +2109,9 @@ def check_k4(dev, k3_layer_ms: float, k3_bound: float) -> dict:
     and K4 / K3 at 512^3.  K4 computes K3's function (the same products
     and sums), so its bound is ``k3_bound``, the function's
     (:func:`lns_function_bound`) per layer.  K4's own compiled
-    instructions per product, and their time at the issue and integer
-    rates, are printed beside it."""
+    instructions per product (per FFMA), their time at the issue and
+    integer rates, and the time of its shared loads at one a lane a clock
+    are printed beside it; two calls must agree bit for bit."""
     import torch
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels import lns_matmul as lm
@@ -2118,14 +2126,20 @@ def check_k4(dev, k3_layer_ms: float, k3_bound: float) -> dict:
         cases[SMOKE_M, K, N] = xw
     for shape, (x, w) in cases.items():
         got = lm.lns_loop_matmul(x, w, fmt="e4m3", mode="rne")
+        again = lm.lns_loop_matmul(x, w, fmt="e4m3", mode="rne")
         want = lm.lns_loop_matmul_plain(x, w, fmt="e4m3", mode="rne")
         torch.cuda.synchronize()
         if not _nan_aware_bitwise(got, want):
             raise AssertionError(f"K4 differs from its plain version at "
                                  f"{shape}")
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError(f"two K4 calls differ at {shape}")
+    splits = {s: lm.loop_split(s[0], s[2], s[1], _n_sm(dev)) for s in cases}
     print(f"# K4 vs plain at {', '.join('x'.join(map(str, s)) for s in cases)}"
           " (e4m3, RNE; 512^3 with every code, NaN included): bitwise "
-          "(NaN as NaN)", flush=True)
+          "(NaN as NaN), two calls bitwise equal; (splits, tiles a split) "
+          + ", ".join(f"{'x'.join(map(str, s))} {v}"
+                      for s, v in splits.items()), flush=True)
 
     layer = {s[1:]: xw for s, xw in cases.items() if s[0] == SMOKE_M}
 
@@ -2136,34 +2150,42 @@ def check_k4(dev, k3_layer_ms: float, k3_bound: float) -> dict:
         return lm.lns_loop_matmul_plain(*layer[shape], fmt="e4m3",
                                         mode="rne")
 
-    ms, how = _per_layer_ms(k4, "lns_loop_matmul_kernel", iters=3)
+    # "lns_loop_matmul": the kernel and the launch that adds split sums
+    ms, how = _per_layer_ms(k4, "lns_loop_matmul", iters=10)
     plain_ms, _ = _per_layer_ms(k4_plain, "", iters=1, warmup=1)
     k4_512, _ = device_ms(lambda: lm.lns_loop_matmul(x512, w512, fmt="e4m3"),
-                          iters=10, only="lns_loop_matmul_kernel")
+                          iters=10, only="lns_loop_matmul")
     k3_512, _ = device_ms(lambda: lm.lns_product_matmul(x512, w512,
                                                         fmt="e4m3"),
                           iters=10, only="lns_matmul_kernel")
     fb = lns_function_bound()
     prods, nbytes = fb["prods"], fb["nbytes"]
     mix = sass_loop_mix(cuda_build.build(["lns_matmul"])[0],
-                        "lns_loop_matmul_kernel", per="FADD")
+                        "lns_loop_matmul_kernel", per="FFMA")
     b_issue = mix["per_product"] * prods / ISSUE_PER_S * 1e3
     b_int = mix["int32_per_product"] * prods / INT32_PER_S * 1e3
     b_own = max(b_issue, b_int)           # K4's own instruction stream
+    lds = mix["mix"].get("LDS", 0.0)
+    b_shared = (lds * prods / (_n_sm(dev) * SHARED_LANES_PER_CLOCK
+                               * SM_CLOCK_HZ) * 1e3)
     bound = k3_bound
-    print("# K4 k loop (SASS), instructions per product: "
+    print("# K4 k loop (SASS), instructions per product (per FFMA): "
           + ", ".join(f"{op} {c:.3f}" for op, c in mix["mix"].items())
           + f"; {mix['per_product']:.3f} in all ({b_issue:.4f} ms per layer "
           f"at {ISSUE_PER_S:.4g}/s), {mix['int32_per_product']:.3f} on the "
-          f"32-bit integer pipe ({b_int:.4f} ms at {INT32_PER_S:.4g}/s)",
-          flush=True)
+          f"32-bit integer pipe ({b_int:.4f} ms at {INT32_PER_S:.4g}/s); "
+          f"{lds:.3f} shared loads per product: {b_shared:.4f} ms per layer "
+          f"at one 32-lane load per SM a clock ({_n_sm(dev)} SMs, "
+          f"{SM_CLOCK_HZ / 1e9:.2f} GHz)", flush=True)
     print(f"# K4 per layer (7 matmuls, M={SMOKE_M}; card time, {how}): "
           f"kernel {ms:.4f} ms (K3 {k3_layer_ms:.4f} ms, K4/K3 "
           f"{ms / k3_layer_ms:.3f}); plain {plain_ms:.3f} ms; bound "
           f"{bound:.5f} ms, K3's (the function's: max({nbytes} B / 3.35 "
-          f"TB/s, {2 * prods} operations / 1979 TOP/s)) (kernel / bound "
-          f"{ms / bound:.1f}); K4's own instructions {b_own:.4f} ms (kernel "
-          f"/ them {ms / b_own:.3f}); at 512^3: "
+          f"TB/s, {2 * prods} operations / 1979 TOP/s; an in-order sum "
+          f"cannot use the 8-bit tensor rate)) (kernel / bound "
+          f"{ms / bound:.1f}); K4's own instructions {b_own:.4f} ms and "
+          f"shared loads {b_shared:.4f} ms (kernel / the larger "
+          f"{ms / max(b_own, b_shared):.3f}); at 512^3: "
           f"K4 {k4_512:.4f} ms, K3 {k3_512:.4f} ms, K4/K3 "
           f"{k4_512 / k3_512:.3f}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,

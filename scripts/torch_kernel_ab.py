@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Card times of kernels K2 and K6 of the PyTorch port, and one profiled
-``train_fp8`` step, in one or more checkouts of this repository, each in
-its own process on one CUDA device.
+"""Card times of kernels K2, K4, K5 and K6 of the PyTorch port, and one
+profiled ``train_fp8`` step, in one or more checkouts of this repository,
+each in its own process on one CUDA device.
 
     python3 scripts/torch_kernel_ab.py [ROOT ...]
 
@@ -14,6 +14,13 @@ prints one JSON line:
 
 * ``k2_ms``: card time of K2 over one qwen2-0.5b layer's seven quantized
   matmuls at M = 1024 (bf16 compute), as ``chip_smoke.py`` times it;
+* ``k4_ms``: card time of K4 (e4m3, RNE) over the same seven matmuls, as
+  ``chip_smoke.py`` times it (every kernel whose name holds
+  ``lns_loop_matmul``: the matmul and, where it splits the k tiles, the
+  launch that adds their sums);
+* ``k5_train_ms``, ``k5_serve_ms``: card time of K5's e5m2 ``mul`` at the
+  training gate shape (8 x 128 x 4864 codes) and the serving one (8 x
+  4864);
 * ``k6_ms``, ``k6_call_ms``: K6 at qwen2-0.5b B 1 x S 8192 bf16 causal,
   tiling 128 x 128: the card time of the kernels whose name holds
   ``flash_attention``, and the wrapper call between CUDA events;
@@ -43,11 +50,12 @@ def child(root: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fp8_elementwise as fe
     from repro_torch.kernels import lns_matmul as lm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    cuda_build.build(["lns_matmul", "flash_attention"])
+    cuda_build.build(["lns_matmul", "flash_attention", "fp8_elementwise"])
     res = dict(root=root)
     x = torch.randn((8192, 8192), device=dev)   # 3 s of warm-up: clocks
     t0 = time.perf_counter()
@@ -63,6 +71,23 @@ def child(root: str) -> dict:
                                  compute_dtype=torch.bfloat16)
 
     res["k2_ms"], _ = cs._per_layer_ms(k2, "dequant_matmul_kernel", iters=20)
+
+    k4_codes = cs._layer_codes(dev, 10, "e4m3", "e4m3")
+
+    def k4(shape):
+        return lm.lns_loop_matmul(*k4_codes[shape], fmt="e4m3", mode="rne")
+
+    res["k4_ms"], _ = cs._per_layer_ms(k4, "lns_loop_matmul", iters=10)
+    del k4_codes
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    for label, shape in (("train", cs.K5_TRAIN_SHAPE),
+                         ("serve", cs.K5_SERVE_SHAPE)):
+        xy = [torch.randint(0, 256, shape, generator=g, device=dev,
+                            dtype=torch.uint8) for _ in range(2)]
+        res[f"k5_{label}_ms"], _ = cs.device_ms(
+            lambda: fe.fp8_elementwise("mul", *xy, fmt="e5m2"), iters=200,
+            only="fp8_elementwise_kernel")
 
     B, S, H, KV, hd, dv = cs.K6_TIMED
     q, k, v = cs._k6_qkv(dev, B, S, S, H, KV, hd, dv, torch.bfloat16, seed=1)

@@ -4,11 +4,12 @@ Port of ``repro.kernels.common``: ``code_to_f32`` decodes FP8 codes by bit
 placement, and ``lns_prepare``/``lns_combine`` split the paper's
 integer-add multiply into per-operand preparation and a cheap per-product
 combine.  ``lns_tables`` packs the prepared fields of all 256 codes into
-the lookup table K1 and K4 read, so they serve every (format, mode) pair
+the lookup table K1 reads, so it serves every (format, mode) pair
 of Tables 2/3 without hard-coding a carry expression;
 ``lns_plane_tables`` factors the same product into a power of two of x
 and a bf16 table of (class of x, y), the exact one-hot planes K3
-multiplies on the tensor cores; likewise
+multiplies on the tensor cores and the exact factors K4 multiplies and
+adds in one FFMA a product; likewise
 ``elementwise_carry_table`` gives K5 the carry bit of one (format, op,
 mode) cell for every operand pair.  All functions are plain torch integer
 ops and run on any device.

@@ -1,7 +1,7 @@
 // Device helpers shared by the port's LNS kernels (K1 paged attention,
-// K2 fused-dequant matmul, K3 LNS matmul): the paper's integer-add FP8
-// product decoded wide to float32, and the bit-placement decode of an FP8
-// code.  Both mirror kernels/common.py (lns_combine, code_to_f32), which
+// K2 fused-dequant matmul): the flag bits of the prepared operands' table
+// (kernels/common.py::lns_tables, which K1 reads) and the bit-placement
+// decode of an FP8 code, mirroring kernels/common.py::code_to_f32, which
 // the CPU tests hold bit for bit against the JAX package.
 #pragma once
 
@@ -16,23 +16,6 @@ constexpr int kCarryMask = 0xFFFF;
 constexpr int kZeroBit = 1 << 16;
 constexpr int kBadBit = 1 << 17;
 constexpr unsigned kSignBit = 0x80000000u;
-
-// The paper's product of two prepared operands (mag, flags) from the
-// 256-entry table: one integer add of the magnitudes (the x side carries
-// every folded constant) plus the factored carry bit, placed into the
-// float32 exponent/mantissa fields with the XOR'd sign.  A zero operand
-// gives 0, then a NaN/inf operand gives NaN (NaN wins over zero, the order
-// of lns_combine).  No float multiplier is involved.
-__device__ __forceinline__ float lns_product(int mx, int fx, int my, int fy,
-                                             int man_bits) {
-  const int mag = mx + my + (((fx & fy) & kCarryMask) != 0);
-  const unsigned bits = ((unsigned)(fx ^ fy) & kSignBit) |
-                        ((unsigned)mag << (23 - man_bits));
-  float v = __uint_as_float(bits);
-  if ((fx | fy) & kZeroBit) v = 0.0f;
-  if ((fx | fy) & kBadBit) v = __uint_as_float(0x7fc00000u);
-  return v;
-}
 
 // What code_to_f32 needs to know of one FP8 format.
 struct Format {

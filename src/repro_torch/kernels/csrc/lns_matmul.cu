@@ -64,20 +64,37 @@
 //
 // K4, lns_loop_matmul_kernel, replaces the Pallas TPU kernel
 // repro/kernels/lns_matmul.py::_lns_loop_kernel (impl "lns_loop"), the
-// seed kernel that K3 is measured against (BENCH_1's speedup row), and
-// keeps its design: each block owns an output tile (16 x 16, one output
-// per thread) and the k loop is a sequential rank-1 update in which every
-// product looks both operands' fields up in the 256-entry tables of
-// kernels/common.py::lns_tables and combines them with lns::lns_product.  The sums follow the reference's
-// order exactly: k in order within tiles of bk = min(128, K) (K padded by
-// code 0, whose product is +0), each tile's sum started from 0 and added
-// to the output in order, so K4 is bitwise equal to its plain version
-// (kernels/lns_matmul.py::lns_loop_matmul_plain) and to the reference.
-// What bounds it: K3's bound, as it computes K3's function (the bytes at
-// the training shapes).  What sets its time: integer instructions, two
-// table lookups and the integer combine per product, and the loop's own;
-// chip_smoke.py counts them from the SASS.  The k loop is not unrolled,
-// so that loop is the product count's one instruction stream.
+// seed kernel that K3 is measured against (BENCH_1's speedup row).  Its
+// sums follow the reference's order exactly: k in order within tiles of
+// bk = min(128, K) (K padded by code 0, whose product is +-0), each tile's
+// sum started from +0 and added to the output in order, so K4 is bitwise
+// equal to its plain version (kernels/lns_matmul.py::lns_loop_matmul_plain)
+// and to the reference.  That order keeps the tensor cores out (an mma adds
+// a 16-deep group of products in its own order), so the in-order sums run
+// on the CUDA cores.  What bounds it: K3's bound, as it computes K3's
+// function (the bytes at the training shapes, counting the 8-bit tensor
+// rate that an in-order sum cannot use).  What sets its time: the
+// shared-memory port, one table read per product.  Design: each product
+// is one fmaf(A(x), B[cls(x), y], tile) with K3's exact factors
+// (kernels/common.py::lns_plane_tables; A * B is exact in float32, so the
+// multiply-add rounds only the sum, as tile + product does).  Each block
+// keeps B as float32 in shared memory, R rows (4 or 8) at a pitch of 257
+// words, and stages x of each k as a word that holds A(x)'s bits with the
+// byte offset of its class's row in the 13 low mantissa bits, which A
+// leaves 0 (kernels/lns_matmul.py::loop_tables), and w as y * 4.  The 32
+// lanes of a warp take 32 rows at the same (k, n): their reads share y
+// and differ only in the class, in bank (cls + y) mod 32, so they never
+// conflict (lanes of one class get one word as a broadcast).  Each lane
+// keeps 4 rows x 8 columns of tile sums and running sums in registers,
+// reads its x words once per k for its strip and the strip's 8 y values
+// as two 16-byte broadcasts, so a product costs one integer add, one
+// shared load and one FFMA.  Codes stream through registers into two
+// shared buffers 16 k at a time, zero past the ragged edges.  Where a
+// narrow output underfills the card, the wrapper splits the k tiles among
+// blocks (kernels/lns_matmul.py::loop_split): the first split adds its
+// tiles' sums in order itself, the others store each tile's sum, and a
+// second, elementwise launch adds them to the first's result in tile
+// order; no atomics, so two calls agree bit for bit.
 //
 // K2, dequant_matmul_kernel, replaces repro/kernels/lns_matmul.py::
 // _dequant_kernel (impl "fused_dequant").  Each side is decoded by its own
@@ -367,49 +384,195 @@ int launch_lns(const uint8_t* x, const uint8_t* w, const uint16_t* planes,
                                                   px, s);
 }
 
-constexpr int LT = 16;               // K4 output tile: LT x LT
-constexpr int kLoopBkMax = 128;      // K4's k tile, bk = min(128, K)
+// K4's geometry (kernels/lns_matmul.py: LOOP_BM, LOOP_BN, LOOP_PITCH,
+// LOOP_OFF_MASK).  A block of 8 warps owns a 128 x 64 output tile; warp
+// (wm, wn) owns rows wm * 32 kLoopRows + lane + 32 r (r < kLoopRows) and
+// columns wn * kLoopStrip .. + kLoopStrip - 1, so each lane keeps
+// kLoopRows x kLoopStrip tile sums and as many running sums.
+constexpr int kLoopBM = 128, kLoopBN = 64;
+constexpr int kLoopThreads = 256;
+constexpr int kLoopRows = 4;             // rows per lane
+constexpr int kLoopStrip = 8;            // columns per lane
+constexpr int kLoopWarpsN = kLoopBN / kLoopStrip;
+static_assert(32 * kLoopRows * (8 / kLoopWarpsN) == kLoopBM, "warp grid");
+constexpr int kLoopKC = 16;              // k per staged chunk
+constexpr int kLoopBkMax = 128;          // K4's k tile, bk = min(128, K)
+constexpr int kLoopPitch = 257;          // B row pitch (words): bank r + y
+constexpr int kLoopXPitch = kLoopBM + 1; // x words of one k
+constexpr int kLoopRMax = 8;
+constexpr uint32_t kLoopOffMask = 0x1FFFu;
 
-__global__ void __launch_bounds__(LT * LT)
+__global__ void __launch_bounds__(kLoopThreads, 2)
 lns_loop_matmul_kernel(const uint8_t* __restrict__ x,
                        const uint8_t* __restrict__ w,
-                       const int32_t* __restrict__ lut,
-                       float* __restrict__ out, int M, int N, int K, int bk,
-                       int man_bits) {
-  __shared__ int2 tab[2][256];        // (mag, flags) of every code, x and y
-  __shared__ uint8_t xs[LT][kLoopBkMax];   // x codes of the k tile
-  __shared__ uint8_t ws[kLoopBkMax][LT];   // w codes of the k tile
-  const int tid = threadIdx.x;
-  const int tx = tid % LT, ty = tid / LT;
-  const int m0 = blockIdx.y * LT, n0 = blockIdx.x * LT;
-  const int m = m0 + ty, n = n0 + tx;
+                       const int32_t* __restrict__ tab,
+                       float* __restrict__ out, float* __restrict__ sums,
+                       int M, int N, int K, int bk, int R, int per,
+                       int vec) {
+  __shared__ float bsh[kLoopRMax * kLoopPitch];      // B[r, y]
+  __shared__ uint32_t xtab[256];                     // x word of each code
+  __shared__ uint32_t xs[2][kLoopKC][kLoopXPitch];   // x words, [k][m]
+  __shared__ __align__(16) int ys[2][kLoopKC][kLoopBN];  // y * 4, [k][n]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / kLoopWarpsN, wn = warp % kLoopWarpsN;
+  const int m0 = blockIdx.y * kLoopBM, n0 = blockIdx.x * kLoopBN;
+  const int tiles = (K + bk - 1) / bk;
+  const int t_begin = blockIdx.z * per;
+  const int k_begin = t_begin * bk;
+  const int k_end = min(min(t_begin + per, tiles) * bk, K);
+  const int chunks = (k_end - k_begin + kLoopKC - 1) / kLoopKC;
 
-  for (int i = tid; i < 512; i += LT * LT)
-    tab[i >> 8][i & 255] = make_int2(lut[2 * i], lut[2 * i + 1]);
-  float acc = 0.0f;
-  for (int k0 = 0; k0 < K; k0 += bk) {   // the last tile padded by code 0
-    __syncthreads();
-    for (int i = tid; i < LT * bk; i += LT * LT) {
-      const int r = i / bk, c = i % bk;
-      const int mm = m0 + r, k = k0 + c;
-      xs[r][c] = (mm < M && k < K) ? x[(size_t)mm * K + k] : 0;
+  for (int i = tid; i < 256; i += kLoopThreads) xtab[i] = (uint32_t)tab[i];
+  for (int i = tid; i < R * 256; i += kLoopThreads)
+    bsh[(i >> 8) * kLoopPitch + (i & 255)] = __int_as_float(tab[256 + i]);
+  __syncthreads();   // the first chunk's staging reads xtab
+
+  // Staging: warps 0-3 load one x row's 16 codes of a chunk (thread r:
+  // row m0 + r), warps 4-7 eight w codes (row k of the chunk, columns
+  // n0 + 8 g ..), zero past K, M and N; code 0 gives a +-0 product.
+  const int sr = tid & 127;
+  const bool stage_x = tid < 128;
+  const int wk = sr >> 3, wg = sr & 7;
+  uint4 xr = make_uint4(0u, 0u, 0u, 0u);
+  uint2 wr = make_uint2(0u, 0u);
+  auto load = [&](int kc0) {
+    if (stage_x) {
+      const int m = m0 + sr;
+      if (vec) {
+        xr = (m < M) ? *reinterpret_cast<const uint4*>(x + (size_t)m * K + kc0)
+                     : make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        uint32_t v[4] = {0u, 0u, 0u, 0u};
+        for (int j = 0; j < 16; ++j)
+          if (m < M && kc0 + j < K)
+            v[j >> 2] |= (uint32_t)x[(size_t)m * K + kc0 + j] << (8 * (j & 3));
+        xr = make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    } else {
+      const int k = kc0 + wk, n = n0 + 8 * wg;
+      if (vec) {
+        wr = (k < K && n < N)
+                 ? *reinterpret_cast<const uint2*>(w + (size_t)k * N + n)
+                 : make_uint2(0u, 0u);
+      } else {
+        uint32_t v[2] = {0u, 0u};
+        for (int j = 0; j < 8; ++j)
+          if (k < K && n + j < N)
+            v[j >> 2] |= (uint32_t)w[(size_t)k * N + n + j] << (8 * (j & 3));
+        wr = make_uint2(v[0], v[1]);
+      }
     }
-    for (int i = tid; i < bk * LT; i += LT * LT) {
-      const int r = i / LT, c = i % LT;
-      const int k = k0 + r, nn = n0 + c;
-      ws[r][c] = (k < K && nn < N) ? w[(size_t)k * N + nn] : 0;
+  };
+  auto store = [&](int buf) {
+    if (stage_x) {
+      const uint32_t v[4] = {xr.x, xr.y, xr.z, xr.w};
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        xs[buf][j][sr] = xtab[(v[j >> 2] >> (8 * (j & 3))) & 0xFFu];
+    } else {
+      int o[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        o[j] = (int)((((j < 4 ? wr.x : wr.y) >> (8 * (j & 3))) & 0xFFu) << 2);
+      int4* dst = reinterpret_cast<int4*>(&ys[buf][wk][8 * wg]);
+      dst[0] = make_int4(o[0], o[1], o[2], o[3]);
+      dst[1] = make_int4(o[4], o[5], o[6], o[7]);
     }
-    __syncthreads();
-    float tile = 0.0f;
-#pragma unroll 1
-    for (int kk = 0; kk < bk; ++kk) {
-      const int2 a = tab[0][xs[ty][kk]];
-      const int2 b = tab[1][ws[kk][tx]];
-      tile += lns::lns_product(a.x, a.y, b.x, b.y, man_bits);
-    }
-    acc += tile;
+  };
+
+  float acc[kLoopRows][kLoopStrip], tile[kLoopRows][kLoopStrip];
+#pragma unroll
+  for (int r = 0; r < kLoopRows; ++r)
+#pragma unroll
+    for (int j = 0; j < kLoopStrip; ++j) acc[r][j] = tile[r][j] = 0.0f;
+  const char* bbytes = reinterpret_cast<const char*>(bsh);
+  const int row0 = wm * 32 * kLoopRows + lane;
+  const int col0 = wn * kLoopStrip;
+
+  if (chunks > 0) {
+    load(k_begin);
+    store(0);
   }
-  if (m < M && n < N) out[(size_t)m * N + n] = acc;
+  __syncthreads();
+  for (int c = 0; c < chunks; ++c) {
+    const int kc0 = k_begin + c * kLoopKC;
+    const int buf = c & 1;
+    if (c + 1 < chunks) load(kc0 + kLoopKC);   // in flight while we add
+#pragma unroll 4
+    for (int kk = 0; kk < kLoopKC; ++kk) {
+      float a[kLoopRows];
+      uint32_t o[kLoopRows];
+#pragma unroll
+      for (int r = 0; r < kLoopRows; ++r) {
+        const uint32_t xw = xs[buf][kk][row0 + 32 * r];
+        a[r] = __uint_as_float(xw & ~kLoopOffMask);
+        o[r] = xw & kLoopOffMask;
+      }
+      const int4* yrow = reinterpret_cast<const int4*>(&ys[buf][kk][col0]);
+#pragma unroll
+      for (int q = 0; q < kLoopStrip / 4; ++q) {
+        const int4 y4 = yrow[q];                 // the same for every lane
+        const int yy[4] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int r = 0; r < kLoopRows; ++r)
+            // A(x) * B[cls(x), y] is exact: fmaf rounds only the sum, as
+            // the reference's tile + product does.
+            tile[r][4 * q + j] = fmaf(
+                a[r], *reinterpret_cast<const float*>(bbytes + o[r] + yy[j]),
+                tile[r][4 * q + j]);
+      }
+    }
+    const int done = kc0 + kLoopKC - k_begin;
+    if (done % bk == 0 || c + 1 == chunks) {     // a tile's sum is whole
+      if (blockIdx.z == 0) {
+#pragma unroll
+        for (int r = 0; r < kLoopRows; ++r)
+#pragma unroll
+          for (int j = 0; j < kLoopStrip; ++j) acc[r][j] += tile[r][j];
+      } else {
+        float* dst = sums + (size_t)(kc0 / bk - per) * M * N;
+#pragma unroll
+        for (int r = 0; r < kLoopRows; ++r) {
+          const int m = m0 + row0 + 32 * r;
+#pragma unroll
+          for (int j = 0; j < kLoopStrip; ++j)
+            if (m < M && n0 + col0 + j < N)
+              dst[(size_t)m * N + n0 + col0 + j] = tile[r][j];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kLoopRows; ++r)
+#pragma unroll
+        for (int j = 0; j < kLoopStrip; ++j) tile[r][j] = 0.0f;
+    }
+    if (c + 1 < chunks) store(buf ^ 1);
+    __syncthreads();
+  }
+  if (blockIdx.z == 0) {
+#pragma unroll
+    for (int r = 0; r < kLoopRows; ++r) {
+      const int m = m0 + row0 + 32 * r;
+#pragma unroll
+      for (int j = 0; j < kLoopStrip; ++j)
+        if (m < M && n0 + col0 + j < N)
+          out[(size_t)m * N + n0 + col0 + j] = acc[r][j];
+    }
+  }
+}
+
+// The sums of the tiles after the first split's, added to its result in
+// tile order: out[i] = ((out[i] + sums[0][i]) + sums[1][i]) + ...
+__global__ void lns_loop_matmul_combine_kernel(float* __restrict__ out,
+                                               const float* __restrict__ sums,
+                                               long long mn, int later) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < mn; i += (long long)gridDim.x * blockDim.x) {
+    float v = out[i];
+    for (int t = 0; t < later; ++t) v += sums[(size_t)t * mn + i];
+    out[i] = v;
+  }
 }
 
 // K2's decode of one format to bf16 bits, two codes at a time: a normal
@@ -644,17 +807,37 @@ int lns_matmul(const void* x, const void* w, const void* planes, void* out,
                 : launch_lns<4>(xc, wc, p, (float*)out, M, N, K, px, tile, s);
 }
 
-// K4 on `stream`; `lut` as for K3, bk = min(128, K) the k tile.
-// Returns cudaGetLastError() (0 on success).
-int lns_loop_matmul(const void* x, const void* w, const void* lut,
-                    void* out, int M, int N, int K, int bk, int man_bits,
-                    void* stream) {
-  if (bk < 1 || bk > kLoopBkMax) return (int)cudaErrorInvalidValue;
-  if (M > 0 && N > 0)
-    lns_loop_matmul_kernel<<<dim3((N + LT - 1) / LT, (M + LT - 1) / LT),
-                             LT * LT, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)x, (const uint8_t*)w, (const int32_t*)lut,
-        (float*)out, M, N, K, bk, man_bits);
+// K4 on `stream`: `tab` is kernels/lns_matmul.py::loop_tables(fmt, mode)
+// (R B rows, R = 4 or 8), bk = min(128, K) the k tile; the k tiles are
+// split `splits` ways, `per` tiles a block, and the sums of the tiles
+// after the first `per` go through `sums` ([tiles - per, M, N] float32)
+// to a second, elementwise launch.  Returns cudaGetLastError() (0 on
+// success).
+int lns_loop_matmul(const void* x, const void* w, const void* tab,
+                    void* out, void* sums, int M, int N, int K, int bk,
+                    int R, int splits, int per, void* stream) {
+  if (bk < 1 || bk > kLoopBkMax || (K > 0 && bk != K && bk % kLoopKC) ||
+      (R != 4 && R != 8) || splits < 1 || per < 1)
+    return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0) return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int vec = K % 16 == 0 && N % 8 == 0 && ((uintptr_t)x & 15) == 0 &&
+                  ((uintptr_t)w & 7) == 0;
+  lns_loop_matmul_kernel<<<dim3((N + kLoopBN - 1) / kLoopBN,
+                                (M + kLoopBM - 1) / kLoopBM, splits),
+                           kLoopThreads, 0, s>>>(
+      (const uint8_t*)x, (const uint8_t*)w, (const int32_t*)tab,
+      (float*)out, (float*)sums, M, N, K, bk, R, per, vec);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  const long long mn = (long long)M * N;
+  const int later = (K + bk - 1) / bk - per;
+  const long long blocks = (mn + 255) / 256;
+  lns_loop_matmul_combine_kernel<<<(int)(blocks < 132 * 16 ? blocks
+                                                           : 132 * 16),
+                                   256, 0, s>>>((float*)out,
+                                                (const float*)sums, mn,
+                                                later);
   return (int)cudaGetLastError();
 }
 

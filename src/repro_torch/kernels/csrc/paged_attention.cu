@@ -56,9 +56,9 @@
 // lanes of a row add up by shuffles in a fixed tree) and folded into a
 // running (m, l, o) by the online softmax, P.V likewise reading each V
 // element once for four query rows.  The LNS product runs in an add-only
-// form (add_form below), equal to lns_product value for value.  Two
-// blocks fit an SM (64 registers a thread), so every cluster of the grid
-// is resident at once.  Then each block combines
+// form (add_form below), equal to kernels/common.py::lns_combine value
+// for value.  Two blocks fit an SM (64 registers a thread), so every
+// cluster of the grid is resident at once.  Then each block combines
 // its groups in group order and stores the result into rank 0's shared
 // memory (distributed shared memory); after one cluster barrier rank 0
 // combines the blocks in rank order and writes the output.  A share with
@@ -284,7 +284,7 @@ struct LnsParams {
 // flags) from lns_tables become {m, c, z}: m = sign << 31 + mag << (23 -
 // man_bits) (two's complement), c its carry mask, z = 1, or 0 for a zero
 // code and NaN for a NaN/inf code, whose m and c are 0.  Then
-// lns_product(x, y) == as_float(m_x + m_y + carry << (23 - man_bits)) * z_x
+// lns_combine(x, y) == as_float(m_x + m_y + carry << (23 - man_bits)) * z_x
 // * z_y, value for value (a zero product may come out as -0, which leaves
 // every sum unchanged), with one integer add for the magnitudes and signs.
 __device__ __forceinline__ int4 add_form(int mag, int flags, int man_bits) {

@@ -21,12 +21,15 @@ scales.
   :func:`dequant_tile` picks per shape.  Plain version:
   :func:`dequant_matmul_plain`.
 * ``impl="lns_loop"`` -- K4, :func:`lns_loop_matmul`: the same products
-  as K3 through the reference's seed design, a sequential rank-1 k loop
-  with both operands' fields looked up for every product; the baseline K3
-  is measured against.  Its sums run in the reference's order (k in order
-  within tiles of ``bk = min(128, K)``, each tile's sum added to the
-  output in order), so kernel, plain version and reference agree bit for
-  bit.  One format for both operands.  Plain version:
+  as K3 summed in the order of the reference's seed design, a sequential
+  rank-1 k loop; the baseline K3 is measured against.  Its sums run in the
+  reference's order (k in order within tiles of ``bk = min(128, K)``, each
+  tile's sum added to the output in order), so kernel, plain version and
+  reference agree bit for bit.  The kernel takes each product as one
+  float multiply-add of A(x) and B[cls(x), y] (:func:`loop_tables`; exact,
+  so the add is the sum's own rounding) and may split the k tiles of a
+  narrow output among blocks (:func:`loop_split`), adding their sums in
+  tile order.  One format for both operands.  Plain version:
   :func:`lns_loop_matmul_plain`.
 
 Each wrapper launches its hand-written CUDA kernel
@@ -42,8 +45,8 @@ import ctypes
 import torch
 
 from ..core.formats import FORMATS
-from .common import (code_to_f32, device_lns_tables, device_plane_table,
-                     lns_combine, lns_plane_tables, lns_prepare)
+from .common import (code_to_f32, device_plane_table, lns_combine,
+                     lns_plane_tables, lns_prepare)
 from .cuda_build import check_launch
 
 __all__ = [
@@ -56,6 +59,9 @@ __all__ = [
     "dequant_matmul_plain",
     "dequant_tile",
     "lns_tile",
+    "loop_bk",
+    "loop_split",
+    "loop_tables",
 ]
 
 # Elements of one [M-chunk, K-chunk, N] product tensor of the plain LNS
@@ -90,6 +96,66 @@ def lns_matmul_plain(x_codes, w_codes, *, fmt: str, mode: str = "rne",
 def loop_bk(K: int) -> int:
     """K4's k tile: the reference's heuristic ``bk = min(128, K)``."""
     return max(1, min(128, K))
+
+
+# K4's geometry, mirrored in csrc/lns_matmul.cu: a block owns a LOOP_BM x
+# LOOP_BN output tile; the B rows lie in shared memory at a pitch of
+# LOOP_PITCH words, and an x word keeps its row's byte offset in the bits
+# under LOOP_OFF_MASK.
+LOOP_BM, LOOP_BN = 128, 64
+LOOP_PITCH = 257
+LOOP_OFF_MASK = 0x1FFF
+
+_LOOP_TABLES = {}
+
+
+def loop_tables(fmt: str, mode: str) -> torch.Tensor:
+    """int32 ``[256 + R * 256]`` table of K4's products
+    ``A(x) * B[cls(x), y]`` (:func:`common.lns_plane_tables`): first the
+    x word of every code, A(x)'s float32 bits (a signed power of two, 0 or
+    NaN, so its low 13 mantissa bits are 0) with the byte offset of its
+    class's B row in shared memory, ``cls * 4 * LOOP_PITCH``, in those
+    bits; then B[r, y] as float32 bits, row by row.  Built once per
+    (fmt, mode) and kept."""
+    key = (fmt, mode)
+    tab = _LOOP_TABLES.get(key)
+    if tab is None:
+        pt = lns_plane_tables(fmt, mode)
+        a_bits = pt.A.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        assert not (a_bits & LOOP_OFF_MASK).any(), "A has mantissa bits"
+        off = pt.cls * 4 * LOOP_PITCH
+        assert int(off.max()) <= LOOP_OFF_MASK
+        words = a_bits | off
+        words = torch.where(words >= 2**31, words - 2**32, words)
+        tab = _LOOP_TABLES[key] = torch.cat([
+            words.to(torch.int32),
+            pt.B.float().reshape(-1).view(torch.int32)])
+    return tab
+
+
+_DEVICE_LOOP = {}
+
+
+def _device_loop_tables(fmt: str, mode: str, device) -> torch.Tensor:
+    key = (fmt, mode, torch.device(device))
+    tab = _DEVICE_LOOP.get(key)
+    if tab is None:
+        tab = _DEVICE_LOOP[key] = loop_tables(fmt, mode).to(device)
+    return tab
+
+
+def loop_split(M: int, N: int, K: int, n_sm: int) -> tuple:
+    """K4's split of the k tiles for an ``[M, K] x [K, N]`` product on a
+    card of ``n_sm`` SMs: ``(splits, tiles per split)``.  Where the
+    output's blocks fill at least half the card, one block takes all
+    tiles; else the tiles are shared among up to ``n_sm // blocks``
+    blocks a tile (never an empty one), whose sums the kernel adds in
+    tile order."""
+    blocks = -(-M // LOOP_BM) * -(-N // LOOP_BN)
+    tiles = max(1, -(-K // loop_bk(K)))
+    want = 1 if 2 * blocks >= n_sm else min(tiles, max(1, n_sm // blocks))
+    per = -(-tiles // want)
+    return -(-tiles // per), per
 
 
 def lns_loop_matmul_plain(x_codes, w_codes, *, fmt: str, mode: str = "rne",
@@ -166,7 +232,7 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.lns_matmul.argtypes = [vp] * 4 + [ci] * 10 + [vp]
         lib.lns_matmul.restype = ci
-        lib.lns_loop_matmul.argtypes = [vp] * 4 + [ci] * 5 + [vp]
+        lib.lns_loop_matmul.argtypes = [vp] * 5 + [ci] * 7 + [vp]
         lib.lns_loop_matmul.restype = ci
         lib.dequant_matmul.argtypes = [vp] * 3 + [ci] * 12 + [vp]
         lib.dequant_matmul.restype = ci
@@ -234,17 +300,24 @@ lns_product_matmul.launches = 0
 def lns_loop_matmul(x_codes, w_codes, *, fmt: str, mode: str = "rne"):
     """K4: f32 [M, N] of the paper's LNS products, one format, summed in
     the reference's seed order.  CUDA tensors launch the kernel
-    (``lns_loop_matmul.launches`` counts it); CPU tensors run
-    :func:`lns_loop_matmul_plain`."""
+    (``lns_loop_matmul.launches`` counts it; a split over k tiles adds a
+    second, elementwise launch that adds the tiles' sums in order); CPU
+    tensors run :func:`lns_loop_matmul_plain`."""
     if _device_type(x_codes, "K4") == "cpu":
         return lns_loop_matmul_plain(x_codes, w_codes, fmt=fmt, mode=mode)
     M, N, K = _operands(x_codes, w_codes, "K4")
     dev = x_codes.device
-    lut = device_lns_tables(fmt, mode, dev)
+    tab = _device_loop_tables(fmt, mode, dev)
+    R = lns_plane_tables(fmt, mode).R
+    bk = loop_bk(K)
+    splits, per = loop_split(M, N, K, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    later = max(1, -(-K // bk)) - per if splits > 1 else 0
+    sums = torch.empty((later, M, N), dtype=torch.float32, device=dev)
     err = _lib().lns_loop_matmul(
-        x_codes.data_ptr(), w_codes.data_ptr(), lut.data_ptr(),
-        out.data_ptr(), M, N, K, loop_bk(K), FORMATS[fmt].man_bits,
+        x_codes.data_ptr(), w_codes.data_ptr(), tab.data_ptr(),
+        out.data_ptr(), sums.data_ptr(), M, N, K, bk, R, splits, per,
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(err, "K4")
     lns_loop_matmul.launches += 1

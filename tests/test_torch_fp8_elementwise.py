@@ -124,6 +124,38 @@ def test_plain_k5_equals_reference_kernel(op, shape):
         fmt=fmt, mode="rne"))
 
 
+# --------------------------------------------------------------------------- #
+# K5's packed rule (four codes a word, two a register) against the reference
+# --------------------------------------------------------------------------- #
+def _all_operands(op):
+    c = np.arange(256, dtype=np.uint8)
+    if op in ("mul", "div"):
+        X, Y = np.meshgrid(c, c, indexing="ij")
+        return X.reshape(-1), Y.reshape(-1)
+    return c, None
+
+
+@pytest.mark.parametrize("fmt,op,mode", [
+    c for c in CELLS if jcarry.CARRY_INS[c[:2]][c[2]] is not None])
+def test_packed_rule_model_equals_reference_kernel(fmt, op, mode):
+    """Every code (pair) of every supported cell: the int64 model of the
+    kernel's packed steps against JAX's Pallas K5 in interpret mode, bit
+    for bit; a ragged, odd-length slice pads the last word with code 0."""
+    x, y = _all_operands(op)
+    want = np.asarray(jfe.fp8_elementwise(
+        op, jnp.asarray(x), None if y is None else jnp.asarray(y), fmt=fmt,
+        mode=mode, block_rows=512, interpret=True))
+    got = fe.packed_rule_model(op, torch.from_numpy(x),
+                               None if y is None else torch.from_numpy(y),
+                               fmt=fmt, mode=mode)
+    np.testing.assert_array_equal(got.numpy(), want)
+    tail = slice(1, 254)              # 253 codes: not a multiple of 4
+    got = fe.packed_rule_model(
+        op, torch.from_numpy(x[tail]),
+        None if y is None else torch.from_numpy(y[tail]), fmt=fmt, mode=mode)
+    np.testing.assert_array_equal(got.numpy(), want[tail])
+
+
 def test_cpu_calls_launch_nothing_and_views_are_legal():
     before = fe.fp8_elementwise.launches
     buf = torch.from_numpy(_codes(np.random.default_rng(3), (300,)))

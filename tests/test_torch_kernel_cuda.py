@@ -19,9 +19,11 @@ own canonical NaN); K2's and K3's sums are held to the float32 summation
 bound 2 K 2^-24 sum|products|, since they add the same exact products in
 another order (K3 in every block tile and (format, mode) cell, NaN/inf
 against zero NaN as in the plain version).  TF32 is off for the plain versions' float32 products.
-K5's codes are integer results and compare bitwise in every cell.  K4
-sums in the reference's order and is bitwise equal to its plain version
-(NaN as NaN).  K6 is held to rtol = atol = 1e-4 in float32 (the plain
+K5's codes are integer results and compare bitwise in every cell, at
+every length to 64 and at every storage offset to 15.  K4 sums in the
+reference's order and is bitwise equal to its plain version (NaN as NaN),
+also where it splits the k tiles among blocks, and two calls agree bit
+for bit.  K6 is held to rtol = atol = 1e-4 in float32 (the plain
 version's float32 products and sums run in another order, and the card's
 ``expf`` is not torch's ``exp``), and to one bf16 ulp in bfloat16, or to
 1e-5 where an output lies so close to 0 that a bf16 ulp is finer than
@@ -503,6 +505,28 @@ def test_k5_ragged_and_misaligned(dev, n, off, op):
                                                      fmt="e4m3", mode="rd"))
 
 
+K5_SERVE_N = 8 * 4864       # one decode sub-step's gate product
+
+
+@pytest.mark.parametrize("off", range(16))
+@pytest.mark.parametrize("op", ["mul", "div", "rsqrt"])
+def test_k5_every_length_and_offset(dev, off, op):
+    """n = 1..64, 4,099 and the serving shape, at storage offset ``off``
+    of both operands (y at another offset than x when off > 0), bitwise
+    equal to the plain version: the vector loop, the scalar tail and the
+    all-scalar path of a misaligned view."""
+    g = torch.Generator(device="cpu").manual_seed(100 + off)
+    buf = torch.randint(0, 256, (2, K5_SERVE_N + 64), generator=g,
+                        dtype=torch.uint8).to(dev)
+    for n in [*range(1, 65), 4099, K5_SERVE_N]:
+        x = buf[0, off:off + n]
+        y = buf[1, (3 * off) % 16:(3 * off) % 16 + n] \
+            if op in fe.BINARY_OPS else None
+        got = fe.fp8_elementwise(op, x, y, fmt="e5m2", mode="rne")
+        want = fe.fp8_elementwise_plain(op, x, y, fmt="e5m2", mode="rne")
+        assert torch.equal(got, want), n
+
+
 def test_k5_refusals_launch_nothing(dev):
     x = torch.zeros(64, dtype=torch.uint8, device=dev)
     before = fe.fp8_elementwise.launches
@@ -540,6 +564,30 @@ def test_k4_bitwise_equal_to_plain(dev, key, M, K, N):
     torch.cuda.synchronize()
     assert lm.lns_loop_matmul.launches == before + 1
     assert _nan_aware_equal(got, want)
+
+
+@pytest.mark.parametrize("M,K,N", [(1024, 4864, 128), (3, 1000, 5),
+                                   (1024, 896, 128), (130, 512, 66)])
+def test_k4_split_over_k_tiles_bitwise(dev, M, K, N):
+    """Shapes whose k tiles the wrapper splits among blocks (a second
+    launch adds their sums in tile order): bitwise equal to the plain
+    version (NaN as NaN), and two calls bitwise equal."""
+    splits, _ = lm.loop_split(M, N, K, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    assert splits > 1 or (M, K, N) == (130, 512, 66)
+    g = torch.Generator().manual_seed(M + K + N)
+    x = torch.randint(0, 256, (M, K), generator=g, dtype=torch.uint8)
+    w = torch.randint(0, 256, (K, N), generator=g, dtype=torch.uint8)
+    x[(x & 0x7F) == 0x7F] = 0x30      # NaN only where planted
+    w[(w & 0x7F) == 0x7F] = 0x30
+    x[0, 0], x[-1, -1] = 0, 0x7F
+    x, w = x.to(dev), w.to(dev)
+    got = lm.lns_loop_matmul(x, w, fmt="e4m3", mode="rne")
+    again = lm.lns_loop_matmul(x, w, fmt="e4m3", mode="rne")
+    want = lm.lns_loop_matmul_plain(x, w, fmt="e4m3", mode="rne")
+    torch.cuda.synchronize()
+    assert _nan_aware_equal(got, want)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
 
 
 def test_k4_refuses_what_it_does_not_take(dev):

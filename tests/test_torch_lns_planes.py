@@ -9,6 +9,13 @@ expanded in K3's layout (plane column ``k R + r``) and multiplied in
 float32 are held to JAX's Pallas K3 (``impl="lns"``, interpret mode)
 within the float32 summation bound ``2 K 2^-24 sum_k |product|``: both
 add the same exact products, in other orders.
+
+K4 adds the same factored products in the reference's seed order, each
+as one float multiply-add: its table (``lns_matmul.loop_tables``) decoded
+as the kernel decodes it, the tile sums computed apart (as blocks that
+split the k tiles compute them) and added in tile order, is held bit for
+bit (int32 views, NaN as NaN) to K4's plain version and to JAX's Pallas
+K4 (``impl="lns_loop"``, interpret mode).
 """
 import numpy as np
 import pytest
@@ -177,3 +184,82 @@ def test_device_plane_table_is_kept():
                            torch.int16))
     assert common.lns_plane_tables("e4m3", "rne") is \
         common.lns_plane_tables("e4m3", "rne")
+
+
+# --------------------------------------------------------------------------- #
+# K4: the factored products in the seed order
+# --------------------------------------------------------------------------- #
+def _k4_order(x, w, fmt, mode):
+    """K4's arithmetic on the CPU: A and the B row from the x word as the
+    kernel splits it, B from the table's float32 bits, ``tile + A * B``
+    per k in order (A * B is exact, so this is the kernel's fmaf), each
+    tile's sum started from +0 apart from the others, then the sums added
+    to a +0 output in tile order."""
+    tab = lm.loop_tables(fmt, mode)
+    words = tab[:256].to(torch.int64) & 0xFFFFFFFF
+    a_bits = words & ~lm.LOOP_OFF_MASK & 0xFFFFFFFF
+    A = torch.where(a_bits >= 2**31, a_bits - 2**32, a_bits).to(
+        torch.int32).view(torch.float32)
+    row = (words & lm.LOOP_OFF_MASK) // (4 * lm.LOOP_PITCH)
+    pt = common.lns_plane_tables(fmt, mode)
+    assert torch.equal(row, pt.cls)
+    assert torch.equal(torch.isnan(A), torch.isnan(pt.A))
+    B = tab[256:].view(torch.float32).reshape(pt.R, 256)
+    M, K = x.shape
+    xi, wi = x.long(), w.long()
+    bk = lm.loop_bk(K)
+    sums = []
+    for k0 in range(0, K, bk):
+        tile = torch.zeros((M, w.shape[1]), dtype=torch.float32)
+        for k in range(k0, min(k0 + bk, K)):
+            tile = tile + A[xi[:, k]][:, None] * B[row[xi[:, k]]][:, wi[k]]
+        sums.append(tile)
+    out = torch.zeros_like(sums[0])
+    for tile in sums:
+        out = out + tile
+    return out
+
+
+def _bits_equal_nan_as_nan(a, b):
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    nan = np.isnan(b)
+    return (np.array_equal(np.isnan(a), nan)
+            and np.array_equal(a[~nan].view(np.int32),
+                               b[~nan].view(np.int32)))
+
+
+@pytest.mark.parametrize("K", [1, 127, 128, 257, 300])
+@pytest.mark.parametrize("key", CELLS, ids="-".join)
+def test_k4_order_bitwise_equal_to_plain_and_reference(key, K):
+    fmt, mode = key
+    rng = np.random.default_rng(K * 13 + len(mode))
+    M, N = 5, 6
+    x, w = _codes(rng, (M, K), fmt), _codes(rng, (K, N), fmt)
+    nan = 0x7F if fmt == "e4m3" else 0xFE
+    x[0, 0], x[1, -1] = 0, nan                  # a zero and a NaN code
+    w[0, 2], w[-1, 3] = 0x80, nan               # -0 and NaN in w
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    got = _k4_order(tx, tw, fmt, mode).numpy()
+    plain = lm.lns_loop_matmul_plain(tx, tw, fmt=fmt, mode=mode).numpy()
+    want = np.asarray(jlm.lns_matmul(jnp.asarray(x), jnp.asarray(w), fmt=fmt,
+                                     mode=mode, impl="lns_loop",
+                                     interpret=True))
+    assert np.isnan(want).any() and not np.isnan(want).all()
+    assert _bits_equal_nan_as_nan(got, plain)
+    assert _bits_equal_nan_as_nan(got, want)
+
+
+@pytest.mark.parametrize("M,N,K,split", [
+    (1024, 896, 896, (1, 7)),       # 112 blocks: half the card or more
+    (1024, 4864, 896, (1, 7)),
+    (1024, 896, 4864, (1, 38)),
+    (1024, 128, 896, (7, 1)),       # 16 blocks: a block a tile
+    (1024, 128, 4864, (8, 5)),      # 8 blocks a tile: 5 tiles each
+    (3, 5, 1000, (8, 1)),
+    (5, 7, 100, (1, 1)),            # one tile (bk = K)
+])
+def test_loop_split_rule(M, N, K, split):
+    assert lm.loop_split(M, N, K, 132) == split
+    splits, per = split
+    tiles = -(-K // lm.loop_bk(K))
+    assert (splits - 1) * per < tiles <= splits * per

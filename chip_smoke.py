@@ -18,10 +18,13 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
    body holds HMMA (tensor-core) instructions;
 3. holds kernel K1 (LNS paged decode attention, one launch per call that
    reads only the admissible pages and combines on the chip) against its
-   plain PyTorch version (the per-page partials and their combine) at
-   qwen2-0.5b attention shapes (B=8, KV=2, G=7, hd=64, page 16, up to 64
-   pages per slot, ragged lengths, masked lanes, fresh-page rows, e5m2
-   pages, stochastic writes): new pages and scales bitwise, output within
+   plain PyTorch version (the per-page partials and their combine) at the
+   attention geometries of qwen2-0.5b (KV 2, G 7, hd 64), gemma3-12b (KV
+   8, G 2, hd 256), gemma2-27b (KV 16, G 2, hd 128) and qwen3-14b (KV 8,
+   G 5, hd 128), each with B=8, page 16, up to 64 pages per slot, ragged
+   lengths, masked lanes, fresh-page rows, e5m2 pages, stochastic writes
+   (and, past qwen2's, window 32 with softcap 50): new pages and scales
+   bitwise, output within
    rtol = atol = 1e-4 (float32 sums over hd, page rows and pages in
    another order, and the card's ``expf``), fused == unfused bitwise;
    slots of length 0 and a window that skips leading pages against the
@@ -30,7 +33,7 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
    times the kernel and the plain version beside the function's bound
    (its bytes in, and the attention written once);
 4. holds K1's float instance against its plain version on the same
-   geometry with float pages (bf16, float32, and bf16 with window 32 and
+   geometries with float pages (bf16, float32, and bf16 with window 32 and
    softcap 50; a float32 query; the new rows in the pages' dtype): new
    pages bitwise, scales unchanged, output within rtol = atol = 1e-4,
    fused == unfused bitwise, and the cases of 3 on bf16 and float32
@@ -58,7 +61,36 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
    pool and once with 15 pages, where the scheduler spills slots to the
    host and restores them into fresh pages (at least one preemption and
    one restore): the token streams must be bitwise equal;
-10. K5 (the paper's six FP8 operations): every one of the 69 supported
+10. this slice's main path: full-width, full-depth gemma3-12b (48 layers,
+    5 local layers of window 1,024 to each global one, qk-norm, hd 256,
+    about 23.6 GB of bf16 weights drawn on the card and redrawn as in 9,
+    the embedding at 0.5 / sqrt(d_model)) served by a 4-slot Engine, page
+    16, worst-case pool: 8 requests of one shared 64-token prefix and
+    their own tails, 16 generated tokens, under serve_fp8_paged and the
+    default policy, each three times (prefix cache off with fused decode,
+    on with fused decode, on unfused): the three token streams bitwise
+    equal, at least 256 prefix hit tokens with the cache on, K1 launched
+    n_layers x sub-steps times and its other instance never;
+11. preemption while shared: the same requests at depth 6 (the main
+    path's first 6 layers), prefix on, both policies, with a worst-case
+    pool and with 18 pages, where spilled slots keep their registered
+    prefix pages under pins (at least one spill pins a page); the pool's
+    invariants after every step, the token streams bitwise equal;
+12. windows on the model path: gemma3-12b at full width, depth 6,
+    float32, on FP8 and on float32 pages: a 1,040-token prompt prefilled
+    through K1 (from the 1,024th token on every K1 call held to its plain
+    version on the model's own inputs at rtol = atol = 1e-4), then from
+    that cache the last prompt token (the local window of 1,024 skips
+    page 0) and one decode step through K1 and through the plain
+    attention: logits within rtol = atol = 1e-3 on float32 pages, printed
+    on FP8 pages (``_gate_logits``: there a code at a rounding boundary
+    flips on a ~1e-6 difference and moves the logits by ~1e-3);
+13. gemma2-27b (one local and one global layer: softcaps 50 and 30) and
+    qwen3-14b at full width, depth 2: float32 logits through K1 (each K1
+    call held to its plain version as in 12) and the plain attention, as
+    in 12 on both page kinds, and 4 requests on bf16 pages with fused
+    decode on and off, bitwise equal;
+14. K5 (the paper's six FP8 operations): every one of the 69 supported
     (format, op, mode) cells over all 256 codes or 65,536 code pairs
     bitwise against the plain version, and the paper's claim on the card:
     on the exact rounding oracle's valid domain K5's codes are correctly
@@ -67,13 +99,13 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     a misaligned ragged view, bitwise; card time of e5m2 mul at both
     shapes beside the bytes bound, the plain version and the compiled
     instruction count (SASS);
-11. serves full-width qwen2-0.5b again with the SwiGLU gate product
+15. serves full-width qwen2-0.5b again with the SwiGLU gate product
     through K5 (serve_fp8_paged with elementwise e5m2; 4 requests, fused
     on and off): K5 launches = K1 launches = n_layers x sub-steps, fused
     == unfused token streams; a float32 copy's first-step logits through
     K5 and through the plain version bitwise equal; a profile of that
     path (launches per sub-step);
-12. K3 (the paper's LNS matmul): all 65,536 products of every (format,
+16. K3 (the paper's LNS matmul): all 65,536 products of every (format,
     mode) pair bitwise equal to the plain version (NaN as NaN); then K3
     (e4m3 RNE, and e5m2 ``ru``, whose planes carry x's sign) and K2 (e5m2
     x e4m3, bf16 and float32 compute) against their plain versions at the
@@ -90,7 +122,7 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     larger of its bytes over the memory rate and its 2 M K N operations
     over the dense 8-bit tensor rate; the integer route's floor and the
     plane GEMM's dense bf16 time are printed beside it;
-13. trains full-width qwen2-0.5b through the port's CLI
+17. trains full-width qwen2-0.5b through the port's CLI
     (``launch.train.main``, ``--quant fp8_lns_pallas``, batch 8 x seq 128,
     6 steps, checkpoints every 3): finite losses, 0 restarts, and K3
     launches = 2 (forward and checkpointed recompute) x 7 matmuls x 24
@@ -100,13 +132,13 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     plain versions (loss rtol 1e-4, gradient norm rtol 1e-3), for K3 and
     K2; then one profiled train step under each of the two policies
     (wall, card-busy share, K3's and K2's card time);
-14. trains 2 full-width steps under train_fp8_lns with the gate through
+18. trains 2 full-width steps under train_fp8_lns with the gate through
     K5 in e4m3 (``run_training``): finite losses, 0 restarts, 672 K3 and
     96 K5 launches (forward and recompute); then the first step of a
     float32 2-layer model through K5 and through the plain version (loss
     rtol 1e-4, gradient norm rtol 1e-3); then one profiled train step
     under that policy;
-15. K6 (flash attention) against its plain version: the CPU tests' cases
+19. K6 (flash attention) against its plain version: the CPU tests' cases
     (float32 at rtol = atol = 1e-4, bfloat16 within one bf16 ulp), the
     rows without an admissible key (sum(v) / padded key length), every
     candidate tiling of ``flash_blocks``, and the attention geometries of
@@ -119,13 +151,13 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     ``scaled_dot_product_attention`` (a yardstick the port never calls),
     the same geometry in float32 and gemma2-27b's windowed geometry in
     bf16, each with its TFLOP/s and the FLOP of the tiles it visits;
-16. K6's path: ``flash_attention`` with no tiling through the autotuner
+20. K6's path: ``flash_attention`` with no tiling through the autotuner
     on a fresh cache file (qwen2-0.5b geometry, S 2048, bf16): measured
     in bf16, cached under the card's name and ``bf16``, a ``measured``
     gauge; a second call answers
     ``cached``, launches once and is bitwise equal to the pinned tiling
     and within tolerance of the plain version;
-17. K4 (the seed LNS matmul) bitwise against its plain version at 512^3
+21. K4 (the seed LNS matmul) bitwise against its plain version at 512^3
     and at the seven matmul shapes of one qwen2-0.5b layer at M = 1024
     (the narrow ones split over k tiles), two calls bitwise equal; its
     time per layer (its kernel and, where it splits, the launch that adds
@@ -133,32 +165,35 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     both compute one function), its own SASS instructions per product
     (per FFMA), its shared loads per product and the floor they set, and
     K4 / K3 at 512^3;
-18. K4's path: 2 full-width train steps under train_fp8_lns with every
+22. K4's path: 2 full-width train steps under train_fp8_lns with every
     matmul through K4 (``run_training``): finite losses, 0 restarts, 672
     K4 launches and no K3 or K2; then the first step of a float32 2-layer
     model through K4 and through its plain version (loss rtol 1e-4,
     gradient norm rtol 1e-3);
-19. prints one JSON line of per-kernel numbers, then the card line again,
+23. prints one JSON line of per-kernel numbers, then the card line again,
     and last ``{"ok": true, "device": {...}}``.
 
+K1's numbers in the ``kernels`` line are those of gemma3-12b's geometry
+(KV 8, G 2, hd 256), its launches those of the main path's prefix-on
+fused run under serve_fp8_paged (K1's float instance: under the default
+policy); qwen2-0.5b's are printed beside them as before.
 K1's ``ms`` and ``plain_ms`` are card time per call from the profiler
 (the kernel alone; all kernels of the plain version, partials and
 combine), or from CUDA-graph
 replays timed with events where the profiler records no device time; the
 comment lines also give the per-call time between CUDA events with the
 host's launch overhead included.  The same holds for K1's float instance
-(``float_paged_partials``, on bf16 pages), whose launches are those of
-the default-policy serving run with fused decode.  K2's and K3's numbers are card time per
+(``float_paged_partials``, on bf16 pages).  K2's and K3's numbers are card time per
 layer: the sum over one layer's seven matmul shapes at M = 1024.  K5's
 are those of e5m2 mul at the training gate shape (4,980,736 codes), its
 launches those of the K5 serving run; its ``max_abs_err`` is in code
 units (0: bitwise).  K4's numbers are per layer like K3's, its launches
 those of its training run, its ``max_abs_err`` 0 (bitwise, checked).
 K6 has no model path (no model calls it, as in the reference): its
-launches are those of its path through the autotuner (phase 16,
+launches are those of its path through the autotuner (phase 20,
 measurement included), its times those of qwen2-0.5b B 1 x S 8192 bf16,
 and its ``max_abs_err`` the largest float32 difference from the plain
-version in phase 15.
+version in phase 19.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line; it also exits non-zero without a GPU, or when run outside the repo.
@@ -261,15 +296,25 @@ def device_ms(fn, iters: int, only: str = "", warmup: int = 3):
     return graph_ms(fn), "cuda-graph events"
 
 
-def k1_inputs(dev, seed: int = 0):
-    """One decode sub-step of attention at qwen2-0.5b shapes."""
+# K1's attention geometries: (model, KV heads, query heads a KV head, hd).
+# qwen2-0.5b's is the one of PRs 11-21; gemma3-12b's is this slice's main
+# path's, at which K1 is timed for the kernels line.
+K1_GEOMETRIES = (("qwen2-0.5b", 2, 7, 64), ("gemma3-12b", 8, 2, 256),
+                 ("gemma2-27b", 16, 2, 128), ("qwen3-14b", 8, 5, 128))
+K1_TIMED = ("qwen2-0.5b", "gemma3-12b")
+K1_MAIN = "gemma3-12b"
+
+
+def k1_inputs(dev, seed: int = 0, KV: int = 2, G: int = 7, hd: int = 64):
+    """One decode sub-step of attention: 8 slots, page 16, up to 64 pages
+    a slot, at the geometry (KV, G, hd) (qwen2-0.5b's by default)."""
     import torch
     from repro_torch.core import prng
     from repro_torch.core.quant import encode
     from repro_torch.serving.page_pool import kv_noise
 
     g = torch.Generator(device="cpu").manual_seed(seed)
-    B, KV, G, hd, page, maxp = 8, 2, 7, 64, 16, 64
+    B, page, maxp = 8, 16, 64
     P = B * maxp + 1
     bt = (torch.randperm(P - 1, generator=g) + 1).reshape(B, maxp)
     # ragged pre-write lengths: short, long, page-aligned (fresh-page
@@ -293,13 +338,13 @@ def k1_inputs(dev, seed: int = 0):
         KV=KV, G=G, hd=hd, page=page, maxp=maxp, B=B, fmt="e5m2")
 
 
-def k1_float_inputs(dev, pdt, seed: int = 0):
+def k1_float_inputs(dev, pdt, seed: int = 0, **geo):
     """``k1_inputs``' geometry, lengths and mask with float pages of
     ``pdt`` and the new K/V rows in that dtype (as the model writes them);
     the query stays float32, and float pages draw no noise."""
     import torch
 
-    c = k1_inputs(dev, seed)
+    c = k1_inputs(dev, seed, **geo)
     g = torch.Generator(device="cpu").manual_seed(seed + 7)
     for name in ("kp", "vp"):
         c[name] = torch.randn(c[name].shape, generator=g).to(dev, pdt)
@@ -421,94 +466,141 @@ def check_k1_edges(c, label: str) -> float:
     return err
 
 
-def check_k1(dev) -> dict:
-    """Phase 3: K1 against its plain version, then its timings."""
+def _k1_fused_gates(c, label: str, window: int = 0, cap: float = 0.0):
+    """K1's fused form against the plain version on ``c`` (FP8 pages):
+    new pages and scales bitwise, output within rtol = atol = 1e-4, fused
+    == unfused bitwise.  Returns the largest |kernel - plain|."""
     import torch
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.serving.page_pool import token_row_codes
 
-    c = k1_inputs(dev)
     act = c["mask"]
-    kern, plain = fused(c, "auto"), fused(c, "ref")
+    kern, plain = fused(c, "auto", window, cap), fused(c, "ref", window, cap)
     torch.cuda.synchronize()
     for i, name in ((1, "k_pages"), (2, "k_scale"), (3, "v_pages"),
                     (4, "v_scale")):
         if not torch.equal(kern[i][1:], plain[i][1:]):
-            raise AssertionError(f"K1: new {name} differ from the plain "
-                                 "version")
+            raise AssertionError(f"{label}: new {name} differ from the "
+                                 "plain version")
     out_k, out_p = kern[0][act], plain[0][act]
     if not torch.isfinite(out_k).all():
-        raise AssertionError("K1: non-finite attention output")
+        raise AssertionError(f"{label}: non-finite attention output")
     err = float((out_k - out_p).abs().max())
     torch.testing.assert_close(out_k, out_p, rtol=1e-4, atol=1e-4)
-    unf = unfused(c)
+    unf = unfused(c, window, cap)
     if not torch.equal(kern[0][act], unf[0][act]):
-        raise AssertionError("K1: fused != unfused attention output")
+        raise AssertionError(f"{label}: fused != unfused attention output")
     for i in (1, 2, 3, 4):
         if not torch.equal(kern[i][1:], unf[i][1:]):
-            raise AssertionError("K1: fused != unfused cache update")
-    print(f"# K1 vs plain: pages/scales bitwise, max |out err| {err:.3e}, "
-          "fused == unfused bitwise", flush=True)
-    err = max(err, check_k1_edges(c, "K1"))
+            raise AssertionError(f"{label}: fused != unfused cache update")
+    print(f"# {label} vs plain (window {window}, cap {cap}): pages/scales "
+          f"bitwise, max |out err| {err:.3e}, fused == unfused bitwise",
+          flush=True)
+    return err
 
-    # timings of the kernel proper, on the fused form's inputs as the
-    # main path builds them (old pages, new scales, the new rows)
-    codes, qs = pa.quantize_q(c["q"][:, 0], "e5m2")
+
+def _k1_bound(c, el: int, lns: bool):
+    """K1's bound on ``c``'s inputs, the function's whatever computes it:
+    the bytes it must move (each input read once: the query, the pages the
+    lengths reach, their scales on FP8 pages, the block tables, lengths
+    and inserted rows; its output, the attention [B, KV*G, dv] float32,
+    written once) against its operations (per head and valid token: hd
+    products and their sum, and dv p*v multiply-adds) at the float32
+    rate.  ``el``: bytes of a page element.  Returns (ms, what bounds
+    it, bytes in and out, operations, bytes in)."""
+    B, KV, G, hd, page, maxp = (c[n] for n in
+                                ("B", "KV", "G", "hd", "page", "maxp"))
+    ln = c["lengths"] + 1
+    pages_needed = int(((ln + page - 1) // page).sum())
+    tokens = int(ln.sum())
+    dv = c["vp"].shape[-1]
+    if lns:
+        q_bytes = B * KV * G * hd + 4 * B          # q codes, q scales
+        extra = pages_needed * 4 * 2 + 2 * 256 * 2 * 4  # scales, tables
+    else:
+        q_bytes, extra = 4 * B * KV * G * hd, 0    # the float32 query
+    bytes_in = (q_bytes + pages_needed * page * KV * (hd + dv) * el + extra
+                + 4 * B * maxp + 4 * B             # block tables, lengths
+                + B * KV * (hd + dv) * el + 3 * 4 * B)  # inserted rows
+    nbytes = bytes_in + 4 * B * KV * G * dv        # + the attention
+    ops = 2 * KV * G * tokens * (hd + dv)
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = ops / F32_FLOP_PER_S * 1e3
+    return (max(bound_bytes, bound_ops),
+            "bytes" if bound_bytes >= bound_ops else "operations", nbytes,
+            ops, bytes_in)
+
+
+def _time_k1(c, label: str, lns: bool) -> dict:
+    """Card time of K1 proper on the fused form's inputs as the serving
+    path builds them (old pages, new scales, the new rows), of its plain
+    version, and the bound."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serving.page_pool import token_row_codes
+
     ln = c["lengths"] + 1
     logical = torch.div(c["lengths"], c["page"], rounding_mode="floor")
     rows = c["lengths"] - logical * c["page"]
-    pids = c["bt"].gather(1, logical[:, None].long())[:, 0]
-    scales, new_rows = [], []
-    for name, new, noise in (("ks", "k_new", "k_noise"),
-                             ("vs", "v_new", "v_noise")):
-        s = c[name].clone()
-        pid, row, s_new = token_row_codes(s, c[new], pids, rows, fmt="e5m2",
-                                          noise=c[noise],
-                                          write_mask=c["mask"])
-        s.index_put_((pid,), s_new)
-        scales.append(s)
-        new_rows.append(row)
+    if lns:
+        codes, qs = pa.quantize_q(c["q"][:, 0], "e5m2")
+        pids = c["bt"].gather(1, logical[:, None].long())[:, 0]
+        scales, new_rows = [], []
+        for name, new, noise in (("ks", "k_new", "k_noise"),
+                                 ("vs", "v_new", "v_noise")):
+            s = c[name].clone()
+            pid, row, s_new = token_row_codes(s, c[new], pids, rows,
+                                              fmt="e5m2", noise=c[noise],
+                                              write_mask=c["mask"])
+            s.index_put_((pid,), s_new)
+            scales.append(s)
+            new_rows.append(row)
+        args = (codes, qs, c["kp"], c["vp"], *scales, c["bt"], ln)
+        kw = dict(fmt="e5m2", mode="rne")
+        only = "lns_paged_partials"
+    else:
+        q, _ = pa.query_operand(c["q"][:, 0], None)
+        new_rows = [c["k_new"], c["v_new"]]
+        args = (q, None, c["kp"], c["vp"], c["ks"], c["vs"], c["bt"], ln)
+        kw = dict(fmt=None, mode="rne")
+        only = "float_paged_partials"
     ins = (*new_rows, logical, rows, c["mask"].to(torch.int32))
-    args = (codes, qs, c["kp"], c["vp"], *scales, c["bt"], ln)
-    kw = dict(fmt="e5m2", mode="rne", KV=c["KV"], G=c["G"], inserts=ins)
+    kw.update(KV=c["KV"], G=c["G"], inserts=ins)
     k1 = lambda: pa.paged_attend(*args, **kw)  # noqa: E731
     plain = lambda: pa._combine_partials(  # noqa: E731
         *pa.page_partials_plain(*args, **kw))
     torch.testing.assert_close(k1(), plain(), rtol=1e-4, atol=1e-4)
-    ms, how = device_ms(k1, iters=200, only="lns_paged_partials")
+    ms, how = device_ms(k1, iters=200, only=only)
     plain_ms, plain_how = device_ms(plain, iters=10)
     call_ms, plain_call_ms = cuda_ms(k1, iters=200), cuda_ms(plain, iters=10)
-
-    # least time for the same work, the function's whatever computes it:
-    # bytes it must move (each input read once: the query, the pages the
-    # lengths reach, their scales, the block tables, lengths and inserted
-    # rows; its output, the attention [B, KV*G, dv] float32, written once)
-    B, KV, G, hd, page, maxp = (c[n] for n in
-                                ("B", "KV", "G", "hd", "page", "maxp"))
-    pages_needed = int(((ln + page - 1) // page).sum())
-    tokens = int(ln.sum())
+    bound, by, nbytes, ops, bytes_in = _k1_bound(
+        c, c["kp"].element_size(), lns)
     dv = c["vp"].shape[-1]
-    bytes_in = (B * KV * G * hd + 4 * B            # q codes, q scales
-                + pages_needed * page * KV * (hd + dv)  # K, V codes
-                + pages_needed * 4 * 2             # page scales
-                + 4 * B * maxp + 4 * B             # block tables, lengths
-                + B * KV * (hd + dv) + 3 * 4 * B   # inserted rows
-                + 2 * 256 * 2 * 4)                 # operand tables
-    bytes_out = 4 * B * KV * G * dv                # the attention
-    # per (head, valid token): hd LNS products + their sum, and dv p*v
-    # multiply-adds; ``tokens`` already sums over the slots
-    ops = 2 * KV * G * tokens * (hd + dv)
-    bound_bytes = (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3
-    bound_ops = ops / F32_FLOP_PER_S * 1e3
-    print(f"# K1 card time ({how}): kernel {ms:.5f} ms; plain "
+    print(f"# {label} card time ({how}): kernel {ms:.5f} ms; plain "
           f"{plain_ms:.4f} ms ({plain_how}, all its kernels); bound "
-          f"{max(bound_bytes, bound_ops):.6f} ms = max({bytes_in + bytes_out}"
-          f" B / 3.35 TB/s, {ops} ops / 67 TFLOP/s); per call incl. host: "
-          f"kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms; "
-          f"{_partials_note(bytes_in, B, maxp, KV, G, dv)}", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(bound_bytes, bound_ops),
-                bound_by="bytes" if bound_bytes >= bound_ops else "operations")
+          f"{bound:.6f} ms = max({nbytes} B / 3.35 TB/s, {ops} ops / 67 "
+          f"TFLOP/s), {ms / bound:.0f}x; per call incl. host: kernel "
+          f"{call_ms:.4f} ms, plain {plain_call_ms:.4f} ms; "
+          f"{_partials_note(bytes_in, c['B'], c['maxp'], c['KV'], c['G'], dv)}",
+          flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+
+
+def check_k1(dev) -> dict:
+    """Phase 3: K1 against its plain version at every geometry of
+    ``K1_GEOMETRIES`` (and, past qwen2-0.5b's, with window 32 and softcap
+    50), the edge cases of :func:`check_k1_edges`, then its timings at the
+    ``K1_TIMED`` geometries.  Returns the main path's (gemma3-12b's)
+    timings and the largest error over all geometries."""
+    err, timed = 0.0, {}
+    for name, KV, G, hd in K1_GEOMETRIES:
+        c = k1_inputs(dev, KV=KV, G=G, hd=hd)
+        label = f"K1 {name} (KV {KV}, G {G}, hd {hd})"
+        err = max(err, _k1_fused_gates(c, label))
+        if name != "qwen2-0.5b":
+            err = max(err, _k1_fused_gates(c, label, window=32, cap=50.0))
+        err = max(err, check_k1_edges(c, label))
+        if name in K1_TIMED:
+            timed[name] = _time_k1(c, label, lns=True)
+    return dict(max_abs_err=err, **timed[K1_MAIN])
 
 
 FLOAT_K1_CASES = (("bfloat16", 0, 0.0), ("float32", 0, 0.0),
@@ -516,95 +608,59 @@ FLOAT_K1_CASES = (("bfloat16", 0, 0.0), ("float32", 0, 0.0),
 
 
 def check_k1_float(dev) -> dict:
-    """Phase: K1's float instance against its plain version on
-    ``k1_inputs``' geometry with float pages (bf16 and float32, and bf16
-    with window 32 and softcap 50): new pages bitwise, scales unchanged,
-    output within rtol = atol = 1e-4, fused == unfused bitwise; then its
-    times on bf16 pages (the serving path's) beside the byte bound."""
+    """Phase: K1's float instance against its plain version at every
+    geometry of ``K1_GEOMETRIES`` with float pages (bf16 and float32, and
+    bf16 with window 32 and softcap 50): new pages bitwise, scales
+    unchanged, output within rtol = atol = 1e-4, fused == unfused bitwise;
+    then its times on bf16 pages (the serving path's) at the ``K1_TIMED``
+    geometries beside the byte bound."""
     import torch
     from repro_torch.kernels import paged_attention as pa
 
-    err = 0.0
-    for pdt, window, cap in FLOAT_K1_CASES:
-        c = k1_float_inputs(dev, getattr(torch, pdt))
-        act = c["mask"]
-        before = pa.paged_attend.float_launches
-        kern, plain = fused(c, "auto", window, cap), fused(c, "ref",
-                                                            window, cap)
-        torch.cuda.synchronize()
-        if pa.paged_attend.float_launches != before + 1:
-            raise AssertionError("K1 float: the fused call did not launch "
-                                 "the float instance once")
-        for i, name in ((1, "k_pages"), (3, "v_pages")):
-            if not torch.equal(kern[i][1:], plain[i][1:]):
-                raise AssertionError(f"K1 float {pdt}: new {name} differ "
-                                     "from the plain version")
-        for i, name in ((2, "ks"), (4, "vs")):
-            if not torch.equal(kern[i], c[name]):
-                raise AssertionError(f"K1 float {pdt}: {name} changed")
-        out_k, out_p = kern[0][act], plain[0][act]
-        if not torch.isfinite(out_k).all():
-            raise AssertionError("K1 float: non-finite attention output")
-        case_err = float((out_k - out_p).abs().max())
-        err = max(err, case_err)
-        torch.testing.assert_close(out_k, out_p, rtol=1e-4, atol=1e-4)
-        unf = unfused(c, window, cap)
-        if not torch.equal(kern[0][act], unf[0][act]):
-            raise AssertionError(f"K1 float {pdt}: fused != unfused output")
-        for i in (1, 2, 3, 4):
-            if not torch.equal(kern[i][1:], unf[i][1:]):
-                raise AssertionError(f"K1 float {pdt}: fused != unfused "
-                                     "cache update")
-        print(f"# K1 float vs plain ({pdt} pages, window {window}, cap "
-              f"{cap}): pages bitwise, scales unchanged, max |out err| "
-              f"{case_err:.3e}, fused == unfused bitwise", flush=True)
-        if not window:
-            err = max(err, check_k1_edges(c, f"K1 float ({pdt} pages)"))
-
-    # timings on the fused form's inputs as the serving path builds them:
-    # bf16 pages, the new rows in bf16, a float32 query
-    c = k1_float_inputs(dev, torch.bfloat16)
-    q, _ = pa.query_operand(c["q"][:, 0], None)
-    ln = c["lengths"] + 1
-    logical = torch.div(c["lengths"], c["page"], rounding_mode="floor")
-    rows = c["lengths"] - logical * c["page"]
-    ins = (c["k_new"], c["v_new"], logical, rows, c["mask"].to(torch.int32))
-    args = (q, None, c["kp"], c["vp"], c["ks"], c["vs"], c["bt"], ln)
-    kw = dict(fmt=None, mode="rne", KV=c["KV"], G=c["G"], inserts=ins)
-    k1 = lambda: pa.paged_attend(*args, **kw)  # noqa: E731
-    plain = lambda: pa._combine_partials(  # noqa: E731
-        *pa.page_partials_plain(*args, **kw))
-    torch.testing.assert_close(k1(), plain(), rtol=1e-4, atol=1e-4)
-    ms, how = device_ms(k1, iters=200, only="float_paged_partials")
-    plain_ms, plain_how = device_ms(plain, iters=10)
-    call_ms, plain_call_ms = cuda_ms(k1, iters=200), cuda_ms(plain, iters=10)
-
-    # bytes it must move: the float32 query, the bf16 pages the lengths
-    # reach (no scales), block tables, lengths, the inserted rows and their
-    # indices; the attention [B, KV*G, dv] float32 written once
-    B, KV, G, hd, page, maxp = (c[n] for n in
-                                ("B", "KV", "G", "hd", "page", "maxp"))
-    pages_needed = int(((ln + page - 1) // page).sum())
-    tokens = int(ln.sum())
-    dv = c["vp"].shape[-1]
-    el = c["kp"].element_size()
-    bytes_in = (4 * B * KV * G * hd                    # float32 q
-                + pages_needed * page * KV * (hd + dv) * el  # K, V pages
-                + 4 * B * maxp + 4 * B                 # block tables, lengths
-                + B * KV * (hd + dv) * el + 3 * 4 * B)  # inserted rows
-    bytes_out = 4 * B * KV * G * dv                    # the attention
-    ops = 2 * KV * G * tokens * (hd + dv)              # q.k and p.v FMAs
-    bound_bytes = (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3
-    bound_ops = ops / F32_FLOP_PER_S * 1e3
-    print(f"# K1 float card time ({how}, bf16 pages): kernel {ms:.5f} ms; "
-          f"plain {plain_ms:.4f} ms ({plain_how}, all its kernels); bound "
-          f"{max(bound_bytes, bound_ops):.6f} ms = max({bytes_in + bytes_out}"
-          f" B / 3.35 TB/s, {ops} ops / 67 TFLOP/s); per call incl. host: "
-          f"kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms; "
-          f"{_partials_note(bytes_in, B, maxp, KV, G, dv)}", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(bound_bytes, bound_ops),
-                bound_by="bytes" if bound_bytes >= bound_ops else "operations")
+    err, timed = 0.0, {}
+    for name, KV, G, hd in K1_GEOMETRIES:
+        geo = dict(KV=KV, G=G, hd=hd)
+        for pdt, window, cap in FLOAT_K1_CASES:
+            c = k1_float_inputs(dev, getattr(torch, pdt), **geo)
+            label = f"K1 float {name} ({pdt} pages)"
+            act = c["mask"]
+            before = pa.paged_attend.float_launches
+            kern, plain = fused(c, "auto", window, cap), fused(c, "ref",
+                                                                window, cap)
+            torch.cuda.synchronize()
+            if pa.paged_attend.float_launches != before + 1:
+                raise AssertionError(f"{label}: the fused call did not "
+                                     "launch the float instance once")
+            for i, page_name in ((1, "k_pages"), (3, "v_pages")):
+                if not torch.equal(kern[i][1:], plain[i][1:]):
+                    raise AssertionError(f"{label}: new {page_name} differ "
+                                         "from the plain version")
+            for i, scale in ((2, "ks"), (4, "vs")):
+                if not torch.equal(kern[i], c[scale]):
+                    raise AssertionError(f"{label}: {scale} changed")
+            out_k, out_p = kern[0][act], plain[0][act]
+            if not torch.isfinite(out_k).all():
+                raise AssertionError(f"{label}: non-finite attention output")
+            case_err = float((out_k - out_p).abs().max())
+            err = max(err, case_err)
+            torch.testing.assert_close(out_k, out_p, rtol=1e-4, atol=1e-4)
+            unf = unfused(c, window, cap)
+            if not torch.equal(kern[0][act], unf[0][act]):
+                raise AssertionError(f"{label}: fused != unfused output")
+            for i in (1, 2, 3, 4):
+                if not torch.equal(kern[i][1:], unf[i][1:]):
+                    raise AssertionError(f"{label}: fused != unfused cache "
+                                         "update")
+            print(f"# {label} vs plain (window {window}, cap {cap}): pages "
+                  f"bitwise, scales unchanged, max |out err| {case_err:.3e}, "
+                  "fused == unfused bitwise", flush=True)
+            if not window:
+                err = max(err, check_k1_edges(c, label))
+        if name in K1_TIMED:
+            c = k1_float_inputs(dev, torch.bfloat16, **geo)
+            timed[name] = _time_k1(c, f"K1 float {name} (bf16 pages)",
+                                   lns=False)
+    return dict(max_abs_err=err, **timed[K1_MAIN])
 
 
 SERVE_PLENS = (5, 17, 33, 64, 9, 48, 2, 26)   # the serving phases' prompts
@@ -617,22 +673,19 @@ def _policy_label(cfg, policy) -> str:
 
 def serve_main_path(dev, policy="serve_fp8_paged", plens=SERVE_PLENS,
                     gen=24) -> dict:
-    """Phases 5, 7 and 11: the full-width Engine under the continuous
+    """Phases 5, 7 and 15: the full-width Engine under the continuous
     scheduler, fused decode on and off.  K1 runs once per layer and
     sub-step, its LNS instance on FP8 pages, its float instance on float
     pages (``policy=None``, the CLI's default), the other instance never;
     K5 runs as often as K1 when the policy quantizes the SwiGLU gate
     product (else never)."""
     import numpy as np
-    import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import fp8_elementwise as fe
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.launch.serve import Engine, run_continuous
+    from repro_torch.launch.serve import Engine
 
     cfg = get_config("qwen2-0.5b", policy=policy)
     k5_on = cfg.policy.elementwise.quantized
-    fp8 = cfg.policy.kv_quantized
     label = _policy_label(cfg, policy)
     rng = np.random.default_rng(0)
     queue = [rng.integers(0, cfg.vocab, size=n) for n in plens]
@@ -640,51 +693,22 @@ def serve_main_path(dev, policy="serve_fp8_paged", plens=SERVE_PLENS,
     for fused_on in (True, False):
         eng = Engine(cfg, slots=8, max_seq=max(plens) + gen, page_size=16,
                      rng_seed=0, fused_decode=fused_on, device=dev)
-        sync = eng.sync_logits
-
-        def checked(logits, sync=sync):
-            host = sync(logits)
-            if host.shape[-1] != cfg.vocab or not np.isfinite(host).all():
-                raise AssertionError("non-finite or misshapen logits")
-            return host
-
-        eng.sync_logits = checked
-        torch.cuda.synchronize()
-        pa.paged_attend.launches = 0
-        pa.paged_attend.float_launches = 0
         fe.fp8_elementwise.launches = 0
-        t0 = time.perf_counter()
-        outputs, stats = run_continuous(eng, queue, gen=gen, chunk=4,
-                                        quiet=True)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        lns, flt = (pa.paged_attend.launches,
-                    pa.paged_attend.float_launches)
-        launches, other = (lns, flt) if fp8 else (flt, lns)
+        run = _counted_run(eng, queue, gen)
         k5 = fe.fp8_elementwise.launches
-        substeps = int(eng.tel.counter_value("serve_substeps_total"))
-        if stats["terminal"] != {"finished": len(queue)}:
-            raise AssertionError(f"requests not all finished: "
-                                 f"{stats['statuses']}")
-        if sorted(outputs) != list(range(len(queue))) or any(
-                len(o) != gen for o in outputs.values()):
-            raise AssertionError("missing or short token streams")
-        if launches != cfg.n_layers * substeps or other:
-            raise AssertionError(
-                f"K1 {'LNS' if fp8 else 'float'} launches {launches} != "
-                f"n_layers {cfg.n_layers} x sub-steps {substeps}, or "
-                f"{other} launches of the other instance")
-        if k5 != (launches if k5_on else 0):
+        if k5 != (run["launches"] if k5_on else 0):
             raise AssertionError(f"K5 launches {k5}, want "
-                                 f"{launches if k5_on else 0}")
+                                 f"{run['launches'] if k5_on else 0}")
+        stats = run["stats"]
         print(f"# serve {label}"
               f"{' + K5 gate' if k5_on else ''} fused={fused_on}: "
               f"{len(queue)} requests finished, {stats['steps']} steps, "
-              f"{substeps} sub-steps, {lns} K1 LNS, {flt} K1 float and {k5} "
-              f"K5 launches, {wall:.3f} s wall, "
+              f"{run['substeps']} sub-steps, {run['lns']} K1 LNS, "
+              f"{run['flt']} K1 float and {k5} K5 launches, "
+              f"{run['wall']:.3f} s wall, "
               f"{stats['decode_tok_s']:.2f} decode tok/s, cache "
               f"{stats['cache_bytes_per_token']:.0f} B/token", flush=True)
-        runs[fused_on] = (outputs, launches, k5)
+        runs[fused_on] = (run["outputs"], run["launches"], k5)
         del eng
     if runs[True][0] != runs[False][0]:
         raise AssertionError("token streams differ with fused decode on/off")
@@ -700,7 +724,10 @@ def _lively(eng, seed: int = 0):
     """Redraw every parameter at std 0.5 from a seed, on the card, so that
     greedy tokens follow the context (the seed init's zero gains and 0.02
     weights repeat each prompt's last token), which makes equal token
-    streams a sharp test."""
+    streams a sharp test.  Under an embedding scale (gemma) the embedding
+    is redrawn at 0.5 / sqrt(d_model), so that it is 0.5 once scaled: at
+    0.5 the scaled rows would drown every layer and greedy decoding would
+    repeat each prompt's last token again."""
     import torch
 
     g = torch.Generator(device=eng.device).manual_seed(seed)
@@ -714,6 +741,8 @@ def _lively(eng, seed: int = 0):
                 * 0.5).to(t.dtype)
 
     eng.params = redraw(eng.params)
+    if eng.cfg.emb_scale:
+        eng.params["embed"] = eng.params["embed"] / eng.cfg.d_model**0.5
     return eng
 
 
@@ -809,12 +838,13 @@ def check_against_plain_engine(dev, policy="serve_fp8_paged") -> None:
           f"{np.abs(logits[0] - logits[1]).max():.3e}", flush=True)
 
 
-def profile_main_path(dev, policy="serve_fp8_paged") -> None:
-    """A short traced window of the main path (8 requests, 4-token
-    prompts, 4 generated tokens, after a warm-up run): the card's busy
-    share of the window's wall time, the launches per sub-step and the
-    kernels that take the time.  CUDA activity only, so the host pays
-    little for the tracing."""
+def profile_main_path(dev, policy="serve_fp8_paged",
+                      arch="qwen2-0.5b") -> None:
+    """A short traced window of a serving path (8 requests, 4-token
+    prompts, 4 generated tokens, after a warm-up run; ``arch`` at full
+    width): the card's busy share of the window's wall time, the launches
+    per sub-step and the kernels that take the time.  CUDA activity only,
+    so the host pays little for the tracing."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -822,7 +852,7 @@ def profile_main_path(dev, policy="serve_fp8_paged") -> None:
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import Engine, run_continuous
 
-    cfg = get_config("qwen2-0.5b", policy=policy)
+    cfg = get_config(arch, policy=policy)
     eng = Engine(cfg, slots=8, max_seq=16, page_size=16, rng_seed=0,
                  device=dev)
     rng = np.random.default_rng(2)
@@ -843,7 +873,7 @@ def profile_main_path(dev, policy="serve_fp8_paged") -> None:
             if e.device_type == DeviceType.CUDA]
     busy = sum(us for _, us, _ in rows) / 1e6
     if busy <= 0:
-        print(f"# profile of the main path: {substeps} sub-steps in "
+        print(f"# profile of {arch}'s serving path: {substeps} sub-steps in "
               f"{wall:.4f} s wall; the profiler recorded no device time "
               "(busy share and launches not measured)", flush=True)
         return
@@ -854,7 +884,8 @@ def profile_main_path(dev, policy="serve_fp8_paged") -> None:
     ew = cfg.policy.elementwise
     label = _policy_label(cfg, policy) + (f", elementwise {ew.fmt}"
                                           if ew.quantized else "")
-    print(f"# profile of the main path ({label}): {substeps} sub-steps in "
+    print(f"# profile of {arch}'s serving path ({label}): {substeps} "
+          f"sub-steps in "
           f"{wall:.4f} s wall; card busy {busy:.4f} s "
           f"({100 * busy / wall:.2f}% of the wall), {n_kernels} kernel "
           f"launches ({n_kernels / max(substeps, 1):.0f} per sub-step); "
@@ -862,6 +893,422 @@ def profile_main_path(dev, policy="serve_fp8_paged") -> None:
           f"({100 * k5 / busy:.2f}%)", flush=True)
     for key, us, n in top:
         print(f"#   {us / 1e3:10.3f} ms  x{n:<6d} {key[:90]}", flush=True)
+
+# --------------------------------------------------------------------------- #
+# The dense GQA family and prefix caching: gemma3-12b's main path, and
+# gemma2-27b and qwen3-14b
+# --------------------------------------------------------------------------- #
+PREFIX_SHARED = 64                            # 4 full pages of 16
+PREFIX_TAILS = (5, 17, 9, 2, 26, 12, 31, 7)   # each request's own tail
+PREFIX_GEN = 16
+PREFIX_SLOTS = 4
+PREFIX_PREEMPT_DEPTH = 6                      # one whole 5:1 period
+PREFIX_PREEMPT_PAGES = 19                     # 18 usable pages of 28
+
+
+def _prefix_queue(cfg):
+    """The 8 requests: one shared 64-token prefix, then each one's tail."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab, size=PREFIX_SHARED)
+    return [np.concatenate([shared, rng.integers(0, cfg.vocab, size=t)])
+            for t in PREFIX_TAILS]
+
+
+def _prefix_engine(dev, cfg, params, **kw):
+    """A 4-slot Engine of the prefix phases on ``params`` (its own seed-0
+    draw is dropped), or on its own draw when ``params`` is None."""
+    from repro_torch.launch.serve import Engine
+
+    eng = Engine(cfg, slots=PREFIX_SLOTS,
+                 max_seq=PREFIX_SHARED + max(PREFIX_TAILS) + PREFIX_GEN,
+                 page_size=16, rng_seed=0, device=dev, **kw)
+    if params is not None:
+        eng.params = params
+    return eng
+
+
+def _counted_run(eng, queue, gen: int) -> dict:
+    """``run_continuous`` with every K1 count set to 0 just before and
+    read just after; every step's logits checked finite and of the
+    vocabulary's width.  Returns the run's outputs, stats, wall, sub-steps
+    and K1 launches of each instance."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.serve import run_continuous
+
+    sync, vocab = eng.sync_logits, eng.cfg.vocab
+
+    def checked(logits):
+        host = sync(logits)
+        if host.shape[-1] != vocab or not np.isfinite(host).all():
+            raise AssertionError("non-finite or misshapen logits")
+        return host
+
+    eng.sync_logits = checked
+    torch.cuda.synchronize()
+    pa.paged_attend.launches = 0
+    pa.paged_attend.float_launches = 0
+    t0 = time.perf_counter()
+    outputs, stats = run_continuous(eng, queue, gen=gen, chunk=4, quiet=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = dict(outputs=outputs, stats=stats, wall=wall,
+               substeps=int(eng.tel.counter_value("serve_substeps_total")),
+               lns=pa.paged_attend.launches,
+               flt=pa.paged_attend.float_launches)
+    if stats["terminal"] != {"finished": len(queue)}:
+        raise AssertionError(f"requests not all finished: "
+                             f"{stats['statuses']}")
+    if sorted(outputs) != list(range(len(queue))) or any(
+            len(o) != gen for o in outputs.values()):
+        raise AssertionError("missing or short token streams")
+    fp8 = eng.cfg.policy.kv_quantized
+    launches, other = ((run["lns"], run["flt"]) if fp8
+                       else (run["flt"], run["lns"]))
+    if launches != eng.cfg.n_layers * run["substeps"] or other:
+        raise AssertionError(
+            f"K1 {'LNS' if fp8 else 'float'} launches {launches} != "
+            f"n_layers {eng.cfg.n_layers} x sub-steps {run['substeps']}, or "
+            f"{other} launches of the other instance")
+    run["launches"] = launches
+    return run
+
+
+def prefix_main_path(dev, policy, params=None) -> dict:
+    """This slice's main path: full-width, full-depth gemma3-12b (48
+    layers, 5 local layers of window 1,024 to each global one, hd 256)
+    served through the Engine with the prefix cache, 4 slots, page 16, a
+    worst-case pool; 8 requests of a shared 64-token prefix and their own
+    tails, 16 generated tokens each, chunk 4.  Three runs: prefix off
+    with fused decode, prefix on with fused decode, prefix on unfused.
+    Gates: the three token streams bitwise equal, at least 256 prefix hit
+    tokens with the cache on (the second wave maps the 4 prefix pages), K1
+    launched n_layers x sub-steps times in every run and its other
+    instance never.  Weights: drawn on the card from seed 0, redrawn by
+    :func:`_lively` (shared by both policies' runs; returned)."""
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config("gemma3-12b", policy=policy)
+    label = _policy_label(cfg, policy)
+    queue = _prefix_queue(cfg)
+    runs = {}
+    for prefix_on, fused_on in ((False, True), (True, True), (True, False)):
+        eng = _prefix_engine(dev, cfg, params, prefix_cache=prefix_on,
+                             fused_decode=fused_on)
+        if params is None:
+            params = _lively(eng).params
+        run = _counted_run(eng, queue, PREFIX_GEN)
+        hits = run["stats"]["prefix_hit_tokens"]
+        print(f"# gemma3-12b serve {label}, prefix "
+              f"{'on' if prefix_on else 'off'}, fused={fused_on}: "
+              f"{len(queue)} requests, {run['stats']['steps']} steps, "
+              f"{run['substeps']} sub-steps, {run['lns']} K1 LNS and "
+              f"{run['flt']} K1 float launches, {hits} prefix hit tokens "
+              f"(prefix stats {run['stats']['prefix']}), {run['wall']:.3f} s "
+              f"wall, {run['stats']['decode_tok_s']:.2f} decode tok/s",
+              flush=True)
+        if (hits >= 4 * PREFIX_SHARED) != prefix_on:
+            raise AssertionError(f"prefix {'on' if prefix_on else 'off'}: "
+                                 f"{hits} prefix hit tokens")
+        runs[prefix_on, fused_on] = run
+        del eng
+        torch.cuda.empty_cache()
+    streams = [r["outputs"] for r in runs.values()]
+    if not any(len(set(o)) > 1 for o in streams[0].values()):
+        raise AssertionError("degenerate token streams: the check would be "
+                             "weak")
+    if streams[1] != streams[0] or streams[2] != streams[0]:
+        raise AssertionError(f"gemma3-12b {label}: token streams differ with "
+                             "the prefix cache on/off or fused decode on/off")
+    print(f"# gemma3-12b {label}: token streams bitwise equal with the "
+          "prefix cache off, on, and on with unfused decode", flush=True)
+    return dict(launches=runs[True, True]["launches"], params=params)
+
+
+def preempt_shared_path(dev, policy, params) -> dict:
+    """Preemption while shared: the prefix phase's requests at full width
+    and depth 6 (one whole 5:1 period; the main path's weights, their
+    first 6 layers), prefix on, once with a worst-case pool and once with
+    ``PREFIX_PREEMPT_PAGES`` pages, under which the scheduler spills slots
+    that map registered prefix pages: those stay resident under a pin
+    (at least one spill must pin a page).  ``assert_invariants`` runs after
+    every step (``REPRO_CHECK_INVARIANTS=1``); the token streams equal the
+    worst-case pool's bit for bit."""
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("gemma3-12b", policy=policy),
+                              n_layers=PREFIX_PREEMPT_DEPTH)
+    label = _policy_label(cfg, policy)
+    shallow = dict(params, blocks=params["blocks"][:PREFIX_PREEMPT_DEPTH])
+    queue = _prefix_queue(cfg)
+    saved = os.environ.get("REPRO_CHECK_INVARIANTS")
+    os.environ["REPRO_CHECK_INVARIANTS"] = "1"
+    runs = []
+    try:
+        for pages in (None, PREFIX_PREEMPT_PAGES):
+            eng = _prefix_engine(dev, cfg, shallow, prefix_cache=True,
+                                 num_pages=pages)
+            pinned = []
+            spill = eng.pool.spill_slot
+
+            def counted_spill(slot, spill=spill, pinned=pinned):
+                out = spill(slot)
+                pinned.append(len(out[1]))
+                return out
+
+            eng.pool.spill_slot = counted_spill
+            run = _counted_run(eng, queue, PREFIX_GEN)
+            eng.pool.assert_invariants()
+            st = run["stats"]
+            print(f"# gemma3-12b depth {cfg.n_layers} prefix on {label}, pool "
+                  f"{eng.pool.num_pages - 1} pages: {st['steps']} steps, "
+                  f"{st['preemptions']} preemptions, {st['restores']} "
+                  f"restores, {sum(1 for n in pinned if n)} spills pinning "
+                  f"{sum(pinned)} prefix pages, {st['prefix_hit_tokens']} "
+                  f"prefix hit tokens, {run['wall']:.3f} s wall", flush=True)
+            runs.append((run, pinned))
+            del eng
+            torch.cuda.empty_cache()
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_CHECK_INVARIANTS", None)
+        else:
+            os.environ["REPRO_CHECK_INVARIANTS"] = saved
+    (full, _), (small, pinned) = runs
+    if full["stats"]["preemptions"] or small["stats"]["preemptions"] < 1 \
+            or small["stats"]["restores"] < 1 or not any(pinned):
+        raise AssertionError(
+            f"preemptions {full['stats']['preemptions']} / "
+            f"{small['stats']['preemptions']}, restores "
+            f"{small['stats']['restores']}, pinned pages per spill {pinned}: "
+            "want 0, then >= 1 with a pinned spill")
+    if small["outputs"] != full["outputs"]:
+        raise AssertionError(f"{label}: token streams differ with "
+                             "preemption while shared")
+    print(f"# preempt-while-shared == worst-case pool (gemma3-12b, {label}): "
+          "token streams bitwise equal", flush=True)
+    return dict(preemptions=small["stats"]["preemptions"],
+                restores=small["stats"]["restores"], pinned=sum(pinned))
+
+
+def _plain_attention_policy(pol):
+    return pol.replace(attention_qk=dataclasses.replace(pol.attention_qk,
+                                                        impl="ref"))
+
+
+class _ShadowK1:
+    """Within the block, every K1 call is also computed by its plain
+    version (``page_partials_plain`` and the combine) on the very same
+    inputs, the model's own, and held to K1's gate, rtol = atol = 1e-4;
+    the kernel's output is what the model goes on with.  Counts the calls
+    and keeps the largest difference.  The launch counters stay
+    ``paged_attend``'s."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import paged_attention as pa
+
+        self.pa, self.real = pa, pa.paged_attend
+        self.calls, self.err = 0, 0.0
+
+        def shadowed(*args, **kw):
+            out = self.real(*args, **kw)
+            want = pa._combine_partials(*pa.page_partials_plain(*args, **kw))
+            torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
+            self.err = max(self.err, float((out - want).abs().max()))
+            self.calls += 1
+            return out
+
+        self.counts = (self.real.launches, self.real.float_launches)
+        shadowed.launches, shadowed.float_launches = self.counts
+        pa.paged_attend = shadowed
+        return self
+
+    def __exit__(self, *exc):
+        # the kernel's wrapper counts its launches on the module's
+        # ``paged_attend``, which is ``shadowed`` within the block
+        shadowed = self.pa.paged_attend
+        self.real.launches += shadowed.launches - self.counts[0]
+        self.real.float_launches += shadowed.float_launches - self.counts[1]
+        self.pa.paged_attend = self.real
+        return False
+
+
+def _launch_counts():
+    from repro_torch.kernels import paged_attention as pa
+
+    return pa.paged_attend.launches, pa.paged_attend.float_launches
+
+
+def _gate_logits(kern, plain, label: str, fp8: bool) -> float:
+    """K1's and the plain attention's logits: within rtol = atol = 1e-3 on
+    float pages; printed on FP8 pages, where they are no gate.  There the
+    query codes (RNE) and the KV writes (stochastic rounding) of every
+    layer past the first quantize activations that already differ by the
+    float32 sums' order (~1e-6): a code that sits at a rounding boundary
+    flips, and one flipped code moves the logits by ~1e-3 (full width:
+    qwen3-14b 21 logits past 1e-3 after two steps; gemma3-12b 7 % past it
+    after 1,040 sub-steps).  Every K1 call on the way is held to its
+    plain version on identical inputs instead (:class:`_ShadowK1`)."""
+    import numpy as np
+
+    diff = float(np.abs(kern - plain).max())
+    if not fp8:
+        np.testing.assert_allclose(kern, plain, rtol=1e-3, atol=1e-3)
+    print(f"# {label}: K1 vs plain-attention logits max diff {diff:.3e} "
+          f"({'printed, not gated: FP8 codes' if fp8 else 'within 1e-3'})",
+          flush=True)
+    return diff
+
+
+WINDOW_PROMPT = 1040    # the local layers' window of 1,024 skips page 0
+WINDOW_DEPTH = 6
+
+
+def window_path(dev) -> None:
+    """Windows on the model path: gemma3-12b at full width, depth 6 (5
+    local layers and the global one), float32 parameters, on FP8 pages
+    (serve_fp8_paged) and on float32 pages (the default policy).  One
+    slot prefills the first 1,039 tokens of a 1,040-token prompt through
+    K1, every K1 call from the 1,024th token on (where the window starts
+    to mask) held to its plain version on the same inputs
+    (:class:`_ShadowK1`); then, from that cache, the last prompt token and
+    one decode step (the local layers' window of 1,024 skips page 0) run
+    once through K1 and once through the plain attention: their logits
+    within rtol = atol = 1e-3 on float32 pages (:func:`_gate_logits`)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Engine
+
+    rng = np.random.default_rng(4)
+    for policy in ("serve_fp8_paged", None):
+        base = get_config("gemma3-12b", policy=policy)
+        cfg = dataclasses.replace(base, n_layers=WINDOW_DEPTH,
+                                  param_dtype="float32")
+        plain_cfg = dataclasses.replace(
+            cfg, numerics=_plain_attention_policy(base.policy))
+        fp8 = cfg.policy.kv_quantized
+        prompt = rng.integers(0, cfg.vocab, size=(1, WINDOW_PROMPT))
+        n = WINDOW_PROMPT - 1
+        early = cfg.window - 1  # sub-steps whose reads the window leaves whole
+        eng = Engine(cfg, slots=1, max_seq=WINDOW_PROMPT + 1, page_size=16,
+                     rng_seed=3, device=dev)
+        eng.pool.ensure_capacity_batch(np.asarray([WINDOW_PROMPT + 1]))
+
+        def tail():
+            last = prompt[:, -1:]
+            first = eng.step_chunk(last, np.asarray([n]), np.ones(1, np.int32))
+            second = eng.step_chunk(last, np.asarray([n + 1]),
+                                    np.ones(1, np.int32))
+            return np.stack([first, second])
+
+        t0 = time.perf_counter()
+        before = _launch_counts()
+        eng.step_chunk(prompt[:, :early], np.zeros(1, np.int32),
+                       np.asarray([early], np.int32))
+        with _ShadowK1() as shadow:
+            eng.step_chunk(prompt[:, early:n], np.asarray([early], np.int32),
+                           np.asarray([n - early], np.int32))
+            saved = {k: v.clone() for k, v in eng.cache.items()}
+            kern = tail()
+        launched = [a - b for a, b in zip(_launch_counts(), before)]
+        t1 = time.perf_counter()
+        for k, v in saved.items():
+            eng.cache[k].copy_(v)
+        eng.model.cfg = eng.cfg = plain_cfg
+        before = _launch_counts()
+        plain = tail()
+        none = [a - b for a, b in zip(_launch_counts(), before)]
+        del eng, saved
+        torch.cuda.empty_cache()
+        want = WINDOW_DEPTH * (WINDOW_PROMPT + 1)
+        shadowed = WINDOW_DEPTH * (WINDOW_PROMPT + 1 - early)
+        got = launched[0] if fp8 else launched[1]
+        if (got != want or sum(launched) != want or any(none)
+                or shadow.calls != shadowed):
+            raise AssertionError(f"K1 launches {launched} (plain run {none}, "
+                                 f"shadowed calls {shadow.calls}), want "
+                                 f"{want} of one instance")
+        label = (f"gemma3-12b depth {WINDOW_DEPTH}, float32, "
+                 f"{_policy_label(cfg, policy)}, {WINDOW_PROMPT}-token "
+                 f"prompt (window {cfg.window} skips page 0 on the local "
+                 "layers)")
+        print(f"# {label}: {got} K1 launches, the {shadow.calls} past "
+              f"{early} tokens each within {shadow.err:.3e} of "
+              f"its plain version on the same inputs; K1 path "
+              f"{t1 - t0:.1f} s wall", flush=True)
+        _gate_logits(kern, plain, label + ", last prompt position and one "
+                     "decode step", fp8)
+
+
+DENSE_DEPTH = 2     # gemma2-27b: one local and one global layer
+
+
+def dense_family_path(dev, arch: str) -> None:
+    """gemma2-27b or qwen3-14b at full width, depth 2: float32 logits of a
+    prefill chunk and a decode step through K1 (every K1 call held to its
+    plain version on the same inputs) and through the plain attention, on
+    both page kinds (:func:`_gate_logits`: within rtol = atol = 1e-3 on
+    float32 pages; for gemma2 the attention softcap of 50 and the final
+    softcap of 30), then 4 requests served on bf16 pages (the CLI's
+    default) with fused decode on and off: token streams bitwise equal,
+    K1's float instance launched n_layers x sub-steps times."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Engine
+
+    for policy in ("serve_fp8_paged", None):
+        base = dataclasses.replace(get_config(arch, policy=policy),
+                                   n_layers=DENSE_DEPTH)
+        cfg = dataclasses.replace(base, param_dtype="float32")
+        with _ShadowK1() as shadow:
+            kern = _first_step_logits(dev, cfg)
+        plain = _first_step_logits(dev, dataclasses.replace(
+            cfg, numerics=_plain_attention_policy(base.policy)))
+        torch.cuda.empty_cache()
+        if shadow.calls != DENSE_DEPTH * 5:     # 4 prompt + 1 decode
+            raise AssertionError(f"{shadow.calls} K1 calls, want "
+                                 f"{DENSE_DEPTH * 5}")
+        _gate_logits(kern, plain, f"{arch} depth {DENSE_DEPTH}, float32, "
+                     f"{_policy_label(cfg, policy)} ({shadow.calls} K1 "
+                     f"calls each within {shadow.err:.3e} of the plain "
+                     "version)", cfg.policy.kv_quantized)
+    cfg = dataclasses.replace(get_config(arch), n_layers=DENSE_DEPTH)
+    plens, gen = SERVE_PLENS[:4], 8
+    rng = np.random.default_rng(0)
+    queue = [rng.integers(0, cfg.vocab, size=n) for n in plens]
+    runs, params = [], None
+    for fused_on in (True, False):
+        eng = Engine(cfg, slots=4, max_seq=max(plens) + gen, page_size=16,
+                     rng_seed=0, fused_decode=fused_on, device=dev)
+        if params is None:
+            params = _lively(eng).params
+        else:
+            eng.params = params
+        run = _counted_run(eng, queue, gen)
+        print(f"# {arch} depth {DENSE_DEPTH} serve "
+              f"{_policy_label(cfg, None)} fused={fused_on}: "
+              f"{run['substeps']} sub-steps, {run['flt']} K1 float "
+              f"launches, {run['wall']:.3f} s wall, distinct tokens per "
+              f"stream {[len(set(o)) for o in run['outputs'].values()]}",
+              flush=True)
+        runs.append(run["outputs"])
+        del eng
+    del params
+    torch.cuda.empty_cache()
+    if runs[0] != runs[1]:
+        raise AssertionError(f"{arch}: token streams differ with fused "
+                             "decode on/off")
+    print(f"# {arch}: token streams bitwise equal with fused decode on and "
+          "off", flush=True)
+
 
 # --------------------------------------------------------------------------- #
 # K5: the paper's six FP8 operations, through the SwiGLU gate
@@ -2319,14 +2766,27 @@ def main() -> int:
     check_tensor_cores()
     k1 = check_k1(dev)
     k1f = check_k1_float(dev)
-    served = serve_main_path(dev)
+    serve_main_path(dev)
     check_against_plain_engine(dev)
     profile_main_path(dev)
-    served_float = serve_main_path(dev, policy=None)
+    serve_main_path(dev, policy=None)
     check_against_plain_engine(dev, policy=None)
     profile_main_path(dev, policy=None)
     preemption_path(dev, "serve_fp8_paged")
     preemption_path(dev, None)
+    served_prefix = prefix_main_path(dev, "serve_fp8_paged")
+    params = served_prefix.pop("params")
+    served_prefix_float = prefix_main_path(dev, None, params)
+    served_prefix_float.pop("params")
+    preempt_shared_path(dev, "serve_fp8_paged", params)
+    preempt_shared_path(dev, None, params)
+    del params
+    torch.cuda.empty_cache()
+    profile_main_path(dev, arch="gemma3-12b")
+    profile_main_path(dev, policy=None, arch="gemma3-12b")
+    window_path(dev)
+    dense_family_path(dev, "gemma2-27b")
+    dense_family_path(dev, "qwen3-14b")
     check_k5_cells(dev)
     k5 = check_k5_shapes(dev)
     served_k5 = serve_main_path(dev, policy=k5_serve_policy(),
@@ -2355,7 +2815,8 @@ def main() -> int:
         dict(name="lns_paged_partials", route="cuda",
              source=src + "paged_attention.cu",
              replaces="src/repro/kernels/paged_attention.py:400",
-             launches=served["launches"], max_abs_err=k1["max_abs_err"],
+             launches=served_prefix["launches"],
+             max_abs_err=k1["max_abs_err"],
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None),
         dict(name="lns_matmul", route="cuda", source=src + "lns_matmul.cu",
@@ -2395,7 +2856,7 @@ def main() -> int:
         dict(name="float_paged_partials", route="cuda",
              source=src + "paged_attention.cu",
              replaces="src/repro/kernels/paged_attention.py:400",
-             launches=served_float["launches"],
+             launches=served_prefix_float["launches"],
              max_abs_err=k1f["max_abs_err"], ms=k1f["ms"],
              plain_ms=k1f["plain_ms"], bound_ms=k1f["bound_ms"],
              bound_by=k1f["bound_by"], library_ms=None),

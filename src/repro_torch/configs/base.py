@@ -1,9 +1,9 @@
 """Model configuration schema: the port's copy of ``repro.configs.base``.
 
 One frozen dataclass describes every architecture of the reference's zoo;
-this slice of the port runs the dense GQA family (qwen2-0.5b).  The
-legacy ``QuantConfig`` shim is not ported: ``numerics`` holds the
-:class:`~repro_torch.numerics.Policy` directly.  ``smoke()`` derives the
+the port runs its dense GQA family (qwen2-0.5b, qwen3-14b, gemma2-27b,
+gemma3-12b).  The legacy ``QuantConfig`` shim is not ported: ``numerics``
+holds the :class:`~repro_torch.numerics.Policy` directly.  ``smoke()`` derives the
 same reduced config as the reference for CPU tests.
 """
 from __future__ import annotations

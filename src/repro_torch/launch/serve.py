@@ -6,7 +6,10 @@ cache (float pages of the model's dtype by default, FP8 pages under a
 policy that quantizes the KV cache, e.g. ``serve_fp8_paged``), fused or
 unfused decode, block tables uploaded at most once per mutating step,
 preemption (a slot's pages copied verbatim to the host and restored into
-fresh pages, bit for bit); ``sample``; ``run_continuous``; and the CLI.
+fresh pages, bit for bit), ref-counted prefix caching (requests that share
+a prompt prefix map its registered pages read-only and prefill only their
+tails, token streams bitwise equal to the cache off); ``sample``;
+``run_continuous``; and the CLI.
 Every token, prefill or decode, is a single-token sub-step of
 ``Model.step_paged``, whose attention layers launch the hand-written CUDA
 kernel K1 (``kernels/paged_attention.py``: its float instance on float
@@ -14,17 +17,20 @@ pages, its LNS instance on FP8 pages).
 
 The engine runs on the card unless the caller passes ``device="cpu"``
 (the tests), and raises when no GPU is present — there is no silent CPU
-fallback.  Prefix caching, the bucketed scheduler, the dense cache,
-chaos, snapshots, tensor parallelism and static FP8 weights arrive with
-later slices and raise ``NotImplementedError`` here.
+fallback.  The bucketed scheduler, the dense cache, chaos, snapshots,
+tensor parallelism and static FP8 weights arrive with later slices and
+raise ``NotImplementedError`` here.
 
     python -m repro_torch.launch.serve --arch qwen2-0.5b --requests 6 \\
         --slots 2 --gen 16 --prompt-len 4,12,8
+    python -m repro_torch.launch.serve --arch gemma3-12b --prefix-cache on \\
+        --shared-prefix 64
 """
 from __future__ import annotations
 
 import argparse
-from typing import List, Optional
+import hashlib
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +48,7 @@ __all__ = ["Engine", "sample", "run_continuous", "main"]
 def _later(what: str):
     return NotImplementedError(
         f"{what} is not ported yet: it arrives with a later slice of the "
-        "port (ROADMAP.md Queue 1 items 4 and 7)")
+        "port (ROADMAP.md Queue 1 item 7)")
 
 
 def _resolve_device(device) -> torch.device:
@@ -70,8 +76,12 @@ class Engine:
                  device="cuda"):
         if cache_impl != "paged":
             raise _later(f"cache_impl={cache_impl!r}")
-        if prefix_cache:
-            raise _later("prefix caching")
+        if prefix_cache and not self.prefix_cache_supported(cfg):
+            raise ValueError(
+                f"prefix caching needs a pure-GQA paged KV cache; "
+                f"{cfg.name!r} (family={cfg.family!r}, "
+                f"attn_impl={cfg.attn_impl!r}) keeps dense per-slot cache "
+                "entries that cannot be shared between requests")
         self.device = _resolve_device(device)
         self.cfg = cfg
         # fused_decode=True runs each sub-step's KV write and attention as
@@ -93,6 +103,13 @@ class Engine:
             prng.fold_in(prng.prng_key(rng_seed + 17),
                          self._STREAM_TOKEN_WRITE)
             if stochastic_kv else None)
+        self.prefix_cache = bool(prefix_cache)
+        self._slot_hash = {}        # slot -> its prompt's page hashes
+        self._slot_registered = {}  # slot -> pages published so far
+        # chain root of the token-chunk hashes: pages are valid across
+        # requests that share the parameters' seed, numerics and page size
+        desc = f"{cfg.name}|{rng_seed}|{page_size}|" + cfg.policy.to_json()
+        self._prefix_root = hashlib.sha256(desc.encode()).digest()
         self.page_size = page_size
         self.max_pages_per_slot = -(-max_seq // page_size)
         if num_pages is None:
@@ -107,30 +124,125 @@ class Engine:
         self._bt_version = -1
 
     # ------------------------------------------------------------------ #
-    # The scheduler's prefix-cache protocol: the cache is off in this
-    # slice, so nothing is cached, mapped or registered.
+    # Prefix cache: chunk hashing, admission matching, COW, registration
     # ------------------------------------------------------------------ #
+    @staticmethod
+    def prefix_cache_supported(cfg) -> bool:
+        """Prefix caching shares pages, so every layer's KV state must live
+        in the page pool: pure-GQA decoder-only stacks (every config the
+        port runs; the reference refuses MLA latents, SSM states and
+        cross/encoder caches, which are dense per-slot entries)."""
+        if cfg.family in ("vlm", "encdec") or cfg.attn_impl != "gqa":
+            return False
+        return not cfg.first_dense and all(
+            cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+
+    def _prompt_hashes(self, prompt: np.ndarray) -> List[str]:
+        """Chained hash per FULL page of ``prompt``: hash i commits to the
+        engine root (parameters' seed, numerics policy, page size) and to
+        every token up to the end of page i — a page's KV is a function of
+        the whole prefix under causal attention, so the chain, not the
+        chunk alone, is the cache key."""
+        toks = np.ascontiguousarray(np.asarray(prompt, np.int64))
+        ps = self.page_size
+        h = self._prefix_root
+        out = []
+        for i in range(len(toks) // ps):
+            h = hashlib.sha256(h + toks[i * ps:(i + 1) * ps].tobytes()).digest()
+            out.append(h.hex())
+        return out
+
     def prompt_hashes(self, prompt: np.ndarray) -> List[str]:
-        return []
+        """:meth:`_prompt_hashes` ([] when the cache is off), so that the
+        scheduler hashes each prompt once."""
+        return self._prompt_hashes(prompt) if self.prefix_cache else []
 
-    def prefix_plan(self, prompt, hashes=None):
-        return 0, 0, 0, 0
+    def prefix_plan(self, prompt: np.ndarray,
+                    hashes: Optional[List[str]] = None
+                    ) -> Tuple[int, int, int, int]:
+        """Read-only admission planning: ``(n_cached, n_mapped, extra,
+        revived)``.  ``n_cached`` prompt tokens are skipped, ``n_mapped``
+        cached pages mapped into the slot, ``extra`` pages drawn beyond the
+        tail's own (the COW copy when the cache covers the whole prompt),
+        and ``revived`` of the matched pages sit in the LRU, where they
+        count as free until the request's own ``share`` revives them, so
+        the admission budget charges them too."""
+        if not self.prefix_cache:
+            return 0, 0, 0, 0
+        plen = int(np.asarray(prompt).shape[0])
+        if hashes is None:
+            hashes = self._prompt_hashes(prompt)
+        ids = self.pool.match_prefix(hashes, peek=True)
+        revived = sum(1 for pid in ids if self.pool.ref[pid] == 0)
+        matched = len(ids) * self.page_size
+        if matched and matched == plen:
+            # whole prompt cached: the final token is still recomputed (its
+            # logits seed generation) into a COW copy of the last page
+            return plen - 1, len(ids), 1, revived
+        return matched, len(ids), 0, revived
 
-    def admit_prefix(self, slot: int, prompt, hashes=None) -> int:
-        return 0
+    def admit_prefix(self, slot: int, prompt: np.ndarray,
+                     hashes: Optional[List[str]] = None) -> int:
+        """Map ``prompt``'s longest cached page prefix into ``slot``
+        read-only; returns the number of prompt tokens admission skips
+        (chunked prefill starts at the first uncached token).
+
+        When the cache covers the whole prompt, the last matched page is
+        replaced by a copy-on-write clone (``PagePool.cow_page`` and a
+        device copy of its contents) and the final prompt token is
+        recomputed into it: bit-identical to the cached row, because KV
+        rounding is addressed by position."""
+        if not self.prefix_cache:
+            return 0
+        plen = int(np.asarray(prompt).shape[0])
+        if hashes is None:
+            hashes = self._prompt_hashes(prompt)
+        ids = self.pool.match_prefix(hashes)
+        self._slot_hash[slot] = hashes
+        self._slot_registered[slot] = len(ids)
+        if not ids:
+            return 0
+        self.pool.share(slot, ids)
+        matched = len(ids) * self.page_size
+        if matched == plen:
+            old, new = self.pool.cow_page(slot, len(ids) - 1)
+            self._copy_page(old, new)
+            matched = plen - 1
+        return matched
 
     def note_prefilled(self, slot: int, n_prefilled: int) -> None:
-        return None
+        """Publish every prompt page ``slot`` has now fully written into
+        the prefix index (the scheduler calls this as prefill advances)."""
+        hashes = self._slot_hash.get(slot)
+        if not self.prefix_cache or hashes is None:
+            return
+        upto = min(n_prefilled // self.page_size, len(hashes))
+        start = self._slot_registered.get(slot, 0)
+        for i in range(start, upto):
+            self.pool.register_prefix(hashes[i], self.pool.pages_of[slot][i])
+        if upto > start:
+            self._slot_registered[slot] = upto
+
+    def _copy_page(self, old: int, new: int) -> None:
+        """The device side of a COW: page ``old``'s codes and scales (or
+        float rows) copied into page ``new`` in every layer, in place."""
+        with self.tel.span("kv_write", kind="cow", src=old, dst=new):
+            src = torch.tensor([old], dtype=torch.int64, device=self.device)
+            dst = torch.tensor([new], dtype=torch.int64, device=self.device)
+            for t in self.cache.values():
+                t.index_copy_(1, dst, t.index_select(1, src))
 
     # ------------------------------------------------------------------ #
     # Preemption
     # ------------------------------------------------------------------ #
     def preempt_slot(self, slot: int) -> dict:
-        """Spill ``slot`` to the host: copy its pages' contents (codes and
-        scales, or float rows) out of every layer verbatim, never
-        re-quantized, then free the pages, so a later
-        :meth:`restore_slot` is bit-identical.  Returns the spill
-        record."""
+        """Spill ``slot`` to the host: copy its unregistered pages'
+        contents (codes and scales, or float rows) out of every layer
+        verbatim, never re-quantized, then free them, so a later
+        :meth:`restore_slot` is bit-identical.  Registered prefix pages are
+        neither copied nor freed: they stay resident under a pin
+        (``PagePool.spill_slot``).  Returns the spill record, which also
+        carries the prompt's page hashes."""
         with self.tel.span("preempt", slot=slot):
             return self._preempt_slot(slot)
 
@@ -140,18 +252,26 @@ class Engine:
         # the index gather copies, so the host tensors never alias the cache
         state = {name: t[:, ids].cpu() for name, t in self.cache.items()}
         self.pool.spill_slot(slot)
-        return {"n_pages": len(spilled), "pinned": pinned, "state": state}
+        # the prompt's page hashes travel with the request, whichever slot
+        # it is restored into
+        return {"n_pages": len(spilled), "pinned": pinned, "state": state,
+                "hashes": self._slot_hash.pop(slot, None),
+                "registered": self._slot_registered.pop(slot, 0)}
 
     def restore_slot(self, slot: int, record: dict) -> None:
         """Re-admit a preempted request into ``slot``: fresh pages (ids may
         differ from the spilled ones), the saved contents scattered back
-        into every layer."""
+        into every layer, the pinned prefix pages re-referenced at their
+        logical indices, and the prompt's hashes bound to ``slot``."""
         with self.tel.span("restore", slot=slot):
             self._restore_slot(slot, record)
 
     def _restore_slot(self, slot: int, record: dict) -> None:
         new_ids = self.pool.restore_slot(slot, record["n_pages"],
                                          record.get("pinned", ()))
+        if record.get("hashes") is not None:
+            self._slot_hash[slot] = record["hashes"]
+            self._slot_registered[slot] = record.get("registered", 0)
         ids = torch.as_tensor(new_ids, dtype=torch.int64, device=self.device)
         for name, saved in record["state"].items():
             self.cache[name][:, ids] = saved.to(self.device)
@@ -226,6 +346,8 @@ class Engine:
 
     def release(self, slot: int) -> None:
         self.pool.free_slot(slot)
+        self._slot_hash.pop(slot, None)
+        self._slot_registered.pop(slot, None)
 
     def kv_cache_bytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self.cache.values())
@@ -283,6 +405,8 @@ def run_continuous(eng: Engine, queue: List[np.ndarray], *, gen: int,
         decode_wall_s=sched.decode_wall_s,
         prefill_wall_s=sched.prefill_wall_s,
         prefill_tokens=sched.prefill_tokens,
+        prefix_hit_tokens=sched.prefix_hit_tokens,
+        prefix=eng.pool.prefix_stats(),
         slot_occupancy=sched.occupied_slot_steps / max(sched.steps * eng.slots, 1),
         mean_latency_steps=sched.mean_latency_steps(),
         preemptions=sched.preemptions,
@@ -303,7 +427,8 @@ def run_continuous(eng: Engine, queue: List[np.ndarray], *, gen: int,
               f"{sched.steps} steps, {stats['tok_s']:.1f} tok/s e2e "
               f"({stats['decode_tok_s']:.1f} decode-only), occupancy "
               f"{stats['slot_occupancy']:.2f}, {sched.preemptions} "
-              f"preemptions, {sched.restores} restores, cache "
+              f"preemptions, {sched.restores} restores, "
+              f"{sched.prefix_hit_tokens} prefix hit tokens, cache "
               f"{stats['cache_bytes'] / 1e6:.2f} MB "
               f"({stats['cache_bytes_per_token']:.0f} B/token capacity)")
     return outputs, stats
@@ -315,7 +440,9 @@ def main(argv=None):
                     "(PyTorch/CUDA port; continuous scheduler).",
         epilog="The continuous scheduler admits with chunked prefill, "
                "joins requests mid-flight and preempts (page spill/restore) "
-               "when --pages is below the worst case.")
+               "when --pages is below the worst case; with --prefix-cache "
+               "on, requests that share a prompt prefix map its cached "
+               "pages and prefill only their tails.")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--policy", default=None,
@@ -332,6 +459,11 @@ def main(argv=None):
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--pages", type=int, default=0,
                     help="page-pool size (0 = worst-case slots*max_seq)")
+    ap.add_argument("--prefix-cache", default="off", choices=["on", "off"],
+                    help="ref-counted prefix caching: requests sharing a "
+                         "prompt prefix reuse its KV pages and prefill "
+                         "only the uncached tail; token streams are "
+                         "bit-identical to the cache off")
     ap.add_argument("--fused-decode", default="on", choices=["on", "off"],
                     help="fuse the token KV write into the paged decode "
                          "attention; token streams are bit-identical "
@@ -341,6 +473,10 @@ def main(argv=None):
     ap.add_argument("--prompt-len", default="8",
                     help="prompt length, or a comma list cycled over the "
                          "requests (e.g. 4,12,8)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend this many shared tokens to every prompt "
+                         "(a common system prompt; the prefix-cache "
+                         "workload)")
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--chunk", type=int, default=4,
                     help="prefill tokens per step per slot")
@@ -386,16 +522,27 @@ def main(argv=None):
             print(f"# --quant {quant} is deprecated; use --policy (mapped "
                   "through the legacy QuantConfig fields)")
         cfg = get_config(args.arch, smoke=args.smoke, quant=quant)
+    prefix_on = args.prefix_cache == "on"
+    if prefix_on and not Engine.prefix_cache_supported(cfg):
+        print("# prefix caching needs a paged pure-GQA cache; ignoring "
+              "--prefix-cache on")
+        prefix_on = False
     plens = [int(s) for s in str(args.prompt_len).split(",") if s]
-    max_seq = max(plens) + args.gen
+    max_seq = max(plens) + args.shared_prefix + args.gen
     eng = Engine(cfg, slots=args.slots, max_seq=max_seq,
                  page_size=args.page_size, num_pages=args.pages or None,
-                 rng_seed=args.seed, fused_decode=args.fused_decode == "on",
+                 rng_seed=args.seed, prefix_cache=prefix_on,
+                 fused_decode=args.fused_decode == "on",
                  telemetry=Telemetry(profile=args.profile_spans),
                  device=args.device)
     rng = np.random.default_rng(args.seed)
-    queue = [rng.integers(0, cfg.vocab, size=plens[i % len(plens)])
-             for i in range(args.requests)]
+    shared = (rng.integers(0, cfg.vocab, size=args.shared_prefix)
+              if args.shared_prefix > 0 else None)
+    queue = []
+    for i in range(args.requests):
+        tail = rng.integers(0, cfg.vocab, size=plens[i % len(plens)])
+        queue.append(tail if shared is None
+                     else np.concatenate([shared, tail]))
     arrivals = None
     if args.arrival_rate > 0:
         inter = rng.exponential(1.0 / args.arrival_rate, size=args.requests)

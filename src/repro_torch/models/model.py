@@ -1,7 +1,9 @@
 """Top-level model API of the port: init, the training loss, the paged
 cache and the paged decode/mixed steps of the serving path.
 
-Port of ``repro.models.model.Model`` for the dense GQA family.
+Port of ``repro.models.model.Model`` for the dense GQA family (qwen2,
+qwen3's qk-norm, gemma2/3's sandwich norms, embedding scale, local/global
+windows and softcaps).
 Parameters are a plain dict: ``embed`` [Vp, D], ``final_norm`` [D],
 optional ``unembed`` [D, Vp], and ``blocks``, a list of per-layer
 dicts with the reference's names (``ln1``, ``attn.wq``/``bq``/...,
@@ -37,8 +39,9 @@ def _check_supported(cfg) -> None:
             or cfg.n_experts):
         raise NotImplementedError(
             f"{cfg.name!r} (family={cfg.family!r}, attn={cfg.attn_impl!r}) "
-            "is not ported yet; the port runs dense GQA stacks "
-            "(ROADMAP.md Queue 1 items 3 and 11)")
+            "is not ported yet; the port runs dense GQA stacks (qwen2, "
+            "qwen3, gemma2, gemma3); the other families arrive with later "
+            "slices (ROADMAP.md Queue 1 item 11)")
 
 
 def params_from_jax(np_params, cfg) -> Dict[str, Any]:

@@ -1,38 +1,50 @@
 """Paged KV-cache pool: host allocator plus the device-side write helpers.
 
-Port of ``repro.serving.page_pool`` for the first slice of the port.
-Layout per attention layer (the model stacks all layers on a leading axis):
+Port of ``repro.serving.page_pool``.  Layout per attention layer (the
+model stacks all layers on a leading axis):
 
   k_pages / v_pages : [num_pages, page_size, KV, hd]   uint8 FP8 codes
   k_scale / v_scale : [num_pages]                      float32 page scales
 
 ``PagePool`` is the host-side allocator: free list, per-page reference
-counts, per-slot block tables (page ids in logical order) and a version
-counter that moves on every block-table change, so the engine uploads the
-tables at most once per mutating step.  Page 0 is the reserved null page:
-unowned block-table entries point at it and masked write lanes are
-redirected into it, where they rewrite the row they hit with its own
-codes (:func:`scatter_token_rows`): the null page keeps its initial zero
-codes and unit scale, so what a masked lane reads there is the same in the
-fused and unfused decode and on every run.  Preemption spills a slot's
-pages (:meth:`PagePool.spill_slot`; the engine copies their contents to
-the host first) and restores them into fresh ids.  The prefix-cache
-index, copy-on-write, the spill pins of shared prefix pages and chaos
-seizures of the reference pool arrive with later slices; in this one
-every non-null page is either free or owned by exactly one slot.
+counts, per-slot block tables (page ids in logical order), the prefix-cache
+index (chained token-chunk hash -> page id, with an LRU of the registered
+pages no slot references) and a version counter that moves on every
+block-table change, so the engine uploads the tables at most once per
+mutating step.  Page 0 is the reserved null page: unowned block-table
+entries point at it and masked write lanes are redirected into it, where
+they rewrite the row they hit with its own codes
+(:func:`scatter_token_rows`): the null page keeps its initial zero codes
+and unit scale, so what a masked lane reads there is the same in the fused
+and unfused decode and on every run.
+
+Every non-null page is in exactly one of four states: on the free list,
+referenced by one or more slots (``ref[pid]`` block-table references),
+parked in the prefix-cache LRU (registered content, ``ref == 0``, evicted
+oldest first when the free list runs dry), or pinned by a preemption spill
+record.  A slot writes only into a page it owns exclusively (``ref == 1``,
+unregistered, unpinned); full prompt pages are registered and then mapped
+read-only into other slots (:meth:`PagePool.share`), and a write into a
+shared page goes through :meth:`PagePool.cow_page`.  Preemption spills a
+slot's unregistered pages (the engine copies their contents to the host
+first) and pins its registered ones in place; a restore takes fresh ids
+for the former and re-references the latter.  The reference pool's chaos
+seizures and snapshot state arrive with a later slice.
 
 Per-page scales are powers of two chosen from the page's first write
 (:func:`pow2_page_scale`, integer bit arithmetic), and every float -> code
 KV write rounds stochastically with noise addressed by (layer, write
 position) — drawn by the caller with the threefry twin, so the codes equal
-the reference's bit for bit.  Device helpers update the page and scale
-tensors in place (``index_put_``) where the reference returns new arrays.
+the reference's bit for bit, and a cached page holds exactly the codes a
+request would have written itself.  Device helpers update the page and
+scale tensors in place (``index_put_``) where the reference returns new
+arrays.
 """
 from __future__ import annotations
 
 import os
-from collections import Counter
-from typing import List, Optional, Sequence, Tuple
+from collections import Counter, OrderedDict
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,10 +75,11 @@ def invariant_checks_enabled() -> bool:
 # Host-side allocator
 # --------------------------------------------------------------------------- #
 class PagePool:
-    """Free-list page allocator + refcounts + block tables.
+    """Free-list page allocator + refcounts + block tables + prefix index.
 
     The pool size is independent of the slot count.  Admission control is
-    the caller's job via :meth:`can_alloc`.
+    the caller's job via :meth:`can_alloc`; ``free_pages`` counts the pages
+    allocatable right now, the free list plus the evictable LRU.
     """
 
     def __init__(self, num_pages: int, page_size: int, slots: int,
@@ -84,20 +97,36 @@ class PagePool:
         self.pages_of: List[List[int]] = [[] for _ in range(slots)]
         # bumped on every block-table mutation (device-copy invalidation)
         self.version = 0
+        # prefix cache: chunk hash -> page id, LRU over unreferenced entries
+        self._index: Dict[str, int] = {}
+        self._page_key: Dict[int, str] = {}
+        self._lru: "OrderedDict[int, None]" = OrderedDict()
+        self._pinned: Dict[int, int] = {}  # page id -> spill-record pins
         self.peak_used_pages = 0
         self.used_page_steps = 0
         self.observed_steps = 0
         self.spills = 0
         self.restores = 0
+        self.prefix_lookups = 0  # full-page chunks probed at admission
+        self.prefix_hits = 0     # ... of which were index hits
+        self.evictions = 0
+        self.cow_copies = 0
 
     # ------------------------------------------------------------------ #
     @property
     def free_pages(self) -> int:
-        return len(self._free)
+        """Pages allocatable right now (free list + evictable LRU)."""
+        return len(self._free) + len(self._lru)
 
     @property
     def used_pages(self) -> int:
+        """Pages referenced by a slot or pinned by a spill record."""
         return (self.num_pages - 1) - self.free_pages
+
+    @property
+    def cached_pages(self) -> int:
+        """Pages registered in the prefix index (referenced or parked)."""
+        return len(self._index)
 
     def observe_step(self) -> None:
         """Record one scheduler step for the occupancy watermark stats."""
@@ -109,14 +138,28 @@ class PagePool:
             return 0.0
         return self.used_page_steps / (self.observed_steps * (self.num_pages - 1))
 
+    def prefix_stats(self) -> Dict[str, float]:
+        return dict(
+            lookups=self.prefix_lookups, hits=self.prefix_hits,
+            hit_rate=self.prefix_hits / max(self.prefix_lookups, 1),
+            cached_pages=self.cached_pages, evictions=self.evictions,
+            cow_copies=self.cow_copies,
+        )
+
     def publish_telemetry(self, tel) -> None:
-        """Publish the pool occupancy gauges into a Telemetry registry."""
+        """Publish the pool occupancy gauges and mirror the pool's
+        cumulative event counters into a Telemetry registry."""
         usable = max(self.num_pages - 1, 1)
         tel.gauge("pool_pages").set(self.num_pages - 1)
         tel.gauge("pool_free_pages").set(len(self._free))
         tel.gauge("pool_used_pages").set(self.used_pages)
+        tel.gauge("pool_cached_pages").set(len(self._lru))
         tel.gauge("pool_utilization").set(self.used_pages / usable)
-        for name, v in (("pool_spills_total", self.spills),
+        for name, v in (("pool_prefix_lookups_total", self.prefix_lookups),
+                        ("pool_prefix_hits_total", self.prefix_hits),
+                        ("pool_evictions_total", self.evictions),
+                        ("pool_cow_copies_total", self.cow_copies),
+                        ("pool_spills_total", self.spills),
                         ("pool_restores_total", self.restores)):
             tel.counter(name).value = float(v)
 
@@ -127,21 +170,36 @@ class PagePool:
         return n <= self.free_pages
 
     # ------------------------------------------------------------------ #
+    def _unregister(self, pid: int) -> None:
+        key = self._page_key.pop(pid)
+        del self._index[key]
+
     def _take_free(self, n: int) -> List[int]:
+        """Pop ``n`` page ids, evicting the LRU's oldest registered pages
+        when the free list runs dry.  Referenced and pinned pages are never
+        in the LRU, so they cannot be evicted from under their readers."""
         if n > self.free_pages:
             raise RuntimeError(
                 f"page pool exhausted: want {n}, have {self.free_pages}"
             )
+        while len(self._free) < n:
+            pid, _ = self._lru.popitem(last=False)  # least recently parked
+            self._unregister(pid)
+            self.evictions += 1
+            self._free.append(pid)
         return [self._free.pop() for _ in range(n)]
 
-    def alloc(self, slot: int, n: int = 1) -> List[int]:
-        """Allocate ``n`` exclusive pages to ``slot``, in logical order."""
-        owned = self.pages_of[slot]
-        if len(owned) + n > self.max_pages_per_slot:
+    def _check_room(self, slot: int, n: int) -> None:
+        if n > self.max_pages_per_slot:
             raise RuntimeError(
                 f"slot {slot} exceeds max_pages_per_slot="
                 f"{self.max_pages_per_slot}"
             )
+
+    def alloc(self, slot: int, n: int = 1) -> List[int]:
+        """Allocate ``n`` exclusive pages to ``slot``, in logical order."""
+        owned = self.pages_of[slot]
+        self._check_room(slot, len(owned) + n)
         ids = self._take_free(n)
         for pid in ids:
             self.ref[pid] = 1
@@ -152,17 +210,60 @@ class PagePool:
         self.peak_used_pages = max(self.peak_used_pages, self.used_pages)
         return ids
 
-    def free_slot(self, slot: int) -> None:
-        """Return every page of ``slot`` to the free list."""
-        for pid in self.pages_of[slot]:
-            self.ref[pid] -= 1
-            if self.ref[pid] < 0:
-                raise RuntimeError(f"refcount underflow on page {pid}")
-            if self.ref[pid] == 0:
+    def share(self, slot: int, ids: Sequence[int]) -> None:
+        """Map registered pages read-only into ``slot`` (appended in
+        logical order): their refcounts rise, and a page parked in the LRU
+        is revived out of it.  A write into a shared page goes through
+        :meth:`cow_page`."""
+        owned = self.pages_of[slot]
+        self._check_room(slot, len(owned) + len(ids))
+        for pid in ids:
+            if self.ref[pid] == 0 and self._pinned.get(pid, 0) == 0:
+                del self._lru[pid]  # revive from the evictable set
+            self.ref[pid] += 1
+        start = len(owned)
+        owned.extend(ids)
+        self.block_tables[slot, start:start + len(ids)] = ids
+        self.version += 1
+        self.peak_used_pages = max(self.peak_used_pages, self.used_pages)
+
+    def _release_page(self, pid: int) -> None:
+        self.ref[pid] -= 1
+        if self.ref[pid] < 0:
+            raise RuntimeError(f"refcount underflow on page {pid}")
+        if self.ref[pid] == 0 and self._pinned.get(pid, 0) == 0:
+            if pid in self._page_key:  # registered: park, newest at the back
+                self._lru[pid] = None
+            else:
                 self._free.append(pid)
+
+    def free_slot(self, slot: int) -> None:
+        """Drop ``slot``'s reference on every page it maps: unregistered
+        pages whose last reference this was return to the free list,
+        registered ones park in the LRU (still servable as prefix hits,
+        evictable)."""
+        for pid in self.pages_of[slot]:
+            self._release_page(pid)
         self.pages_of[slot] = []
         self.block_tables[slot] = 0
         self.version += 1
+
+    def cow_page(self, slot: int, logical: int) -> Tuple[int, int]:
+        """Copy-on-write: replace the shared page at logical index
+        ``logical`` of ``slot`` with a fresh exclusive page.  Returns
+        ``(old_id, new_id)``; the caller copies the page contents old ->
+        new on the device before writing into it
+        (``Engine._copy_page``)."""
+        old = self.pages_of[slot][logical]
+        new = self._take_free(1)[0]
+        self.ref[new] = 1
+        self.pages_of[slot][logical] = new
+        self.block_tables[slot, logical] = new
+        self.version += 1
+        self._release_page(old)
+        self.cow_copies += 1
+        self.peak_used_pages = max(self.peak_used_pages, self.used_pages)
+        return old, new
 
     def ensure_capacity(self, slot: int, n_tokens: int) -> None:
         """Allocate pages so ``slot`` can hold ``n_tokens`` tokens."""
@@ -173,8 +274,9 @@ class PagePool:
     def ensure_capacity_batch(self, n_tokens) -> None:
         """Grow every slot to hold ``n_tokens[slot]`` tokens in one pass
         (entry 0 or negative leaves a slot alone): one exhaustion check,
-        and one version bump, so at most one block-table upload per step.
-        Makes exactly the per-slot :meth:`ensure_capacity` loop's choices."""
+        one eviction sweep and one version bump, so at most one block-table
+        upload per step.  Makes exactly the per-slot
+        :meth:`ensure_capacity` loop's choices."""
         n_tokens = np.asarray(n_tokens, np.int64)
         if n_tokens.shape != (self.slots,):
             raise ValueError(
@@ -188,10 +290,7 @@ class PagePool:
             return
         over = np.nonzero(owned + need > self.max_pages_per_slot)[0]
         if over.size:
-            raise RuntimeError(
-                f"slot {int(over[0])} exceeds max_pages_per_slot="
-                f"{self.max_pages_per_slot}"
-            )
+            self._check_room(int(over[0]), self.max_pages_per_slot + 1)
         ids = self._take_free(total)
         self.ref[ids] = 1
         off = 0
@@ -205,33 +304,69 @@ class PagePool:
         self.version += 1
         self.peak_used_pages = max(self.peak_used_pages, self.used_pages)
 
-    def writable_mask(self) -> np.ndarray:
-        """Boolean ``[num_pages]``: may a slot write into the page (a
-        non-null page owned by exactly one slot)?"""
-        mask = self.ref == 1
-        mask[0] = False
-        return mask
+    # ------------------------------------------------------------------ #
+    # Prefix index
+    # ------------------------------------------------------------------ #
+    def match_prefix(self, keys: Sequence[str], *,
+                     peek: bool = False) -> List[int]:
+        """Longest cached prefix of ``keys`` (chained full-page hashes):
+        page ids in logical order, up to the first index miss.  ``peek``
+        skips the accounting (planning passes); otherwise
+        ``prefix_lookups`` counts the probes made (the hits and the one
+        miss that ended the walk) and ``prefix_hits`` the hits."""
+        ids: List[int] = []
+        for k in keys:
+            pid = self._index.get(k)
+            if pid is None:
+                break
+            ids.append(pid)
+        if not peek:
+            self.prefix_lookups += len(ids) + (1 if len(ids) < len(keys) else 0)
+            self.prefix_hits += len(ids)
+        return ids
+
+    def register_prefix(self, key: str, pid: int) -> bool:
+        """Publish ``pid`` (a fully written prompt page) under ``key``.
+        The first writer wins: a key already registered, or a page already
+        registered under another key, is left alone (returns False)."""
+        if key in self._index or pid in self._page_key:
+            return False
+        self._index[key] = pid
+        self._page_key[pid] = key
+        return True
 
     # ------------------------------------------------------------------ #
     # Preemption
     # ------------------------------------------------------------------ #
     def spill_plan(self, slot: int) -> Tuple[List[int], List[Tuple[int, int]]]:
         """What :meth:`spill_slot` will do: ``(spilled, pinned)``, the
-        slot's page ids in logical order (the caller copies their contents
-        out) and the ``(logical_idx, page_id)`` pairs of shared prefix
-        pages that would stay resident under a pin.  This pool has no
-        prefix index, so every page is spilled and ``pinned`` is empty."""
-        return list(self.pages_of[slot]), []
+        slot's unregistered page ids in logical order (the caller copies
+        their contents out) and the ``(logical_idx, page_id)`` pairs of its
+        registered prefix pages, which stay resident under a pin (never
+        copied, never freed)."""
+        spilled, pinned = [], []
+        for i, pid in enumerate(self.pages_of[slot]):
+            if pid in self._page_key:
+                pinned.append((i, pid))
+            else:
+                spilled.append(pid)
+        return spilled, pinned
 
     def spill_slot(self, slot: int) -> Tuple[List[int], List[Tuple[int, int]]]:
-        """Preemption: release ``slot``'s pages after the caller copied
-        their contents out; returns :meth:`spill_plan`'s pair.
+        """Preemption: release ``slot``'s pages after the caller copied the
+        spilled ones out; returns :meth:`spill_plan`'s pair.  The slot's
+        reference on each registered page becomes a pin that keeps it
+        resident and unevictable until :meth:`restore_slot` or
+        :meth:`unpin`, so a shared prompt survives its readers' preemption.
 
         The freed ids are prepended to the free list (:meth:`_take_free`
         pops from the end), so an immediate re-allocation prefers other
         pages: a restore through the same physical pages would hide
         block-table faults in tests."""
         spilled, pinned = self.spill_plan(slot)
+        for _, pid in pinned:
+            self._pinned[pid] = self._pinned.get(pid, 0) + 1
+            self.ref[pid] -= 1  # the slot's reference becomes the pin
         for pid in spilled:
             self.ref[pid] -= 1
             if self.ref[pid] != 0:
@@ -244,26 +379,42 @@ class PagePool:
         self.spills += 1
         return spilled, pinned
 
+    def _check_pins(self, pinned: Sequence[Tuple[int, int]]) -> None:
+        held = Counter(pid for _, pid in pinned)
+        for pid, n in held.items():
+            if self._pinned.get(pid, 0) < n:
+                raise RuntimeError(
+                    f"page {pid} holds {self._pinned.get(pid, 0)} spill "
+                    f"pins, the record releases {n}")
+
     def restore_slot(self, slot: int, n: int,
                      pinned: Sequence[Tuple[int, int]] = ()) -> List[int]:
         """Re-admit a preempted request into ``slot``: allocate ``n`` fresh
         pages for its spilled contents (ids may differ from the spilled
-        ones; the caller scatters the saved bytes back).  Returns the fresh
-        ids in logical order.  ``pinned`` takes a spill record's pinned
-        prefix pages, of which this pool makes none."""
+        ones; the caller scatters the saved bytes back) and re-reference
+        the pinned prefix pages at their recorded logical indices.  Returns
+        the fresh ids in the logical order of the spilled positions."""
         if self.pages_of[slot]:
             raise RuntimeError(f"restore target slot {slot} is not empty")
-        _no_pins(pinned)
-        if n > self.max_pages_per_slot:
-            raise RuntimeError(
-                f"slot {slot} exceeds max_pages_per_slot="
-                f"{self.max_pages_per_slot}"
-            )
+        total = n + len(pinned)
+        self._check_room(slot, total)
+        self._check_pins(pinned)
         fresh = self._take_free(n)
         for pid in fresh:
             self.ref[pid] = 1
-        self.pages_of[slot] = list(fresh)
-        self.block_tables[slot, :n] = fresh
+        table: List[Optional[int]] = [None] * total
+        for i, pid in pinned:
+            table[i] = pid
+            self.ref[pid] += 1  # the pin's ownership returns to the slot
+            self._pinned[pid] -= 1
+            if self._pinned[pid] == 0:
+                del self._pinned[pid]
+        it = iter(fresh)
+        for i in range(total):
+            if table[i] is None:
+                table[i] = next(it)
+        self.pages_of[slot] = list(table)
+        self.block_tables[slot, :total] = table
         self.version += 1
         self.peak_used_pages = max(self.peak_used_pages, self.used_pages)
         self.restores += 1
@@ -271,42 +422,76 @@ class PagePool:
 
     def unpin(self, pinned: Sequence[Tuple[int, int]]) -> None:
         """Drop a discarded spill record's pins (the preempted request
-        ended and will never restore).  This pool pins nothing, so the
-        record holds none."""
-        _no_pins(pinned)
+        ended and will never restore).  A page whose last pin drops with no
+        reference parks in the LRU: registered content, still servable as a
+        hit and evictable."""
+        self._check_pins(pinned)
+        for _, pid in pinned:
+            pins = self._pinned[pid]
+            if pins > 1:
+                self._pinned[pid] = pins - 1
+                continue
+            del self._pinned[pid]
+            if self.ref[pid] == 0:
+                self._lru[pid] = None
 
     # ------------------------------------------------------------------ #
+    def writable(self, pid: int) -> bool:
+        """May a slot write into ``pid``: exclusively owned (one
+        reference, no pins) and not registered in the prefix index."""
+        return (pid != 0 and self.ref[pid] == 1
+                and self._pinned.get(pid, 0) == 0
+                and pid not in self._page_key)
+
+    def writable_mask(self) -> np.ndarray:
+        """:meth:`writable` of every page, boolean ``[num_pages]``."""
+        mask = self.ref == 1
+        mask[0] = False
+        if self._pinned:
+            mask[np.fromiter(self._pinned, np.int64,
+                             count=len(self._pinned))] = False
+        if self._page_key:
+            mask[np.fromiter(self._page_key, np.int64,
+                             count=len(self._page_key))] = False
+        return mask
+
     def assert_invariants(self) -> None:
-        """Every non-null page is either free or referenced (never both),
-        and refcounts and block tables agree with the owner lists."""
+        """Every non-null page is in exactly one of: the free list,
+        referenced by a slot or pinned by a spill record, the prefix-cache
+        LRU; refcounts and block tables agree with the owner lists, and the
+        index with its inverse."""
         free_set = set(self._free)
         if len(free_set) != len(self._free):
             raise AssertionError("duplicate ids in free list")
         owners = Counter()
         for lst in self.pages_of:
             owners.update(lst)
-        if 0 in free_set or 0 in owners:
+        if 0 in free_set or 0 in owners or 0 in self._lru:
             raise AssertionError("the null page was handed out")
         for pid in range(1, self.num_pages):
-            if (pid in free_set) == (self.ref[pid] > 0):
+            pins = self._pinned.get(pid, 0)
+            states = (pid in free_set, self.ref[pid] > 0 or pins > 0,
+                      pid in self._lru)
+            if sum(states) != 1:
                 raise AssertionError(
-                    f"page {pid}: free={pid in free_set} ref={self.ref[pid]}")
+                    f"page {pid}: free={states[0]} held={states[1]} "
+                    f"lru={states[2]} (ref={self.ref[pid]}, pins={pins})")
             if self.ref[pid] != owners[pid]:
                 raise AssertionError(
                     f"page {pid}: ref={self.ref[pid]} but {owners[pid]} "
                     "block-table references")
+            if pid in self._lru and pid not in self._page_key:
+                raise AssertionError(f"page {pid}: unregistered in the LRU")
+        for key, pid in self._index.items():
+            if self._page_key.get(pid) != key:
+                raise AssertionError(f"prefix index desync on page {pid}")
+        if len(self._index) != len(self._page_key):
+            raise AssertionError("prefix index desync")
         for slot, owned in enumerate(self.pages_of):
             n = len(owned)
             if (self.block_tables[slot, :n].tolist() != owned
                     or self.block_tables[slot, n:].any()):
                 raise AssertionError(f"slot {slot}: block table desync")
-
-
-def _no_pins(pinned) -> None:
-    if len(pinned):
-        raise RuntimeError(
-            f"pinned prefix pages {list(pinned)}: this pool has no prefix "
-            "index, so no spill record can hold a pin")
 
 
 # --------------------------------------------------------------------------- #

@@ -61,9 +61,9 @@ needs ``slots``, ``pool``, ``step_chunk``, ``preempt_slot``,
 ``restore_slot``, ``release`` and the prefix-cache trio ``prefix_plan`` /
 ``admit_prefix`` / ``note_prefilled`` (see ``launch.serve.Engine``).
 
-This is the PyTorch port's verbatim copy of ``repro.serving.scheduler``.
-The port's engine has no prefix cache yet (its prefix plans are empty);
-preemption spills and restores pages as described above.
+This is the PyTorch port's verbatim copy of ``repro.serving.scheduler``;
+the port's engine implements the prefix-cache trio and the spill pins of
+shared prefix pages as described above.
 """
 from __future__ import annotations
 

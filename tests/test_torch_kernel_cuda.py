@@ -92,7 +92,10 @@ def _fused(c, impl, window=0, cap=0.0):
 
 GEOS = [dict(G=7, hd=64, page=16, fmt="e5m2"),
         dict(G=2, hd=8, page=4, fmt="e4m3"),
-        dict(G=1, hd=128, page=8, fmt="e5m2")]
+        dict(G=1, hd=128, page=8, fmt="e5m2"),
+        dict(G=2, hd=256, page=16, fmt="e5m2"),    # gemma3-12b
+        dict(G=2, hd=128, page=16, fmt="e4m3"),    # gemma2-27b
+        dict(G=5, hd=128, page=16, fmt="e5m2")]    # qwen3-14b
 
 
 @pytest.mark.parametrize("geo", GEOS, ids=lambda g: "-".join(map(str, g.values())))

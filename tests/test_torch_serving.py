@@ -102,6 +102,9 @@ def test_pool_spill_restore_differential_against_reference(seed):
 
 
 def test_pool_refuses_pins_it_cannot_hold():
+    """A slot with no registered page spills everything and pins nothing;
+    a record that names pins the pool does not hold is refused by
+    ``unpin`` and ``restore_slot``, before any state moves."""
     pool = PagePool(num_pages=5, page_size=4, slots=2, max_pages_per_slot=2)
     pool.alloc(0, 2)
     assert pool.spill_plan(0) == (pool.pages_of[0], [])
@@ -109,10 +112,11 @@ def test_pool_refuses_pins_it_cannot_hold():
     assert pinned == [] and pool.free_pages == 4
     assert pool._free[:2] == spilled
     pool.unpin(())
-    with pytest.raises(RuntimeError, match="prefix"):
+    with pytest.raises(RuntimeError, match="spill pins"):
         pool.unpin([(0, 3)])
-    with pytest.raises(RuntimeError, match="prefix"):
+    with pytest.raises(RuntimeError, match="spill pins"):
         pool.restore_slot(1, 1, [(0, 3)])
+    assert pool.free_pages == 4 and not pool.pages_of[1]
     pool.alloc(1, 1)
     with pytest.raises(RuntimeError, match="not empty"):
         pool.restore_slot(1, 1)
@@ -335,8 +339,7 @@ def test_engine_defaults_to_cuda_and_refuses_a_cpu_only_host():
         serve.Engine(cfg, slots=1, max_seq=8)
 
 
-@pytest.mark.parametrize("kw", [dict(prefix_cache=True),
-                                dict(cache_impl="dense")])
+@pytest.mark.parametrize("kw", [dict(cache_impl="dense")])
 def test_later_slice_features_raise(kw):
     with pytest.raises(NotImplementedError):
         _engine(**kw)

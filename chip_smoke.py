@@ -64,19 +64,59 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
 10. this slice's main path: full-width, full-depth gemma3-12b (48 layers,
     5 local layers of window 1,024 to each global one, qk-norm, hd 256,
     about 23.6 GB of bf16 weights drawn on the card and redrawn as in 9,
-    the embedding at 0.5 / sqrt(d_model)) served by a 4-slot Engine, page
-    16, worst-case pool: 8 requests of one shared 64-token prefix and
-    their own tails, 16 generated tokens, under serve_fp8_paged and the
-    default policy, each three times (prefix cache off with fused decode,
-    on with fused decode, on unfused): the three token streams bitwise
-    equal, at least 256 prefix hit tokens with the cache on, K1 launched
-    n_layers x sub-steps times and its other instance never;
+    the embedding at 0.5 / sqrt(d_model), the sandwich norms' output
+    gains 16 times larger so that the layers, not the last token's own
+    row, lead the tied LM head) served by a 4-slot Engine, page 16,
+    worst-case pool: 8 requests of one shared 64-token prefix and their
+    own tails, 16 generated tokens, under serve_fp8_paged and the default
+    policy, three times each (prefix cache off with fused decode, on with
+    fused decode, on unfused): the three token streams bitwise equal,
+    every stream varied (at least two distinct tokens), at least 256
+    prefix hit tokens with the cache on, K1 launched n_layers x sub-steps
+    times and its other instance never;
 11. preemption while shared: the same requests at depth 6 (the main
     path's first 6 layers), prefix on, both policies, with a worst-case
     pool and with 18 pages, where spilled slots keep their registered
     prefix pages under pins (at least one spill pins a page); the pool's
-    invariants after every step, the token streams bitwise equal;
-12. windows on the model path: gemma3-12b at full width, depth 6,
+    invariants after every step, the token streams bitwise equal and
+    varied;
+12. the bucketed scheduler at full width: gemma3-12b on the main path's
+    weights, the same 8 requests on 4 slots, under serve_fp8_paged and
+    the default policy; at full depth (8 generated tokens) on the dense
+    cache (its bytes from its layout) and on the paged cache (each
+    batched prefill's rows spliced into pages: a page's pow2 scale from
+    its whole content, the codes rescaled by the paper's integer-add
+    multiply) fused, unfused and fused again with every K1 call held to
+    its plain version on the same inputs (rtol = atol = 1e-4); at depth 6
+    (16 generated) with the prefix cache on (every admission prefills its
+    tail through ``tail_prefill``) and off, and on FP8 pages a continuous
+    and a bucketed run with deterministic KV writes.  Bitwise, on varied
+    streams: fused == unfused == the second run, and prefix on == 11's
+    continuous streams; printed: the share of equal tokens and the first
+    divergence of dense vs paged, prefix on vs off, and continuous vs
+    bucketed; K1 launched n_layers x sub-steps, never on the dense cache;
+13. the logits behind 12's printed agreements, at depth 6 in float32:
+    the first decode step after a bucketed prefill on the dense cache,
+    after one on the paged cache and after a continuous (sub-step)
+    prefill, within rtol = atol = 1e-3 on float32 pages, printed on FP8
+    pages;
+14. static FP8 weights at full width and depth: ``Engine(static_weights=
+    True)`` under serve_fp8_paged, continuous, on the main path's weights
+    as E4M3 codes (each matmul decodes its weight to bf16 first), against
+    an Engine on the decoded bf16 weights: token streams bitwise equal
+    and varied; the weight bytes on the card, the peak memory, both walls
+    and the card time of decoding one layer's weights;
+15. static weights through K2 and K3 (depth 6, policies with every
+    matmul quantized to E4M3 under ``fused_dequant`` and ``lns``), under
+    the bucketed scheduler and, for K2, the continuous one, on varied
+    streams: every K2/K3 call within 2 sqrt(K) 2^-24 sum|products| of its
+    plain version on the model's own codes (the rounding of two float32
+    sums of the same products), 7 x n_layers launches per model call of
+    the kernel under test and none of the other; each kernel's card time on one
+    layer's weights at M = 4 (decode) and M = 32 (the bucketed prefill)
+    beside the bound, the plain version and, for K2, ``torch.matmul`` on
+    decoded bf16;
+16. windows on the model path: gemma3-12b at full width, depth 6,
     float32, on FP8 and on float32 pages: a 1,040-token prompt prefilled
     through K1 (from the 1,024th token on every K1 call held to its plain
     version on the model's own inputs at rtol = atol = 1e-4), then from
@@ -85,12 +125,12 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     attention: logits within rtol = atol = 1e-3 on float32 pages, printed
     on FP8 pages (``_gate_logits``: there a code at a rounding boundary
     flips on a ~1e-6 difference and moves the logits by ~1e-3);
-13. gemma2-27b (one local and one global layer: softcaps 50 and 30) and
+17. gemma2-27b (one local and one global layer: softcaps 50 and 30) and
     qwen3-14b at full width, depth 2: float32 logits through K1 (each K1
-    call held to its plain version as in 12) and the plain attention, as
-    in 12 on both page kinds, and 4 requests on bf16 pages with fused
+    call held to its plain version as in 16) and the plain attention, as
+    in 16 on both page kinds, and 4 requests on bf16 pages with fused
     decode on and off, bitwise equal;
-14. K5 (the paper's six FP8 operations): every one of the 69 supported
+18. K5 (the paper's six FP8 operations): every one of the 69 supported
     (format, op, mode) cells over all 256 codes or 65,536 code pairs
     bitwise against the plain version, and the paper's claim on the card:
     on the exact rounding oracle's valid domain K5's codes are correctly
@@ -99,13 +139,13 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     a misaligned ragged view, bitwise; card time of e5m2 mul at both
     shapes beside the bytes bound, the plain version and the compiled
     instruction count (SASS);
-15. serves full-width qwen2-0.5b again with the SwiGLU gate product
+19. serves full-width qwen2-0.5b again with the SwiGLU gate product
     through K5 (serve_fp8_paged with elementwise e5m2; 4 requests, fused
     on and off): K5 launches = K1 launches = n_layers x sub-steps, fused
     == unfused token streams; a float32 copy's first-step logits through
     K5 and through the plain version bitwise equal; a profile of that
     path (launches per sub-step);
-16. K3 (the paper's LNS matmul): all 65,536 products of every (format,
+20. K3 (the paper's LNS matmul): all 65,536 products of every (format,
     mode) pair bitwise equal to the plain version (NaN as NaN); then K3
     (e4m3 RNE, and e5m2 ``ru``, whose planes carry x's sign) and K2 (e5m2
     x e4m3, bf16 and float32 compute) against their plain versions at the
@@ -122,7 +162,7 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     larger of its bytes over the memory rate and its 2 M K N operations
     over the dense 8-bit tensor rate; the integer route's floor and the
     plane GEMM's dense bf16 time are printed beside it;
-17. trains full-width qwen2-0.5b through the port's CLI
+21. trains full-width qwen2-0.5b through the port's CLI
     (``launch.train.main``, ``--quant fp8_lns_pallas``, batch 8 x seq 128,
     6 steps, checkpoints every 3): finite losses, 0 restarts, and K3
     launches = 2 (forward and checkpointed recompute) x 7 matmuls x 24
@@ -132,13 +172,13 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     plain versions (loss rtol 1e-4, gradient norm rtol 1e-3), for K3 and
     K2; then one profiled train step under each of the two policies
     (wall, card-busy share, K3's and K2's card time);
-18. trains 2 full-width steps under train_fp8_lns with the gate through
+22. trains 2 full-width steps under train_fp8_lns with the gate through
     K5 in e4m3 (``run_training``): finite losses, 0 restarts, 672 K3 and
     96 K5 launches (forward and recompute); then the first step of a
     float32 2-layer model through K5 and through the plain version (loss
     rtol 1e-4, gradient norm rtol 1e-3); then one profiled train step
     under that policy;
-19. K6 (flash attention) against its plain version: the CPU tests' cases
+23. K6 (flash attention) against its plain version: the CPU tests' cases
     (float32 at rtol = atol = 1e-4, bfloat16 within one bf16 ulp), the
     rows without an admissible key (sum(v) / padded key length), every
     candidate tiling of ``flash_blocks``, and the attention geometries of
@@ -151,13 +191,13 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     ``scaled_dot_product_attention`` (a yardstick the port never calls),
     the same geometry in float32 and gemma2-27b's windowed geometry in
     bf16, each with its TFLOP/s and the FLOP of the tiles it visits;
-20. K6's path: ``flash_attention`` with no tiling through the autotuner
+24. K6's path: ``flash_attention`` with no tiling through the autotuner
     on a fresh cache file (qwen2-0.5b geometry, S 2048, bf16): measured
     in bf16, cached under the card's name and ``bf16``, a ``measured``
     gauge; a second call answers
     ``cached``, launches once and is bitwise equal to the pinned tiling
     and within tolerance of the plain version;
-21. K4 (the seed LNS matmul) bitwise against its plain version at 512^3
+25. K4 (the seed LNS matmul) bitwise against its plain version at 512^3
     and at the seven matmul shapes of one qwen2-0.5b layer at M = 1024
     (the narrow ones split over k tiles), two calls bitwise equal; its
     time per layer (its kernel and, where it splits, the launch that adds
@@ -165,18 +205,22 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     both compute one function), its own SASS instructions per product
     (per FFMA), its shared loads per product and the floor they set, and
     K4 / K3 at 512^3;
-22. K4's path: 2 full-width train steps under train_fp8_lns with every
+26. K4's path: 2 full-width train steps under train_fp8_lns with every
     matmul through K4 (``run_training``): finite losses, 0 restarts, 672
     K4 launches and no K3 or K2; then the first step of a float32 2-layer
     model through K4 and through its plain version (loss rtol 1e-4,
     gradient norm rtol 1e-3);
-23. prints one JSON line of per-kernel numbers, then the card line again,
+27. prints one JSON line of per-kernel numbers, then the card line again,
     and last ``{"ok": true, "device": {...}}``.
 
 K1's numbers in the ``kernels`` line are those of gemma3-12b's geometry
 (KV 8, G 2, hd 256), its launches those of the main path's prefix-on
 fused run under serve_fp8_paged (K1's float instance: under the default
-policy); qwen2-0.5b's are printed beside them as before.
+policy); qwen2-0.5b's are printed beside them as before.  The
+``dequant_matmul_static_weights`` and ``lns_matmul_static_weights``
+entries are K2 and K3 on static weights: card time per gemma3-12b layer
+(its seven matmuls) at M = 4, launches those of phase 15, the largest
+difference from the plain version on the model's codes.
 K1's ``ms`` and ``plain_ms`` are card time per call from the profiler
 (the kernel alone; all kernels of the plain version, partials and
 combine), or from CUDA-graph
@@ -190,10 +234,10 @@ launches those of the K5 serving run; its ``max_abs_err`` is in code
 units (0: bitwise).  K4's numbers are per layer like K3's, its launches
 those of its training run, its ``max_abs_err`` 0 (bitwise, checked).
 K6 has no model path (no model calls it, as in the reference): its
-launches are those of its path through the autotuner (phase 20,
+launches are those of its path through the autotuner (phase 24,
 measurement included), its times those of qwen2-0.5b B 1 x S 8192 bf16,
 and its ``max_abs_err`` the largest float32 difference from the plain
-version in phase 19.
+version in phase 23.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line; it also exits non-zero without a GPU, or when run outside the repo.
@@ -720,6 +764,9 @@ def serve_main_path(dev, policy="serve_fp8_paged", plens=SERVE_PLENS,
 PREEMPT_PAGES = 16   # 15 usable pages against a worst case of 48
 
 
+LIVELY_POST_GAIN = 16.0   # the sandwich norms' output gains, see _lively
+
+
 def _lively(eng, seed: int = 0):
     """Redraw every parameter at std 0.5 from a seed, on the card, so that
     greedy tokens follow the context (the seed init's zero gains and 0.02
@@ -727,7 +774,15 @@ def _lively(eng, seed: int = 0):
     streams a sharp test.  Under an embedding scale (gemma) the embedding
     is redrawn at 0.5 / sqrt(d_model), so that it is 0.5 once scaled: at
     0.5 the scaled rows would drown every layer and greedy decoding would
-    repeat each prompt's last token again."""
+    repeat each prompt's last token again.  Under sandwich norms (gemma)
+    the norms' output gains 1 + s are then multiplied by
+    ``LIVELY_POST_GAIN``: with gains near 1 the last token's own row (its
+    scaled embedding in the residual) still leads the tied LM head at
+    gemma3-12b's width, at depth 6 and at depth 48 alike, and most greedy
+    streams hold a single token.  With each layer's output 16 times larger
+    the embedding's share of the residual falls 16-fold and the layers
+    lead; the final norm keeps the logits' scale, so the float32 logit
+    gates keep their meaning."""
     import torch
 
     g = torch.Generator(device=eng.device).manual_seed(seed)
@@ -743,7 +798,38 @@ def _lively(eng, seed: int = 0):
     eng.params = redraw(eng.params)
     if eng.cfg.emb_scale:
         eng.params["embed"] = eng.params["embed"] / eng.cfg.d_model**0.5
+    if eng.cfg.sandwich_norm:
+        for layer in eng.params["blocks"]:
+            for name in ("ln1_post", "ln2_post"):
+                gain = (1.0 + layer[name].float()) * LIVELY_POST_GAIN
+                layer[name] = (gain - 1.0).to(layer[name].dtype)
     return eng
+
+
+def _shallow(params, depth: int):
+    """The first ``depth`` layers of the main path's weights."""
+    return dict(params, blocks=params["blocks"][:depth])
+
+
+def _require_varied(outputs: dict, what: str,
+                    constant_share: float = 0.0) -> list:
+    """Equal token streams are a sharp test only when the streams follow
+    their context.  Every stream must change token at least once (at most
+    a share ``constant_share`` of them may hold a single token), and the
+    streams must hold at least two distinct tokens each on average.  The
+    main path's 16-token full-depth streams take the strict rule; shorter
+    or shallower runs allow a quarter, since a stream may hold one token
+    for its first 8 and turn later (gemma3-12b's bucketed FP8 streams:
+    [8, 8, 5, 1, 8, 7, 6, 8] distinct tokens at 8 generated, [15, 14, 13,
+    8, 11, 14, 12, 16] at 16).  Returns the distinct tokens per stream."""
+    distinct = [len(set(o)) for o in outputs.values()]
+    constant = sum(d == 1 for d in distinct)
+    if (constant > constant_share * len(distinct)
+            or sum(distinct) < 2 * len(distinct)):
+        raise AssertionError(f"{what}: degenerate token streams, distinct "
+                             f"tokens per stream {distinct}: the check "
+                             "would be weak")
+    return distinct
 
 
 def preemption_path(dev, policy) -> dict:
@@ -929,15 +1015,15 @@ def _prefix_engine(dev, cfg, params, **kw):
     return eng
 
 
-def _counted_run(eng, queue, gen: int) -> dict:
-    """``run_continuous`` with every K1 count set to 0 just before and
-    read just after; every step's logits checked finite and of the
+def _counted_run(eng, queue, gen: int, scheduler: str = "continuous") -> dict:
+    """``run`` under ``scheduler`` with every K1 count set to 0 just before
+    and read just after; every step's logits checked finite and of the
     vocabulary's width.  Returns the run's outputs, stats, wall, sub-steps
-    and K1 launches of each instance."""
+    and K1 launches of each instance (none on a dense cache)."""
     import numpy as np
     import torch
     from repro_torch.kernels import paged_attention as pa
-    from repro_torch.launch.serve import run_continuous
+    from repro_torch.launch.serve import run
 
     sync, vocab = eng.sync_logits, eng.cfg.vocab
 
@@ -952,7 +1038,8 @@ def _counted_run(eng, queue, gen: int) -> dict:
     pa.paged_attend.launches = 0
     pa.paged_attend.float_launches = 0
     t0 = time.perf_counter()
-    outputs, stats = run_continuous(eng, queue, gen=gen, chunk=4, quiet=True)
+    outputs, stats = run(eng, queue, gen=gen, chunk=4, quiet=True,
+                         scheduler=scheduler)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     run = dict(outputs=outputs, stats=stats, wall=wall,
@@ -968,6 +1055,12 @@ def _counted_run(eng, queue, gen: int) -> dict:
     fp8 = eng.cfg.policy.kv_quantized
     launches, other = ((run["lns"], run["flt"]) if fp8
                        else (run["flt"], run["lns"]))
+    if eng.cache_impl == "dense":
+        if launches or other:
+            raise AssertionError(f"K1 launched {launches} + {other} times "
+                                 "on the dense cache")
+        run["launches"] = 0
+        return run
     if launches != eng.cfg.n_layers * run["substeps"] or other:
         raise AssertionError(
             f"K1 {'LNS' if fp8 else 'float'} launches {launches} != "
@@ -984,11 +1077,12 @@ def prefix_main_path(dev, policy, params=None) -> dict:
     worst-case pool; 8 requests of a shared 64-token prefix and their own
     tails, 16 generated tokens each, chunk 4.  Three runs: prefix off
     with fused decode, prefix on with fused decode, prefix on unfused.
-    Gates: the three token streams bitwise equal, at least 256 prefix hit
-    tokens with the cache on (the second wave maps the 4 prefix pages), K1
-    launched n_layers x sub-steps times in every run and its other
-    instance never.  Weights: drawn on the card from seed 0, redrawn by
-    :func:`_lively` (shared by both policies' runs; returned)."""
+    Gates: the three token streams bitwise equal and each stream varied
+    (:func:`_require_varied`), at least 256 prefix hit tokens with the
+    cache on (the second wave maps the 4 prefix pages), K1 launched
+    n_layers x sub-steps times in every run and its other instance never.
+    Weights: drawn on the card from seed 0, redrawn by :func:`_lively`
+    (shared by both policies' runs; returned)."""
     import torch
     from repro_torch.configs import get_config
 
@@ -1018,14 +1112,13 @@ def prefix_main_path(dev, policy, params=None) -> dict:
         del eng
         torch.cuda.empty_cache()
     streams = [r["outputs"] for r in runs.values()]
-    if not any(len(set(o)) > 1 for o in streams[0].values()):
-        raise AssertionError("degenerate token streams: the check would be "
-                             "weak")
+    distinct = _require_varied(streams[0], f"gemma3-12b {label}")
     if streams[1] != streams[0] or streams[2] != streams[0]:
         raise AssertionError(f"gemma3-12b {label}: token streams differ with "
                              "the prefix cache on/off or fused decode on/off")
     print(f"# gemma3-12b {label}: token streams bitwise equal with the "
-          "prefix cache off, on, and on with unfused decode", flush=True)
+          "prefix cache off, on, and on with unfused decode; distinct "
+          f"tokens per stream {distinct}", flush=True)
     return dict(launches=runs[True, True]["launches"], params=params)
 
 
@@ -1037,14 +1130,16 @@ def preempt_shared_path(dev, policy, params) -> dict:
     that map registered prefix pages: those stay resident under a pin
     (at least one spill must pin a page).  ``assert_invariants`` runs after
     every step (``REPRO_CHECK_INVARIANTS=1``); the token streams equal the
-    worst-case pool's bit for bit."""
+    worst-case pool's bit for bit, and vary (:func:`_require_varied`, at
+    most a quarter of them on one token).  Returns the worst-case pool's
+    streams too: :func:`bucketed_path` holds its depth-6 runs to them."""
     import torch
     from repro_torch.configs import get_config
 
     cfg = dataclasses.replace(get_config("gemma3-12b", policy=policy),
                               n_layers=PREFIX_PREEMPT_DEPTH)
     label = _policy_label(cfg, policy)
-    shallow = dict(params, blocks=params["blocks"][:PREFIX_PREEMPT_DEPTH])
+    shallow = _shallow(params, PREFIX_PREEMPT_DEPTH)
     queue = _prefix_queue(cfg)
     saved = os.environ.get("REPRO_CHECK_INVARIANTS")
     os.environ["REPRO_CHECK_INVARIANTS"] = "1"
@@ -1087,13 +1182,17 @@ def preempt_shared_path(dev, policy, params) -> dict:
             f"{small['stats']['preemptions']}, restores "
             f"{small['stats']['restores']}, pinned pages per spill {pinned}: "
             "want 0, then >= 1 with a pinned spill")
+    distinct = _require_varied(full["outputs"], f"preempt-while-shared "
+                               f"{label}", constant_share=0.25)
     if small["outputs"] != full["outputs"]:
         raise AssertionError(f"{label}: token streams differ with "
                              "preemption while shared")
     print(f"# preempt-while-shared == worst-case pool (gemma3-12b, {label}): "
-          "token streams bitwise equal", flush=True)
+          f"token streams bitwise equal; distinct tokens per stream "
+          f"{distinct}", flush=True)
     return dict(preemptions=small["stats"]["preemptions"],
-                restores=small["stats"]["restores"], pinned=sum(pinned))
+                restores=small["stats"]["restores"], pinned=sum(pinned),
+                outputs=full["outputs"])
 
 
 def _plain_attention_policy(pol):
@@ -1145,7 +1244,8 @@ def _launch_counts():
     return pa.paged_attend.launches, pa.paged_attend.float_launches
 
 
-def _gate_logits(kern, plain, label: str, fp8: bool) -> float:
+def _gate_logits(kern, plain, label: str, fp8: bool,
+                 what: str = "K1 vs plain-attention logits") -> float:
     """K1's and the plain attention's logits: within rtol = atol = 1e-3 on
     float pages; printed on FP8 pages, where they are no gate.  There the
     query codes (RNE) and the KV writes (stochastic rounding) of every
@@ -1160,7 +1260,7 @@ def _gate_logits(kern, plain, label: str, fp8: bool) -> float:
     diff = float(np.abs(kern - plain).max())
     if not fp8:
         np.testing.assert_allclose(kern, plain, rtol=1e-3, atol=1e-3)
-    print(f"# {label}: K1 vs plain-attention logits max diff {diff:.3e} "
+    print(f"# {label}: {what} max diff {diff:.3e} "
           f"({'printed, not gated: FP8 codes' if fp8 else 'within 1e-3'})",
           flush=True)
     return diff
@@ -1308,6 +1408,588 @@ def dense_family_path(dev, arch: str) -> None:
                              "decode on/off")
     print(f"# {arch}: token streams bitwise equal with fused decode on and "
           "off", flush=True)
+
+
+# --------------------------------------------------------------------------- #
+# The bucketed scheduler, the dense cache and the prefill splice; static FP8
+# weights, decoded before each product or multiplied as codes by K2 and K3
+# --------------------------------------------------------------------------- #
+BUCKET_LOGIT_DEPTH = 6     # one whole 5:1 period, float32 parameters
+STATIC_PLENS = (5, 17, 9, 2)        # the static-weight phase's 4 requests
+STATIC_GEN = 8
+KERNEL_DEPTH = 6           # one whole 5:1 period
+# K3's runs: its plain version, which every call is held to, takes ~0.15 s
+# a layer at M = 4, so K3 runs under the bucketed scheduler alone (its
+# decode steps at M = 4, its prefill at M = 32); K2 under both
+KERNEL_SCHEDULERS = {"fused_dequant": ("continuous", "bucketed"),
+                     "lns": ("bucketed",)}
+KERNEL_PLEN = 8            # 4 prompts of one length: one prefill, M = 32
+KERNEL_GEN = 4
+BUCKET_GEN = 8             # the full-depth bucketed runs' generated tokens
+BUCKET_SHALLOW_DEPTH = 6   # the bucketed runs set against continuous ones
+# one gemma3-12b layer's seven static-weight matmuls: (K, N) -> count
+# (wq; wk and wv; wo; w_gate and w_up; w_down)
+G3_LAYER_MATMULS = {(3840, 4096): 1, (3840, 2048): 2, (4096, 3840): 1,
+                    (3840, 15360): 2, (15360, 3840): 1}
+
+
+def _agreement(a: dict, b: dict) -> tuple:
+    """Share of equal tokens of two runs' streams, and the first
+    divergence as (request, token index), or None."""
+    same = total = 0
+    first = None
+    for rid in sorted(a):
+        x, y = a[rid], b.get(rid, [])
+        for i, t in enumerate(x):
+            total += 1
+            if i < len(y) and y[i] == t:
+                same += 1
+            elif first is None:
+                first = (rid, i)
+    return same / max(total, 1), first
+
+
+def _dense_cache_bytes(cfg, slots: int, max_seq: int) -> int:
+    """The dense cache's bytes from its layout: K and V rows of every
+    layer, ``min(max_seq, window)`` of them for a local layer."""
+    item = 1 if cfg.policy.kv_quantized else 2
+    rows = sum(min(max_seq, cfg.window)
+               if cfg.window and not cfg.is_global_attn_layer(i) else max_seq
+               for i in range(cfg.n_layers))
+    return 2 * rows * slots * cfg.n_kv_heads * cfg.hd * item
+
+
+def _bucketed_first_decode_logits(dev, cfg, params, impl: str):
+    """Two prompts (lengths 9 and 5) prefilled then one decode step of the
+    same tokens, under the bucketed scheduler's calls on the ``impl``
+    cache (``prefill_batch`` then ``decode`` / ``decode_paged``) or under
+    the continuous scheduler's (``step_chunk`` sub-steps; ``impl``
+    "continuous"): the decode step's float32 logits."""
+    import numpy as np
+    from repro_torch.launch.serve import Engine
+
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in (9, 5)]
+    nxt = rng.integers(0, cfg.vocab, size=2)
+    eng = Engine(cfg, slots=2, max_seq=16, page_size=16, rng_seed=3,
+                 cache_impl="dense" if impl == "dense" else "paged",
+                 stochastic_kv=False, device=dev)
+    eng.params = params
+    pos = np.asarray([9, 5])
+    if impl == "continuous":
+        toks = np.zeros((2, 9), np.int64)
+        for i, p in enumerate(prompts):
+            toks[i, :len(p)] = p
+        eng.pool.ensure_capacity_batch(pos)
+        eng.step_chunk(toks, np.zeros(2, np.int32), pos.astype(np.int32))
+        eng.pool.ensure_capacity_batch(pos + 1)
+        return eng.step_chunk(nxt[:, None], pos.astype(np.int32),
+                              np.ones(2, np.int32))
+    for i, p in enumerate(prompts):
+        eng.prefill_batch([p], [i])
+    if impl == "dense":
+        return eng.decode(nxt, pos)
+    return eng.decode_paged(nxt, pos)
+
+
+def bucketed_logits_path(dev, policy, params) -> None:
+    """The gate behind the bucketed phase's printed token agreement: at
+    depth 6 (the main path's first 6 layers, float32), the first decode
+    step's logits after a bucketed prefill on the dense cache, after one
+    on the paged cache (the splice), and after a continuous (sub-step)
+    prefill: dense vs paged and continuous vs bucketed within rtol = atol
+    = 1e-3 on float32 pages (:func:`_gate_logits`; printed on FP8 pages,
+    where a ~1e-6 difference flips a code at a rounding boundary)."""
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("gemma3-12b", policy=policy),
+                              n_layers=BUCKET_LOGIT_DEPTH,
+                              param_dtype="float32")
+    shallow = {k: v.float() for k, v in params.items() if k != "blocks"}
+    shallow["blocks"] = [{k: (v.float() if isinstance(v, torch.Tensor)
+                              else {n: t.float() for n, t in v.items()})
+                          for k, v in layer.items()}
+                         for layer in params["blocks"][:BUCKET_LOGIT_DEPTH]]
+    got = {impl: _bucketed_first_decode_logits(dev, cfg, shallow, impl)
+           for impl in ("dense", "paged", "continuous")}
+    del shallow
+    torch.cuda.empty_cache()
+    fp8 = cfg.policy.kv_quantized
+    label = (f"gemma3-12b depth {BUCKET_LOGIT_DEPTH}, float32, "
+             f"{_policy_label(cfg, policy)}, first decode step")
+    _gate_logits(got["dense"], got["paged"], label, fp8,
+                 what="bucketed dense vs paged cache logits")
+    _gate_logits(got["continuous"], got["paged"], label, fp8,
+                 what="continuous vs bucketed (paged) logits")
+
+
+def bucketed_path(dev, policy, params, continuous) -> dict:
+    """The bucketed scheduler at full width: gemma3-12b on the main path's
+    weights and its 8 prefix-phase requests on 4 slots, page 16.  At full
+    depth, ``BUCKET_GEN`` generated tokens: on the dense cache; on the
+    paged cache (the batched prefill's rows spliced into pages) fused,
+    unfused, and fused again with every K1 call held to its plain version
+    on the same inputs (:class:`_ShadowK1`).  At depth 6 (the first 6
+    layers, one 5:1 period), 16 generated tokens as the prefix phases:
+    with the prefix cache on (every admission prefills its uncached tail
+    through ``tail_prefill``) and off; on FP8 pages also a continuous and
+    a bucketed run with deterministic KV writes.  The depth-6 runs stand
+    beside ``continuous``: :func:`preempt_shared_path`'s worst-case-pool
+    streams of the same policy (depth 6, prefix on, continuous).
+
+    Bitwise gates, on streams that vary (:func:`_require_varied`): paged
+    fused == unfused == the shadowed run; the prefix cache on ==
+    ``continuous``: both prefill through single-token sub-steps whose KV
+    rounding is addressed by position, and a slot's numerics do not
+    depend on the batch's other rows.  Also: K1 launched n_layers x
+    sub-steps and never on the dense cache; the dense cache's bytes from
+    its layout.  Printed, as the reference promises no more at this width
+    (the splice sets a page's scale from the whole page, chunked prefill
+    from its first token, and a full-sequence prefill sums in another
+    order, so a greedy token can flip): the token agreement of dense vs
+    paged, of the prefix cache on vs off (splice), and of continuous vs
+    bucketed (deterministic KV writes on FP8 pages; on float pages the
+    writes are casts), whose logits :func:`bucketed_logits_path`
+    gates."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import cache_bytes
+
+    cfg = get_config("gemma3-12b", policy=policy)
+    label = _policy_label(cfg, policy)
+    fp8 = cfg.policy.kv_quantized
+    queue = _prefix_queue(cfg)
+    shallow_cfg = dataclasses.replace(cfg, n_layers=BUCKET_SHALLOW_DEPTH)
+    shallow = _shallow(params, BUCKET_SHALLOW_DEPTH)
+    # (name, Engine keywords, depth-6, scheduler, shadowed)
+    plans = [("dense", dict(cache_impl="dense"), False, "bucketed", False),
+             ("fused", dict(), False, "bucketed", False),
+             ("unfused", dict(fused_decode=False), False, "bucketed", False),
+             ("shadowed", dict(), False, "bucketed", True),
+             ("prefix", dict(prefix_cache=True), True, "bucketed", False),
+             ("off", dict(), True, "bucketed", False)]
+    if fp8:
+        plans += [("bucketed_rne", dict(stochastic_kv=False), True,
+                   "bucketed", False),
+                  ("continuous_rne", dict(stochastic_kv=False), True,
+                   "continuous", False)]
+    runs, shadow = {}, None
+    for name, kw, shallow_run, scheduler, shadowed in plans:
+        if shallow_run:
+            eng = _prefix_engine(dev, shallow_cfg, shallow, **kw)
+            gen = PREFIX_GEN
+        else:
+            eng = _prefix_engine(dev, cfg, params, **kw)
+            gen = BUCKET_GEN
+        if shadowed:
+            with _ShadowK1() as shadow:
+                run = _counted_run(eng, queue, gen, scheduler)
+        else:
+            run = _counted_run(eng, queue, gen, scheduler)
+        st = run["stats"]
+        extra = ""
+        if name == "dense":
+            want = _dense_cache_bytes(cfg, PREFIX_SLOTS, eng.max_seq)
+            got = eng.kv_cache_bytes()
+            if got != want or cache_bytes(eng.cache) != want:
+                raise AssertionError(f"dense cache {got} B, want {want}")
+            extra = f", dense cache {got} B (= its layout's)"
+        print(f"# gemma3-12b depth {eng.cfg.n_layers} {scheduler} {label}, "
+              f"{name}: {len(queue)} requests, {gen} generated, "
+              f"{st['steps']} steps, {run['substeps']} sub-steps, "
+              f"{run['lns']} K1 LNS and {run['flt']} K1 float launches, "
+              f"{st['prefix_hit_tokens']} prefix hit tokens, "
+              f"{run['wall']:.3f} s wall, {st['decode_tok_s']:.2f} decode "
+              f"tok/s{extra}", flush=True)
+        if (st["prefix_hit_tokens"] >= 4 * PREFIX_SHARED) != (name ==
+                                                              "prefix"):
+            raise AssertionError(f"{name}: {st['prefix_hit_tokens']} prefix "
+                                 "hit tokens")
+        runs[name] = run
+        del eng
+        torch.cuda.empty_cache()
+    out = {k: r["outputs"] for k, r in runs.items()}
+    distinct = _require_varied(out["fused"], f"gemma3-12b bucketed {label}",
+                               constant_share=0.25)
+    if out["unfused"] != out["fused"] or out["shadowed"] != out["fused"]:
+        raise AssertionError(f"gemma3-12b bucketed {label}: token streams "
+                             "differ fused/unfused or between two runs")
+    print(f"# gemma3-12b bucketed {label}: paged fused == unfused == a "
+          f"second run bitwise (distinct tokens per stream {distinct}); its "
+          f"{shadow.calls} K1 calls each within {shadow.err:.3e} of the "
+          "plain version", flush=True)
+    _require_varied(out["prefix"], f"gemma3-12b bucketed prefix on {label}",
+                    constant_share=0.25)
+    if out["prefix"] != continuous:
+        raise AssertionError(f"gemma3-12b {label}: bucketed token streams "
+                             "with the prefix cache on differ from the "
+                             "continuous scheduler's")
+    hits = runs["prefix"]["stats"]["prefix_hit_tokens"]
+    print(f"# gemma3-12b depth {BUCKET_SHALLOW_DEPTH} {label}: bucketed with "
+          f"the prefix cache on ({hits} hit tokens, tail_prefill) == "
+          "continuous, token streams bitwise", flush=True)
+    pairs = [("dense vs paged (bucketed)", out["dense"], out["fused"]),
+             (f"depth {BUCKET_SHALLOW_DEPTH}, bucketed prefix cache on vs off",
+              out["prefix"], out["off"])]
+    if fp8:
+        pairs.append((f"depth {BUCKET_SHALLOW_DEPTH}, continuous vs "
+                      "bucketed, deterministic KV writes",
+                      out["continuous_rne"], out["bucketed_rne"]))
+    else:
+        pairs.append((f"depth {BUCKET_SHALLOW_DEPTH}, continuous vs "
+                      "bucketed", continuous, out["off"]))
+    for what, a, b in pairs:
+        share, first = _agreement(a, b)
+        print(f"# gemma3-12b {label}, {what}: {100 * share:.1f} % of tokens "
+              f"equal, first divergence (request, token) {first}; distinct "
+              f"tokens per stream {[len(set(o)) for o in b.values()]}",
+              flush=True)
+    return dict(launches=runs["fused"]["launches"],
+                substeps=runs["fused"]["substeps"], k1_calls=shadow.calls,
+                k1_err=shadow.err)
+
+
+def _weight_bytes(params) -> int:
+    from repro_torch.core.quant import QTensor
+
+    def walk(t):
+        if isinstance(t, dict):
+            return sum(walk(v) for v in t.values())
+        if isinstance(t, list):
+            return sum(walk(v) for v in t)
+        if isinstance(t, QTensor):
+            return walk(t.codes) + walk(t.scale)
+        return t.numel() * t.element_size()
+
+    return walk(params)
+
+
+def static_weights_path(dev, params) -> dict:
+    """Static FP8 weights at full width and depth: gemma3-12b under
+    serve_fp8_paged, continuous scheduler, prefix off, 4 requests of 5-17
+    tokens, 8 generated.  ``Engine(static_weights=True)`` serves the main
+    path's weights quantized (``quantize_params``: E4M3 codes, one scale a
+    tensor), each matmul decoding its weight to bf16 first (the
+    reference's route when matmuls are unquantized); an Engine with plain
+    bf16 weights set to ``resolve_weight`` of the same codes serves the
+    same requests.  Gate: token streams bitwise equal (the same bf16
+    product in the same order) and varied (:func:`_require_varied`).
+    Printed: the weight bytes on the card, the peak memory, both walls,
+    and the card time of decoding one layer's weights.  Consumes
+    ``params`` (its bf16 weights are dropped once quantized); returns the
+    codes for :func:`static_kernel_path`."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QTensor
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models.quantize import quantize_params, resolve_weight
+
+    cfg = get_config("gemma3-12b", policy="serve_fp8_paged")
+    rng = np.random.default_rng(6)
+    queue = [rng.integers(0, cfg.vocab, size=n) for n in STATIC_PLENS]
+    bf16_bytes = _weight_bytes(params)
+    codes = quantize_params(params, cfg.policy,
+                            period=cfg.layer_pattern_period)
+    params.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kw = dict(slots=PREFIX_SLOTS, max_seq=max(STATIC_PLENS) + STATIC_GEN,
+              page_size=16, rng_seed=0, device=dev)
+    eng = Engine(cfg, static_weights=True, **kw)
+    own = eng.params["blocks"][0]["attn"]["wq"]
+    if not isinstance(own, QTensor) or own.codes.dtype != torch.uint8:
+        raise AssertionError("Engine(static_weights=True) holds no codes")
+    eng.params = codes
+    torch.cuda.empty_cache()
+    static = _counted_run(eng, queue, STATIC_GEN)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del eng
+    torch.cuda.empty_cache()
+    plain_params = {k: resolve_weight(v) if isinstance(v, QTensor) else v
+                    for k, v in codes.items() if k != "blocks"}
+    plain_params["blocks"] = [
+        {k: ({n: resolve_weight(t) for n, t in v.items()}
+             if isinstance(v, dict) else v) for k, v in layer.items()}
+        for layer in codes["blocks"]]
+    eng = Engine(cfg, **kw)
+    eng.params = plain_params
+    plain = _counted_run(eng, queue, STATIC_GEN)
+    del eng, plain_params
+    torch.cuda.empty_cache()
+    distinct = _require_varied(static["outputs"], "static weights",
+                               constant_share=0.25)
+    if static["outputs"] != plain["outputs"]:
+        raise AssertionError("static weights: token streams differ from the "
+                             "plain bf16 engine on the decoded codes")
+    layer = codes["blocks"][0]
+    mats = [layer["attn"][n] for n in ("wq", "wk", "wv", "wo")] + \
+        [layer["ffn"][n] for n in ("w_gate", "w_up", "w_down")]
+    decode_ms, how = device_ms(lambda: [resolve_weight(q) for q in mats],
+                               iters=10)
+    qbytes = _weight_bytes(codes)
+    print(f"# gemma3-12b static weights (serve_fp8_paged, continuous, "
+          f"{len(queue)} requests, {static['substeps']} sub-steps): weights "
+          f"on the card {qbytes / 1e9:.3f} GB as codes against "
+          f"{bf16_bytes / 1e9:.3f} GB of bf16; peak memory "
+          f"{peak / 2**30:.1f} GiB; wall {static['wall']:.3f} s static "
+          f"against {plain['wall']:.3f} s on the decoded bf16 weights; "
+          f"token streams bitwise equal (distinct tokens per stream "
+          f"{distinct}); decoding one layer's 7 weights "
+          f"{decode_ms:.4f} ms of card time ({how}), "
+          f"{cfg.n_layers * decode_ms:.2f} ms a sub-step", flush=True)
+    return dict(codes=codes, decode_ms=decode_ms, wall=static["wall"],
+                plain_wall=plain["wall"], weight_bytes=qbytes,
+                bf16_bytes=bf16_bytes, peak=peak)
+
+
+def k_static_policy(impl: str):
+    """serve_fp8_paged with every matmul quantized: E4M3 activations times
+    the stored E4M3 weight codes through ``impl`` (``fused_dequant``: K2;
+    ``lns``: K3), float32 sums."""
+    from repro_torch.numerics import OpPolicy, get_policy
+
+    return get_policy("serve_fp8_paged").replace(matmul=OpPolicy(
+        fmt="e4m3", mode="rne", impl=impl, accum="f32"))
+
+
+SHADOW_SUM_LIMIT = 2.0   # x sqrt(K) 2^-24 sum|products|, see _ShadowMatmul
+
+
+class _ShadowMatmul:
+    """Within the block, every call of K2 (``dequant_matmul``) or K3
+    (``lns_product_matmul``) is also computed by its plain version on the
+    very same codes and held to its gate, element by element:
+    |kernel - plain| <= ``SHADOW_SUM_LIMIT`` sqrt(K) 2^-24 sum|products|.
+    Both sum the same exact products (K3's products themselves are held
+    bitwise by :func:`check_k3_products`) in float32 in another order; the
+    rounding of each sum grows like sqrt(K) u sum|products| (u = 2^-24;
+    the worst case 2 K u sum|products| of :func:`_sum_bound` is sqrt(K),
+    62 to 124 times, looser at these K), while one product left out or
+    counted twice is an error of the order of sum|products| / K, which
+    this limit catches at every K the model has.  The kernel's output is
+    what the model goes on with.  Counts the calls, their shapes, the
+    largest difference, its largest share of the limit and of the call's
+    largest |plain|; the launch counters stay the wrapper's."""
+
+    def __init__(self, which: str):
+        self.which = which
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import lns_matmul as lm
+
+        self.lm, self.real = lm, getattr(lm, self.which)
+        plain = (lm.dequant_matmul_plain if self.which == "dequant_matmul"
+                 else lm.lns_matmul_plain)
+        self.calls, self.err, self.shapes = 0, 0.0, {}
+        self.of_limit, self.rel = 0.0, 0.0
+
+        def shadowed(x, w, **kw):
+            out = self.real(x, w, **kw)
+            want = plain(x, w, **kw)
+            absum = plain(x & 0x7F, w & 0x7F, **kw)
+            diff = (out - want).abs()
+            limit = SHADOW_SUM_LIMIT * x.shape[1] ** 0.5 * 2.0**-24 * absum
+            if not torch.isfinite(out).all() or bool((diff > limit).any()):
+                raise AssertionError(f"{self.which} differs from its plain "
+                                     f"version at {tuple(x.shape)} x "
+                                     f"{tuple(w.shape)} beyond "
+                                     f"{SHADOW_SUM_LIMIT} sqrt(K) 2^-24 "
+                                     "sum|products|")
+            self.err = max(self.err, float(diff.max()))
+            self.of_limit = max(self.of_limit, float(
+                (diff / limit.clamp_min(torch.finfo(torch.float32).tiny))
+                .max()))
+            self.rel = max(self.rel, float(diff.max())
+                           / max(float(want.abs().max()), 1e-30))
+            self.calls += 1
+            key = (x.shape[0],) + tuple(w.shape)
+            self.shapes[key] = self.shapes.get(key, 0) + 1
+            return out
+
+        self.start = self.real.launches
+        shadowed.launches = self.start
+        setattr(lm, self.which, shadowed)
+        return self
+
+    def __exit__(self, *exc):
+        shadowed = getattr(self.lm, self.which)
+        self.real.launches += shadowed.launches - self.start
+        setattr(self.lm, self.which, self.real)
+        return False
+
+
+def _static_layer_ms(dev, layer, impl: str, M: int) -> dict:
+    """Card time of one gemma3-12b layer's seven static-weight matmuls at
+    M rows (E4M3 codes of random activations times the layer's stored
+    codes): the kernel, its plain version and, for K2, ``torch.matmul`` on
+    the decoded bf16 operands; the function's bound (its bytes: the weight
+    codes, x's codes and the float32 out, once each, over the memory rate;
+    against its 2 M K N operations at the card's dense rate, bf16 for K2's
+    float products, 8-bit for K3's) and, for K3, its R-fold plane work
+    beside it."""
+    import torch
+    from repro_torch.core.quant import quantize
+    from repro_torch.kernels import lns_matmul as lm
+    from repro_torch.kernels.common import code_to_f32, lns_plane_tables
+
+    g = torch.Generator(device=dev).manual_seed(M)
+    mats = [layer["attn"][n] for n in ("wq", "wk", "wv", "wo")] + \
+        [layer["ffn"][n] for n in ("w_gate", "w_up", "w_down")]
+    xs = [quantize(torch.randn((M, q.codes.shape[0]), generator=g,
+                               device=dev), "e4m3").codes for q in mats]
+    if impl == "fused_dequant":
+        def kern(i):
+            return lm.dequant_matmul(xs[i], mats[i].codes, fmt="e4m3",
+                                     w_fmt="e4m3",
+                                     compute_dtype=torch.float32)
+
+        def plain(i):
+            return lm.dequant_matmul_plain(xs[i], mats[i].codes, fmt="e4m3",
+                                           w_fmt="e4m3",
+                                           compute_dtype=torch.float32)
+        only = "dequant_matmul_kernel"
+    else:
+        def kern(i):
+            return lm.lns_product_matmul(xs[i], mats[i].codes, fmt="e4m3",
+                                         mode="rne")
+
+        def plain(i):
+            return lm.lns_matmul_plain(xs[i], mats[i].codes, fmt="e4m3",
+                                       mode="rne")
+        only = "lns_matmul_kernel"
+    n = len(mats)
+    ms, how = device_ms(lambda: [kern(i) for i in range(n)], iters=20,
+                        only=only)
+    plain_ms, _ = device_ms(lambda: [plain(i) for i in range(n)],
+                            iters=2 if impl == "lns" else 10, warmup=1)
+    res = dict(ms=ms, plain_ms=plain_ms, how=how, library_ms=None)
+    if impl == "fused_dequant":
+        dec = [(code_to_f32(x, "e4m3").to(torch.bfloat16),
+                code_to_f32(q.codes, "e4m3").to(torch.bfloat16))
+               for x, q in zip(xs, mats)]
+        res["library_ms"], _ = device_ms(
+            lambda: [torch.matmul(a, b) for a, b in dec], iters=20)
+    prods = sum(M * q.codes.shape[0] * q.codes.shape[1] for q in mats)
+    nbytes = sum(q.codes.numel() + M * q.codes.shape[0]
+                 + 4 * M * q.codes.shape[1] for q in mats)
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    rate = BF16_FLOP_PER_S if impl == "fused_dequant" else INT8_OPS_PER_S
+    b_ops = 2 * prods / rate * 1e3
+    res.update(bound_ms=max(b_bytes, b_ops),
+               bound_by="bytes" if b_bytes >= b_ops else "operations",
+               nbytes=nbytes, prods=prods)
+    note = ""
+    if impl == "lns":
+        R = lns_plane_tables("e4m3", "rne").R
+        note = (f"; the design's own work beside it (never the bound): "
+                f"{R} x {2 * prods} plane FLOP = "
+                f"{R * 2 * prods / BF16_FLOP_PER_S * 1e3:.5f} ms at 989 "
+                "TFLOP/s")
+    lib = ("" if res["library_ms"] is None else
+           f", torch.matmul on decoded bf16 {res['library_ms']:.5f} ms")
+    print(f"# {'K2' if impl == 'fused_dequant' else 'K3'} static weights, "
+          f"one gemma3-12b layer (7 matmuls) at M = {M}: kernel {ms:.5f} ms "
+          f"({how}), plain {plain_ms:.4f} ms{lib}; bound "
+          f"{res['bound_ms']:.5f} ms = max({nbytes} B / 3.35 TB/s = "
+          f"{b_bytes:.5f} ms, {2 * prods} operations = {b_ops:.5f} ms) -> "
+          f"{res['bound_by']} (kernel / bound "
+          f"{ms / res['bound_ms']:.1f}){note}", flush=True)
+    return res
+
+
+def static_kernel_path(dev, codes) -> dict:
+    """Static weights through K2 and K3: gemma3-12b at full width, depth 6
+    (the static phase's codes, first 6 layers), under
+    :func:`k_static_policy` for ``fused_dequant`` (K2) and ``lns`` (K3): 4
+    requests of 8 tokens, 4 generated, under the continuous scheduler
+    (every matmul at M = 4 slots; K2 only, ``KERNEL_SCHEDULERS``) and the
+    bucketed one (one batched prefill at M = 4 x 8 = 32, then decode at
+    M = 4), every K2/K3 call held to its plain version on the model's own
+    codes (:class:`_ShadowMatmul`).  Launches: 7 x n_layers per model
+    call (a sub-step or a batched prefill) of the kernel under test, none
+    of the other; the tied LM head stays a bf16 product on the embedding.
+    The streams must vary (:func:`_require_varied`, at most a quarter of
+    them on one token), so that the kernels see the model's own
+    activations.  Then each kernel alone on one layer's weights at M = 4
+    and M = 32 beside its bound (:func:`_static_layer_ms`)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Engine
+
+    rng = np.random.default_rng(7)
+    res = {}
+    shallow = _shallow(codes, KERNEL_DEPTH)
+    for impl, which in (("fused_dequant", "dequant_matmul"),
+                        ("lns", "lns_product_matmul")):
+        cfg = dataclasses.replace(
+            get_config("gemma3-12b"), numerics=k_static_policy(impl),
+            n_layers=KERNEL_DEPTH)
+        queue = [rng.integers(0, cfg.vocab, size=KERNEL_PLEN)
+                 for _ in range(PREFIX_SLOTS)]
+        streams, launches = {}, 0
+        for scheduler in KERNEL_SCHEDULERS[impl]:
+            eng = Engine(cfg, slots=PREFIX_SLOTS,
+                         max_seq=KERNEL_PLEN + KERNEL_GEN, page_size=16,
+                         rng_seed=0, device=dev)
+            eng.params = shallow
+            prefills = []
+            real_prefill = eng.prefill_batch
+
+            def counted(prompts, slots, real=real_prefill, seen=prefills):
+                seen.append(len(prompts) * len(prompts[0]))
+                return real(prompts, slots)
+
+            eng.prefill_batch = counted
+            _reset_matmul_counts()
+            with _ShadowMatmul(which) as shadow:
+                run = _counted_run(eng, queue, KERNEL_GEN, scheduler)
+            k3, k2 = _matmul_counts()
+            got, other = (k2, k3) if impl == "fused_dequant" else (k3, k2)
+            calls = run["substeps"] + len(prefills)
+            want = 7 * KERNEL_DEPTH * calls
+            print(f"# gemma3-12b depth {KERNEL_DEPTH} static weights, "
+                  f"matmul {impl}, {scheduler}: {run['substeps']} sub-steps "
+                  f"and {len(prefills)} batched prefills (M {prefills}), "
+                  f"{got} launches of the kernel under test ({other} of the "
+                  f"other), {shadow.calls} calls each within "
+                  f"{shadow.err:.3e} of the plain version ({shadow.rel:.2e} "
+                  f"of the call's max |plain|; at most {shadow.of_limit:.4f} "
+                  f"of the limit {SHADOW_SUM_LIMIT} sqrt(K) 2^-24 "
+                  f"sum|products|), at (M, K, N) "
+                  f"{sorted(shadow.shapes)}; {run['wall']:.3f} s wall",
+                  flush=True)
+            if got != want or other or shadow.calls != want:
+                raise AssertionError(f"{impl}: {got} launches ({other} of "
+                                     f"the other kernel, {shadow.calls} "
+                                     f"calls), want {want}")
+            if scheduler == "bucketed" and prefills != [
+                    PREFIX_SLOTS * KERNEL_PLEN]:
+                raise AssertionError(f"bucketed prefills {prefills}")
+            _require_varied(run["outputs"], f"static weights through {impl}, "
+                            f"{scheduler}", constant_share=0.25)
+            streams[scheduler] = run["outputs"]
+            launches += got
+            mine = res.setdefault(impl, dict(err=0.0, rel=0.0, of_limit=0.0))
+            for k in mine:
+                mine[k] = max(mine[k], getattr(shadow, k))
+            del eng
+            torch.cuda.empty_cache()
+        if "continuous" in streams:
+            share, first = _agreement(streams["continuous"],
+                                      streams["bucketed"])
+            print(f"# static weights through {impl}: continuous vs bucketed "
+                  f"{100 * share:.1f} % of tokens equal, first divergence "
+                  f"{first}; distinct tokens per stream "
+                  f"{[len(set(o)) for o in streams['bucketed'].values()]}",
+                  flush=True)
+        res[impl]["launches"] = launches
+        for M in (PREFIX_SLOTS, PREFIX_SLOTS * KERNEL_PLEN):
+            res[impl][M] = _static_layer_ms(dev, codes["blocks"][0], impl, M)
+    return res
 
 
 # --------------------------------------------------------------------------- #
@@ -2737,6 +3419,15 @@ def check_train_k4_against_plain(dev) -> None:
           f"{gp:.6f}", flush=True)
 
 
+def _phase(fn, *args, **kw):
+    """Run one phase of :func:`main` and print its wall time."""
+    t = time.perf_counter()
+    out = fn(*args, **kw)
+    print(f"# phase {fn.__name__}: {time.perf_counter() - t:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2763,52 +3454,58 @@ def main() -> int:
     print(f"# built {len(KERNEL_SOURCES)} kernel sources in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    check_tensor_cores()
-    k1 = check_k1(dev)
-    k1f = check_k1_float(dev)
-    serve_main_path(dev)
-    check_against_plain_engine(dev)
-    profile_main_path(dev)
-    serve_main_path(dev, policy=None)
-    check_against_plain_engine(dev, policy=None)
-    profile_main_path(dev, policy=None)
-    preemption_path(dev, "serve_fp8_paged")
-    preemption_path(dev, None)
-    served_prefix = prefix_main_path(dev, "serve_fp8_paged")
+    _phase(check_tensor_cores)
+    k1 = _phase(check_k1, dev)
+    k1f = _phase(check_k1_float, dev)
+    _phase(serve_main_path, dev)
+    _phase(check_against_plain_engine, dev)
+    _phase(profile_main_path, dev)
+    _phase(serve_main_path, dev, policy=None)
+    _phase(check_against_plain_engine, dev, policy=None)
+    _phase(profile_main_path, dev, policy=None)
+    _phase(preemption_path, dev, "serve_fp8_paged")
+    _phase(preemption_path, dev, None)
+    served_prefix = _phase(prefix_main_path, dev, "serve_fp8_paged")
     params = served_prefix.pop("params")
-    served_prefix_float = prefix_main_path(dev, None, params)
+    served_prefix_float = _phase(prefix_main_path, dev, None, params)
     served_prefix_float.pop("params")
-    preempt_shared_path(dev, "serve_fp8_paged", params)
-    preempt_shared_path(dev, None, params)
+    shared = _phase(preempt_shared_path, dev, "serve_fp8_paged", params)
+    shared_float = _phase(preempt_shared_path, dev, None, params)
+    _phase(bucketed_path, dev, "serve_fp8_paged", params, shared["outputs"])
+    _phase(bucketed_path, dev, None, params, shared_float["outputs"])
+    _phase(bucketed_logits_path, dev, "serve_fp8_paged", params)
+    _phase(bucketed_logits_path, dev, None, params)
+    static = _phase(static_weights_path, dev, params)  # drops the bf16
     del params
+    static_k = _phase(static_kernel_path, dev, static.pop("codes"))
     torch.cuda.empty_cache()
-    profile_main_path(dev, arch="gemma3-12b")
-    profile_main_path(dev, policy=None, arch="gemma3-12b")
-    window_path(dev)
-    dense_family_path(dev, "gemma2-27b")
-    dense_family_path(dev, "qwen3-14b")
-    check_k5_cells(dev)
-    k5 = check_k5_shapes(dev)
-    served_k5 = serve_main_path(dev, policy=k5_serve_policy(),
-                                plens=(5, 17, 9, 2), gen=8)
-    check_k5_engine_against_plain(dev)
-    profile_main_path(dev, policy=k5_serve_policy())
-    check_k3_products(dev)
-    mm = check_matmul_kernels(dev)
-    trained = train_main_path(dev)
-    trained_k2 = train_k2_path(dev)
-    check_train_against_plain(dev)
-    profile_train_step(dev)
-    profile_train_step(dev, policy=get_policy("train_fp8"))
-    train_k5_path(dev)
-    check_train_k5_against_plain(dev)
-    profile_train_step(dev, policy=k5_train_policy())
-    k6 = check_k6(dev)
-    k6.update(time_k6(dev))
-    tuned = k6_autotune_path(dev)
-    k4 = check_k4(dev, mm["k3_ms"], mm["k3_bound"])
-    trained_k4 = train_k4_path(dev)
-    check_train_k4_against_plain(dev)
+    _phase(profile_main_path, dev, arch="gemma3-12b")
+    _phase(profile_main_path, dev, policy=None, arch="gemma3-12b")
+    _phase(window_path, dev)
+    _phase(dense_family_path, dev, "gemma2-27b")
+    _phase(dense_family_path, dev, "qwen3-14b")
+    _phase(check_k5_cells, dev)
+    k5 = _phase(check_k5_shapes, dev)
+    served_k5 = _phase(serve_main_path, dev, policy=k5_serve_policy(),
+                       plens=(5, 17, 9, 2), gen=8)
+    _phase(check_k5_engine_against_plain, dev)
+    _phase(profile_main_path, dev, policy=k5_serve_policy())
+    _phase(check_k3_products, dev)
+    mm = _phase(check_matmul_kernels, dev)
+    trained = _phase(train_main_path, dev)
+    trained_k2 = _phase(train_k2_path, dev)
+    _phase(check_train_against_plain, dev)
+    _phase(profile_train_step, dev)
+    _phase(profile_train_step, dev, policy=get_policy("train_fp8"))
+    _phase(train_k5_path, dev)
+    _phase(check_train_k5_against_plain, dev)
+    _phase(profile_train_step, dev, policy=k5_train_policy())
+    k6 = _phase(check_k6, dev)
+    k6.update(_phase(time_k6, dev))
+    tuned = _phase(k6_autotune_path, dev)
+    k4 = _phase(check_k4, dev, mm["k3_ms"], mm["k3_bound"])
+    trained_k4 = _phase(train_k4_path, dev)
+    _phase(check_train_k4_against_plain, dev)
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -2861,6 +3558,17 @@ def main() -> int:
              plain_ms=k1f["plain_ms"], bound_ms=k1f["bound_ms"],
              bound_by=k1f["bound_by"], library_ms=None),
     ]
+    for impl, name, line in (("fused_dequant", "dequant_matmul", 110),
+                             ("lns", "lns_matmul", 62)):
+        k = static_k[impl]
+        m4 = k[PREFIX_SLOTS]
+        kernels.append(dict(
+            name=f"{name}_static_weights", route="cuda",
+            source=src + "lns_matmul.cu",
+            replaces=f"src/repro/kernels/lns_matmul.py:{line}",
+            launches=k["launches"], max_abs_err=k["err"], ms=m4["ms"],
+            plain_ms=m4["plain_ms"], bound_ms=m4["bound_ms"],
+            bound_by=m4["bound_by"], library_ms=m4["library_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

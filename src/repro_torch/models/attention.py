@@ -1,15 +1,19 @@
-"""GQA attention: the full-sequence forward of training and decode against
-the paged cache (serving; FP8 codes or float pages, as the policy says).
+"""GQA attention: the full-sequence forward of training and prefill, decode
+against a dense per-slot cache, and decode against the paged cache
+(serving; FP8 codes or float pages, as the policy says).
 
-Port of ``repro.models.attention._gqa_qkv``, ``gqa_forward`` and
-``gqa_decode_paged``.
+Port of ``repro.models.attention._gqa_qkv``, ``gqa_forward``,
+``gqa_decode`` and ``gqa_decode_paged``.  The dense cache holds FP8 codes
+at scale 1 when the policy quantizes the KV cache (``numerics.kv_encode``,
+RNE) and floats of the parameters' dtype otherwise.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import numerics
-from .layers import chunked_attention, qlinear, rms_norm, rope
+from .layers import (chunked_attention, decode_attention, qlinear,
+                     rms_norm, rope)
 
 
 def _gqa_qkv(p, x, cfg, positions, use_rope=True, site="blocks.*.attn"):
@@ -28,16 +32,62 @@ def _gqa_qkv(p, x, cfg, positions, use_rope=True, site="blocks.*.attn"):
     return q, k, v
 
 
+def _kv_store(x, cfg):
+    """To the dense cache's representation (scale-1 FP8 codes when the
+    policy quantizes the KV cache)."""
+    return numerics.kv_encode(x, cfg.policy)
+
+
+def _kv_load(x, cfg):
+    return numerics.kv_decode(x, cfg.policy)
+
+
 def gqa_forward(p, x, cfg, *, is_global: bool, positions,
-                site="blocks.*.attn"):
-    """Causal full-sequence self-attention (train): x [B, S, D] -> y
-    [B, S, D].  The reference also returns the layer's K/V cache entries
-    for prefill; the port's training forward has no use for them."""
+                site="blocks.*.attn", want_cache: bool = False):
+    """Causal full-sequence self-attention (train, prefill): x [B, S, D] ->
+    (y [B, S, D], the layer's dense cache entries {"k", "v"}: [B, S, KV,
+    hd] in the cache's representation, or None unless ``want_cache``)."""
     q, k, v = _gqa_qkv(p, x, cfg, positions, site=site)
     window = 0 if is_global else cfg.window
     out = chunked_attention(q, k, v, window=window, cap=cfg.attn_softcap)
     B, S = q.shape[:2]
-    return qlinear(out.reshape(B, S, -1), p["wo"], cfg.policy,
+    y = qlinear(out.reshape(B, S, -1), p["wo"], cfg.policy,
+                site=f"{site}.wo")
+    if not want_cache:
+        return y, None
+    return y, {"k": _kv_store(k, cfg), "v": _kv_store(v, cfg)}
+
+
+def gqa_decode(p, x, cfg, *, is_global: bool, cache, pos, use_rope=True,
+               site="blocks.*.attn"):
+    """GQA decode of one token per slot against the dense per-slot cache.
+
+    x: [B, 1, D]; cache: this layer's {"k", "v"} [B, W, KV, hd], updated in
+    place; pos: [B] (or scalar) positions of the new tokens.  A local layer
+    whose cache is no longer than its window is a ring buffer: the new row
+    goes to ``pos mod W`` (keys carry RoPE from their absolute position, so
+    the rows' order does not matter) and every row is admissible once
+    ``pos >= W``.  Returns y [B, 1, D]."""
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device).expand(B)
+    q, k_new, v_new = _gqa_qkv(p, x, cfg, pos[:, None], use_rope, site=site)
+    if numerics.kv_quantized(cfg.policy):
+        k_c, v_c = _kv_store(k_new, cfg), _kv_store(v_new, cfg)
+    else:
+        k_c = k_new.to(cache["k"].dtype)
+        v_c = v_new.to(cache["v"].dtype)
+    W = cache["k"].shape[1]
+    window = 0 if is_global else cfg.window
+    ring = bool(window) and W <= window
+    write = torch.remainder(pos, W) if ring else pos
+    b_ix = torch.arange(B, device=x.device)
+    cache["k"][b_ix, write] = k_c[:, 0]
+    cache["v"][b_ix, write] = v_c[:, 0]
+    out = decode_attention(q, _kv_load(cache["k"], cfg),
+                           _kv_load(cache["v"], cfg), pos=pos,
+                           window=0 if ring else window,
+                           cap=cfg.attn_softcap, ring=ring)
+    return qlinear(out.reshape(B, 1, -1), p["wo"], cfg.policy,
                    site=f"{site}.wo")
 
 

@@ -1,6 +1,8 @@
 """Model building blocks: RMSNorm, RoPE, softcap, the policy-resolved
-linear with its straight-through FP8 matmul, the gated MLP and the
-chunked online-softmax attention of the training forward.  Port of
+linear with its straight-through FP8 matmul (and static FP8 weights), the
+gated MLP, the chunked online-softmax attention of the training forward
+and prefill, and the single-position attention of dense-cache decode.
+Port of
 ``repro.models.layers``: plain functions over parameter dicts of tensors,
 with the reference's dtype behaviour (norm and rope math in float32, the
 result cast back to the input dtype)."""
@@ -15,7 +17,7 @@ from ..kernels import ops as kops
 from ..kernels.common import code_to_f32
 
 __all__ = ["rms_norm", "rope", "softcap", "qlinear", "gated_mlp",
-           "chunked_attention", "NEG_INF"]
+           "chunked_attention", "decode_attention", "NEG_INF"]
 
 
 def rms_norm(x, scale, eps=1e-6):
@@ -85,7 +87,10 @@ def _ste_qmatmul(x2d, w, act_fmt, weight_fmt, impl, act_quant=True,
 
 
 def qlinear(x, w, pol, b=None, site: str = ""):
-    """[..., D_in] @ [D_in, D_out] under the numerics policy."""
+    """[..., D_in] @ [D_in, D_out] under the numerics policy.  ``w`` may be
+    a static-quantized weight (``models.quantize``): its codes feed the
+    quantized matmul when the policy quantizes matmuls, else it is decoded
+    right before a float product (``numerics.matmul``)."""
     return numerics.matmul(x, w, pol, site=site, bias=b)
 
 
@@ -186,3 +191,38 @@ def chunked_attention(q, k, v, *, causal=True, window=0, cap=0.0,
     out = torch.stack(outs, dim=1)          # [B, nq, KV, G, q_chunk, dv]
     out = out.permute(0, 1, 4, 2, 3, 5).reshape(B, Sq, H, dv)
     return out[:, :Sq0].to(q.dtype)
+
+
+def decode_attention(q, k, v, *, pos, window=0, cap=0.0, ring=False):
+    """Single-position attention against a dense per-slot cache, in
+    float32 with a two-pass softmax.
+
+    q: [B, 1, H, hd]; k/v: [B, S, KV, hd]; ``pos``: each slot's position
+    (the index its new row was written at), a scalar or [B].  Keys at
+    ``t <= pos`` are admissible (and within ``window`` of ``pos``); a ring
+    cache (``ring=True``, a local layer's ``S = window`` rows written at
+    ``pos mod S``) admits every row once ``pos >= S``.  Returns
+    [B, 1, H, dv] in q.dtype."""
+    B, _, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    G = H // KV
+    pos = torch.as_tensor(pos, dtype=torch.int64,
+                          device=q.device).expand(B)[:, None]
+    qg = q.reshape(B, KV, G, hd).to(torch.float32)
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k.to(torch.float32)) * hd**-0.5
+    s = softcap(s, cap)
+    t = torch.arange(S, device=q.device)[None, :]
+    if ring:
+        ok = (t <= pos) | (pos >= S)
+    else:
+        ok = t <= pos
+        if window:
+            ok &= (pos - t) < window
+    s = torch.where(ok[:, None, None, :], s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    num = torch.einsum("bkgt,btkd->bkgd", p, v.to(torch.float32))
+    den = p.sum(-1, keepdim=True)
+    out = (num / torch.clamp_min(den, 1e-37)).reshape(B, 1, H, dv)
+    return out.to(q.dtype)

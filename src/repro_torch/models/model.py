@@ -1,5 +1,6 @@
-"""Top-level model API of the port: init, the training loss, the paged
-cache and the paged decode/mixed steps of the serving path.
+"""Top-level model API of the port: init, the training loss, prefill and
+dense-cache decode (the bucketed scheduler's model calls), and the paged
+cache with the paged decode/mixed steps of the serving path.
 
 Port of ``repro.models.model.Model`` for the dense GQA family (qwen2,
 qwen3's qk-norm, gemma2/3's sandwich norms, embedding scale, local/global
@@ -15,7 +16,11 @@ a torch ``Generator``.
 The paged cache is {"kp", "vp": [n_layers, P, page, KV, hd], "ks", "vs":
 [n_layers, P] float32}: uint8 FP8 codes with their page scales when the
 policy quantizes the KV cache, pages of the parameters' dtype (scales
-unread) otherwise; the steps update it in place.
+unread) otherwise; the steps update it in place.  The dense cache is one
+{"k", "v": [B, W, KV, hd]} dict per layer, scale-1 FP8 codes or floats of
+the parameters' dtype, with ``W = min(S, window)`` rows for local layers
+(a ring buffer) and ``S`` for global ones.  Static FP8 weights
+(``models.quantize``) are ``QTensor`` leaves in place of float ones.
 """
 from __future__ import annotations
 
@@ -27,7 +32,9 @@ import torch
 from .. import numerics
 from ..core import prng
 from ..serving.page_pool import kv_noise
+from ..core.quant import QTensor
 from .layers import rms_norm, softcap
+from .quantize import resolve_weight
 from .transformer import stack_decode, stack_forward
 
 NEG = -1.0e30
@@ -49,7 +56,11 @@ def params_from_jax(np_params, cfg) -> Dict[str, Any]:
     ``jax.tree.map(np.asarray, params)``) as the port's parameter dict:
     the ``[n_blocks, ...]`` leading axis of ``params["blocks"]`` is
     unstacked into one dict per layer, names kept.  CPU float tensors in
-    the leaves' dtype (bfloat16 leaves become torch bfloat16)."""
+    the leaves' dtype (bfloat16 leaves become torch bfloat16).  A
+    quantized tree (``quantize_params``: ``QTensor`` leaves with codes
+    ``[n_blocks, ...]`` and per-block scales ``[n_blocks, 1, 1]``) becomes
+    port ``QTensor`` leaves, one per layer with its block's scale as a
+    scalar."""
     def conv(a):
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":
@@ -59,6 +70,10 @@ def params_from_jax(np_params, cfg) -> Dict[str, Any]:
     def tree(t, fn):
         if isinstance(t, dict):
             return {k: tree(v, fn) for k, v in t.items()}
+        if hasattr(t, "codes") and hasattr(t, "scale"):  # a QTensor
+            return QTensor(codes=fn(t.codes),
+                           scale=fn(t.scale).to(torch.float32).reshape(()),
+                           fmt=t.fmt)
         return fn(t)
 
     period = cfg.layer_pattern_period
@@ -68,7 +83,7 @@ def params_from_jax(np_params, cfg) -> Dict[str, Any]:
     for b in range(n_blocks):
         for j in range(period):
             layers.append(tree(blocks[j], lambda a: conv(a[b])))
-    out = {k: conv(np_params[k])
+    out = {k: tree(np_params[k], conv)
            for k in ("embed", "final_norm", "unembed") if k in np_params}
     out["blocks"] = layers
     return out
@@ -131,6 +146,9 @@ class Model:
         activations); padded vocab columns are set to NEG."""
         cfg = self.cfg
         w = params.get("unembed")
+        if w is not None:
+            w = resolve_weight(
+                w, numerics.weight_format(cfg.policy, "unembed"), x.dtype)
         logits = (x @ w if w is not None else x @ params["embed"].T)
         logits = softcap(logits.to(torch.float32), cfg.final_softcap)
         if cfg.vocab_padded > cfg.vocab:
@@ -172,6 +190,53 @@ class Model:
         aux = {k: zero + v for k, v in AUX0.items()}
         loss = ce + 0.01 * aux["moe_lb"] + 1e-3 * aux["moe_z"]
         return loss, {"ce": ce, **aux}
+
+    # ------------------------------------------------------------------ #
+    def prefill(self, params, batch):
+        """Full-sequence forward of a batch of equal-length prompts
+        {"tokens" [n, S]}: the last position's logits [n, vocab_padded]
+        (float32) and one dense cache entry {"k", "v"} [n, S, KV, hd] per
+        layer, in the dense cache's representation."""
+        cfg = self.cfg
+        x, positions, _ = self._assemble_inputs(params, batch)
+        x, caches = stack_forward(params["blocks"], x, cfg,
+                                  positions=positions, mode="prefill")
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return self._unembed(params, x[:, -1]), caches
+
+    def decode_step(self, params, cache, tokens, pos):
+        """One decode step against the dense cache: tokens [B], pos a scalar
+        or [B] per-slot positions (each slot's new row).  Returns (logits
+        [B, vocab_padded] float32, the cache, updated in place)."""
+        cfg = self.cfg
+        B = tokens.shape[0]
+        pos = torch.as_tensor(pos, dtype=torch.int64,
+                              device=tokens.device).expand(B)
+        x = self._embed(params, tokens[:, None])
+        x = stack_decode(params["blocks"], cache, x, cfg, pos=pos)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return self._unembed(params, x[:, 0]), cache
+
+    def _entry_cache(self, i: int, B: int, S: int, device):
+        """Layer ``i``'s zero dense cache entry: a sliding-window layer
+        never attends past its window, so it keeps a ring buffer of
+        ``min(S, window)`` rows (keys carry RoPE from their absolute
+        position, so the rows' order does not matter)."""
+        cfg = self.cfg
+        dt = (torch.uint8 if numerics.kv_quantized(cfg.policy)
+              else cfg.pdtype)
+        S_eff = S
+        if cfg.window and not cfg.is_global_attn_layer(i):
+            S_eff = min(S, cfg.window)
+        shape = (B, S_eff, cfg.n_kv_heads, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    def make_cache(self, B: int, S: int, device=None):
+        """Zero dense decode cache of ``B`` slots and ``S`` positions: one
+        :meth:`_entry_cache` per layer."""
+        return [self._entry_cache(i, B, S, device)
+                for i in range(self.cfg.n_layers)]
 
     # ------------------------------------------------------------------ #
     def make_paged_cache(self, num_pages: int, page_size: int,

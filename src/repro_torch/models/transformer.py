@@ -1,5 +1,6 @@
 """Decoder stack of the dense GQA family: the full-sequence forward of
-training and single-token decode.
+training and prefill, and single-token decode against the dense or the
+paged cache.
 
 Port of ``repro.models.transformer.sublayer_forward``/``stack_forward``
 and ``sublayer_decode``/``stack_decode`` for the dense pattern: a Python
@@ -11,16 +12,19 @@ from __future__ import annotations
 
 from torch.utils.checkpoint import checkpoint
 
-from .attention import gqa_decode_paged, gqa_forward
+from .attention import gqa_decode, gqa_decode_paged, gqa_forward
 from .layers import gated_mlp, rms_norm
 
 
 def sublayer_forward(p, x, cfg, *, positions, is_global: bool = True,
-                     site: str = "blocks.*"):
-    """One attention + MLP sublayer over a full sequence x [B, S, D]."""
+                     site: str = "blocks.*", want_cache: bool = False):
+    """One attention + MLP sublayer over a full sequence x [B, S, D].
+    Returns the new x, or (x, the layer's dense cache entries) when
+    ``want_cache`` (prefill)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    out = gqa_forward(p["attn"], h, cfg, is_global=is_global,
-                      positions=positions, site=f"{site}.attn")
+    out, cache = gqa_forward(p["attn"], h, cfg, is_global=is_global,
+                             positions=positions, site=f"{site}.attn",
+                             want_cache=want_cache)
     if cfg.sandwich_norm:
         out = rms_norm(out, p["ln1_post"], cfg.norm_eps)
     x = x + out
@@ -28,20 +32,35 @@ def sublayer_forward(p, x, cfg, *, positions, is_global: bool = True,
     out = gated_mlp(h, p["ffn"], cfg.policy, cfg.act_fn, site=f"{site}.ffn")
     if cfg.sandwich_norm:
         out = rms_norm(out, p["ln2_post"], cfg.norm_eps)
-    return x + out
+    return (x + out, cache) if want_cache else x + out
 
 
-def stack_forward(layers, x, cfg, *, positions):
-    """Every layer over a full sequence (train).  Under the config's
+def stack_forward(layers, x, cfg, *, positions, mode: str = "train"):
+    """Every layer over a full sequence.
+
+    ``mode="train"`` returns the new x.  Under the config's
     ``remat_policy`` "minimal" (the reference's ``nothing_saveable``),
     each layer runs under ``torch.utils.checkpoint``: only its input is
     kept, and its forward, quantized matmul kernels included, runs again
-    in the backward, as under ``jax.checkpoint``."""
+    in the backward, as under ``jax.checkpoint``.  ``mode="prefill"`` runs
+    without checkpoints and returns (x, one dense cache entry {"k", "v"}
+    [B, S, KV, hd] per layer)."""
+    period = cfg.layer_pattern_period
+    if mode == "prefill":
+        caches = []
+        for i, p in enumerate(layers):
+            x, c = sublayer_forward(p, x, cfg, positions=positions,
+                                    is_global=cfg.is_global_attn_layer(i),
+                                    site=f"blocks.{i % period}",
+                                    want_cache=True)
+            caches.append(c)
+        return x, caches
+    if mode != "train":
+        raise ValueError(f"unknown mode {mode!r}")
     if cfg.remat_policy != "minimal":
         raise NotImplementedError(
             f"remat_policy {cfg.remat_policy!r} is not ported (only "
             "'minimal'); see ROADMAP.md Queue 1")
-    period = cfg.layer_pattern_period
     for i, p in enumerate(layers):
         x = checkpoint(sublayer_forward, p, x, cfg, use_reentrant=False,
                        positions=positions,
@@ -50,13 +69,18 @@ def stack_forward(layers, x, cfg, *, positions):
     return x
 
 
-def sublayer_decode(p, x, cfg, *, cache, paged, is_global: bool = True,
-                    site: str = "blocks.*"):
-    """One attention + MLP sublayer on x [B, 1, D]; the layer's page
-    tensors in ``cache`` are updated in place.  Returns the new x."""
+def sublayer_decode(p, x, cfg, *, cache, paged=None, pos=None,
+                    is_global: bool = True, site: str = "blocks.*"):
+    """One attention + MLP sublayer on x [B, 1, D]; the layer's cache
+    entries (page tensors with ``paged``, dense {"k", "v"} rows at ``pos``
+    without) are updated in place.  Returns the new x."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    out = gqa_decode_paged(p["attn"], h, cfg, is_global=is_global,
-                           cache=cache, paged=paged, site=f"{site}.attn")
+    if paged is not None and "kp" in cache:
+        out = gqa_decode_paged(p["attn"], h, cfg, is_global=is_global,
+                               cache=cache, paged=paged, site=f"{site}.attn")
+    else:
+        out = gqa_decode(p["attn"], h, cfg, is_global=is_global,
+                         cache=cache, pos=pos, site=f"{site}.attn")
     if cfg.sandwich_norm:
         out = rms_norm(out, p["ln1_post"], cfg.norm_eps)
     x = x + out
@@ -67,11 +91,20 @@ def sublayer_decode(p, x, cfg, *, cache, paged, is_global: bool = True,
     return x + out
 
 
-def stack_decode(layers, cache, x, cfg, *, paged, noise=None):
-    """Run every layer.  ``cache``: {"kp", "vp", "ks", "vs"} stacked over
-    layers on the leading axis; ``noise``: [n_layers, 2, B, KV, hd] or
-    None.  Returns the new x."""
+def stack_decode(layers, cache, x, cfg, *, paged=None, noise=None,
+                 pos=None):
+    """Run every layer.  Paged (``paged`` given): ``cache`` is {"kp", "vp",
+    "ks", "vs"} stacked over layers on the leading axis and ``noise``
+    [n_layers, 2, B, KV, hd] or None.  Dense: ``cache`` is one {"k", "v"}
+    dict per layer and ``pos`` [B] the new tokens' positions.  Returns the
+    new x."""
     period = cfg.layer_pattern_period
+    if paged is None:
+        for i, p in enumerate(layers):
+            x = sublayer_decode(p, x, cfg, cache=cache[i], pos=pos,
+                                is_global=cfg.is_global_attn_layer(i),
+                                site=f"blocks.{i % period}")
+        return x
     for i, p in enumerate(layers):
         layer_cache = {name: t[i] for name, t in cache.items()}
         layer_paged = dict(paged, noise=None if noise is None else noise[i])

@@ -12,13 +12,19 @@ from .policy import (
 )
 from .api import (
     attention,
+    dequantize_weight,
     elementwise,
+    is_quantized_weight,
+    kv_decode,
+    kv_encode,
     kv_format,
     kv_fused_write_attend,
     kv_quantized,
     kv_stochastic,
+    kv_write_prefill,
     kv_write_token,
     matmul,
+    static_matmul_2d,
     weight_format,
 )
 
@@ -31,12 +37,18 @@ __all__ = [
     "get_policy",
     "register_policy",
     "attention",
+    "dequantize_weight",
     "elementwise",
+    "is_quantized_weight",
+    "kv_decode",
+    "kv_encode",
     "kv_format",
     "kv_fused_write_attend",
     "kv_quantized",
     "kv_stochastic",
+    "kv_write_prefill",
     "kv_write_token",
     "matmul",
+    "static_matmul_2d",
     "weight_format",
 ]

@@ -4,8 +4,10 @@ Port of the part of ``repro.numerics.api`` on the serving and training
 paths: every entry point takes the value operands plus a :class:`Policy`
 and an optional ``site`` name, resolves ``(fmt, mode, impl, accum)``
 internally and dispatches to the kernels, so call sites never thread
-numeric strings.  The static-FP8-weight matmul raises until the slice
-that ports it lands.
+numeric strings.  A static FP8 weight (a ``QTensor``, or the legacy
+``{"codes", "scale"}`` dict) is decoded into the compute dtype before a
+float product, or its stored codes feed ``kernels.ops.matmul_q`` directly
+when the policy quantizes matmuls.
 """
 from __future__ import annotations
 
@@ -17,20 +19,24 @@ from .policy import SINGLE_FORMAT_IMPLS, OpPolicy, Policy
 
 __all__ = [
     "weight_format",
+    "is_quantized_weight",
+    "dequantize_weight",
+    "static_matmul_2d",
     "matmul",
     "elementwise",
     "kv_quantized",
     "kv_format",
     "kv_stochastic",
     "kv_write_token",
+    "kv_encode",
+    "kv_decode",
+    "kv_write_prefill",
     "attention",
     "kv_fused_write_attend",
 ]
 
 
-def _later(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (see ROADMAP.md Queue 1 of the port)")
+_ACCUM_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
 def weight_format(pol: Optional[Policy], site: str = "") -> Optional[str]:
@@ -40,25 +46,71 @@ def weight_format(pol: Optional[Policy], site: str = "") -> Optional[str]:
     return pol.resolve("weights", site).fmt
 
 
+def is_quantized_weight(w) -> bool:
+    from ..core.quant import QTensor
+
+    return isinstance(w, QTensor) or (isinstance(w, dict) and "codes" in w)
+
+
+def dequantize_weight(w, pol: Optional[Policy] = None,
+                      dtype=torch.bfloat16):
+    """Static-quantized weight -> ``dtype`` (a no-op for plain tensors);
+    the decode is ``models.quantize.resolve_weight``, with the policy's
+    weight format for the legacy dict carrier."""
+    if not is_quantized_weight(w):
+        return w
+    from ..models.quantize import resolve_weight
+
+    return resolve_weight(w, weight_format(pol), dtype)
+
+
+def static_matmul_2d(x2d, qw, pol: Policy, site: str = ""):
+    """[M, K] float @ a static QTensor weight -> float32 [M, N], codes end
+    to end: x is quantized per tensor in the matmul's format (the
+    weight's, when the matmul is unquantized or the impl is the
+    single-format LNS product) and multiplied against the stored codes by
+    ``kernels.ops.matmul_q``.  The one static matmul body: ``matmul``
+    calls it."""
+    from ..core.quant import quantize
+    from ..kernels import ops as kops
+
+    mp = pol.resolve("matmul", site)
+    act_fmt = mp.fmt if mp.quantized else qw.fmt
+    if mp.impl in SINGLE_FORMAT_IMPLS and act_fmt != qw.fmt:
+        act_fmt = qw.fmt  # the LNS product is single-format
+    qx = quantize(x2d, act_fmt, mode=mp.mode)
+    return kops.matmul_q(qx, qw, impl=mp.impl, mode=mp.mode,
+                         compute_dtype=_ACCUM_DTYPES[mp.accum])
+
+
 def matmul(x, w, pol: Optional[Policy], *, site: str = "", bias=None):
     """[..., K] @ [K, N] under the policy; the reference's one matmul entry
-    point for float weights: STE-quantized (activations and weights to FP8
-    codes, product by ``kernels.ops.matmul_q``) when the policy quantizes
-    weights on the fly, a plain product otherwise.  Returns [..., N] in
-    ``x.dtype``."""
-    if not isinstance(w, torch.Tensor):
-        raise _later("static FP8 weights")
-    if pol is not None and pol.ste_weights:
+    point.  ``w`` is a float tensor (STE-quantized, activations and weights
+    to FP8 codes with the product by ``kernels.ops.matmul_q``, when the
+    policy quantizes weights on the fly; a plain product otherwise) or a
+    static-quantized weight: its codes feed :func:`static_matmul_2d` when
+    the policy quantizes matmuls, else it is decoded to ``x.dtype`` and
+    multiplied.  Returns [..., N] in ``x.dtype``."""
+    shape = x.shape
+    mp = pol.resolve("matmul", site) if pol is not None else OpPolicy()
+    if is_quantized_weight(w):
+        from ..models.quantize import as_qtensor
+
+        qw = as_qtensor(w, weight_format(pol))  # the dict: the policy's format
+        if pol is not None and mp.quantized:
+            y = static_matmul_2d(x.reshape(-1, shape[-1]), qw, pol, site)
+            y = y.reshape(*shape[:-1], qw.codes.shape[-1]).to(x.dtype)
+        else:
+            y = x @ dequantize_weight(qw, pol, x.dtype)
+    elif pol is not None and pol.ste_weights:
         from ..models.layers import _ste_qmatmul
 
-        shape = x.shape
-        mp = pol.resolve("matmul", site)
         wp = pol.resolve("weights", site)
         act_fmt = mp.fmt if mp.quantized else wp.fmt
         if mp.impl in SINGLE_FORMAT_IMPLS and act_fmt != wp.fmt:
             act_fmt = wp.fmt  # the LNS product is single-format
         y = _ste_qmatmul(x.reshape(-1, shape[-1]), w, act_fmt, wp.fmt,
-                        mp.impl, mp.quantized, mp.mode, mp.accum)
+                         mp.impl, mp.quantized, mp.mode, mp.accum)
         y = y.reshape(*shape[:-1], w.shape[-1]).to(x.dtype)
     else:
         y = x @ w
@@ -144,6 +196,43 @@ def kv_write_token(pol: Optional[Policy], pages, scales, new, page_ids,
         pages, scales, new, page_ids, rows, fmt=kv_format(pol),
         mode=_kv_mode(pol, "kv_write", noise is not None), noise=noise,
         write_mask=write_mask)
+
+
+def kv_encode(x, pol: Optional[Policy], *, noise=None):
+    """float K/V -> the dense cache's representation: FP8 codes at scale 1
+    when the policy quantizes the KV cache, ``x`` itself otherwise.
+    Without ``noise`` a stochastic kv_write mode encodes RNE, as the
+    reference's dense store always has (unlike the paged writes, whose
+    fallback is the attention-read mode)."""
+    if pol is None or not pol.kv_quantized:
+        return x
+    from ..core.quant import encode
+
+    mode = pol.resolve("kv_write").mode
+    if mode == "stochastic" and noise is None:
+        mode = "rne"
+    return encode(x.to(torch.float32), pol.kv_write.fmt, mode, noise=noise)
+
+
+def kv_decode(x, pol: Optional[Policy]):
+    """The dense cache's representation -> float (bit-placement decode)."""
+    if not kv_quantized(pol):
+        return x
+    from ..kernels.common import code_to_f32
+
+    return code_to_f32(x, kv_format(pol))
+
+
+def kv_write_prefill(pol: Optional[Policy], pages, scales, src, page_ids, *,
+                     key=None):
+    """Splice one prefill row of the dense cache into fresh pages, in place
+    (see ``serving.page_pool.write_prefill_pages``); fmt/mode resolved
+    here, the rescale's mode from the policy's ``kv_rescale``."""
+    from ..serving.page_pool import write_prefill_pages
+
+    return write_prefill_pages(
+        pages, scales, src, page_ids, fmt=kv_format(pol),
+        mode=_kv_mode(pol, "kv_rescale", key is not None), key=key)
 
 
 def _attention_qk(pol: Optional[Policy], site: str):

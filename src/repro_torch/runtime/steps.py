@@ -1,4 +1,4 @@
-"""The train state and the train step: port of the training part of
+"""The train state, the train step and the serving steps: port of
 ``repro.runtime.steps``.
 
 The state is ``{"params": f32 master weights, "opt": AdamW moments and
@@ -16,7 +16,8 @@ from ..models.model import Model
 from ..optim import adamw
 from ..optim.adamw import tree_leaves, tree_map
 
-__all__ = ["make_train_state", "build_train_step"]
+__all__ = ["make_train_state", "build_train_step", "build_prefill_step",
+           "build_decode_step"]
 
 
 def make_train_state(model: Model, generator: Optional[torch.Generator] = None,
@@ -51,3 +52,21 @@ def build_train_step(model: Model, opt_cfg: adamw.OptConfig) -> Callable:
         return {"params": new_params, "opt": new_opt}, metrics
 
     return train_step
+
+
+def build_prefill_step(model: Model) -> Callable:
+    """``prefill_step(params, batch) -> (logits, caches)``
+    (:meth:`Model.prefill`)."""
+    def prefill_step(params, batch):
+        return model.prefill(params, batch)
+
+    return prefill_step
+
+
+def build_decode_step(model: Model) -> Callable:
+    """``decode_step(params, cache, tokens, pos) -> (logits, cache)``
+    (:meth:`Model.decode_step`, the dense cache updated in place)."""
+    def decode_step(params, cache, tokens, pos):
+        return model.decode_step(params, cache, tokens, pos)
+
+    return decode_step

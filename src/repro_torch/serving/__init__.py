@@ -6,7 +6,9 @@ from .page_pool import (
     invariant_checks_enabled,
     kv_noise,
     pow2_page_scale,
+    rescale_codes,
     token_row_codes,
+    write_prefill_pages,
     write_token_page,
 )
 from .scheduler import (
@@ -40,6 +42,8 @@ __all__ = [
     "invariant_checks_enabled",
     "kv_noise",
     "pow2_page_scale",
+    "rescale_codes",
     "token_row_codes",
+    "write_prefill_pages",
     "write_token_page",
 ]

@@ -32,7 +32,9 @@ for the former and re-references the latter.  The reference pool's chaos
 seizures and snapshot state arrive with a later slice.
 
 Per-page scales are powers of two chosen from the page's first write
-(:func:`pow2_page_scale`, integer bit arithmetic), and every float -> code
+(:func:`pow2_page_scale`, integer bit arithmetic) or, for a page the
+bucketed scheduler's batched prefill splices in whole
+(:func:`write_prefill_pages`), from the whole page's absmax; every float -> code
 KV write rounds stochastically with noise addressed by (layer, write
 position) — drawn by the caller with the threefry twin, so the codes equal
 the reference's bit for bit, and a cached page holds exactly the codes a
@@ -49,7 +51,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.carry_ins import supports_stochastic
 from ..core.formats import FORMATS
+from ..core.lns import lns_op
 from ..core.prng import randint
 from ..core.quant import encode, f32_bits, f32_from_bits
 
@@ -602,4 +606,72 @@ def write_token_page(pages, scales, new, page_ids, rows, *,
     scatter_token_rows(pages, page_ids, rows, codes, write_mask)
     if fmt is not None:
         scales.index_put_((page_ids,), s)
+    return pages, scales
+
+
+def _rbits(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.randint(key, shape, 0, 2, int32)``: one uniform bit an
+    element, for keys ``[..., 2]`` -> ``[..., *shape]``."""
+    return randint(key, shape, 0, 2, torch.int32)
+
+
+def rescale_codes(codes, inv_scale, fmt: str, mode: str = "stochastic",
+                  key=None):
+    """Rescale FP8 codes by ``inv_scale`` in the code domain: ``code' =
+    lns_mul(code, encode(inv_scale))``, the paper's integer-add multiply
+    (``core.lns.lns_op``).  For a power-of-two ratio (the page-scale
+    contract) every carry-in is 0 and the rescale is exact; otherwise
+    ``mode="stochastic"`` picks the RD or RU carry-in per element by one
+    bit drawn from ``key`` (a key ``[2]``, or a batch ``[..., 2]`` for the
+    leading dims of ``codes``), bit for bit the reference's draw.  E4M3
+    has no directed mul expressions: stochastic falls back to RNE."""
+    ratio = encode(torch.as_tensor(inv_scale, dtype=torch.float32), fmt,
+                   "rne")
+    ratio = torch.broadcast_to(ratio, codes.shape)
+    if mode == "stochastic" and supports_stochastic(fmt, "mul"):
+        if key is None:
+            raise ValueError("stochastic rescale needs a PRNG key")
+        lead = key.ndim - 1
+        return lns_op(fmt, "mul", "stochastic", codes, ratio,
+                      rbits=_rbits(key, codes.shape[lead:]))
+    if mode == "stochastic":
+        mode = "rne"
+    return lns_op(fmt, "mul", mode, codes, ratio)
+
+
+def write_prefill_pages(pages, scales, src, page_ids, *,
+                        fmt: Optional[str], mode: str = "stochastic",
+                        key=None):
+    """Splice a prefill cache row into freshly allocated pages, in place.
+
+    pages: [..., P, page, KV, hd]; scales: [..., P]; src: [..., S, KV, hd],
+    scale-1 FP8 codes (the dense prefill cache's representation) or float;
+    page_ids: [n_pages] with n_pages * page >= S; the leading dims (none,
+    or the stacked layers) match, and so does ``key``'s ([2] or [..., 2]).
+    Each page's scale comes from its whole content's absmax
+    (:func:`pow2_page_scale`) and the codes are rescaled to it by
+    :func:`rescale_codes`.  Float pages take ``src`` cast to their dtype.
+    Returns (pages, scales), the updated inputs."""
+    page_ids = torch.as_tensor(page_ids, dtype=torch.int64,
+                               device=pages.device)
+    n_pages = int(page_ids.shape[0])
+    page = pages.shape[-3]
+    S = src.shape[-3]
+    pad = n_pages * page - S
+    if pad:
+        src = torch.cat([src, src.new_zeros(*src.shape[:-3], pad,
+                                             *src.shape[-2:])], dim=-3)
+    srcp = src.reshape(*src.shape[:-3], n_pages, page, *src.shape[-2:])
+    lead = (slice(None),) * (pages.ndim - 4)
+    if fmt is None:
+        pages[lead + (page_ids,)] = srcp.to(pages.dtype)
+        return pages, scales
+    from ..kernels.common import code_to_f32
+
+    vals = code_to_f32(srcp, fmt)  # scale-1 decode of the dense codes
+    s = pow2_page_scale(vals.abs().amax(dim=(-3, -2, -1)), fmt)
+    codes = rescale_codes(srcp, (1.0 / s)[..., None, None, None], fmt,
+                          mode=mode, key=key)
+    pages[lead + (page_ids,)] = codes
+    scales[lead + (page_ids,)] = s
     return pages, scales

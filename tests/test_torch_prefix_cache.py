@@ -513,7 +513,7 @@ def test_prefix_cache_rejects_unsupported_configs():
                      prefix_cache=True, device="cpu")
     for arch in ("qwen2-0.5b", "qwen3-14b", "gemma2-27b", "gemma3-12b"):
         assert serve.Engine.prefix_cache_supported(get_config(arch))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="cache_impl='paged'"):
         serve.Engine(get_config("qwen2-0.5b", smoke=True), slots=1,
                      max_seq=16, cache_impl="dense", prefix_cache=True,
                      device="cpu")

@@ -80,7 +80,26 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     prefix pages under pins (at least one spill pins a page); the pool's
     invariants after every step, the token streams bitwise equal and
     varied;
-12. the bucketed scheduler at full width: gemma3-12b on the main path's
+12. fault-tolerant serving (``runtime.fault.run_serving``, this slice's
+    path): the same 8 requests at full width and depth on FP8 pages
+    (serve_fp8_paged, stochastic KV writes), prefix on, a pool of 18
+    pages, under a seeded fault plan (page exhaustion, preemption storms,
+    refcount-corruption drills, watchdog overruns) with a snapshot every
+    8 steps, deadlines and a bounded queue, and one kill at step 28,
+    restored into a freshly built engine from the snapshot of step 24,
+    which holds a PREEMPTED request: every fault kind injected, one
+    restart, every FINISHED stream bitwise equal to 10's and varied, the
+    shed and expired requests terminal, the pool clean after the
+    seizures' release, K1 launched n_layers x the sub-steps of both
+    engines, the successor's first K1 calls (on restored pages) within
+    rtol = atol = 1e-4 of the plain version; then at depth 6 on bf16
+    pages a snapshot round trip while a request is PREEMPTED (every cache
+    and spill tensor bitwise equal after a load into a fresh engine) and
+    the same chaos run, its survivors bitwise equal to 11's; printed: the
+    snapshot's bytes on disk, save and restore seconds, the chaos run's
+    wall against the fault-free run's, the fault and terminal counts and
+    the peak memory;
+13. the bucketed scheduler at full width: gemma3-12b on the main path's
     weights, the same 8 requests on 4 slots, under serve_fp8_paged and
     the default policy; at full depth (8 generated tokens) on the dense
     cache (its bytes from its layout) and on the paged cache (each
@@ -95,18 +114,18 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     continuous streams; printed: the share of equal tokens and the first
     divergence of dense vs paged, prefix on vs off, and continuous vs
     bucketed; K1 launched n_layers x sub-steps, never on the dense cache;
-13. the logits behind 12's printed agreements, at depth 6 in float32:
+14. the logits behind 13's printed agreements, at depth 6 in float32:
     the first decode step after a bucketed prefill on the dense cache,
     after one on the paged cache and after a continuous (sub-step)
     prefill, within rtol = atol = 1e-3 on float32 pages, printed on FP8
     pages;
-14. static FP8 weights at full width and depth: ``Engine(static_weights=
+15. static FP8 weights at full width and depth: ``Engine(static_weights=
     True)`` under serve_fp8_paged, continuous, on the main path's weights
     as E4M3 codes (each matmul decodes its weight to bf16 first), against
     an Engine on the decoded bf16 weights: token streams bitwise equal
     and varied; the weight bytes on the card, the peak memory, both walls
     and the card time of decoding one layer's weights;
-15. static weights through K2 and K3 (depth 6, policies with every
+16. static weights through K2 and K3 (depth 6, policies with every
     matmul quantized to E4M3 under ``fused_dequant`` and ``lns``), under
     the bucketed scheduler and, for K2, the continuous one, on varied
     streams: every K2/K3 call within 2 sqrt(K) 2^-24 sum|products| of its
@@ -116,7 +135,7 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     layer's weights at M = 4 (decode) and M = 32 (the bucketed prefill)
     beside the bound, the plain version and, for K2, ``torch.matmul`` on
     decoded bf16;
-16. windows on the model path: gemma3-12b at full width, depth 6,
+17. windows on the model path: gemma3-12b at full width, depth 6,
     float32, on FP8 and on float32 pages: a 1,040-token prompt prefilled
     through K1 (from the 1,024th token on every K1 call held to its plain
     version on the model's own inputs at rtol = atol = 1e-4), then from
@@ -125,12 +144,12 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     attention: logits within rtol = atol = 1e-3 on float32 pages, printed
     on FP8 pages (``_gate_logits``: there a code at a rounding boundary
     flips on a ~1e-6 difference and moves the logits by ~1e-3);
-17. gemma2-27b (one local and one global layer: softcaps 50 and 30) and
+18. gemma2-27b (one local and one global layer: softcaps 50 and 30) and
     qwen3-14b at full width, depth 2: float32 logits through K1 (each K1
-    call held to its plain version as in 16) and the plain attention, as
-    in 16 on both page kinds, and 4 requests on bf16 pages with fused
+    call held to its plain version as in 17) and the plain attention, as
+    in 17 on both page kinds, and 4 requests on bf16 pages with fused
     decode on and off, bitwise equal;
-18. K5 (the paper's six FP8 operations): every one of the 69 supported
+19. K5 (the paper's six FP8 operations): every one of the 69 supported
     (format, op, mode) cells over all 256 codes or 65,536 code pairs
     bitwise against the plain version, and the paper's claim on the card:
     on the exact rounding oracle's valid domain K5's codes are correctly
@@ -139,13 +158,13 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     a misaligned ragged view, bitwise; card time of e5m2 mul at both
     shapes beside the bytes bound, the plain version and the compiled
     instruction count (SASS);
-19. serves full-width qwen2-0.5b again with the SwiGLU gate product
+20. serves full-width qwen2-0.5b again with the SwiGLU gate product
     through K5 (serve_fp8_paged with elementwise e5m2; 4 requests, fused
     on and off): K5 launches = K1 launches = n_layers x sub-steps, fused
     == unfused token streams; a float32 copy's first-step logits through
     K5 and through the plain version bitwise equal; a profile of that
     path (launches per sub-step);
-20. K3 (the paper's LNS matmul): all 65,536 products of every (format,
+21. K3 (the paper's LNS matmul): all 65,536 products of every (format,
     mode) pair bitwise equal to the plain version (NaN as NaN); then K3
     (e4m3 RNE, and e5m2 ``ru``, whose planes carry x's sign) and K2 (e5m2
     x e4m3, bf16 and float32 compute) against their plain versions at the
@@ -162,7 +181,7 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     larger of its bytes over the memory rate and its 2 M K N operations
     over the dense 8-bit tensor rate; the integer route's floor and the
     plane GEMM's dense bf16 time are printed beside it;
-21. trains full-width qwen2-0.5b through the port's CLI
+22. trains full-width qwen2-0.5b through the port's CLI
     (``launch.train.main``, ``--quant fp8_lns_pallas``, batch 8 x seq 128,
     6 steps, checkpoints every 3): finite losses, 0 restarts, and K3
     launches = 2 (forward and checkpointed recompute) x 7 matmuls x 24
@@ -172,13 +191,13 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     plain versions (loss rtol 1e-4, gradient norm rtol 1e-3), for K3 and
     K2; then one profiled train step under each of the two policies
     (wall, card-busy share, K3's and K2's card time);
-22. trains 2 full-width steps under train_fp8_lns with the gate through
+23. trains 2 full-width steps under train_fp8_lns with the gate through
     K5 in e4m3 (``run_training``): finite losses, 0 restarts, 672 K3 and
     96 K5 launches (forward and recompute); then the first step of a
     float32 2-layer model through K5 and through the plain version (loss
     rtol 1e-4, gradient norm rtol 1e-3); then one profiled train step
     under that policy;
-23. K6 (flash attention) against its plain version: the CPU tests' cases
+24. K6 (flash attention) against its plain version: the CPU tests' cases
     (float32 at rtol = atol = 1e-4, bfloat16 within one bf16 ulp), the
     rows without an admissible key (sum(v) / padded key length), every
     candidate tiling of ``flash_blocks``, and the attention geometries of
@@ -191,13 +210,13 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     ``scaled_dot_product_attention`` (a yardstick the port never calls),
     the same geometry in float32 and gemma2-27b's windowed geometry in
     bf16, each with its TFLOP/s and the FLOP of the tiles it visits;
-24. K6's path: ``flash_attention`` with no tiling through the autotuner
+25. K6's path: ``flash_attention`` with no tiling through the autotuner
     on a fresh cache file (qwen2-0.5b geometry, S 2048, bf16): measured
     in bf16, cached under the card's name and ``bf16``, a ``measured``
     gauge; a second call answers
     ``cached``, launches once and is bitwise equal to the pinned tiling
     and within tolerance of the plain version;
-25. K4 (the seed LNS matmul) bitwise against its plain version at 512^3
+26. K4 (the seed LNS matmul) bitwise against its plain version at 512^3
     and at the seven matmul shapes of one qwen2-0.5b layer at M = 1024
     (the narrow ones split over k tiles), two calls bitwise equal; its
     time per layer (its kernel and, where it splits, the launch that adds
@@ -205,12 +224,12 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     both compute one function), its own SASS instructions per product
     (per FFMA), its shared loads per product and the floor they set, and
     K4 / K3 at 512^3;
-26. K4's path: 2 full-width train steps under train_fp8_lns with every
+27. K4's path: 2 full-width train steps under train_fp8_lns with every
     matmul through K4 (``run_training``): finite losses, 0 restarts, 672
     K4 launches and no K3 or K2; then the first step of a float32 2-layer
     model through K4 and through its plain version (loss rtol 1e-4,
     gradient norm rtol 1e-3);
-27. prints one JSON line of per-kernel numbers, then the card line again,
+28. prints one JSON line of per-kernel numbers, then the card line again,
     and last ``{"ok": true, "device": {...}}``.
 
 K1's numbers in the ``kernels`` line are those of gemma3-12b's geometry
@@ -219,7 +238,7 @@ fused run under serve_fp8_paged (K1's float instance: under the default
 policy); qwen2-0.5b's are printed beside them as before.  The
 ``dequant_matmul_static_weights`` and ``lns_matmul_static_weights``
 entries are K2 and K3 on static weights: card time per gemma3-12b layer
-(its seven matmuls) at M = 4, launches those of phase 15, the largest
+(its seven matmuls) at M = 4, launches those of phase 16, the largest
 difference from the plain version on the model's codes.
 K1's ``ms`` and ``plain_ms`` are card time per call from the profiler
 (the kernel alone; all kernels of the plain version, partials and
@@ -234,7 +253,7 @@ launches those of the K5 serving run; its ``max_abs_err`` is in code
 units (0: bitwise).  K4's numbers are per layer like K3's, its launches
 those of its training run, its ``max_abs_err`` 0 (bitwise, checked).
 K6 has no model path (no model calls it, as in the reference): its
-launches are those of its path through the autotuner (phase 24,
+launches are those of its path through the autotuner (phase 25,
 measurement included), its times those of qwen2-0.5b B 1 x S 8192 bf16,
 and its ``max_abs_err`` the largest float32 difference from the plain
 version in phase 23.
@@ -244,6 +263,7 @@ line; it also exits non-zero without a GPU, or when run outside the repo.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1015,6 +1035,21 @@ def _prefix_engine(dev, cfg, params, **kw):
     return eng
 
 
+@contextlib.contextmanager
+def _invariant_checks():
+    """``REPRO_CHECK_INVARIANTS=1`` within the block: the scheduler checks
+    the pool's invariants after every step."""
+    saved = os.environ.get("REPRO_CHECK_INVARIANTS")
+    os.environ["REPRO_CHECK_INVARIANTS"] = "1"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_CHECK_INVARIANTS", None)
+        else:
+            os.environ["REPRO_CHECK_INVARIANTS"] = saved
+
+
 def _counted_run(eng, queue, gen: int, scheduler: str = "continuous") -> dict:
     """``run`` under ``scheduler`` with every K1 count set to 0 just before
     and read just after; every step's logits checked finite and of the
@@ -1119,7 +1154,8 @@ def prefix_main_path(dev, policy, params=None) -> dict:
     print(f"# gemma3-12b {label}: token streams bitwise equal with the "
           "prefix cache off, on, and on with unfused decode; distinct "
           f"tokens per stream {distinct}", flush=True)
-    return dict(launches=runs[True, True]["launches"], params=params)
+    return dict(launches=runs[True, True]["launches"], params=params,
+                outputs=streams[0], wall=runs[True, True]["wall"])
 
 
 def preempt_shared_path(dev, policy, params) -> dict:
@@ -1141,10 +1177,8 @@ def preempt_shared_path(dev, policy, params) -> dict:
     label = _policy_label(cfg, policy)
     shallow = _shallow(params, PREFIX_PREEMPT_DEPTH)
     queue = _prefix_queue(cfg)
-    saved = os.environ.get("REPRO_CHECK_INVARIANTS")
-    os.environ["REPRO_CHECK_INVARIANTS"] = "1"
     runs = []
-    try:
+    with _invariant_checks():
         for pages in (None, PREFIX_PREEMPT_PAGES):
             eng = _prefix_engine(dev, cfg, shallow, prefix_cache=True,
                                  num_pages=pages)
@@ -1169,11 +1203,6 @@ def preempt_shared_path(dev, policy, params) -> dict:
             runs.append((run, pinned))
             del eng
             torch.cuda.empty_cache()
-    finally:
-        if saved is None:
-            os.environ.pop("REPRO_CHECK_INVARIANTS", None)
-        else:
-            os.environ["REPRO_CHECK_INVARIANTS"] = saved
     (full, _), (small, pinned) = runs
     if full["stats"]["preemptions"] or small["stats"]["preemptions"] < 1 \
             or small["stats"]["restores"] < 1 or not any(pinned):
@@ -1192,7 +1221,252 @@ def preempt_shared_path(dev, policy, params) -> dict:
           f"{distinct}", flush=True)
     return dict(preemptions=small["stats"]["preemptions"],
                 restores=small["stats"]["restores"], pinned=sum(pinned),
-                outputs=full["outputs"])
+                outputs=full["outputs"], wall=full["wall"])
+
+
+# --------------------------------------------------------------------------- #
+# Fault-tolerant serving: the chaos harness, crash snapshots, a kill and a
+# restore through ``runtime.fault.run_serving``
+# --------------------------------------------------------------------------- #
+CHAOS_PAGES = PREFIX_PREEMPT_PAGES   # 18 usable pages of the worst case's 28
+# BENCH_5's fault rates (benchmarks/run.py::serve_chaos); a CPU rehearsal
+# at smoke size (the scheduler's choices do not depend on width) puts the
+# kill after the snapshot of step 24, which holds a PREEMPTED request
+CHAOS_PLAN = dict(seed=1, pool_exhaustion=0.25, exhaustion_pages=2,
+                  exhaustion_hold=3, preemption_storm=0.15, corruption=0.15,
+                  overrun=0.2, kill_at_step=28)
+CHAOS_SNAPSHOT_EVERY = 8
+# the 8 requests arrive together on 4 slots: a queue of 7 sheds the newest;
+# 80 steps lie past the fault-free run's 57 and short of the last admitted
+# request's finish under chaos, which expires
+CHAOS_MAX_QUEUE = 7
+CHAOS_DEADLINE_STEPS = 80
+CHAOS_BF16_DEPTH = 6
+
+
+def _latest_snapshot(ckpt) -> dict:
+    """The latest snapshot under ``ckpt``: its step, bytes on disk and
+    PREEMPTED requests, and the snapshots on disk."""
+    import pathlib
+    from repro_torch.checkpoint import store
+
+    step = store.latest_step(ckpt)
+    d = pathlib.Path(ckpt) / f"step-{step}"
+    sched = json.loads((d / "manifest.json").read_text())[
+        "data_state"]["scheduler"]
+    return dict(step=step, bytes=sum(f.stat().st_size for f in d.iterdir()),
+                preempted=len(sched["preempted"]),
+                on_disk=len(list(pathlib.Path(ckpt).glob("step-*"))))
+
+
+def _chaos_run(dev, cfg, policy, params, base: dict) -> None:
+    """The prefix phase's 8 requests through ``run_serving`` under
+    ``CHAOS_PLAN`` (page exhaustion, preemption storms, refcount-corruption
+    drills, watchdog overruns and one kill), prefix cache on, a pool of
+    ``CHAOS_PAGES``, a snapshot every ``CHAOS_SNAPSHOT_EVERY`` steps, the
+    deadlines and queue bound above, pool invariants after every step.
+    Gates: every fault kind injected; one restart, from a snapshot with at
+    least two on disk and a PREEMPTED request in it; every FINISHED stream
+    bitwise equal to ``base["outputs"]`` (the same requests fault-free,
+    in ``base["wall"]`` seconds) and varied;
+    every other request in a terminal state, at least one shed or
+    expired; the pool clean after the seizures' release; K1 launched
+    n_layers x the sub-steps of the killed engine and its successor, its
+    other instance never; the successor's first K1 calls (its first step,
+    on the restored pages) within rtol = atol = 1e-4 of the plain version
+    (:class:`_ShadowK1`); every step's logits finite."""
+    import gc
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.runtime.fault import run_serving
+    from repro_torch.serving import FINISHED, TERMINAL_STATES, FaultPlan
+
+    label = f"gemma3-12b depth {cfg.n_layers} {_policy_label(cfg, policy)}"
+    queue = _prefix_queue(cfg)
+    engines, restored, shadows, substeps, logs = [], {}, [], [0], []
+
+    def make_engine():
+        # drop the killed engine (its wrapped methods form cycles) before
+        # its successor draws its own weights
+        successor = bool(engines)
+        engines.clear()
+        gc.collect()
+        if successor:
+            restored.update(_latest_snapshot(ckpt))
+        eng = _prefix_engine(dev, cfg, params, prefix_cache=True,
+                             num_pages=CHAOS_PAGES)
+        step_chunk, sync = eng.step_chunk, eng.sync_logits
+
+        def counted(tokens, *args, **kw):
+            substeps[0] += np.asarray(tokens).shape[1]
+            if successor and not shadows:
+                with _ShadowK1() as shadow:
+                    out = step_chunk(tokens, *args, **kw)
+                shadows.append(shadow)
+                return out
+            return step_chunk(tokens, *args, **kw)
+
+        def checked(logits):
+            host = sync(logits)
+            if host.shape[-1] != cfg.vocab or not np.isfinite(host).all():
+                raise AssertionError("non-finite or misshapen logits")
+            return host
+
+        eng.step_chunk, eng.sync_logits = counted, checked
+        engines.append(eng)
+        return eng
+
+    with _invariant_checks(), tempfile.TemporaryDirectory() as ckpt:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pa.paged_attend.launches = 0
+        pa.paged_attend.float_launches = 0
+        t0 = time.perf_counter()
+        out, stats = run_serving(
+            make_engine, queue, gen=PREFIX_GEN, chunk=4,
+            deadline_steps=CHAOS_DEADLINE_STEPS, max_queue=CHAOS_MAX_QUEUE,
+            chaos=FaultPlan(**CHAOS_PLAN), ckpt_dir=ckpt,
+            snapshot_every=CHAOS_SNAPSHOT_EVERY, step_deadline_s=3600.0,
+            log=logs.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    lns, flt = pa.paged_attend.launches, pa.paged_attend.float_launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    eng = engines[0]
+    for line in logs:
+        if "overran" not in line:
+            print(f"# {line}", flush=True)
+    tel, counts = stats["telemetry"], stats["chaos"]
+    save_h = tel.histogram("snapshot_save_seconds")
+    restore_h = tel.histogram("snapshot_restore_seconds")
+    print(f"# {label} chaos: {stats['steps']} steps, {substeps[0]} sub-steps "
+          f"over both engines, {lns} K1 LNS and {flt} K1 float launches, "
+          f"{stats['preemptions']} preemptions, faults {counts}, "
+          f"{stats['watchdog_overruns']} watchdog overruns survived, "
+          f"{stats['restarts']} restart from the snapshot of step "
+          f"{stats['restored_from']} ({restored.get('bytes')} B on disk, "
+          f"{restored.get('preempted')} PREEMPTED requests in it, "
+          f"{restored.get('on_disk')} snapshots on disk), "
+          f"{stats['snapshots']} snapshots taken; save "
+          f"{save_h.sum / max(save_h.count, 1):.4f} s mean over "
+          f"{save_h.count}, restore {restore_h.sum:.4f} s; terminal "
+          f"{stats['terminal']}; {wall:.3f} s wall against the fault-free "
+          f"run's {base['wall']:.3f} s; peak {peak:.2f} GiB", flush=True)
+    for rid, (state, reason) in sorted(stats["statuses"].items()):
+        if state != FINISHED:
+            print(f"#   request {rid}: {state} ({reason})", flush=True)
+    kinds = ("exhaustion", "storm", "corruption", "overrun", "killed")
+    if (any(counts[k] < 1 for k in kinds) or stats["restarts"] != 1
+            or stats["restored_from"] is None
+            or restored.get("step", 0) < 2 * CHAOS_SNAPSHOT_EVERY
+            or restored.get("preempted", 0) < 1):
+        raise AssertionError(f"{label}: faults {counts}, restarts "
+                             f"{stats['restarts']}, restored {restored}")
+    terminal = stats["terminal"]
+    if (not set(terminal) <= {"finished", "timed_out", "rejected"}
+            or terminal.get("finished", 0) < 1
+            or terminal.get("finished", 0) == len(queue)
+            or any(s not in TERMINAL_STATES
+                   for s, _ in stats["statuses"].values())):
+        raise AssertionError(f"{label}: terminal {terminal}, "
+                             f"statuses {stats['statuses']}")
+    if any(out[rid] != base["outputs"][rid] for rid in out):
+        raise AssertionError(f"{label}: a survivor's tokens differ from the "
+                             "fault-free run's")
+    # full-depth 16-token streams take the strict rule, shallower a quarter
+    distinct = _require_varied(out, f"{label} chaos survivors",
+                               constant_share=0.25 * (cfg.n_layers < 48))
+    if eng.pool.free_pages != eng.pool.num_pages - 1:
+        raise AssertionError(f"{label}: {eng.pool.free_pages} free pages of "
+                             f"{eng.pool.num_pages - 1} after the run")
+    eng.pool.assert_invariants()
+    launches, other = (lns, flt) if cfg.policy.kv_quantized else (flt, lns)
+    if launches != cfg.n_layers * substeps[0] or other:
+        raise AssertionError(f"{label}: K1 launches {launches} != n_layers "
+                             f"{cfg.n_layers} x sub-steps {substeps[0]}, or "
+                             f"{other} of the other instance")
+    shadow = shadows[0]
+    print(f"# {label} chaos: {len(out)} survivors bitwise equal to the "
+          f"fault-free streams (distinct tokens per stream {distinct}); the "
+          f"successor's first {shadow.calls} K1 calls within "
+          f"{shadow.err:.3e} of the plain version", flush=True)
+    engines.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _snapshot_roundtrip(dev, cfg, params) -> None:
+    """Save while a request sits PREEMPTED (the chaos pool makes the
+    scheduler spill), load into a freshly built engine: every cache tensor
+    and every spill tensor bitwise equal (``torch.equal``), the pool's
+    state equal."""
+    import tempfile
+    import torch
+    from repro_torch.serving import (ContinuousScheduler, Request,
+                                     load_snapshot, save_snapshot)
+
+    def build():
+        eng = _prefix_engine(dev, cfg, params, prefix_cache=True,
+                             num_pages=CHAOS_PAGES)
+        return eng, ContinuousScheduler(eng, chunk=4)
+
+    eng, sched = build()
+    for i, prompt in enumerate(_prefix_queue(cfg)):
+        sched.add(Request(rid=i, prompt=prompt, gen=PREFIX_GEN))
+    while not sched.preempted:
+        if not sched.pending():
+            raise AssertionError("the pool never forced a preemption")
+        sched.step()
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        save_snapshot(ckpt, eng, sched)
+        t1 = time.perf_counter()
+        eng2, sched2 = build()
+        t2 = time.perf_counter()
+        step = load_snapshot(ckpt, eng2, sched2)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        size = _latest_snapshot(ckpt)["bytes"]
+    spills = [(r.spill["state"], r2.spill["state"])
+              for r, r2 in zip(sched.preempted, sched2.preempted)]
+    if (step != sched.steps or len(spills) != len(sched.preempted)
+            or eng2.pool.state_dict() != eng.pool.state_dict()
+            or any(not torch.equal(eng2.cache[k], t)
+                   for k, t in eng.cache.items())
+            or any(a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k])
+                   for a, b in spills for k in a)):
+        raise AssertionError("snapshot round trip: restored state differs")
+    print(f"# gemma3-12b depth {cfg.n_layers} {eng.cache['kp'].dtype} pages: "
+          f"snapshot at step {step} with {len(spills)} PREEMPTED requests "
+          f"({sum(r.spill['n_pages'] for r in sched.preempted)} spilled "
+          f"pages), {size} B on disk, saved in {t1 - t0:.4f} s, loaded into "
+          f"a fresh engine in {t3 - t2:.4f} s: every cache and spill tensor "
+          "bitwise equal", flush=True)
+    del eng, eng2, sched, sched2, spills
+    torch.cuda.empty_cache()
+
+
+def chaos_path(dev, params, fp8_base: dict, bf16_base: dict) -> None:
+    """Phase: fault-tolerant serving (:func:`_chaos_run`) at gemma3-12b's
+    full width and depth on FP8 pages (serve_fp8_paged, stochastic KV
+    writes), its survivors held to :func:`prefix_main_path`'s streams
+    (``fp8_base``); then on the CLI's default bf16 pages at depth
+    ``CHAOS_BF16_DEPTH`` (the main path's first layers, cut for time as
+    :func:`preempt_shared_path`): a snapshot round trip
+    (:func:`_snapshot_roundtrip`) and the same chaos run, its survivors
+    held to :func:`preempt_shared_path`'s default-policy streams
+    (``bf16_base``)."""
+    from repro_torch.configs import get_config
+
+    _chaos_run(dev, get_config("gemma3-12b", policy="serve_fp8_paged"),
+               "serve_fp8_paged", params, fp8_base)
+    cfg = dataclasses.replace(get_config("gemma3-12b"),
+                              n_layers=CHAOS_BF16_DEPTH)
+    shallow = _shallow(params, CHAOS_BF16_DEPTH)
+    _snapshot_roundtrip(dev, cfg, shallow)
+    _chaos_run(dev, cfg, None, shallow, bf16_base)
 
 
 def _plain_attention_policy(pol):
@@ -3471,6 +3745,7 @@ def main() -> int:
     served_prefix_float.pop("params")
     shared = _phase(preempt_shared_path, dev, "serve_fp8_paged", params)
     shared_float = _phase(preempt_shared_path, dev, None, params)
+    _phase(chaos_path, dev, params, served_prefix, shared_float)
     _phase(bucketed_path, dev, "serve_fp8_paged", params, shared["outputs"])
     _phase(bucketed_path, dev, None, params, shared_float["outputs"])
     _phase(bucketed_logits_path, dev, "serve_fp8_paged", params)

@@ -1,9 +1,10 @@
-"""Atomic, asynchronous checkpointing of the train state, written with
-numpy.  Port of ``save``/``latest_step``/``restore`` of
+"""Atomic, asynchronous checkpointing, written with numpy.  Port of
+``save``/``latest_step``/``restore``/``restore_raw``/``path_key`` of
 ``repro.checkpoint.store``, with its directory layout:
 
   * leaves are keyed by their "/"-joined tree path (``params/blocks/0/
-    attn/wq``) and saved as ``.npy`` files beside a ``manifest.json``;
+    attn/wq``, :func:`path_key`) and saved as ``.npy`` files beside a
+    ``manifest.json``;
   * writes go to ``<dir>/tmp-<step>`` and are renamed to
     ``<dir>/step-<step>`` when complete, so a crash mid-write never
     corrupts the latest checkpoint; only the newest ``KEEP_LAST`` stay;
@@ -13,9 +14,14 @@ numpy.  Port of ``save``/``latest_step``/``restore`` of
   * the data-pipeline state and the step ride in the manifest, so a
     restart resumes the exact batch sequence.
 
-Leaves are tensors whose dtype numpy holds (the train state is float32
-master weights and moments plus an int32 step).  The serving snapshots'
-``restore_raw`` is not ported yet.
+Leaves keep their bits whatever their dtype: numpy has no bfloat16, so a
+bf16 leaf is saved as its 16-bit pattern (``view(torch.int16)``) with
+``"bfloat16"`` as its dtype in the manifest, and viewed back on load
+(the serving snapshots' bf16 pages and spills).  :func:`restore` loads
+into the structure of a ``like`` tree (the train state);
+:func:`restore_raw` loads without one, for the serving snapshots, whose
+tree (the preempted requests' spills) is recorded in the manifest's
+``data_state``.
 """
 from __future__ import annotations
 
@@ -23,40 +29,60 @@ import concurrent.futures
 import json
 import pathlib
 import shutil
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["save", "latest_step", "restore"]
+__all__ = ["save", "latest_step", "restore", "restore_raw", "path_key"]
 
 _EXEC = concurrent.futures.ThreadPoolExecutor(max_workers=1)
 KEEP_LAST = 3
 
 
-def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
-    """{"/"-joined path: leaf} of nested dicts/lists/tuples."""
+def path_key(path: Sequence) -> str:
+    """Canonical "/"-joined string key of one tree path (dict keys and
+    list positions): the checkpoint addressing scheme."""
+    return "/".join(str(p) for p in path)
+
+
+def _flatten(tree, path: tuple = ()) -> Dict[str, Any]:
+    """{path_key: leaf} of nested dicts/lists/tuples."""
     if isinstance(tree, dict):
         items = tree.items()
     elif isinstance(tree, (list, tuple)):
         items = enumerate(tree)
     else:
-        return {prefix: tree}
+        return {path_key(path): tree}
     flat = {}
     for k, v in items:
-        flat.update(_flatten(v, f"{prefix}/{k}" if prefix else str(k)))
+        flat.update(_flatten(v, path + (k,)))
     return flat
 
 
-def _unflatten_like(like, flat: Dict[str, Any], prefix: str = ""):
+def _unflatten_like(like, flat: Dict[str, Any], path: tuple = ()):
     if isinstance(like, dict):
-        return {k: _unflatten_like(v, flat, f"{prefix}/{k}" if prefix
-                                   else str(k)) for k, v in like.items()}
+        return {k: _unflatten_like(v, flat, path + (k,))
+                for k, v in like.items()}
     if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten_like(v, flat, f"{prefix}/{i}" if prefix
-                                          else str(i))
+        return type(like)(_unflatten_like(v, flat, path + (i,))
                           for i, v in enumerate(like))
-    return flat[prefix]
+    return flat[path_key(path)]
+
+
+def _host_array(t: torch.Tensor):
+    """(a numpy copy of ``t``'s bits, the dtype name for the manifest)."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:  # numpy has no bf16: keep its bits
+        return t.view(torch.int16).numpy(), "bfloat16"
+    arr = t.numpy()
+    return arr, str(arr.dtype)
+
+
+def _load_leaf(d: pathlib.Path, meta: dict) -> torch.Tensor:
+    """One leaf as a CPU tensor of its saved dtype, bit for bit."""
+    t = torch.from_numpy(np.load(d / meta["file"]))
+    return t.view(torch.bfloat16) if meta["dtype"] == "bfloat16" else t
 
 
 def save(ckpt_dir, state, *, step: int, data_state: Optional[dict] = None
@@ -64,7 +90,7 @@ def save(ckpt_dir, state, *, step: int, data_state: Optional[dict] = None
     """Snapshot ``state`` (a tree of tensors) at ``step``.  Returns a
     future; ``.result()`` waits until the checkpoint is on disk."""
     ckpt_dir = pathlib.Path(ckpt_dir)
-    flat = {k: v.detach().cpu().numpy() for k, v in _flatten(state).items()}
+    flat = {k: _host_array(v) for k, v in _flatten(state).items()}
 
     def _write():
         tmp = ckpt_dir / f"tmp-{step}"
@@ -74,12 +100,12 @@ def save(ckpt_dir, state, *, step: int, data_state: Optional[dict] = None
         tmp.mkdir(parents=True)
         manifest = {"step": step, "data_state": data_state or {},
                     "leaves": {}}
-        for i, (key, arr) in enumerate(sorted(flat.items())):
+        for i, (key, (arr, dtype)) in enumerate(sorted(flat.items())):
             fname = f"leaf{i:05d}.npy"
             np.save(tmp / fname, arr)
             manifest["leaves"][key] = {"file": fname,
                                        "shape": list(arr.shape),
-                                       "dtype": str(arr.dtype)}
+                                       "dtype": dtype}
         (tmp / "manifest.json").write_text(json.dumps(manifest))
         if final.exists():
             shutil.rmtree(final)
@@ -98,28 +124,39 @@ def latest_step(ckpt_dir) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def restore_raw(ckpt_dir, *, step: Optional[int] = None
+                ) -> tuple[Dict[str, torch.Tensor], dict]:
+    """Load a checkpoint (the latest, or ``step``) as ``({path_key: CPU
+    tensor}, manifest)`` without a target structure: the caller
+    reassembles what it needs from the keys and the manifest's
+    ``data_state``."""
+    ckpt_dir = pathlib.Path(ckpt_dir)
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    d = ckpt_dir / f"step-{step}"
+    manifest = json.loads((d / "manifest.json").read_text())
+    flat = {key: _load_leaf(d, meta)
+            for key, meta in manifest["leaves"].items()}
+    return flat, manifest
+
+
 def restore(ckpt_dir, like):
     """Load the latest checkpoint into the structure of ``like`` (a tree
     of tensors whose shapes, dtypes and devices the loaded leaves take).
     Returns (state, step, data_state)."""
-    ckpt_dir = pathlib.Path(ckpt_dir)
-    step = latest_step(ckpt_dir)
-    if step is None:
-        raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
-    d = ckpt_dir / f"step-{step}"
-    manifest = json.loads((d / "manifest.json").read_text())
+    flat, manifest = restore_raw(ckpt_dir)
     flat_like = _flatten(like)
     loaded = {}
-    for key, meta in manifest["leaves"].items():
+    for key, t in flat.items():
         if key not in flat_like:
             raise KeyError(f"checkpoint leaf {key!r} not in target structure")
         want = flat_like[key]
-        arr = np.load(d / meta["file"])
-        if tuple(arr.shape) != tuple(want.shape):
-            raise ValueError(f"{key}: shape {arr.shape} != "
+        if tuple(t.shape) != tuple(want.shape):
+            raise ValueError(f"{key}: shape {tuple(t.shape)} != "
                              f"{tuple(want.shape)}")
-        loaded[key] = torch.from_numpy(arr).to(device=want.device,
-                                               dtype=want.dtype)
+        loaded[key] = t.to(device=want.device, dtype=want.dtype)
     missing = set(flat_like) - set(loaded)
     if missing:
         raise KeyError(f"checkpoint missing leaves: {sorted(missing)[:5]} ...")

@@ -32,8 +32,9 @@ LNS instance on FP8 pages).
 
 The engine runs on the card unless the caller passes ``device="cpu"``
 (the tests), and raises when no GPU is present — there is no silent CPU
-fallback.  Chaos, snapshots and tensor parallelism arrive with later
-slices.
+fallback.  ``runtime.fault.run_serving`` drives it under faults (the
+chaos harness, crash snapshots, a kill and restore); tensor parallelism
+arrives with a later slice.
 
     python -m repro_torch.launch.serve --arch qwen2-0.5b --requests 6 \\
         --slots 2 --gen 16 --prompt-len 4,12,8

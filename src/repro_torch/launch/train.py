@@ -67,7 +67,7 @@ def main(argv=None):
     if args.mesh != "1x1":
         raise NotImplementedError(
             f"--mesh {args.mesh}: FSDP/TP training is not ported yet "
-            "(ROADMAP.md Queue 1 item 14)")
+            "(ROADMAP.md Queue 1 item 12)")
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke, quant=args.quant)
     model = Model(cfg, max_seq=args.seq)

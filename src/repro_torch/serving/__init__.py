@@ -1,6 +1,8 @@
 """Serving subsystem of the port: the paged FP8 page pool, the continuous
-scheduler and telemetry (``launch.serve.Engine`` executes the
-scheduler's decisions)."""
+scheduler, telemetry, the chaos harness and crash snapshots
+(``launch.serve.Engine`` executes the scheduler's decisions;
+``runtime.fault.run_serving`` drives them under faults)."""
+from .chaos import ChaosHarness, EngineKilled, FaultPlan
 from .page_pool import (
     PagePool,
     invariant_checks_enabled,
@@ -22,13 +24,17 @@ from .scheduler import (
     Request,
     ServeControl,
 )
+from .snapshot import load_snapshot, save_snapshot
 from .telemetry import METRIC_CATALOG, PHASES, Telemetry, default_registry
 
 __all__ = [
     "CANCELLED",
+    "ChaosHarness",
     "ContinuousScheduler",
+    "EngineKilled",
     "FAILED",
     "FINISHED",
+    "FaultPlan",
     "METRIC_CATALOG",
     "PHASES",
     "PagePool",
@@ -41,8 +47,10 @@ __all__ = [
     "default_registry",
     "invariant_checks_enabled",
     "kv_noise",
+    "load_snapshot",
     "pow2_page_scale",
     "rescale_codes",
+    "save_snapshot",
     "token_row_codes",
     "write_prefill_pages",
     "write_token_page",

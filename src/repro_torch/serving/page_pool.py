@@ -18,18 +18,21 @@ they rewrite the row they hit with its own codes
 and unit scale, so what a masked lane reads there is the same in the fused
 and unfused decode and on every run.
 
-Every non-null page is in exactly one of four states: on the free list,
+Every non-null page is in exactly one of five states: on the free list,
 referenced by one or more slots (``ref[pid]`` block-table references),
 parked in the prefix-cache LRU (registered content, ``ref == 0``, evicted
-oldest first when the free list runs dry), or pinned by a preemption spill
-record.  A slot writes only into a page it owns exclusively (``ref == 1``,
-unregistered, unpinned); full prompt pages are registered and then mapped
-read-only into other slots (:meth:`PagePool.share`), and a write into a
-shared page goes through :meth:`PagePool.cow_page`.  Preemption spills a
+oldest first when the free list runs dry), pinned by a preemption spill
+record, or seized by the chaos harness (:meth:`PagePool.seize`, a
+simulated external memory squeeze).  A slot writes only into a page it
+owns exclusively (``ref == 1``, unregistered, unpinned); full prompt pages
+are registered and then mapped read-only into other slots
+(:meth:`PagePool.share`), and a write into a shared page goes through
+:meth:`PagePool.cow_page`.  Preemption spills a
 slot's unregistered pages (the engine copies their contents to the host
 first) and pins its registered ones in place; a restore takes fresh ids
-for the former and re-references the latter.  The reference pool's chaos
-seizures and snapshot state arrive with a later slice.
+for the former and re-references the latter.  :meth:`PagePool.state_dict`
+and :meth:`PagePool.load_state_dict` carry the allocator through a
+serving snapshot (``serving/snapshot.py``).
 
 Per-page scales are powers of two chosen from the page's first write
 (:func:`pow2_page_scale`, integer bit arithmetic) or, for a page the
@@ -106,6 +109,7 @@ class PagePool:
         self._page_key: Dict[int, str] = {}
         self._lru: "OrderedDict[int, None]" = OrderedDict()
         self._pinned: Dict[int, int] = {}  # page id -> spill-record pins
+        self._seized: set = set()  # chaos-harness transient seizures
         self.peak_used_pages = 0
         self.used_page_steps = 0
         self.observed_steps = 0
@@ -158,6 +162,7 @@ class PagePool:
         tel.gauge("pool_free_pages").set(len(self._free))
         tel.gauge("pool_used_pages").set(self.used_pages)
         tel.gauge("pool_cached_pages").set(len(self._lru))
+        tel.gauge("pool_seized_pages").set(len(self._seized))
         tel.gauge("pool_utilization").set(self.used_pages / usable)
         for name, v in (("pool_prefix_lookups_total", self.prefix_lookups),
                         ("pool_prefix_hits_total", self.prefix_hits),
@@ -440,6 +445,79 @@ class PagePool:
                 self._lru[pid] = None
 
     # ------------------------------------------------------------------ #
+    # Chaos seizures and snapshot state
+    # ------------------------------------------------------------------ #
+    # the cumulative counters a snapshot carries
+    _COUNTERS = ("peak_used_pages", "used_page_steps", "observed_steps",
+                 "spills", "restores", "prefix_lookups", "prefix_hits",
+                 "evictions", "cow_copies")
+
+    def seize(self, n: int) -> List[int]:
+        """Chaos hook: take up to ``n`` pages off the free list (never out
+        of the prefix-cache LRU: a simulated memory squeeze must not evict
+        cached content), unallocatable until :meth:`release_seized`.
+        Returns the seized ids."""
+        ids = [self._free.pop() for _ in range(min(n, len(self._free)))]
+        self._seized.update(ids)
+        return ids
+
+    def release_seized(self, ids: Sequence[int]) -> None:
+        """Return chaos-seized pages to the free list."""
+        for pid in ids:
+            if pid not in self._seized:
+                raise RuntimeError(f"page {pid} was not seized")
+            self._seized.discard(pid)
+            self._free.append(pid)
+
+    def state_dict(self) -> dict:
+        """JSON-serialisable allocator state for a serving snapshot.
+        Seizures are transient faults, not engine state: seized pages are
+        recorded as free, so a restored pool starts with them released."""
+        return {
+            "geometry": [self.num_pages, self.page_size, self.slots,
+                         self.max_pages_per_slot],
+            "free": [int(p) for p in self._free] + sorted(
+                int(p) for p in self._seized),
+            "ref": [int(r) for r in self.ref],
+            "pages_of": [[int(p) for p in lst] for lst in self.pages_of],
+            "index": {k: int(pid) for k, pid in self._index.items()},
+            "lru": [int(p) for p in self._lru],
+            "pinned": {str(pid): int(pins)
+                       for pid, pins in self._pinned.items()},
+            "counters": {name: int(getattr(self, name))
+                         for name in self._COUNTERS},
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict` into a pool of the same geometry:
+        block tables rebuilt from the owner lists, the prefix index and its
+        inverse, the LRU order and the pins; ``version`` moves, so an
+        engine's device copy of the block tables is uploaded again.
+        Checks every invariant after."""
+        geo = [self.num_pages, self.page_size, self.slots,
+               self.max_pages_per_slot]
+        if list(state["geometry"]) != geo:
+            raise ValueError(f"pool geometry mismatch: snapshot "
+                             f"{state['geometry']} vs engine {geo}")
+        self._free = [int(p) for p in state["free"]]
+        self.ref = np.asarray(state["ref"], np.int32)
+        self.pages_of = [[int(p) for p in lst] for lst in state["pages_of"]]
+        self.block_tables = np.zeros(
+            (self.slots, self.max_pages_per_slot), np.int32)
+        for slot, owned in enumerate(self.pages_of):
+            self.block_tables[slot, :len(owned)] = owned
+        self._index = {k: int(pid) for k, pid in state["index"].items()}
+        self._page_key = {pid: k for k, pid in self._index.items()}
+        self._lru = OrderedDict((int(p), None) for p in state["lru"])
+        self._pinned = {int(pid): int(pins)
+                        for pid, pins in state["pinned"].items()}
+        self._seized = set()
+        for name in self._COUNTERS:
+            setattr(self, name, int(state["counters"][name]))
+        self.version += 1
+        self.assert_invariants()
+
+    # ------------------------------------------------------------------ #
     def writable(self, pid: int) -> bool:
         """May a slot write into ``pid``: exclusively owned (one
         reference, no pins) and not registered in the prefix index."""
@@ -462,8 +540,8 @@ class PagePool:
     def assert_invariants(self) -> None:
         """Every non-null page is in exactly one of: the free list,
         referenced by a slot or pinned by a spill record, the prefix-cache
-        LRU; refcounts and block tables agree with the owner lists, and the
-        index with its inverse."""
+        LRU, seized by the chaos harness; refcounts and block tables agree
+        with the owner lists, and the index with its inverse."""
         free_set = set(self._free)
         if len(free_set) != len(self._free):
             raise AssertionError("duplicate ids in free list")
@@ -475,11 +553,12 @@ class PagePool:
         for pid in range(1, self.num_pages):
             pins = self._pinned.get(pid, 0)
             states = (pid in free_set, self.ref[pid] > 0 or pins > 0,
-                      pid in self._lru)
+                      pid in self._lru, pid in self._seized)
             if sum(states) != 1:
                 raise AssertionError(
                     f"page {pid}: free={states[0]} held={states[1]} "
-                    f"lru={states[2]} (ref={self.ref[pid]}, pins={pins})")
+                    f"lru={states[2]} seized={states[3]} "
+                    f"(ref={self.ref[pid]}, pins={pins})")
             if self.ref[pid] != owners[pid]:
                 raise AssertionError(
                     f"page {pid}: ref={self.ref[pid]} but {owners[pid]} "

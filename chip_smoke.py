@@ -40,7 +40,8 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
    pages; then times it on bf16 pages beside its byte bound (2-byte page
    elements) and the plain version;
 5. serves requests of mixed prompt lengths through the full-width
-   qwen2-0.5b Engine (policy serve_fp8_paged, continuous scheduler, random
+   qwen2-0.5b Engine (its first 6 of 24 layers, cut for time, as in 7, 9
+   and 21; policy serve_fp8_paged, continuous scheduler, random
    weights from a seed, a pool that never preempts) with fused decode on
    and off: every request must finish with finite logits, the K1 launch
    count must equal n_layers x sub-steps, and the token streams of the two
@@ -55,13 +56,14 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
    sub-steps times and its LNS instance never, the float32 copy's
    logits through K1 and through the plain attention;
 8. traces that path as in 6;
-9. preemption at full width, under serve_fp8_paged and under the default
+9. preemption at full width and depth 6 (cut for time), under
+   serve_fp8_paged and under the default
    policy: the same 8 requests on weights redrawn at std 0.5 from a seed
    (so that greedy streams follow the context), once with a worst-case
    pool and once with 15 pages, where the scheduler spills slots to the
    host and restores them into fresh pages (at least one preemption and
    one restore): the token streams must be bitwise equal;
-10. this slice's main path: full-width, full-depth gemma3-12b (48 layers,
+10. the main path: full-width, full-depth gemma3-12b (48 layers,
     5 local layers of window 1,024 to each global one, qk-norm, hd 256,
     about 23.6 GB of bf16 weights drawn on the card and redrawn as in 9,
     the embedding at 0.5 / sqrt(d_model), the sandwich norms' output
@@ -69,63 +71,89 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     row, lead the tied LM head) served by a 4-slot Engine, page 16,
     worst-case pool: 8 requests of one shared 64-token prefix and their
     own tails, 16 generated tokens, under serve_fp8_paged and the default
-    policy, three times each (prefix cache off with fused decode, on with
-    fused decode, on unfused): the three token streams bitwise equal,
+    policy, twice each (prefix cache off and on, fused decode; unfused
+    decode runs in 11, cut for time): the two token streams bitwise equal,
     every stream varied (at least two distinct tokens), at least 256
     prefix hit tokens with the cache on, K1 launched n_layers x sub-steps
-    times and its other instance never;
+    times and its other instance never (after 17, a short traced window
+    of this path at depth 6, cut for time, as in 6);
 11. preemption while shared: the same requests at depth 6 (the main
     path's first 6 layers), prefix on, both policies, with a worst-case
     pool and with 18 pages, where spilled slots keep their registered
-    prefix pages under pins (at least one spill pins a page); the pool's
-    invariants after every step, the token streams bitwise equal and
-    varied;
-12. fault-tolerant serving (``runtime.fault.run_serving``, this slice's
-    path): the same 8 requests at full width and depth on FP8 pages
+    prefix pages under pins (at least one spill pins a page), and with a
+    worst-case pool and unfused decode; the pool's invariants after every
+    step, the three token streams bitwise equal and varied;
+12. fault-tolerant serving (``runtime.fault.run_serving``): the same 8
+    requests at full width and depth 6 (cut for time, as 11) on FP8 pages
     (serve_fp8_paged, stochastic KV writes), prefix on, a pool of 18
     pages, under a seeded fault plan (page exhaustion, preemption storms,
     refcount-corruption drills, watchdog overruns) with a snapshot every
     8 steps, deadlines and a bounded queue, and one kill at step 28,
     restored into a freshly built engine from the snapshot of step 24,
     which holds a PREEMPTED request: every fault kind injected, one
-    restart, every FINISHED stream bitwise equal to 10's and varied, the
+    restart, every FINISHED stream bitwise equal to 11's and varied, the
     shed and expired requests terminal, the pool clean after the
     seizures' release, K1 launched n_layers x the sub-steps of both
     engines, the successor's first K1 calls (on restored pages) within
-    rtol = atol = 1e-4 of the plain version; then at depth 6 on bf16
-    pages a snapshot round trip while a request is PREEMPTED (every cache
-    and spill tensor bitwise equal after a load into a fresh engine) and
-    the same chaos run, its survivors bitwise equal to 11's; printed: the
+    rtol = atol = 1e-4 of the plain version; then on bf16 pages a
+    snapshot round trip while a request is PREEMPTED (every cache and
+    spill tensor bitwise equal after a load into a fresh engine) and the
+    same chaos run, its survivors bitwise equal to 11's; printed: the
     snapshot's bytes on disk, save and restore seconds, the chaos run's
     wall against the fault-free run's, the fault and terminal counts and
     the peak memory;
-13. the bucketed scheduler at full width: gemma3-12b on the main path's
+13. tensor-parallel serving (this slice's path, ``mesh_path``): a (1, 2)
+    mesh of two ranks, spawned processes that share this one card over
+    gloo (NCCL refuses two ranks on one device; a correctness run, not a
+    speed-up claim), each serving gemma3-12b at full width on its shard
+    (16/8 heads split 8/4, d_ff 7,680 a rank, the embedding's vocab rows
+    halved; the main path's weights handed over by CUDA IPC and cut), the
+    8 requests of 10 with the prefix cache on: on FP8 pages at full depth
+    and on bf16 pages at depth 6; the same two runs at TP=1 in a process
+    of their own.  The ranks and that process run cuBLAS without split-K
+    workspaces (``CUBLAS_WORKSPACE_CONFIG=:0:0``, ``launch/mesh.py``: the
+    TP gate needs a product's column blocks computed as in the whole
+    product), the rest of the script with them.  Gates: each rank's
+    streams bitwise equal to that TP=1 process's, a digest of the whole
+    cache gathered over the ranks equal to its, K1 launched
+    n_layers x sub-steps by each rank at 4 KV heads, each rank's first
+    n_layers K1 calls within rtol = atol = 1e-4 of the plain version;
+    then K1's partials mode on each rank, both instances: one shard's
+    (M, l, o) normalised against ``paged_attend``, and each slot's pages
+    split between the ranks and merged by ``combine_partials_psum``
+    against ``paged_attend`` on the whole table, within rtol 2e-5 / atol
+    2e-6.  Before the run, K1 at the shard's geometry is timed in both
+    modes and both instances.  Printed beside the card's name and power
+    limit: the transport, each rank's peak memory, the wall and decode
+    tokens/s, and whether the TP=1 process's streams and cache equal 10's
+    and 11's, made with split-K;
+14. the bucketed scheduler at full width: gemma3-12b on the main path's
     weights, the same 8 requests on 4 slots, under serve_fp8_paged and
-    the default policy; at full depth (8 generated tokens) on the dense
-    cache (its bytes from its layout) and on the paged cache (each
-    batched prefill's rows spliced into pages: a page's pow2 scale from
-    its whole content, the codes rescaled by the paper's integer-add
-    multiply) fused, unfused and fused again with every K1 call held to
-    its plain version on the same inputs (rtol = atol = 1e-4); at depth 6
-    (16 generated) with the prefix cache on (every admission prefills its
+    the default policy, all at depth 6 (cut for time), 16 generated
+    tokens: on the dense cache (its bytes from its layout) and on the
+    paged cache (each batched prefill's rows spliced into pages: a page's
+    pow2 scale from its whole content, the codes rescaled by the paper's
+    integer-add multiply) fused, unfused and fused again with every K1
+    call held to its plain version on the same inputs (rtol = atol =
+    1e-4); with the prefix cache on (every admission prefills its
     tail through ``tail_prefill``) and off, and on FP8 pages a continuous
     and a bucketed run with deterministic KV writes.  Bitwise, on varied
     streams: fused == unfused == the second run, and prefix on == 11's
     continuous streams; printed: the share of equal tokens and the first
     divergence of dense vs paged, prefix on vs off, and continuous vs
     bucketed; K1 launched n_layers x sub-steps, never on the dense cache;
-14. the logits behind 13's printed agreements, at depth 6 in float32:
+15. the logits behind 14's printed agreements, at depth 6 in float32:
     the first decode step after a bucketed prefill on the dense cache,
     after one on the paged cache and after a continuous (sub-step)
     prefill, within rtol = atol = 1e-3 on float32 pages, printed on FP8
     pages;
-15. static FP8 weights at full width and depth: ``Engine(static_weights=
+16. static FP8 weights at full width and depth: ``Engine(static_weights=
     True)`` under serve_fp8_paged, continuous, on the main path's weights
     as E4M3 codes (each matmul decodes its weight to bf16 first), against
     an Engine on the decoded bf16 weights: token streams bitwise equal
     and varied; the weight bytes on the card, the peak memory, both walls
     and the card time of decoding one layer's weights;
-16. static weights through K2 and K3 (depth 6, policies with every
+17. static weights through K2 and K3 (depth 6, policies with every
     matmul quantized to E4M3 under ``fused_dequant`` and ``lns``), under
     the bucketed scheduler and, for K2, the continuous one, on varied
     streams: every K2/K3 call within 2 sqrt(K) 2^-24 sum|products| of its
@@ -135,7 +163,7 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     layer's weights at M = 4 (decode) and M = 32 (the bucketed prefill)
     beside the bound, the plain version and, for K2, ``torch.matmul`` on
     decoded bf16;
-17. windows on the model path: gemma3-12b at full width, depth 6,
+18. windows on the model path: gemma3-12b at full width, depth 6,
     float32, on FP8 and on float32 pages: a 1,040-token prompt prefilled
     through K1 (from the 1,024th token on every K1 call held to its plain
     version on the model's own inputs at rtol = atol = 1e-4), then from
@@ -144,12 +172,12 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     attention: logits within rtol = atol = 1e-3 on float32 pages, printed
     on FP8 pages (``_gate_logits``: there a code at a rounding boundary
     flips on a ~1e-6 difference and moves the logits by ~1e-3);
-18. gemma2-27b (one local and one global layer: softcaps 50 and 30) and
+19. gemma2-27b (one local and one global layer: softcaps 50 and 30) and
     qwen3-14b at full width, depth 2: float32 logits through K1 (each K1
-    call held to its plain version as in 17) and the plain attention, as
-    in 17 on both page kinds, and 4 requests on bf16 pages with fused
+    call held to its plain version as in 18) and the plain attention, as
+    in 18 on both page kinds, and 4 requests on bf16 pages with fused
     decode on and off, bitwise equal;
-19. K5 (the paper's six FP8 operations): every one of the 69 supported
+20. K5 (the paper's six FP8 operations): every one of the 69 supported
     (format, op, mode) cells over all 256 codes or 65,536 code pairs
     bitwise against the plain version, and the paper's claim on the card:
     on the exact rounding oracle's valid domain K5's codes are correctly
@@ -158,13 +186,13 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     a misaligned ragged view, bitwise; card time of e5m2 mul at both
     shapes beside the bytes bound, the plain version and the compiled
     instruction count (SASS);
-20. serves full-width qwen2-0.5b again with the SwiGLU gate product
+21. serves full-width qwen2-0.5b (depth 6) again with the SwiGLU gate product
     through K5 (serve_fp8_paged with elementwise e5m2; 4 requests, fused
     on and off): K5 launches = K1 launches = n_layers x sub-steps, fused
     == unfused token streams; a float32 copy's first-step logits through
     K5 and through the plain version bitwise equal; a profile of that
     path (launches per sub-step);
-21. K3 (the paper's LNS matmul): all 65,536 products of every (format,
+22. K3 (the paper's LNS matmul): all 65,536 products of every (format,
     mode) pair bitwise equal to the plain version (NaN as NaN); then K3
     (e4m3 RNE, and e5m2 ``ru``, whose planes carry x's sign) and K2 (e5m2
     x e4m3, bf16 and float32 compute) against their plain versions at the
@@ -181,7 +209,7 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     larger of its bytes over the memory rate and its 2 M K N operations
     over the dense 8-bit tensor rate; the integer route's floor and the
     plane GEMM's dense bf16 time are printed beside it;
-22. trains full-width qwen2-0.5b through the port's CLI
+23. trains full-width qwen2-0.5b through the port's CLI
     (``launch.train.main``, ``--quant fp8_lns_pallas``, batch 8 x seq 128,
     6 steps, checkpoints every 3): finite losses, 0 restarts, and K3
     launches = 2 (forward and checkpointed recompute) x 7 matmuls x 24
@@ -191,13 +219,13 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     plain versions (loss rtol 1e-4, gradient norm rtol 1e-3), for K3 and
     K2; then one profiled train step under each of the two policies
     (wall, card-busy share, K3's and K2's card time);
-23. trains 2 full-width steps under train_fp8_lns with the gate through
+24. trains 2 full-width steps under train_fp8_lns with the gate through
     K5 in e4m3 (``run_training``): finite losses, 0 restarts, 672 K3 and
     96 K5 launches (forward and recompute); then the first step of a
     float32 2-layer model through K5 and through the plain version (loss
     rtol 1e-4, gradient norm rtol 1e-3); then one profiled train step
     under that policy;
-24. K6 (flash attention) against its plain version: the CPU tests' cases
+25. K6 (flash attention) against its plain version: the CPU tests' cases
     (float32 at rtol = atol = 1e-4, bfloat16 within one bf16 ulp), the
     rows without an admissible key (sum(v) / padded key length), every
     candidate tiling of ``flash_blocks``, and the attention geometries of
@@ -210,13 +238,13 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     ``scaled_dot_product_attention`` (a yardstick the port never calls),
     the same geometry in float32 and gemma2-27b's windowed geometry in
     bf16, each with its TFLOP/s and the FLOP of the tiles it visits;
-25. K6's path: ``flash_attention`` with no tiling through the autotuner
+26. K6's path: ``flash_attention`` with no tiling through the autotuner
     on a fresh cache file (qwen2-0.5b geometry, S 2048, bf16): measured
     in bf16, cached under the card's name and ``bf16``, a ``measured``
     gauge; a second call answers
     ``cached``, launches once and is bitwise equal to the pinned tiling
     and within tolerance of the plain version;
-26. K4 (the seed LNS matmul) bitwise against its plain version at 512^3
+27. K4 (the seed LNS matmul) bitwise against its plain version at 512^3
     and at the seven matmul shapes of one qwen2-0.5b layer at M = 1024
     (the narrow ones split over k tiles), two calls bitwise equal; its
     time per layer (its kernel and, where it splits, the launch that adds
@@ -224,12 +252,12 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     both compute one function), its own SASS instructions per product
     (per FFMA), its shared loads per product and the floor they set, and
     K4 / K3 at 512^3;
-27. K4's path: 2 full-width train steps under train_fp8_lns with every
+28. K4's path: 2 full-width train steps under train_fp8_lns with every
     matmul through K4 (``run_training``): finite losses, 0 restarts, 672
     K4 launches and no K3 or K2; then the first step of a float32 2-layer
     model through K4 and through its plain version (loss rtol 1e-4,
     gradient norm rtol 1e-3);
-28. prints one JSON line of per-kernel numbers, then the card line again,
+29. prints one JSON line of per-kernel numbers, then the card line again,
     and last ``{"ok": true, "device": {...}}``.
 
 K1's numbers in the ``kernels`` line are those of gemma3-12b's geometry
@@ -238,7 +266,7 @@ fused run under serve_fp8_paged (K1's float instance: under the default
 policy); qwen2-0.5b's are printed beside them as before.  The
 ``dequant_matmul_static_weights`` and ``lns_matmul_static_weights``
 entries are K2 and K3 on static weights: card time per gemma3-12b layer
-(its seven matmuls) at M = 4, launches those of phase 16, the largest
+(its seven matmuls) at M = 4, launches those of phase 17, the largest
 difference from the plain version on the model's codes.
 K1's ``ms`` and ``plain_ms`` are card time per call from the profiler
 (the kernel alone; all kernels of the plain version, partials and
@@ -253,10 +281,20 @@ launches those of the K5 serving run; its ``max_abs_err`` is in code
 units (0: bitwise).  K4's numbers are per layer like K3's, its launches
 those of its training run, its ``max_abs_err`` 0 (bitwise, checked).
 K6 has no model path (no model calls it, as in the reference): its
-launches are those of its path through the autotuner (phase 25,
+launches are those of its path through the autotuner (phase 26,
 measurement included), its times those of qwen2-0.5b B 1 x S 8192 bf16,
 and its ``max_abs_err`` the largest float32 difference from the plain
-version in phase 23.
+version in phase 24.
+
+The ``*_tp2_shard`` entries are K1 per rank of 13 (``lns`` on FP8 pages,
+``float`` on bf16 pages): card time at the shard's geometry (KV 4, G 2,
+hd 256), launches those of rank 0's run, ``max_abs_err`` the largest
+difference of the shadowed calls over both ranks.  The
+``*_partials_mode`` entries are K1's partials mode at that geometry, its
+bound counting (M, l, o) out and its plain version the page partials
+and their un-normalised combine; launches those of rank 0 in 13's
+partials check, ``max_abs_err`` the largest difference there from
+``paged_attend``.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line; it also exits non-zero without a GPU, or when run outside the repo.
@@ -561,15 +599,16 @@ def _k1_fused_gates(c, label: str, window: int = 0, cap: float = 0.0):
     return err
 
 
-def _k1_bound(c, el: int, lns: bool):
+def _k1_bound(c, el: int, lns: bool, partials: bool = False):
     """K1's bound on ``c``'s inputs, the function's whatever computes it:
     the bytes it must move (each input read once: the query, the pages the
     lengths reach, their scales on FP8 pages, the block tables, lengths
     and inserted rows; its output, the attention [B, KV*G, dv] float32,
-    written once) against its operations (per head and valid token: hd
-    products and their sum, and dv p*v multiply-adds) at the float32
-    rate.  ``el``: bytes of a page element.  Returns (ms, what bounds
-    it, bytes in and out, operations, bytes in)."""
+    or in the partials mode (M, l, o) [B, KV, G(, dv)], written once)
+    against its operations (per head and valid token: hd products and
+    their sum, and dv p*v multiply-adds) at the float32 rate.  ``el``:
+    bytes of a page element.  Returns (ms, what bounds it, bytes in and
+    out, operations, bytes in)."""
     B, KV, G, hd, page, maxp = (c[n] for n in
                                 ("B", "KV", "G", "hd", "page", "maxp"))
     ln = c["lengths"] + 1
@@ -584,7 +623,7 @@ def _k1_bound(c, el: int, lns: bool):
     bytes_in = (q_bytes + pages_needed * page * KV * (hd + dv) * el + extra
                 + 4 * B * maxp + 4 * B             # block tables, lengths
                 + B * KV * (hd + dv) * el + 3 * 4 * B)  # inserted rows
-    nbytes = bytes_in + 4 * B * KV * G * dv        # + the attention
+    nbytes = bytes_in + 4 * B * KV * G * (dv + 2 * partials)  # + the out
     ops = 2 * KV * G * tokens * (hd + dv)
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops = ops / F32_FLOP_PER_S * 1e3
@@ -593,10 +632,11 @@ def _k1_bound(c, el: int, lns: bool):
             ops, bytes_in)
 
 
-def _time_k1(c, label: str, lns: bool) -> dict:
+def _time_k1(c, label: str, lns: bool, partials: bool = False) -> dict:
     """Card time of K1 proper on the fused form's inputs as the serving
     path builds them (old pages, new scales, the new rows), of its plain
-    version, and the bound."""
+    version, and the bound; ``partials``: of its partials mode (plain:
+    the page partials and their un-normalised combine)."""
     import torch
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.serving.page_pool import token_row_codes
@@ -628,15 +668,15 @@ def _time_k1(c, label: str, lns: bool) -> dict:
         only = "float_paged_partials"
     ins = (*new_rows, logical, rows, c["mask"].to(torch.int32))
     kw.update(KV=c["KV"], G=c["G"], inserts=ins)
-    k1 = lambda: pa.paged_attend(*args, **kw)  # noqa: E731
-    plain = lambda: pa._combine_partials(  # noqa: E731
-        *pa.page_partials_plain(*args, **kw))
+    k1 = lambda: pa.paged_attend(*args, **kw, partials=partials)  # noqa: E731
+    combine = pa._local_combine if partials else pa._combine_partials
+    plain = lambda: combine(*pa.page_partials_plain(*args, **kw))  # noqa: E731
     torch.testing.assert_close(k1(), plain(), rtol=1e-4, atol=1e-4)
     ms, how = device_ms(k1, iters=200, only=only)
     plain_ms, plain_how = device_ms(plain, iters=10)
     call_ms, plain_call_ms = cuda_ms(k1, iters=200), cuda_ms(plain, iters=10)
     bound, by, nbytes, ops, bytes_in = _k1_bound(
-        c, c["kp"].element_size(), lns)
+        c, c["kp"].element_size(), lns, partials)
     dv = c["vp"].shape[-1]
     print(f"# {label} card time ({how}): kernel {ms:.5f} ms; plain "
           f"{plain_ms:.4f} ms ({plain_how}, all its kernels); bound "
@@ -735,10 +775,14 @@ def _policy_label(cfg, policy) -> str:
         f"({str(cfg.pdtype).split('.')[-1]} KV pages)"
 
 
+QWEN_DEPTH = 6     # qwen2-0.5b's serving phases: its first 6 of 24 layers
+PROFILE_DEPTH = 6  # gemma3-12b's traced window: one whole 5:1 period
+
+
 def serve_main_path(dev, policy="serve_fp8_paged", plens=SERVE_PLENS,
                     gen=24) -> dict:
-    """Phases 5, 7 and 15: the full-width Engine under the continuous
-    scheduler, fused decode on and off.  K1 runs once per layer and
+    """Phases 5, 7 and 21: the full-width Engine (depth ``QWEN_DEPTH``, cut
+    for time) under the continuous scheduler, fused decode on and off.  K1 runs once per layer and
     sub-step, its LNS instance on FP8 pages, its float instance on float
     pages (``policy=None``, the CLI's default), the other instance never;
     K5 runs as often as K1 when the policy quantizes the SwiGLU gate
@@ -748,7 +792,8 @@ def serve_main_path(dev, policy="serve_fp8_paged", plens=SERVE_PLENS,
     from repro_torch.kernels import fp8_elementwise as fe
     from repro_torch.launch.serve import Engine
 
-    cfg = get_config("qwen2-0.5b", policy=policy)
+    cfg = dataclasses.replace(get_config("qwen2-0.5b", policy=policy),
+                              n_layers=QWEN_DEPTH)
     k5_on = cfg.policy.elementwise.quantized
     label = _policy_label(cfg, policy)
     rng = np.random.default_rng(0)
@@ -853,8 +898,10 @@ def _require_varied(outputs: dict, what: str,
 
 
 def preemption_path(dev, policy) -> dict:
-    """Phase: preemption at full width.  The serving phases' 8 requests on
-    lively weights, fused decode, once with a worst-case pool and once
+    """Phase: preemption at full width, depth ``QWEN_DEPTH`` (cut for
+    time; the scheduler's choices do not depend on depth).  The serving
+    phases' 8 requests on lively weights, fused decode, once with a
+    worst-case pool and once
     with ``PREEMPT_PAGES`` pages: the small pool makes the scheduler spill
     slots to the host and restore them into fresh pages; every request
     finishes and the token streams equal the worst-case run's bit for
@@ -864,7 +911,8 @@ def preemption_path(dev, policy) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import Engine, run_continuous
 
-    cfg = get_config("qwen2-0.5b", policy=policy)
+    cfg = dataclasses.replace(get_config("qwen2-0.5b", policy=policy),
+                              n_layers=QWEN_DEPTH)
     label = _policy_label(cfg, policy)
     gen = 24
     rng = np.random.default_rng(0)
@@ -945,12 +993,13 @@ def check_against_plain_engine(dev, policy="serve_fp8_paged") -> None:
 
 
 def profile_main_path(dev, policy="serve_fp8_paged",
-                      arch="qwen2-0.5b") -> None:
+                      arch="qwen2-0.5b", depth=None) -> None:
     """A short traced window of a serving path (8 requests, 4-token
     prompts, 4 generated tokens, after a warm-up run; ``arch`` at full
-    width): the card's busy share of the window's wall time, the launches
-    per sub-step and the kernels that take the time.  CUDA activity only,
-    so the host pays little for the tracing."""
+    width, its first ``depth`` layers when given): the card's busy share
+    of the window's wall time, the launches per sub-step and the kernels
+    that take the time.  CUDA activity only, so the host pays little for
+    the tracing."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -959,6 +1008,8 @@ def profile_main_path(dev, policy="serve_fp8_paged",
     from repro_torch.launch.serve import Engine, run_continuous
 
     cfg = get_config(arch, policy=policy)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     eng = Engine(cfg, slots=8, max_seq=16, page_size=16, rng_seed=0,
                  device=dev)
     rng = np.random.default_rng(2)
@@ -990,7 +1041,8 @@ def profile_main_path(dev, policy="serve_fp8_paged",
     ew = cfg.policy.elementwise
     label = _policy_label(cfg, policy) + (f", elementwise {ew.fmt}"
                                           if ew.quantized else "")
-    print(f"# profile of {arch}'s serving path ({label}): {substeps} "
+    print(f"# profile of {arch}'s serving path (depth {cfg.n_layers}, "
+          f"{label}): {substeps} "
           f"sub-steps in "
           f"{wall:.4f} s wall; card busy {busy:.4f} s "
           f"({100 * busy / wall:.2f}% of the wall), {n_kernels} kernel "
@@ -1105,14 +1157,30 @@ def _counted_run(eng, queue, gen: int, scheduler: str = "continuous") -> dict:
     return run
 
 
+def _cache_digest(cache) -> str:
+    """SHA-256 of a paged cache's bytes (kp, vp, ks, vs in that order),
+    the cache's fingerprint for a bitwise comparison across processes."""
+    import hashlib
+    import torch
+
+    h = hashlib.sha256()
+    for name in ("kp", "vp", "ks", "vs"):
+        t = cache[name].contiguous()
+        h.update(name.encode())
+        h.update(str(tuple(t.shape)).encode())
+        h.update(t.view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def prefix_main_path(dev, policy, params=None) -> dict:
     """This slice's main path: full-width, full-depth gemma3-12b (48
     layers, 5 local layers of window 1,024 to each global one, hd 256)
     served through the Engine with the prefix cache, 4 slots, page 16, a
     worst-case pool; 8 requests of a shared 64-token prefix and their own
-    tails, 16 generated tokens each, chunk 4.  Three runs: prefix off
-    with fused decode, prefix on with fused decode, prefix on unfused.
-    Gates: the three token streams bitwise equal and each stream varied
+    tails, 16 generated tokens each, chunk 4.  Two runs, fused decode:
+    prefix off and prefix on (unfused decode runs at depth 6 in
+    :func:`preempt_shared_path`, cut for time).
+    Gates: the two token streams bitwise equal and each stream varied
     (:func:`_require_varied`), at least 256 prefix hit tokens with the
     cache on (the second wave maps the 4 prefix pages), K1 launched
     n_layers x sub-steps times in every run and its other instance never.
@@ -1125,12 +1193,13 @@ def prefix_main_path(dev, policy, params=None) -> dict:
     label = _policy_label(cfg, policy)
     queue = _prefix_queue(cfg)
     runs = {}
-    for prefix_on, fused_on in ((False, True), (True, True), (True, False)):
+    for prefix_on, fused_on in ((False, True), (True, True)):
         eng = _prefix_engine(dev, cfg, params, prefix_cache=prefix_on,
                              fused_decode=fused_on)
         if params is None:
             params = _lively(eng).params
         run = _counted_run(eng, queue, PREFIX_GEN)
+        run["digest"] = _cache_digest(eng.cache)
         hits = run["stats"]["prefix_hit_tokens"]
         print(f"# gemma3-12b serve {label}, prefix "
               f"{'on' if prefix_on else 'off'}, fused={fused_on}: "
@@ -1148,14 +1217,15 @@ def prefix_main_path(dev, policy, params=None) -> dict:
         torch.cuda.empty_cache()
     streams = [r["outputs"] for r in runs.values()]
     distinct = _require_varied(streams[0], f"gemma3-12b {label}")
-    if streams[1] != streams[0] or streams[2] != streams[0]:
+    if streams[1] != streams[0]:
         raise AssertionError(f"gemma3-12b {label}: token streams differ with "
-                             "the prefix cache on/off or fused decode on/off")
+                             "the prefix cache on/off")
     print(f"# gemma3-12b {label}: token streams bitwise equal with the "
-          "prefix cache off, on, and on with unfused decode; distinct "
-          f"tokens per stream {distinct}", flush=True)
+          f"prefix cache off and on; distinct tokens per stream {distinct}",
+          flush=True)
     return dict(launches=runs[True, True]["launches"], params=params,
-                outputs=streams[0], wall=runs[True, True]["wall"])
+                outputs=streams[0], wall=runs[True, True]["wall"],
+                digest=runs[True, True]["digest"])
 
 
 def preempt_shared_path(dev, policy, params) -> dict:
@@ -1164,7 +1234,8 @@ def preempt_shared_path(dev, policy, params) -> dict:
     first 6 layers), prefix on, once with a worst-case pool and once with
     ``PREFIX_PREEMPT_PAGES`` pages, under which the scheduler spills slots
     that map registered prefix pages: those stay resident under a pin
-    (at least one spill must pin a page).  ``assert_invariants`` runs after
+    (at least one spill must pin a page); then the worst-case pool with
+    unfused decode (the main path's third run until it was cut for time).  ``assert_invariants`` runs after
     every step (``REPRO_CHECK_INVARIANTS=1``); the token streams equal the
     worst-case pool's bit for bit, and vary (:func:`_require_varied`, at
     most a quarter of them on one token).  Returns the worst-case pool's
@@ -1179,9 +1250,10 @@ def preempt_shared_path(dev, policy, params) -> dict:
     queue = _prefix_queue(cfg)
     runs = []
     with _invariant_checks():
-        for pages in (None, PREFIX_PREEMPT_PAGES):
+        for pages, fused_on in ((None, True), (PREFIX_PREEMPT_PAGES, True),
+                                (None, False)):
             eng = _prefix_engine(dev, cfg, shallow, prefix_cache=True,
-                                 num_pages=pages)
+                                 num_pages=pages, fused_decode=fused_on)
             pinned = []
             spill = eng.pool.spill_slot
 
@@ -1192,9 +1264,11 @@ def preempt_shared_path(dev, policy, params) -> dict:
 
             eng.pool.spill_slot = counted_spill
             run = _counted_run(eng, queue, PREFIX_GEN)
+            run["digest"] = _cache_digest(eng.cache)
             eng.pool.assert_invariants()
             st = run["stats"]
-            print(f"# gemma3-12b depth {cfg.n_layers} prefix on {label}, pool "
+            print(f"# gemma3-12b depth {cfg.n_layers} prefix on {label}, "
+                  f"fused={fused_on}, pool "
                   f"{eng.pool.num_pages - 1} pages: {st['steps']} steps, "
                   f"{st['preemptions']} preemptions, {st['restores']} "
                   f"restores, {sum(1 for n in pinned if n)} spills pinning "
@@ -1203,7 +1277,7 @@ def preempt_shared_path(dev, policy, params) -> dict:
             runs.append((run, pinned))
             del eng
             torch.cuda.empty_cache()
-    (full, _), (small, pinned) = runs
+    (full, _), (small, pinned), (unfused, _) = runs
     if full["stats"]["preemptions"] or small["stats"]["preemptions"] < 1 \
             or small["stats"]["restores"] < 1 or not any(pinned):
         raise AssertionError(
@@ -1216,12 +1290,17 @@ def preempt_shared_path(dev, policy, params) -> dict:
     if small["outputs"] != full["outputs"]:
         raise AssertionError(f"{label}: token streams differ with "
                              "preemption while shared")
-    print(f"# preempt-while-shared == worst-case pool (gemma3-12b, {label}): "
-          f"token streams bitwise equal; distinct tokens per stream "
-          f"{distinct}", flush=True)
+    if unfused["outputs"] != full["outputs"] or unfused["stats"][
+            "preemptions"]:
+        raise AssertionError(f"{label}: token streams differ with unfused "
+                             "decode")
+    print(f"# preempt-while-shared == worst-case pool == unfused decode "
+          f"(gemma3-12b, {label}): token streams bitwise equal; distinct "
+          f"tokens per stream {distinct}", flush=True)
     return dict(preemptions=small["stats"]["preemptions"],
                 restores=small["stats"]["restores"], pinned=sum(pinned),
-                outputs=full["outputs"], wall=full["wall"])
+                outputs=full["outputs"], wall=full["wall"],
+                digest=full["digest"])
 
 
 # --------------------------------------------------------------------------- #
@@ -1241,7 +1320,7 @@ CHAOS_SNAPSHOT_EVERY = 8
 # request's finish under chaos, which expires
 CHAOS_MAX_QUEUE = 7
 CHAOS_DEADLINE_STEPS = 80
-CHAOS_BF16_DEPTH = 6
+CHAOS_DEPTH = 6       # both page kinds: one whole 5:1 period
 
 
 def _latest_snapshot(ckpt) -> dict:
@@ -1450,23 +1529,249 @@ def _snapshot_roundtrip(dev, cfg, params) -> None:
 
 def chaos_path(dev, params, fp8_base: dict, bf16_base: dict) -> None:
     """Phase: fault-tolerant serving (:func:`_chaos_run`) at gemma3-12b's
-    full width and depth on FP8 pages (serve_fp8_paged, stochastic KV
-    writes), its survivors held to :func:`prefix_main_path`'s streams
-    (``fp8_base``); then on the CLI's default bf16 pages at depth
-    ``CHAOS_BF16_DEPTH`` (the main path's first layers, cut for time as
-    :func:`preempt_shared_path`): a snapshot round trip
-    (:func:`_snapshot_roundtrip`) and the same chaos run, its survivors
-    held to :func:`preempt_shared_path`'s default-policy streams
+    full width, depth ``CHAOS_DEPTH`` (the main path's first layers, cut
+    for time as :func:`preempt_shared_path`), on
+    FP8 pages (serve_fp8_paged, stochastic KV writes), its survivors held
+    to :func:`preempt_shared_path`'s streams under that policy
+    (``fp8_base``); then on the CLI's default bf16 pages: a snapshot round
+    trip (:func:`_snapshot_roundtrip`) and the same chaos run, its
+    survivors held to :func:`preempt_shared_path`'s default-policy streams
     (``bf16_base``)."""
     from repro_torch.configs import get_config
 
-    _chaos_run(dev, get_config("gemma3-12b", policy="serve_fp8_paged"),
-               "serve_fp8_paged", params, fp8_base)
-    cfg = dataclasses.replace(get_config("gemma3-12b"),
-                              n_layers=CHAOS_BF16_DEPTH)
-    shallow = _shallow(params, CHAOS_BF16_DEPTH)
+    shallow = _shallow(params, CHAOS_DEPTH)
+    cfg = dataclasses.replace(get_config("gemma3-12b",
+                                         policy="serve_fp8_paged"),
+                              n_layers=CHAOS_DEPTH)
+    _chaos_run(dev, cfg, "serve_fp8_paged", shallow, fp8_base)
+    cfg = dataclasses.replace(get_config("gemma3-12b"), n_layers=CHAOS_DEPTH)
     _snapshot_roundtrip(dev, cfg, shallow)
     _chaos_run(dev, cfg, None, shallow, bf16_base)
+
+
+# --------------------------------------------------------------------------- #
+# Tensor-parallel serving: two ranks of a mesh on one card
+# --------------------------------------------------------------------------- #
+MESH_TP = 2
+MESH_BF16_DEPTH = 6        # bf16 pages: one whole 5:1 period, as in 11
+MESH_BACKEND = "gloo"      # NCCL refuses two ranks on one device
+MESH_TIMEOUT_S = 600.0     # the whole two-rank run, spawn to join
+MESH_K1 = dict(KV=8 // MESH_TP, G=2, hd=256)   # gemma3-12b's K1 per shard
+
+
+def _mesh_serve(mesh, device, policy, depth: int, params) -> dict:
+    """One rank's serving run (in its own process): the prefix phase's
+    engine on ``mesh`` (prefix on, fused decode, a worst-case pool; None:
+    the TP=1 engine), its own draw replaced by its cut of ``params`` (the
+    parent's tensors, by CUDA IPC: the replicated leaves are shared, the
+    sharded ones copied), the 8 requests through :func:`_counted_run` (K1
+    launched n_layers x sub-steps by this rank, at its KV heads), its
+    first n_layers K1 calls held to the plain version
+    (:class:`_ShadowK1`); then the whole cache, gathered over the ranks,
+    as a digest."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.parallel import sharding
+
+    cfg = dataclasses.replace(get_config("gemma3-12b", policy=policy),
+                              n_layers=depth)
+    eng = _prefix_engine(device, cfg, None, prefix_cache=True, mesh=mesh)
+    eng.params = None          # the engine's own draw, before the cut
+    torch.cuda.empty_cache()
+    eng.params = (params if mesh is None else
+                  sharding.shard_params(cfg, params, mesh, cfg.policy))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _ShadowK1(limit=cfg.n_layers) as shadow:
+        run = _counted_run(eng, _prefix_queue(cfg), PREFIX_GEN)
+    peak = torch.cuda.max_memory_allocated()
+    digest = _cache_digest(eng.gather_cache())
+    out = dict(outputs=run["outputs"], substeps=run["substeps"],
+               launches=run["launches"], wall=run["wall"],
+               decode_tok_s=run["stats"]["decode_tok_s"],
+               hits=run["stats"]["prefix_hit_tokens"], digest=digest,
+               peak=peak, shadow_calls=shadow.calls, shadow_err=shadow.err,
+               kv_heads=int(eng.cache["kp"].shape[3]))
+    del eng
+    gc.collect()  # _counted_run's wrapped methods hold the engine in a cycle
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_partials(mesh) -> dict:
+    """K1's partials mode on the card, per rank, both instances at
+    gemma3-12b's per-shard geometry (``MESH_K1``; FP8 and bf16 pages):
+    one shard's (M, l, o) normalised against ``paged_attend`` on the same
+    table, and the two halves of every slot's pages, one a rank, merged
+    across the ranks by ``combine_partials_psum`` against ``paged_attend``
+    on the whole table, both within the reference's rtol 2e-5 / atol 2e-6
+    (``tests/test_serving_distributed.py``)."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+
+    dev = mesh.device
+    errs = {}
+    for lns in (True, False):
+        c = (k1_inputs(dev, **MESH_K1) if lns
+             else k1_float_inputs(dev, torch.bfloat16, **MESH_K1))
+        q_op = pa.query_operand(c["q"][:, 0], c["fmt"])
+        ln = c["lengths"] + 1
+        pages = (c["kp"], c["vp"], c["ks"], c["vs"])
+        kw = dict(fmt=c["fmt"], mode="rne", KV=c["KV"], G=c["G"])
+        whole = pa.paged_attend(*q_op, *pages, c["bt"], ln, **kw)
+        m, l, o = pa.paged_attention_partials(q_op, *pages, c["bt"], ln,
+                                              page_size=c["page"], **kw)
+        norm = (o / torch.clamp_min(l, 1e-37)[..., None]).reshape(whole.shape)
+        torch.testing.assert_close(norm, whole, rtol=2e-5, atol=2e-6)
+        half, page, r = c["maxp"] // mesh.tp, c["page"], mesh.rank
+        bt = c["bt"][:, r * half:(r + 1) * half].contiguous()
+        ln_r = torch.clamp(ln - r * half * page, 0, half * page).to(ln.dtype)
+        split = pa.combine_partials_psum(
+            *pa.paged_attention_partials(q_op, *pages, bt, ln_r,
+                                         page_size=page, **kw), mesh)
+        torch.testing.assert_close(split, whole, rtol=2e-5, atol=2e-6)
+        errs["lns" if lns else "float"] = max(
+            float((norm - whole).abs().max()),
+            float((split - whole).abs().max()))
+    torch.cuda.synchronize()
+    return dict(errs=errs, launches=pa.paged_attend.partials_launches,
+                float_launches=pa.paged_attend.float_partials_launches)
+
+
+def _mesh_rank(mesh, params, tp1: bool = False) -> dict:
+    """The body of each rank of :func:`mesh_path` (``tp1``: of its TP=1
+    run, one process whose engine has no mesh).  cuBLAS runs without
+    split-K workspaces in this process (``launch/mesh.py``): a column
+    block of a product is then computed as inside the whole product."""
+    import torch
+    from repro_torch.launch.mesh import CUBLAS_DETERMINISTIC
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_DETERMINISTIC
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    engine_mesh = None if tp1 else mesh
+    fp8 = _mesh_serve(engine_mesh, mesh.device, "serve_fp8_paged",
+                      len(params["blocks"]), params)
+    bf16 = _mesh_serve(engine_mesh, mesh.device, None, MESH_BF16_DEPTH,
+                       _shallow(params, MESH_BF16_DEPTH))
+    return dict(rank=mesh.rank, transport=mesh.transport, fp8=fp8,
+                bf16=bf16, partials=None if tp1 else _mesh_partials(mesh))
+
+
+def mesh_path(dev, params, fp8_base: dict, bf16_base: dict) -> dict:
+    """Phase: tensor-parallel serving, two ranks of a (1, 2) mesh on this
+    one card (one process each, ``MESH_BACKEND`` between them: a
+    correctness run, not a speed-up claim).  Each rank serves
+    gemma3-12b at full width (16/8 heads split 8/4, d_ff 7,680 a rank, the
+    embedding's vocab rows halved) on the main path's weights: the 8
+    shared-prefix requests, prefix on, fused decode, on FP8 pages at full
+    depth and on bf16 pages at depth ``MESH_BF16_DEPTH``.  The TP=1 runs
+    it is held to are the same runs in one process of their own, since
+    the ranks and they run cuBLAS without split-K workspaces
+    (``CUBLAS_WORKSPACE_CONFIG=:0:0``, read once a process), and the
+    rest of this script with them, whose decode products they make 2.5x
+    slower (``scripts/cublas_workspace_ab.py``).
+    Gates: every rank's streams bitwise equal to the TP=1 runs', the
+    digest of the whole cache gathered over the ranks equal to theirs,
+    K1 launched n_layers x sub-steps by every rank at 4 KV heads, each
+    rank's first n_layers K1 calls within rtol = atol = 1e-4 of the plain
+    version; then K1's partials mode (:func:`_mesh_partials`).  Printed
+    beside them: whether the TP=1 runs equal this process's
+    (``fp8_base``: the main path's prefix-on run; ``bf16_base``: 11's
+    worst-case pool), made with split-K.  Before the run, this process
+    times K1 at the shard's geometry in both modes and both instances.
+    Prints the transport, each rank's peak memory, the run's wall and
+    decode tokens/s, beside the card's name and power limit."""
+    import tempfile
+    import torch
+    from repro_torch.launch.mesh import run_ranks
+
+    card = card_line()
+    timed = {}
+    for lns, mode in ((True, False), (True, True), (False, False),
+                      (False, True)):
+        c = (k1_inputs(dev, **MESH_K1) if lns
+             else k1_float_inputs(dev, torch.bfloat16, **MESH_K1))
+        what = (f"K1 {'LNS' if lns else 'float (bf16 pages)'} gemma3-12b "
+                f"TP={MESH_TP} shard (KV {MESH_K1['KV']}, G {MESH_K1['G']}, "
+                f"hd {MESH_K1['hd']}){' partials mode' if mode else ''}")
+        timed[lns, mode] = _time_k1(c, what, lns=lns, partials=mode)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # the ranks draw their own cut first
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        (tp1,) = run_ranks(_mesh_rank, 1, init_file=os.path.join(tmp, "one"),
+                           backend=MESH_BACKEND, device=dev,
+                           args=(params, True), timeout=MESH_TIMEOUT_S,
+                           threads=2)
+        tp1_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = run_ranks(_mesh_rank, MESH_TP,
+                          init_file=os.path.join(tmp, "store"),
+                          backend=MESH_BACKEND, device=dev,
+                          args=(params, False), timeout=MESH_TIMEOUT_S,
+                          threads=2)
+    spawn_wall = time.perf_counter() - t0
+    for key, split_k, depth in (("fp8", fp8_base, len(params["blocks"])),
+                                ("bf16", bf16_base, MESH_BF16_DEPTH)):
+        label = (f"gemma3-12b depth {depth} "
+                 f"{'serve_fp8_paged' if key == 'fp8' else 'bf16 pages'} "
+                 f"TP={MESH_TP} on one card (correctness only)")
+        base = tp1[key]
+        _require_varied(base["outputs"], f"{label}: TP=1",
+                        0.0 if key == "fp8" else 0.25)
+        same = ("equal" if (base["outputs"], base["digest"])
+                == (split_k["outputs"], split_k["digest"]) else "differ")
+        print(f"# {label}: TP=1 without split-K (its own process) "
+              f"{base['wall']:.3f} s wall, {base['decode_tok_s']:.2f} "
+              f"decode tok/s, cache digest {base['digest'][:16]}; streams "
+              f"and cache {same} to the run with split-K (digest "
+              f"{split_k['digest'][:16]}, {split_k['wall']:.3f} s); "
+              f"[{card}]", flush=True)
+        for r in ranks:
+            got = r[key]
+            if got["outputs"] != base["outputs"]:
+                raise AssertionError(f"{label}: rank {r['rank']}'s streams "
+                                     "differ from the TP=1 streams")
+            if got["digest"] != base["digest"]:
+                raise AssertionError(f"{label}: rank {r['rank']}'s gathered "
+                                     "cache differs from the TP=1 cache")
+            if (got["kv_heads"] != MESH_K1["KV"]
+                    or got["shadow_calls"] < depth):
+                raise AssertionError(f"{label}: rank {r['rank']}: "
+                                     f"{got['kv_heads']} KV heads, "
+                                     f"{got['shadow_calls']} K1 calls "
+                                     "shadowed")
+            print(f"# {label}, rank {r['rank']} ({r['transport']}): "
+                  f"{got['substeps']} sub-steps, {got['launches']} K1 "
+                  f"launches at {got['kv_heads']} KV heads, "
+                  f"{got['hits']} prefix hit tokens, {got['wall']:.3f} s "
+                  f"wall, {got['decode_tok_s']:.2f} decode tok/s, peak "
+                  f"{got['peak'] / 2**30:.2f} GiB of its own; first "
+                  f"{got['shadow_calls']} K1 calls within "
+                  f"{got['shadow_err']:.3e} of plain; [{card}]", flush=True)
+        print(f"# {label}: streams of both ranks bitwise equal to TP=1's, "
+              f"whole cache digest {base['digest'][:16]} equal (TP=1 wall "
+              f"{base['wall']:.3f} s); [{card}]", flush=True)
+    for r in ranks:
+        p = r["partials"]
+        print(f"# K1 partials mode on rank {r['rank']} (KV {MESH_K1['KV']}, "
+              f"G {MESH_K1['G']}, hd {MESH_K1['hd']}): normalised shard and "
+              f"cross-rank combine of page halves within rtol 2e-5 / atol "
+              f"2e-6 of paged_attend, max |diff| LNS {p['errs']['lns']:.3e}, "
+              f"float {p['errs']['float']:.3e}; {p['launches']} LNS and "
+              f"{p['float_launches']} float partials launches", flush=True)
+    print(f"# mesh run: {MESH_TP} ranks, spawn to join {spawn_wall:.1f} s "
+          f"(the TP=1 process {tp1_wall:.1f} s); [{card}]", flush=True)
+    first = ranks[0]
+    return dict(
+        timed=timed, fp8=first["fp8"], bf16=first["bf16"],
+        fp8_err=max(r["fp8"]["shadow_err"] for r in ranks),
+        bf16_err=max(r["bf16"]["shadow_err"] for r in ranks),
+        partials=first["partials"],
+        partials_err={k: max(r["partials"]["errs"][k] for r in ranks)
+                      for k in ("lns", "float")})
 
 
 def _plain_attention_policy(pol):
@@ -1475,12 +1780,15 @@ def _plain_attention_policy(pol):
 
 
 class _ShadowK1:
-    """Within the block, every K1 call is also computed by its plain
-    version (``page_partials_plain`` and the combine) on the very same
-    inputs, the model's own, and held to K1's gate, rtol = atol = 1e-4;
-    the kernel's output is what the model goes on with.  Counts the calls
-    and keeps the largest difference.  The launch counters stay
-    ``paged_attend``'s."""
+    """Within the block, every K1 call (the first ``limit``, when given)
+    is also computed by its plain version (``page_partials_plain`` and
+    the combine) on the very same inputs, the model's own, and held to
+    K1's gate, rtol = atol = 1e-4; the kernel's output is what the model
+    goes on with.  Counts the calls held and keeps the largest
+    difference.  The launch counters stay ``paged_attend``'s."""
+
+    def __init__(self, limit=None):
+        self.limit = limit
 
     def __enter__(self):
         import torch
@@ -1491,14 +1799,17 @@ class _ShadowK1:
 
         def shadowed(*args, **kw):
             out = self.real(*args, **kw)
+            if self.limit is not None and self.calls >= self.limit:
+                return out
             want = pa._combine_partials(*pa.page_partials_plain(*args, **kw))
             torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
             self.err = max(self.err, float((out - want).abs().max()))
             self.calls += 1
             return out
 
-        self.counts = (self.real.launches, self.real.float_launches)
-        shadowed.launches, shadowed.float_launches = self.counts
+        self.counts = {n: getattr(self.real, n) for n in _K1_COUNTERS}
+        for n, v in self.counts.items():
+            setattr(shadowed, n, v)
         pa.paged_attend = shadowed
         return self
 
@@ -1506,10 +1817,16 @@ class _ShadowK1:
         # the kernel's wrapper counts its launches on the module's
         # ``paged_attend``, which is ``shadowed`` within the block
         shadowed = self.pa.paged_attend
-        self.real.launches += shadowed.launches - self.counts[0]
-        self.real.float_launches += shadowed.float_launches - self.counts[1]
+        for n, v in self.counts.items():
+            setattr(self.real, n, getattr(self.real, n)
+                    + getattr(shadowed, n) - v)
         self.pa.paged_attend = self.real
         return False
+
+
+# K1's launch counters: each instance, and each in its partials mode
+_K1_COUNTERS = ("launches", "float_launches", "partials_launches",
+                "float_partials_launches")
 
 
 def _launch_counts():
@@ -1699,7 +2016,6 @@ KERNEL_SCHEDULERS = {"fused_dequant": ("continuous", "bucketed"),
                      "lns": ("bucketed",)}
 KERNEL_PLEN = 8            # 4 prompts of one length: one prefill, M = 32
 KERNEL_GEN = 4
-BUCKET_GEN = 8             # the full-depth bucketed runs' generated tokens
 BUCKET_SHALLOW_DEPTH = 6   # the bucketed runs set against continuous ones
 # one gemma3-12b layer's seven static-weight matmuls: (K, N) -> count
 # (wq; wk and wv; wo; w_gate and w_up; w_down)
@@ -1800,17 +2116,17 @@ def bucketed_logits_path(dev, policy, params) -> None:
 
 def bucketed_path(dev, policy, params, continuous) -> dict:
     """The bucketed scheduler at full width: gemma3-12b on the main path's
-    weights and its 8 prefix-phase requests on 4 slots, page 16.  At full
-    depth, ``BUCKET_GEN`` generated tokens: on the dense cache; on the
+    weights (their first 6 layers, one 5:1 period, ``BUCKET_SHALLOW_DEPTH``:
+    cut for time) and its 8 prefix-phase requests on 4 slots, page 16, 16
+    generated tokens as the prefix phases: on the dense cache; on the
     paged cache (the batched prefill's rows spliced into pages) fused,
     unfused, and fused again with every K1 call held to its plain version
-    on the same inputs (:class:`_ShadowK1`).  At depth 6 (the first 6
-    layers, one 5:1 period), 16 generated tokens as the prefix phases:
-    with the prefix cache on (every admission prefills its uncached tail
-    through ``tail_prefill``) and off; on FP8 pages also a continuous and
-    a bucketed run with deterministic KV writes.  The depth-6 runs stand
-    beside ``continuous``: :func:`preempt_shared_path`'s worst-case-pool
-    streams of the same policy (depth 6, prefix on, continuous).
+    on the same inputs (:class:`_ShadowK1`); with the prefix cache on
+    (every admission prefills its uncached tail through ``tail_prefill``)
+    and off; on FP8 pages also a continuous and a bucketed run with
+    deterministic KV writes.  These stand beside ``continuous``:
+    :func:`preempt_shared_path`'s worst-case-pool streams of the same
+    policy (depth 6, prefix on, continuous).
 
     Bitwise gates, on streams that vary (:func:`_require_varied`): paged
     fused == unfused == the shadowed run; the prefix cache on ==
@@ -1836,26 +2152,23 @@ def bucketed_path(dev, policy, params, continuous) -> dict:
     queue = _prefix_queue(cfg)
     shallow_cfg = dataclasses.replace(cfg, n_layers=BUCKET_SHALLOW_DEPTH)
     shallow = _shallow(params, BUCKET_SHALLOW_DEPTH)
-    # (name, Engine keywords, depth-6, scheduler, shadowed)
-    plans = [("dense", dict(cache_impl="dense"), False, "bucketed", False),
-             ("fused", dict(), False, "bucketed", False),
-             ("unfused", dict(fused_decode=False), False, "bucketed", False),
-             ("shadowed", dict(), False, "bucketed", True),
-             ("prefix", dict(prefix_cache=True), True, "bucketed", False),
-             ("off", dict(), True, "bucketed", False)]
+    # (name, Engine keywords, scheduler, shadowed); every run at depth 6,
+    # cut for time (``BUCKET_SHALLOW_DEPTH``)
+    plans = [("dense", dict(cache_impl="dense"), "bucketed", False),
+             ("fused", dict(), "bucketed", False),
+             ("unfused", dict(fused_decode=False), "bucketed", False),
+             ("shadowed", dict(), "bucketed", True),
+             ("prefix", dict(prefix_cache=True), "bucketed", False),
+             ("off", dict(), "bucketed", False)]
     if fp8:
-        plans += [("bucketed_rne", dict(stochastic_kv=False), True,
-                   "bucketed", False),
-                  ("continuous_rne", dict(stochastic_kv=False), True,
+        plans += [("bucketed_rne", dict(stochastic_kv=False), "bucketed",
+                   False),
+                  ("continuous_rne", dict(stochastic_kv=False),
                    "continuous", False)]
     runs, shadow = {}, None
-    for name, kw, shallow_run, scheduler, shadowed in plans:
-        if shallow_run:
-            eng = _prefix_engine(dev, shallow_cfg, shallow, **kw)
-            gen = PREFIX_GEN
-        else:
-            eng = _prefix_engine(dev, cfg, params, **kw)
-            gen = BUCKET_GEN
+    gen = PREFIX_GEN
+    for name, kw, scheduler, shadowed in plans:
+        eng = _prefix_engine(dev, shallow_cfg, shallow, **kw)
         if shadowed:
             with _ShadowK1() as shadow:
                 run = _counted_run(eng, queue, gen, scheduler)
@@ -1864,7 +2177,7 @@ def bucketed_path(dev, policy, params, continuous) -> dict:
         st = run["stats"]
         extra = ""
         if name == "dense":
-            want = _dense_cache_bytes(cfg, PREFIX_SLOTS, eng.max_seq)
+            want = _dense_cache_bytes(eng.cfg, PREFIX_SLOTS, eng.max_seq)
             got = eng.kv_cache_bytes()
             if got != want or cache_bytes(eng.cache) != want:
                 raise AssertionError(f"dense cache {got} B, want {want}")
@@ -3745,7 +4058,8 @@ def main() -> int:
     served_prefix_float.pop("params")
     shared = _phase(preempt_shared_path, dev, "serve_fp8_paged", params)
     shared_float = _phase(preempt_shared_path, dev, None, params)
-    _phase(chaos_path, dev, params, served_prefix, shared_float)
+    _phase(chaos_path, dev, params, shared, shared_float)
+    meshed = _phase(mesh_path, dev, params, served_prefix, shared_float)
     _phase(bucketed_path, dev, "serve_fp8_paged", params, shared["outputs"])
     _phase(bucketed_path, dev, None, params, shared_float["outputs"])
     _phase(bucketed_logits_path, dev, "serve_fp8_paged", params)
@@ -3754,8 +4068,9 @@ def main() -> int:
     del params
     static_k = _phase(static_kernel_path, dev, static.pop("codes"))
     torch.cuda.empty_cache()
-    _phase(profile_main_path, dev, arch="gemma3-12b")
-    _phase(profile_main_path, dev, policy=None, arch="gemma3-12b")
+    _phase(profile_main_path, dev, arch="gemma3-12b", depth=PROFILE_DEPTH)
+    _phase(profile_main_path, dev, policy=None, arch="gemma3-12b",
+           depth=PROFILE_DEPTH)
     _phase(window_path, dev)
     _phase(dense_family_path, dev, "gemma2-27b")
     _phase(dense_family_path, dev, "qwen3-14b")
@@ -3833,6 +4148,23 @@ def main() -> int:
              plain_ms=k1f["plain_ms"], bound_ms=k1f["bound_ms"],
              bound_by=k1f["bound_by"], library_ms=None),
     ]
+    for lns, mode in ((True, False), (False, False), (True, True),
+                      (False, True)):
+        t = meshed["timed"][lns, mode]
+        run = meshed["fp8" if lns else "bf16"]
+        inst = "lns" if lns else "float"
+        kernels.append(dict(
+            name=(f"{inst}_paged_partials"
+                  + ("_partials_mode" if mode else f"_tp{MESH_TP}_shard")),
+            route="cuda", source=src + "paged_attention.cu",
+            replaces="src/repro/kernels/paged_attention.py:400",
+            launches=(meshed["partials"]["launches" if lns
+                                         else "float_launches"] if mode
+                      else run["launches"]),
+            max_abs_err=(meshed["partials_err"][inst] if mode
+                         else meshed[f"{'fp8' if lns else 'bf16'}_err"]),
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=None))
     for impl, name, line in (("fused_dequant", "dequant_matmul", 110),
                              ("lns", "lns_matmul", 62)):
         k = static_k[impl]

@@ -130,13 +130,14 @@ class QTensor:
 
 
 def quantize(x, fmt: FP8Format | str = "e4m3", *, axis: Optional[int] = None,
-             mode: str = "rne") -> QTensor:
+             mode: str = "rne", reduce=None) -> QTensor:
     """Quantize a float tensor; ``axis`` keeps a per-channel scale along it.
 
     The scale maps the absmax onto the format's max_normal, so the full
     exponent range is used; the codes are ``encode(x / scale)`` (a true
     division, as the reference computes it: a multiply by the reciprocal
-    would move codes).
+    would move codes).  ``reduce`` maps the absmax before the scale is
+    taken (the maximum over a tensor-parallel mesh's shards of ``x``).
     """
     if isinstance(fmt, str):
         fmt_obj = FORMATS[fmt]
@@ -149,6 +150,8 @@ def quantize(x, fmt: FP8Format | str = "e4m3", *, axis: Optional[int] = None,
         keep = axis % x.ndim
         dims = tuple(i for i in range(x.ndim) if i != keep)
         amax = x.abs().amax(dim=dims, keepdim=True)
+    if reduce is not None:
+        amax = reduce(amax)
     amax = torch.clamp_min(amax, 1e-12)
     scale = amax / fmt_obj.max_normal
     codes = encode(x / scale, fmt_obj, mode)

@@ -67,6 +67,13 @@
 // calls on the same inputs agree bit for bit and fused == unfused holds.
 // Left for later: fusing the FP8 row encode (token_row_codes) and the page
 // scatter into this launch.
+//
+// Partials mode (m_out non-null; kernels/paged_attention.py::
+// paged_attention_partials): rank 0 stops before the divide and writes the
+// combined, un-normalised state of its (slot, KV head), M and l [B, KV, G]
+// into m_out and l_out and o into out, for a combine across shards of the
+// pages (combine_partials_psum).  The combine itself is unchanged, so the
+// default output is bitwise what it was.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -211,6 +218,8 @@ struct Common {
   const int32_t* rows;          // [B]          fused only
   const int32_t* imask;         // [B]          fused only
   float* out;                   // [B, KV*G, dv]
+  float* m_out;                 // [B, KV, G]   partials mode only
+  float* l_out;                 // [B, KV, G]   partials mode only
   int maxp, page, KV, G, hd, dv;
   int window, fused, vec;
   float cap, inv_sqrt_hd;
@@ -714,6 +723,16 @@ __device__ __forceinline__ void paged_attend(const typename I::Params& ip,
   combine_weights<kMaxCluster>(cst, G, w, msum, lsum, tid, nthreads);
   __syncthreads();
   float* out = p.out + ((size_t)b * KV + kv) * G * dv;
+  if (p.m_out != nullptr) {  // partials mode: the state, un-normalised
+    const size_t row = ((size_t)b * KV + kv) * G;
+    for (int g = tid; g < G; g += nthreads) {
+      p.m_out[row + g] = msum[g];
+      p.l_out[row + g] = lsum[g];
+    }
+    for (int i = tid; i < G * dv; i += nthreads)
+      out[i] = combine_o<kMaxCluster>(cst, w, G, i / dv, i);
+    return;
+  }
   for (int i = tid; i < G * dv; i += nthreads) {
     const int g = i / dv;
     const float lt = lsum[g];
@@ -785,8 +804,9 @@ int launch_cluster(void (*kernel)(typename I::Params),
 
 Common common(const void* block_tables, const void* lengths,
               const void* logical, const void* rows, const void* imask,
-              void* out, int maxp, int page, int KV, int G, int hd, int dv,
-              int window, int fused, float cap, float inv_sqrt_hd) {
+              void* out, void* m_out, void* l_out, int maxp, int page,
+              int KV, int G, int hd, int dv, int window, int fused,
+              float cap, float inv_sqrt_hd) {
   Common c;
   c.block_tables = (const int32_t*)block_tables;
   c.lengths = (const int32_t*)lengths;
@@ -794,6 +814,8 @@ Common common(const void* block_tables, const void* lengths,
   c.rows = (const int32_t*)rows;
   c.imask = (const int32_t*)imask;
   c.out = (float*)out;
+  c.m_out = (float*)m_out;
+  c.l_out = (float*)l_out;
   c.maxp = maxp; c.page = page; c.KV = KV; c.G = G; c.hd = hd; c.dv = dv;
   c.window = window; c.fused = fused; c.vec = 1;
   c.cap = cap; c.inv_sqrt_hd = inv_sqrt_hd;
@@ -830,19 +852,22 @@ int lns_paged_partials_smem(int page, int G, int hd, int dv, int maxp) {
 }
 
 // Launch on `stream`; returns the launch's CUDA error code (0 on success).
-// out: [B, KV*G, dv] float32, the attention of each query row.
+// out: [B, KV*G, dv] float32, the attention of each query row; with m_out
+// and l_out ([B, KV, G] float32, both null or both not) the partials mode:
+// out the un-normalised o, m_out and l_out the state's M and l.
 int lns_paged_partials(
     const void* q_codes, const void* q_scale, const void* k_pages,
     const void* v_pages, const void* k_scale, const void* v_scale,
     const void* block_tables, const void* lengths, const void* k_rows,
     const void* v_rows, const void* logical, const void* rows,
-    const void* imask, const void* lut, void* out, int B, int maxp, int page,
-    int KV, int G, int hd, int dv, int man_bits, int bias,
-    int min_normal_code, int max_normal_code, int window, int fused,
-    float cap, float inv_sqrt_hd, void* stream) {
+    const void* imask, const void* lut, void* out, void* m_out, void* l_out,
+    int B, int maxp, int page, int KV, int G, int hd, int dv, int man_bits,
+    int bias, int min_normal_code, int max_normal_code, int window,
+    int fused, float cap, float inv_sqrt_hd, void* stream) {
   LnsParams p;
-  p.c = common(block_tables, lengths, logical, rows, imask, out, maxp, page,
-               KV, G, hd, dv, window, fused, cap, inv_sqrt_hd);
+  p.c = common(block_tables, lengths, logical, rows, imask, out, m_out,
+               l_out, maxp, page, KV, G, hd, dv, window, fused, cap,
+               inv_sqrt_hd);
   p.q_codes = (const uint8_t*)q_codes;
   p.q_scale = (const float*)q_scale;
   p.k_pages = (const uint8_t*)k_pages;
@@ -867,17 +892,18 @@ int float_paged_partials_smem(int page, int G, int hd, int dv, int maxp,
 }
 
 // The float-page instance: pages of bf16 (bf16_pages != 0) or float32,
-// a float32 q.  Launch on `stream`; returns the launch's error code.
+// a float32 q; out, m_out and l_out as above.  Launch on `stream`;
+// returns the launch's error code.
 int float_paged_partials(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_tables, const void* lengths, const void* k_rows,
     const void* v_rows, const void* logical, const void* rows,
-    const void* imask, void* out, int B, int maxp, int page, int KV, int G,
-    int hd, int dv, int window, int fused, int bf16_pages, float cap,
-    float inv_sqrt_hd, void* stream) {
+    const void* imask, void* out, void* m_out, void* l_out, int B, int maxp,
+    int page, int KV, int G, int hd, int dv, int window, int fused,
+    int bf16_pages, float cap, float inv_sqrt_hd, void* stream) {
   const Common c = common(block_tables, lengths, logical, rows, imask, out,
-                          maxp, page, KV, G, hd, dv, window, fused, cap,
-                          inv_sqrt_hd);
+                          m_out, l_out, maxp, page, KV, G, hd, dv, window,
+                          fused, cap, inv_sqrt_hd);
   if (bf16_pages)
     return launch_float<__nv_bfloat16>(q, k_pages, v_pages, k_rows, v_rows,
                                        c, B, (cudaStream_t)stream);

@@ -31,6 +31,18 @@ kernel never reads the scattered cache), and scatters the row into the
 cache.  JAX's functional ``.at[].set`` updates become in-place
 ``index_put_`` on the page and scale tensors here; the caller's tensors
 are updated and also returned.
+
+K1's partials mode (``paged_attend(..., partials=True)``, counted in
+``paged_attend.partials_launches`` / ``float_partials_launches``) stops
+before the final divide and returns the locally combined ``(M, l, o)``
+un-normalised: :func:`paged_attention_partials` is the reference's
+page-sharded entry on top of it, and :func:`combine_partials_psum` merges
+the shards' partials with one cross-shard max and two sums, a route that
+is allclose across shard counts, never bitwise, so the serving engine
+does not take it (it shards heads, ``parallel``).  On a tensor-parallel
+mesh the query's and the new KV row's absmax span every head: the model
+layer takes their maximum over the ranks and passes it in (``amax``,
+``q_amax``); this module issues no collective.
 """
 from __future__ import annotations
 
@@ -51,6 +63,8 @@ __all__ = [
     "admissible_pages",
     "page_partials_plain",
     "paged_attend",
+    "paged_attention_partials",
+    "combine_partials_psum",
     "paged_attention_ref",
     "paged_decode_attention",
     "fused_decode_write_attend",
@@ -59,12 +73,21 @@ __all__ = [
 NEG_INF = -2.0e30
 
 
-def quantize_q(q: torch.Tensor, fmt: str, mode: str = "rne"):
+def row_amax(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, d] -> [B]: each slot's absmax over its heads, in float32."""
+    return x.to(torch.float32).abs().amax(dim=(1, 2))
+
+
+def quantize_q(q: torch.Tensor, fmt: str, mode: str = "rne", amax=None):
     """[B, H, hd] float -> (codes [B, H, hd] uint8, scale [B] float32):
-    one absmax scale per slot, mapped onto the format's max_normal."""
+    one absmax scale per slot, mapped onto the format's max_normal.  The
+    absmax spans every head: ``amax`` [B] when the caller took it (the
+    maximum over a mesh's ranks), else ``q``'s own."""
     fmt_obj = FORMATS[fmt]
     qf = q.to(torch.float32)
-    amax = torch.clamp_min(qf.abs().amax(dim=(1, 2)), 1e-12)
+    if amax is None:
+        amax = row_amax(qf)
+    amax = torch.clamp_min(amax, 1e-12)
     scale = amax / fmt_obj.max_normal
     return encode(qf / scale[:, None, None], fmt_obj, mode), scale
 
@@ -217,12 +240,12 @@ def _lib():
     if not getattr(lib, "_typed", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.lns_paged_partials.argtypes = (
-            [vp] * 15 + [ci] * 13 + [cf, cf, vp])
+            [vp] * 17 + [ci] * 13 + [cf, cf, vp])
         lib.lns_paged_partials.restype = ci
         lib.lns_paged_partials_smem.argtypes = [ci] * 5
         lib.lns_paged_partials_smem.restype = ci
         lib.float_paged_partials.argtypes = (
-            [vp] * 11 + [ci] * 10 + [cf, cf, vp])
+            [vp] * 13 + [ci] * 10 + [cf, cf, vp])
         lib.float_paged_partials.restype = ci
         lib.float_paged_partials_smem.argtypes = [ci] * 6
         lib.float_paged_partials_smem.restype = ci
@@ -230,9 +253,19 @@ def _lib():
     return lib
 
 
+def _outputs(B, KV, G, dv, dev, partials: bool):
+    """K1's output tensors: the attention [B, KV*G, dv], or the partials
+    mode's un-normalised o in the same layout with M and l [B, KV, G]."""
+    out = torch.empty((B, KV * G, dv), dtype=torch.float32, device=dev)
+    if not partials:
+        return out, None, None
+    m = torch.empty((B, KV, G), dtype=torch.float32, device=dev)
+    return out, m, torch.empty_like(m)
+
+
 def _launch_k1(q_codes, q_scale, k_pages, v_pages, k_scale, v_scale,
                block_tables, lengths, *, fmt, mode, KV, G, window, cap,
-               inserts):
+               inserts, partials=False):
     fmt_obj = FORMATS[fmt]
     dev = q_codes.device
     B, maxp = block_tables.shape
@@ -257,15 +290,18 @@ def _launch_k1(q_codes, q_scale, k_pages, v_pages, k_scale, v_scale,
     if lib.lns_paged_partials_smem(page, G, hd, dv, maxp) > _SMEM_LIMIT:
         raise ValueError(f"K1 geometry page={page} G={G} hd={hd} dv={dv} "
                          "exceeds one block's shared memory")
-    out = torch.empty((B, KV * G, dv), dtype=torch.float32, device=dev)
+    out, m, l = _outputs(B, KV, G, dv, dev, partials)
     ptr = [None if t is None else t.data_ptr()
-           for t in tensors + ins + [lut, out]]
+           for t in tensors + ins + [lut, out, m, l]]
     err = lib.lns_paged_partials(
         *ptr, B, maxp, page, KV, G, hd, dv, fmt_obj.man_bits, fmt_obj.bias,
         fmt_obj.min_normal_code, fmt_obj.max_normal_code, int(window),
         int(inserts is not None), float(cap), float(hd**-0.5),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(err, "K1")
+    if partials:
+        paged_attend.partials_launches += 1
+        return m, l, out.reshape(B, KV, G, dv)
     paged_attend.launches += 1
     return out
 
@@ -274,7 +310,7 @@ _FLOAT_PAGES = {torch.bfloat16: 1, torch.float32: 0}  # dtype -> bf16 flag
 
 
 def _launch_k1_float(q, k_pages, v_pages, block_tables, lengths, *, KV, G,
-                     window, cap, inserts):
+                     window, cap, inserts, partials=False):
     dev = q.device
     B, maxp = block_tables.shape
     P, page, _, hd = k_pages.shape
@@ -298,14 +334,17 @@ def _launch_k1_float(q, k_pages, v_pages, block_tables, lengths, *, KV, G,
                                      _FLOAT_PAGES[dt]) > _SMEM_LIMIT:
         raise ValueError(f"K1 geometry page={page} G={G} hd={hd} dv={dv} "
                          "exceeds one block's shared memory")
-    out = torch.empty((B, KV * G, dv), dtype=torch.float32, device=dev)
+    out, m, l = _outputs(B, KV, G, dv, dev, partials)
     ptr = [None if t is None else t.data_ptr()
-           for t in tensors + ins + [out]]
+           for t in tensors + ins + [out, m, l]]
     err = lib.float_paged_partials(
         *ptr, B, maxp, page, KV, G, hd, dv, int(window),
         int(inserts is not None), _FLOAT_PAGES[dt], float(cap),
         float(hd**-0.5), torch.cuda.current_stream(dev).cuda_stream)
     check_launch(err, "K1 (float pages)")
+    if partials:
+        paged_attend.float_partials_launches += 1
+        return m, l, out.reshape(B, KV, G, dv)
     paged_attend.float_launches += 1
     return out
 
@@ -313,7 +352,7 @@ def _launch_k1_float(q, k_pages, v_pages, block_tables, lengths, *, KV, G,
 def paged_attend(
     q_codes, q_scale, k_pages, v_pages, k_scale, v_scale, block_tables,
     lengths, *, fmt: Optional[str], mode: str, KV: int, G: int,
-    window: int = 0, cap: float = 0.0, inserts=None,
+    window: int = 0, cap: float = 0.0, inserts=None, partials: bool = False,
 ):
     """K1: the attention of each query row, [B, KV*G, dv] float32, with
     the operands of :func:`page_partials_plain`.  CUDA tensors launch the
@@ -322,25 +361,76 @@ def paged_attend(
     ``paged_attend.launches``), its float instance on float pages
     (``fmt=None``; bumping ``paged_attend.float_launches``).  CPU tensors
     run the plain version, ``_combine_partials(page_partials_plain(...))``.
-    Any other device raises."""
+    Any other device raises.
+
+    ``partials=True``: the partials mode, the same launch stopped before
+    the divide, returning ``(M [B, KV, G], l [B, KV, G], o [B, KV, G,
+    dv])`` with ``o`` un-normalised (plain version:
+    :func:`_local_combine`); it bumps ``partials_launches`` /
+    ``float_partials_launches`` instead."""
     kw = dict(fmt=fmt, mode=mode, KV=KV, G=G, window=window, cap=cap,
               inserts=inserts)
     args = (q_codes, q_scale, k_pages, v_pages, k_scale, v_scale,
             block_tables, lengths)
     if q_codes.device.type == "cpu":
-        return _combine_partials(*page_partials_plain(*args, **kw))
+        parts = page_partials_plain(*args, **kw)
+        return _local_combine(*parts) if partials else _combine_partials(*parts)
     if q_codes.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or CPU tensors, not "
                          f"{q_codes.device}")
     if fmt is None:
         return _launch_k1_float(q_codes, k_pages, v_pages, block_tables,
                                 lengths, KV=KV, G=G, window=window, cap=cap,
-                                inserts=inserts)
-    return _launch_k1(*args, **kw)
+                                inserts=inserts, partials=partials)
+    return _launch_k1(*args, **kw, partials=partials)
 
 
 paged_attend.launches = 0
 paged_attend.float_launches = 0
+paged_attend.partials_launches = 0
+paged_attend.float_partials_launches = 0
+
+
+def _local_combine(m, l, o):
+    """The partials mode's plain version: the pages' partials combined
+    over pages and left un-normalised, (M, l, o) [B, KV, G(, dv)] (the
+    reference's ``paged_attention_partials`` after ``_batch_partials``)."""
+    M = m.amax(dim=1)
+    w = torch.exp(m - M[:, None])
+    return M, (w * l).sum(dim=1), (w[..., None] * o).sum(dim=1)
+
+
+def paged_attention_partials(
+    q_op, k_pages, v_pages, k_scale, v_scale, block_tables, lengths, *,
+    fmt: Optional[str], mode: str, page_size: int, KV: int, G: int,
+    window: int = 0, cap: float = 0.0,
+):
+    """One shard's locally combined softmax partials (flash-decoding
+    KV-split serving): ``(m [B, KV, G], l [B, KV, G], o [B, KV, G, dv])``,
+    ``o`` un-normalised, through K1's partials mode (its plain version on
+    CPU tensors).  ``q_op`` is :func:`query_operand`'s pair; a shard
+    passes a block table that lists only its own pages (``page_size`` is
+    the reference's argument, read off the pages here).  Merge the shards
+    with :func:`combine_partials_psum`."""
+    del page_size
+    return paged_attend(*q_op, k_pages, v_pages, k_scale, v_scale,
+                        block_tables, lengths, fmt=fmt, mode=mode, KV=KV,
+                        G=G, window=window, cap=cap, partials=True)
+
+
+def combine_partials_psum(m, l, o, mesh):
+    """Cross-shard log-sum-exp combine of :func:`paged_attention_partials`
+    over ``mesh``'s ranks: one all-max and two all-reduce sums, into the
+    normalised attention [B, KV*G, dv].  Allclose across shard counts, not
+    bitwise (the floating-point merge order of the page partials moves
+    with the split), which is why the serving engine shards heads."""
+    M = mesh.all_max(m)
+    w = torch.exp(m - M)
+    l_tot = mesh.all_sum(w * l)
+    o_tot = mesh.all_sum(w[..., None] * o)
+    out = o_tot / torch.clamp_min(l_tot, 1e-37)[..., None]
+    B, KV, G, dv = out.shape
+    return out.reshape(B, KV * G, dv)
 
 
 def _combine_partials(m, l, o):
@@ -367,18 +457,19 @@ def paged_attention_ref(q_op, k_pages, v_pages, k_scale, v_scale,
     return _combine_partials(m, l, o)
 
 
-def query_operand(q, fmt: Optional[str]):
+def query_operand(q, fmt: Optional[str], amax=None):
     """K1's query operand of q [B, H, hd]: (codes [B, H, hd] uint8, scale
-    [B]) for FP8 pages, (q in float32, None) for float pages."""
+    [B]) for FP8 pages (``amax``: see :func:`quantize_q`), (q in float32,
+    None) for float pages."""
     if fmt is None:
         return q.to(torch.float32), None
-    return quantize_q(q, fmt)
+    return quantize_q(q, fmt, amax=amax)
 
 
 def paged_decode_attention(
     q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths, *,
     fmt: Optional[str], n_kv_heads: int, mode: str = "rne",
-    window: int = 0, cap: float = 0.0, impl: str = "auto",
+    window: int = 0, cap: float = 0.0, impl: str = "auto", q_amax=None,
 ):
     """Decode attention against the paged cache.
 
@@ -386,14 +477,15 @@ def paged_decode_attention(
     scales [P] when ``fmt`` names a format, float (bf16 or float32) with
     the scales unread when ``fmt`` is None; block_tables [B, maxp] int32;
     lengths [B] int32 valid tokens.  ``impl``: "kernel"/"auto" (the K1
-    wrapper, :func:`paged_attend`) or "ref" (plain partials on any device).  Returns
-    [B, 1, H, dv] in q.dtype.
+    wrapper, :func:`paged_attend`) or "ref" (plain partials on any device).
+    ``q_amax``: the query's absmax [B] when the caller took it (see
+    :func:`quantize_q`).  Returns [B, 1, H, dv] in q.dtype.
     """
     B, one, H, hd = q.shape
     if one != 1:
         raise ValueError("paged decode attention is single-position")
     KV, G = n_kv_heads, H // n_kv_heads
-    q_op = query_operand(q.reshape(B, H, hd), fmt)
+    q_op = query_operand(q.reshape(B, H, hd), fmt, amax=q_amax)
     kw = dict(fmt=fmt, mode=mode, KV=KV, G=G, window=window, cap=cap)
     if impl == "ref":
         out = paged_attention_ref(q_op, k_pages, v_pages, k_scale, v_scale,
@@ -411,6 +503,7 @@ def fused_decode_write_attend(
     lengths, *, fmt: Optional[str], n_kv_heads: int, mode: str = "rne",
     kv_mode: str = "stochastic", k_noise=None, v_noise=None,
     write_mask=None, window: int = 0, cap: float = 0.0, impl: str = "auto",
+    amax=None,
 ):
     """Write one decode token's K/V into its page AND attend, in place.
 
@@ -422,7 +515,9 @@ def fused_decode_write_attend(
     keys).  ``write_mask`` [B] bool redirects masked lanes to the null page
     0 without claiming a page scale.  With ``fmt=None`` (float pages) the
     row is the new K/V cast to the pages' dtype, no noise is read and the
-    scales are left as they are.
+    scales are left as they are.  ``amax``: [3, B], the K row's, V row's
+    and query's absmax over every head when the caller took them (on a
+    mesh, the maximum over the ranks), else this call's own.
 
     Order of effects, equal to the reference's functional version: row
     codes and page scales are computed from the old scales; the new scales
@@ -447,12 +542,19 @@ def fused_decode_write_attend(
     logical = torch.div(lengths, page_size, rounding_mode="floor")
     rows = lengths - logical * page_size
     page_ids = block_tables.gather(1, logical[:, None].to(torch.int64))[:, 0]
+    if fmt is None:
+        amax = [None] * 3
+    elif amax is None:
+        amax = torch.stack([row_amax(k_new), row_amax(v_new),
+                            row_amax(q.reshape(B, H, hd))])
     pids_k, k_row, ks_new = token_row_codes(
         k_scale, k_new, page_ids, rows, fmt=fmt, mode=kv_mode,
-        noise=k_noise, write_mask=write_mask, store_dtype=k_pages.dtype)
+        noise=k_noise, write_mask=write_mask, store_dtype=k_pages.dtype,
+        amax=amax[0])
     pids_v, v_row, vs_new = token_row_codes(
         v_scale, v_new, page_ids, rows, fmt=fmt, mode=kv_mode,
-        noise=v_noise, write_mask=write_mask, store_dtype=v_pages.dtype)
+        noise=v_noise, write_mask=write_mask, store_dtype=v_pages.dtype,
+        amax=amax[1])
     if fmt is not None:
         k_scale.index_put_((pids_k,), ks_new)
         v_scale.index_put_((pids_v,), vs_new)
@@ -461,7 +563,7 @@ def fused_decode_write_attend(
         scatter_token_rows(k_pages, pids_k, rows, k_row, write_mask)
         scatter_token_rows(v_pages, pids_v, rows, v_row, write_mask)
 
-    q_op = query_operand(q.reshape(B, H, hd), fmt)
+    q_op = query_operand(q.reshape(B, H, hd), fmt, amax=amax[2])
     attend_len = lengths + 1
     kw = dict(fmt=fmt, mode=mode, KV=KV, G=G, window=window, cap=cap)
     if impl == "ref":

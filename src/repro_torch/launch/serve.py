@@ -33,8 +33,18 @@ LNS instance on FP8 pages).
 The engine runs on the card unless the caller passes ``device="cpu"``
 (the tests), and raises when no GPU is present — there is no silent CPU
 fallback.  ``runtime.fault.run_serving`` drives it under faults (the
-chaos harness, crash snapshots, a kill and restore); tensor parallelism
-arrives with a later slice.
+chaos harness, crash snapshots, a kill and restore).
+
+``mesh=`` (a ``launch.mesh.Mesh``, one process per shard) serves
+tensor-parallel: the engine of each rank draws the whole parameter tree
+leaf by leaf and keeps its cut (``parallel.sharding``: concatenation-only
+roles), holds its KV heads of every page, and runs its model calls under
+the hint roles (``parallel.hints``), which gather the sharded activations
+before every contraction.  No value is summed across shards, so the token
+streams and the gathered cache are the TP=1 engine's bit for bit.
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \\
+        --arch qwen2-0.5b --smoke --device cpu --mesh 1x2
 
     python -m repro_torch.launch.serve --arch qwen2-0.5b --requests 6 \\
         --slots 2 --gen 16 --prompt-len 4,12,8
@@ -46,7 +56,9 @@ arrives with a later slice.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
+import os
 from collections import Counter
 from typing import Dict, List, Optional, Tuple
 
@@ -57,21 +69,18 @@ from .. import numerics
 from ..configs import get_config
 from ..core import prng
 from ..models import Model
-from ..models.quantize import quantize_params
+from ..models.quantize import quantize_leaf
+from ..parallel import sharding
+from ..parallel.hints import serve_hint_specs, use_hints
 from ..runtime.steps import build_decode_step, build_prefill_step
 from ..serving import (CANCELLED, FINISHED, REJECTED, TIMED_OUT,
                        ContinuousScheduler, PagePool, Request,
                        invariant_checks_enabled)
+from ..serving.page_pool import prefill_page_amax
 from ..serving.telemetry import Telemetry, _atomic_write
 
 __all__ = ["Engine", "cache_bytes", "sample", "run", "run_bucketed",
            "run_continuous", "main"]
-
-
-def _later(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported yet: it arrives with a later slice of the "
-        f"port (ROADMAP.md Queue 1 item {item})")
 
 
 def cache_bytes(tree) -> int:
@@ -110,8 +119,6 @@ class Engine:
                  prefix_cache: bool = False, fused_decode: bool = True,
                  telemetry: Optional[Telemetry] = None, mesh=None,
                  static_weights: bool = False, device="cuda"):
-        if mesh is not None:
-            raise _later("tensor-parallel serving (mesh=...)", 9)
         if cache_impl not in ("paged", "dense"):
             raise ValueError(f"unknown cache_impl {cache_impl!r}")
         if prefix_cache:
@@ -123,6 +130,16 @@ class Engine:
                     f"{cfg.name!r} (family={cfg.family!r}, "
                     f"attn_impl={cfg.attn_impl!r}) keeps dense per-slot "
                     "cache entries that cannot be shared between requests")
+        # ``mesh``: serve tensor-parallel, one process per shard (see the
+        # module docstring); the engine runs on the mesh's device
+        self.mesh = mesh
+        self._tp = 1
+        self._hint_specs = None
+        if mesh is not None:
+            self._validate_mesh(cfg, mesh, cache_impl)
+            self._tp = sharding.tp_size(mesh)
+            self._hint_specs = serve_hint_specs(cfg, mesh)
+            device = mesh.device
         self.device = _resolve_device(device)
         self.cfg = cfg
         # fused_decode=True runs each sub-step's KV write and attention as
@@ -139,12 +156,24 @@ class Engine:
         self.slots = slots
         self.cache_impl = cache_impl
         gen = torch.Generator(device=self.device).manual_seed(rng_seed)
-        self.params = self.model.init(gen)
-        # static_weights: the eligible weights as FP8 codes (opt-in: it
-        # changes the matmul path against the plain-weight engine)
-        if static_weights:
-            self.params = quantize_params(
-                self.params, cfg.policy, period=cfg.layer_pattern_period)
+
+        def leaf(path, t):
+            # static_weights: the eligible weights as FP8 codes (opt-in: it
+            # changes the matmul path against the plain-weight engine), of
+            # the whole weight; on a mesh, then cut to this rank (the TP=1
+            # tree's cut, never held whole)
+            if static_weights:
+                t = quantize_leaf(path, t, cfg.policy,
+                                  period=cfg.layer_pattern_period)
+            if mesh is None:
+                return t
+            return sharding.cut_leaf(cfg, path, t, mesh, cfg.policy)
+
+        self.params = self.model.init(gen, leaf=leaf)
+        self.tel.gauge("serve_mesh_info", mesh_shape=(
+            "1" if mesh is None
+            else "x".join(str(mesh.shape[a]) for a in mesh.axis_names)),
+            tp_size=str(self._tp)).set(1)
         # stochastic-rounding KV writes only matter for FP8 pages; the
         # policy's kv_write mode carries the default.  Host-side keys: the
         # reference's PRNGKey(seed + 17) and its stream folds.
@@ -172,12 +201,80 @@ class Engine:
             num_pages = slots * self.max_pages_per_slot + 1
         self.pool = PagePool(num_pages, page_size, slots,
                              self.max_pages_per_slot)
-        self.cache = self.model.make_paged_cache(num_pages, page_size,
-                                                 self.device)
+        self.cache = self.place_cache(self.model.make_paged_cache(
+            num_pages, page_size, self.device))
         # device mirror of pool.block_tables, re-uploaded only when the
         # pool's version moves (at most one transfer per mutating step)
         self._bt_device = None
         self._bt_version = -1
+
+    # ------------------------------------------------------------------ #
+    # Tensor-parallel mesh: validation, placement, hint context
+    # ------------------------------------------------------------------ #
+    @property
+    def tp_size(self) -> int:
+        return self._tp
+
+    @classmethod
+    def _validate_mesh(cls, cfg, mesh, cache_impl: str) -> None:
+        """Mesh serving is the paged pure-GQA engine, heads sharded.
+        Bit-identity needs every sharded dimension to split on an exact
+        head-group / ff-column / vocab-column boundary, and the paged cache
+        to hold all attention state; anything else is refused up front,
+        with the reason."""
+        if "model" not in mesh.axis_names:
+            raise ValueError(
+                f"serving mesh needs a 'model' axis; got {mesh.axis_names}")
+        tp = mesh.shape["model"]
+        extra = {a: mesh.shape[a] for a in mesh.axis_names
+                 if a != "model" and mesh.shape[a] > 1}
+        if extra:
+            raise ValueError(
+                f"serving is tensor-parallel only; non-model mesh axes "
+                f"must have size 1, got {extra} (data-parallel serving "
+                "replicates whole engines instead)")
+        if cache_impl != "paged":
+            raise ValueError("mesh serving needs cache_impl='paged'")
+        if not cls.prefix_cache_supported(cfg):
+            raise ValueError(
+                f"mesh serving needs a pure-GQA paged cache; {cfg.name!r} "
+                f"(family={cfg.family!r}, attn_impl={cfg.attn_impl!r}) "
+                "keeps dense per-slot cache entries without TP rules")
+        for dim, what in ((cfg.n_heads, "n_heads"),
+                          (cfg.n_kv_heads, "n_kv_heads"),
+                          (cfg.d_ff, "d_ff"),
+                          (cfg.vocab_padded, "vocab_padded")):
+            if dim % tp:
+                raise ValueError(
+                    f"TP={tp} does not divide {what}={dim} for "
+                    f"{cfg.name!r}; sharded dims must split on exact "
+                    "boundaries for bit-identical serving")
+
+    def place_cache(self, cache):
+        """The whole (mesh-independent) paged cache cut to this rank's KV
+        heads, scales replicated (``parallel.sharding.place_cache``); the
+        cache itself on a single-device engine.  A snapshot restores
+        through here, so a TP=1 snapshot restores onto a TP=2 engine and
+        the other way round."""
+        if self.mesh is None:
+            return cache
+        return sharding.place_cache(cache, self.mesh)
+
+    def gather_cache(self, cache=None):
+        """The whole paged cache (every rank's KV heads; every rank takes
+        part in the gather): the snapshot's layout and the TP=1 engine's
+        cache, bit for bit."""
+        cache = self.cache if cache is None else cache
+        if self.mesh is None:
+            return cache
+        return sharding.gather_cache(cache, self.mesh)
+
+    def _hints(self):
+        """The hint-role context of the mesh around every model call (a
+        no-op on a single-device engine)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return use_hints(self.mesh, self._hint_specs, self.cfg)
 
     # ------------------------------------------------------------------ #
     # Prefix cache: chunk hashing, admission matching, COW, registration
@@ -433,7 +530,9 @@ class Engine:
         page's scale from its whole content, the codes rescaled to it with
         stochastic carry-ins when ``keys`` is given).  Prefill row ``i``'s
         K and V take ``fold_in(keys, 2 i)`` and ``fold_in(keys, 2 i + 1)``,
-        split per block."""
+        split per block.  On a mesh a page's scale comes from its absmax
+        over every rank's KV heads, and the rescale's bits are drawn for
+        every head and cut to this rank's."""
         cfg = self.cfg
         if self.cache_impl == "dense":
             for entry, new in zip(self.cache, small):
@@ -457,9 +556,16 @@ class Engine:
                 key = (None if keys is None
                        else self._layer_keys(prng.fold_in(keys, fold)))
                 src = torch.stack([c[name][i] for c in small])
+                amax = heads = None
+                fmt = numerics.kv_format(cfg.policy)
+                if self._tp > 1 and fmt is not None:
+                    amax = self.mesh.all_max(prefill_page_amax(
+                        src, len(ids), self.page_size, fmt))
+                    kv = src.shape[-2]
+                    heads = (self.mesh.rank * kv, kv * self._tp)
                 numerics.kv_write_prefill(cfg.policy, self.cache[pages],
                                           self.cache[scales], src, ids,
-                                          key=key)
+                                          key=key, amax=amax, heads=heads)
 
     def prefill_batch(self, prompts: List[np.ndarray], slots: List[int]):
         """Batched prefill admission: one model call for all the prompts
@@ -473,7 +579,7 @@ class Engine:
         plen = int(np.asarray(prompts[0]).shape[0])
         assert all(np.asarray(p).shape[0] == plen for p in prompts), \
             "bucket by length"
-        with self.tel.span("prefill", n=n, plen=plen):
+        with self.tel.span("prefill", n=n, plen=plen), self._hints():
             logits, small = self._prefill(
                 self.params, self._prefill_batch_inputs(prompts))
         with self.tel.span("host"):
@@ -493,7 +599,7 @@ class Engine:
         """Dense decode step; ``pos`` is the per-slot position vector.
         Returns the host logits [slots, vocab]."""
         dev = self.device
-        with self.tel.span("decode"):
+        with self.tel.span("decode"), self._hints():
             logits, self.cache = self._decode(
                 self.params, self.cache,
                 torch.as_tensor(np.asarray(tokens, np.int64), device=dev),
@@ -518,7 +624,7 @@ class Engine:
             self.pool.ensure_capacity_batch(np.where(active, lengths + 1, 0))
             self._assert_writable(lengths, active.astype(np.int32))
             tables = self._device_block_tables()
-        with self.tel.span("decode"):
+        with self.tel.span("decode"), self._hints():
             logits, self.cache = self.model.decode_step_paged(
                 self.params, self.cache,
                 torch.as_tensor(np.asarray(tokens, np.int64), device=dev),
@@ -535,10 +641,13 @@ class Engine:
 
     def sync_logits(self, logits) -> np.ndarray:
         """Wait for a step's logits and copy them to the host (the
-        token-emission boundary); passthrough for a host array."""
+        token-emission boundary); passthrough for a host array.  On a mesh
+        the wait also covers the step's collectives, which the card runs
+        in order with the step, so the span is named ``collectives``
+        there."""
         if isinstance(logits, np.ndarray):
             return logits
-        with self.tel.span("sync"):
+        with self.tel.span("collectives" if self._tp > 1 else "sync"):
             return logits.cpu().numpy()
 
     def step_chunk(self, tokens: np.ndarray, lengths: np.ndarray,
@@ -553,7 +662,7 @@ class Engine:
             tables = self._device_block_tables()
         dev = self.device
         phase = "decode" if all(int(n) <= 1 for n in n_new) else "prefill"
-        with self.tel.span(phase):
+        with self.tel.span(phase), self._hints():
             toks = torch.as_tensor(np.asarray(tokens, np.int64), device=dev)
             logits, self.cache = self.model.step_paged(
                 self.params, self.cache, toks,
@@ -940,6 +1049,36 @@ def run_continuous(eng: Engine, queue: List[np.ndarray], *, gen: int,
     return outputs, stats
 
 
+def _cli_mesh(spec: str, device: str):
+    """The CLI's mesh under ``torchrun``: one process per shard, the rank
+    and world from its environment (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``); gloo for ``--device cpu``, nccl with one card per
+    rank otherwise."""
+    import torch.distributed as dist
+
+    from .mesh import make_production_mesh, parse_mesh_arg
+
+    shape = parse_mesh_arg(spec)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    rank = int(os.environ.get("RANK", "0"))
+    dev = torch.device(device)
+    backend = "gloo"
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count()
+        if cards < world:
+            raise RuntimeError(
+                f"--mesh {spec}: {world} ranks but {cards} CUDA device(s); "
+                "each rank takes one card under nccl, which refuses two "
+                "ranks on one device")
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
+        torch.cuda.set_device(dev)
+        backend = "nccl"
+    if world > 1 and not dist.is_initialized():
+        dist.init_process_group(backend, init_method="env://", rank=rank,
+                                world_size=world)
+    return make_production_mesh(shape=shape, device=dev)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Serve random prompts through the paged LNS engine "
@@ -1016,6 +1155,14 @@ def main(argv=None):
                          "admissions")
     ap.add_argument("--watermark-low", type=float, default=0.75,
                     help="occupancy fraction that resumes admissions")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="serve tensor-parallel over a mesh of one process "
+                         "per shard, e.g. 1x2 (the model axis shards "
+                         "attention heads / MLP / vocab); launch under "
+                         "torchrun --nproc-per-node N (gloo with --device "
+                         "cpu, nccl with one card per rank).  Token streams "
+                         "are bit-identical to the single-device engine; "
+                         "only rank 0 prints")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write the Prometheus text exposition to PATH")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
@@ -1026,25 +1173,47 @@ def main(argv=None):
                          "phases line up with device traces")
     args = ap.parse_args(argv)
 
+    if args.mesh is not None and torch.device(args.device).type == "cuda":
+        # before the first product: a column block of a product is
+        # computed as it is in the whole one, so --mesh runs print the
+        # tokens of a run without --mesh made with the same setting
+        # (launch/mesh.py)
+        from .mesh import CUBLAS_DETERMINISTIC
+
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_DETERMINISTIC)
+    mesh = None if args.mesh is None else _cli_mesh(args.mesh, args.device)
+    try:
+        return _serve_cli(args, mesh, ap)
+    finally:
+        if mesh is not None and mesh.tp > 1:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _serve_cli(args, mesh, ap):
+    lead = mesh is None or mesh.rank == 0  # the rank that prints
     if args.policy is not None:
         if args.quant not in (None, "none"):
             ap.error("--policy and the deprecated --quant are exclusive")
         cfg = get_config(args.arch, smoke=args.smoke, policy=args.policy)
     else:
         quant = args.quant or "none"
-        if quant != "none":
+        if quant != "none" and lead:
             print(f"# --quant {quant} is deprecated; use --policy (mapped "
                   "through the legacy QuantConfig fields)")
         cfg = get_config(args.arch, smoke=args.smoke, quant=quant)
     if args.scheduler == "continuous" and args.cache_impl == "dense":
-        print("# continuous scheduling needs a paged cache; falling back "
-              "to the bucketed scheduler")
+        if lead:
+            print("# continuous scheduling needs a paged cache; falling "
+                  "back to the bucketed scheduler")
         args.scheduler = "bucketed"
     prefix_on = args.prefix_cache == "on"
     if prefix_on and (args.cache_impl != "paged"
                       or not Engine.prefix_cache_supported(cfg)):
-        print("# prefix caching needs a paged pure-GQA cache; ignoring "
-              "--prefix-cache on")
+        if lead:
+            print("# prefix caching needs a paged pure-GQA cache; ignoring "
+                  "--prefix-cache on")
         prefix_on = False
     plens = [int(s) for s in str(args.prompt_len).split(",") if s]
     max_seq = max(plens) + args.shared_prefix + args.gen
@@ -1054,7 +1223,7 @@ def main(argv=None):
                  rng_seed=args.seed, prefix_cache=prefix_on,
                  fused_decode=args.fused_decode == "on",
                  telemetry=Telemetry(profile=args.profile_spans),
-                 device=args.device)
+                 mesh=mesh, device=args.device)
     rng = np.random.default_rng(args.seed)
     shared = (rng.integers(0, cfg.vocab, size=args.shared_prefix)
               if args.shared_prefix > 0 else None)
@@ -1068,18 +1237,20 @@ def main(argv=None):
         inter = rng.exponential(1.0 / args.arrival_rate, size=args.requests)
         arrivals = np.floor(np.cumsum(inter)).astype(int)
     on_token = None
-    if args.stream:
+    if args.stream and lead:
         def on_token(rid, tok, step):
             print(f"  step{step:4d} req{rid}: {tok}")
     outputs, stats = run(
         eng, queue, gen=args.gen, temperature=args.temperature,
         seed=args.seed, scheduler=args.scheduler, arrivals=arrivals,
-        chunk=args.chunk,
+        chunk=args.chunk, quiet=not lead,
         on_token=on_token, deadline_steps=args.deadline_steps or None,
         max_tokens=args.max_tokens or None,
         max_queue=args.max_queue or None,
         watermark_high=args.watermark_high,
         watermark_low=args.watermark_low)
+    if not lead:
+        return outputs
     for rid in sorted(outputs):
         print(f"  req{rid}: {outputs[rid][:10]}...")
     for rid, (state, reason) in sorted(stats["statuses"].items()):

@@ -6,23 +6,46 @@ Port of ``repro.models.attention._gqa_qkv``, ``gqa_forward``,
 ``gqa_decode`` and ``gqa_decode_paged``.  The dense cache holds FP8 codes
 at scale 1 when the policy quantizes the KV cache (``numerics.kv_encode``,
 RNE) and floats of the parameters' dtype otherwise.
+
+On a tensor-parallel mesh (``parallel.hints``) each rank holds its block
+of the query heads and KV heads: the head counts are read off the
+projections, the reference's hint sites check (or cut) them, and the
+attention output is gathered over the heads before ``wo``, which runs
+whole on every rank.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import numerics
-from .layers import (chunked_attention, decode_attention, qlinear,
+from ..kernels.paged_attention import row_amax
+from ..parallel.hints import hint, tp_columns, tp_local, tp_max, tp_size
+from .layers import (_dims, chunked_attention, decode_attention, qlinear,
                      rms_norm, rope)
+
+
+def _proj(x, p, w: str, b: str, whole: int, pol, site: str):
+    """``x @ p[w] + p[b]`` of ``whole`` output columns; on a mesh a
+    column-sharded weight gives this rank's block of them
+    (``hints.tp_columns``), and the replicated bias its block too."""
+    bias = p.get(b)
+    if bias is not None and bias.shape[-1] != _dims(p[w])[-1]:
+        bias = tp_local(bias, -1)
+    y = tp_columns(
+        lambda x_, w_: qlinear(x_, w_, pol, None, site=f"{site}.{w}"),
+        x, p[w], whole)
+    return y if bias is None else y + bias
 
 
 def _gqa_qkv(p, x, cfg, positions, use_rope=True, site="blocks.*.attn"):
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
     pol = cfg.policy
-    q = qlinear(x, p["wq"], pol, p.get("bq"), site=f"{site}.wq").reshape(B, S, H, hd)
-    k = qlinear(x, p["wk"], pol, p.get("bk"), site=f"{site}.wk").reshape(B, S, KV, hd)
-    v = qlinear(x, p["wv"], pol, p.get("bv"), site=f"{site}.wv").reshape(B, S, KV, hd)
+    # heads read off the projections: this rank's block on a mesh
+    H, KV = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    q = _proj(x, p, "wq", "bq", H, pol, site).reshape(B, S, -1, hd)
+    k = _proj(x, p, "wk", "bk", KV, pol, site).reshape(B, S, -1, hd)
+    v = _proj(x, p, "wv", "bv", KV, pol, site).reshape(B, S, -1, hd)
     if cfg.qk_norm:  # per-head RMSNorm over hd (qwen3/gemma3 style)
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -48,9 +71,14 @@ def gqa_forward(p, x, cfg, *, is_global: bool, positions,
     (y [B, S, D], the layer's dense cache entries {"k", "v"}: [B, S, KV,
     hd] in the cache's representation, or None unless ``want_cache``)."""
     q, k, v = _gqa_qkv(p, x, cfg, positions, site=site)
+    # serving TP: heads / KV groups sharded (no-ops outside a mesh)
+    q = hint(q, "tp_heads")
+    k = hint(k, "tp_kv")
+    v = hint(v, "tp_kv")
     window = 0 if is_global else cfg.window
     out = chunked_attention(q, k, v, window=window, cap=cfg.attn_softcap)
     B, S = q.shape[:2]
+    out = hint(out, "tp_gather")  # all-gather heads before the wo matmul
     y = qlinear(out.reshape(B, S, -1), p["wo"], cfg.policy,
                 site=f"{site}.wo")
     if not want_cache:
@@ -108,37 +136,57 @@ def gqa_decode_paged(p, x, cfg, *, is_global: bool, cache, paged,
     (``Model.kv_noise``), so the codes match and the rounding stays
     addressed by (layer, position).  Masked lanes write into the null page
     and never claim a page scale.  Returns y [B, 1, D].
+
+    On a mesh the cache and the noise hold this rank's KV heads, and the
+    output is gathered over the heads before ``wo``: no value is summed
+    across shards, so the stream is the TP=1 stream bit for bit.  The
+    page scale of the new K and V rows and the query's scale come from
+    absmaxes over every head: this layer takes their maximum over the
+    ranks, the one collective of the write, and passes it down.
     """
     B = x.shape[0]
-    KV = cfg.n_kv_heads
     pol = cfg.policy
     lengths = paged["lengths"]
     block_tables = paged["block_tables"]
     page_size = paged["page_size"]
     q, k_new, v_new = _gqa_qkv(p, x, cfg, lengths[:, None], use_rope,
                                site=site)
+    q = hint(q, "tp_heads")
+    k_new = hint(k_new, "tp_kv")
+    v_new = hint(v_new, "tp_kv")
+    KV = k_new.shape[2]
     active = paged.get("active")
     noise = paged.get("noise")
     kn, vn = (None, None) if noise is None else (noise[0], noise[1])
     window = 0 if is_global else cfg.window
+    amax = None  # [3, B]: the K row's, V row's and query's absmax
+    if tp_size() > 1 and numerics.kv_quantized(pol):
+        amax = tp_max(torch.stack([row_amax(t[:, 0])
+                                   for t in (k_new, v_new, q)]))
     if paged.get("fused", True):
         out = numerics.kv_fused_write_attend(
             q, k_new[:, 0], v_new[:, 0], cache["kp"], cache["vp"],
             cache["ks"], cache["vs"], block_tables, lengths, pol,
             n_kv_heads=KV, k_noise=kn, v_noise=vn, write_mask=active,
-            window=window, cap=cfg.attn_softcap, site=site,
+            window=window, cap=cfg.attn_softcap, site=site, amax=amax,
         )[0]
     else:
         logical = torch.div(lengths, page_size, rounding_mode="floor")
         page_ids = block_tables.gather(1, logical[:, None].to(torch.int64))[:, 0]
         rows = lengths - logical * page_size
+        ka, va, qa = (None,) * 3 if amax is None else amax
         numerics.kv_write_token(pol, cache["kp"], cache["ks"], k_new[:, 0],
-                                page_ids, rows, noise=kn, write_mask=active)
+                                page_ids, rows, noise=kn, write_mask=active,
+                                amax=ka)
         numerics.kv_write_token(pol, cache["vp"], cache["vs"], v_new[:, 0],
-                                page_ids, rows, noise=vn, write_mask=active)
+                                page_ids, rows, noise=vn, write_mask=active,
+                                amax=va)
         out = numerics.attention(
             q, cache["kp"], cache["vp"], cache["ks"], cache["vs"],
             block_tables, lengths + 1, pol, n_kv_heads=KV, window=window,
-            cap=cfg.attn_softcap, site=site,
+            cap=cfg.attn_softcap, site=site, q_amax=qa,
         )
+    # gather the head-sharded output BEFORE the wo contraction: the matmul
+    # sees the whole array on every shard, so TP adds no partial sums
+    out = hint(out, "tp_gather")
     return qlinear(out.reshape(B, 1, -1), p["wo"], pol, site=f"{site}.wo")

@@ -15,6 +15,7 @@ from .. import numerics
 from ..core.quant import quantize
 from ..kernels import ops as kops
 from ..kernels.common import code_to_f32
+from ..parallel.hints import hint, tp_columns, tp_max
 
 __all__ = ["rms_norm", "rope", "softcap", "qlinear", "gated_mlp",
            "chunked_attention", "decode_attention", "NEG_INF"]
@@ -94,6 +95,14 @@ def qlinear(x, w, pol, b=None, site: str = ""):
     return numerics.matmul(x, w, pol, site=site, bias=b)
 
 
+def _dims(w):
+    """Shape of a float or static-quantized weight."""
+    codes = getattr(w, "codes", None)
+    if codes is None and isinstance(w, dict):
+        codes = w["codes"]
+    return tuple((w if codes is None else codes).shape)
+
+
 def _act(x, kind: str):
     return F.silu(x) if kind == "silu" else F.gelu(x, approximate="tanh")
 
@@ -104,10 +113,27 @@ def gated_mlp(x, p, pol, act_fn="silu", site: str = "ffn"):
     When the policy quantizes elementwise ops, the gate*up product runs
     through the paper's FP8 LNS multiply (kernel K5,
     ``kernels.fp8_elementwise``) instead of a float multiply.
+
+    Serving TP: ``w_gate``/``w_up`` columns shard over the mesh, so g, u
+    and their product hold this rank's block of the hidden dimension (a
+    quantized product's per-tensor scale is the maximum over every rank,
+    ``reduce=tp_max``), and h is gathered before ``w_down``, which
+    runs whole on every rank.  No-ops outside a mesh.
     """
-    g = _act(qlinear(x, p["w_gate"], pol, site=f"{site}.w_gate"), act_fn)
-    u = qlinear(x, p["w_up"], pol, site=f"{site}.w_up")
-    h = numerics.elementwise("mul", g, u, pol, site=f"{site}.gate_up")
+    F = _dims(p["w_down"])[0]  # the whole hidden width (w_down is whole)
+
+    def columns(name):  # this rank's block of the F columns, on a mesh
+        return tp_columns(lambda x_, w_: qlinear(x_, w_, pol,
+                                                 site=f"{site}.{name}"),
+                          x, p[name], F)
+
+    g = _act(columns("w_gate"), act_fn)
+    u = columns("w_up")
+    g = hint(g, "ffn_hidden")
+    u = hint(u, "ffn_hidden")
+    h = numerics.elementwise("mul", g, u, pol, site=f"{site}.gate_up",
+                             reduce=tp_max)
+    h = hint(h, "ffn_gather")
     return qlinear(h, p["w_down"], pol, site=f"{site}.w_down")
 
 

@@ -21,6 +21,12 @@ unread) otherwise; the steps update it in place.  The dense cache is one
 the parameters' dtype, with ``W = min(S, window)`` rows for local layers
 (a ring buffer) and ``S`` for global ones.  Static FP8 weights
 (``models.quantize``) are ``QTensor`` leaves in place of float ones.
+
+On a tensor-parallel mesh (``parallel``) a rank's parameters are its cut
+of the whole tree (:meth:`Model.init`'s ``leaf`` hook): the embedding
+rows are read from their owner (``hints.tp_lookup``), the vocab-sharded
+logits are masked at their global columns and gathered, and each rank's
+noise is its KV heads' block of the whole draw.
 """
 from __future__ import annotations
 
@@ -31,8 +37,10 @@ import torch
 
 from .. import numerics
 from ..core import prng
-from ..serving.page_pool import kv_noise
 from ..core.quant import QTensor
+from ..parallel.hints import (hint, shard_start, tp_columns, tp_local,
+                              tp_lookup)
+from ..serving.page_pool import kv_noise
 from .layers import rms_norm, softcap
 from .quantize import resolve_weight
 from .transformer import stack_decode, stack_forward
@@ -97,64 +105,87 @@ class Model:
         self._key_cache = None  # (key words, per-layer K/V write keys)
 
     # ------------------------------------------------------------------ #
-    def init(self, generator: torch.Generator) -> Dict[str, Any]:
+    def init(self, generator: torch.Generator, leaf=None) -> Dict[str, Any]:
         """Random parameters with the reference's distributions (weights
-        N(0, 0.02^2), biases and norm gains 0), on ``generator.device``."""
+        N(0, 0.02^2), biases and norm gains 0), on ``generator.device``.
+        ``leaf(path, tensor)``, when given, maps every leaf as soon as it
+        is drawn (``path`` e.g. ``("blocks", 3, "attn", "wq")``), so a
+        mesh engine keeps its cut of each weight and never holds the whole
+        tree; the draws are the same either way."""
         cfg = self.cfg
         dev, dt = generator.device, cfg.pdtype
         D, Vp = cfg.d_model, cfg.vocab_padded
         H, KV, hd, F = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
+        put = leaf if leaf is not None else (lambda path, t: t)
 
-        def normal(*shape):
+        def normal(path, *shape):
             w = torch.randn(shape, generator=generator, device=dev)
-            return (w * 0.02).to(dt)
+            return put(path, (w * 0.02).to(dt))
 
-        def zeros(*shape):
-            return torch.zeros(shape, dtype=dt, device=dev)
+        def zeros(path, *shape):
+            return put(path, torch.zeros(shape, dtype=dt, device=dev))
 
-        params: Dict[str, Any] = {"embed": normal(Vp, D)}
+        params: Dict[str, Any] = {"embed": normal(("embed",), Vp, D)}
         layers = []
-        for _ in range(cfg.n_layers):
-            attn = {"wq": normal(D, H * hd), "wk": normal(D, KV * hd),
-                    "wv": normal(D, KV * hd), "wo": normal(H * hd, D)}
+        for i in range(cfg.n_layers):
+            a, f = ("blocks", i, "attn"), ("blocks", i, "ffn")
+            attn = {"wq": normal(a + ("wq",), D, H * hd),
+                    "wk": normal(a + ("wk",), D, KV * hd),
+                    "wv": normal(a + ("wv",), D, KV * hd),
+                    "wo": normal(a + ("wo",), H * hd, D)}
             if cfg.qkv_bias:
-                attn.update(bq=zeros(H * hd), bk=zeros(KV * hd),
-                            bv=zeros(KV * hd))
+                attn.update(bq=zeros(a + ("bq",), H * hd),
+                            bk=zeros(a + ("bk",), KV * hd),
+                            bv=zeros(a + ("bv",), KV * hd))
             if cfg.qk_norm:
-                attn.update(q_norm=zeros(hd), k_norm=zeros(hd))
-            layer = {"ln1": zeros(D), "attn": attn, "ln2": zeros(D),
-                     "ffn": {"w_gate": normal(D, F), "w_up": normal(D, F),
-                             "w_down": normal(F, D)}}
+                attn.update(q_norm=zeros(a + ("q_norm",), hd),
+                            k_norm=zeros(a + ("k_norm",), hd))
+            layer = {"ln1": zeros(("blocks", i, "ln1"), D), "attn": attn,
+                     "ln2": zeros(("blocks", i, "ln2"), D),
+                     "ffn": {"w_gate": normal(f + ("w_gate",), D, F),
+                             "w_up": normal(f + ("w_up",), D, F),
+                             "w_down": normal(f + ("w_down",), F, D)}}
             if cfg.sandwich_norm:
-                layer.update(ln1_post=zeros(D), ln2_post=zeros(D))
+                layer.update(ln1_post=zeros(("blocks", i, "ln1_post"), D),
+                             ln2_post=zeros(("blocks", i, "ln2_post"), D))
             layers.append(layer)
         params["blocks"] = layers
-        params["final_norm"] = zeros(D)
+        params["final_norm"] = zeros(("final_norm",), D)
         if not cfg.tie_embeddings:
-            params["unembed"] = normal(D, Vp)
+            params["unembed"] = normal(("unembed",), D, Vp)
         return params
 
     # ------------------------------------------------------------------ #
     def _embed(self, params, tokens):
-        x = params["embed"][tokens]
+        x = tp_lookup(params["embed"], tokens)  # rows may be sharded
         if self.cfg.emb_scale:
             x = x * torch.tensor(self.cfg.d_model**0.5, dtype=x.dtype)
         return x
 
     def _unembed(self, params, x):
         """Tied or untied LM head over [..., D] (2-D decode or 3-D train
-        activations); padded vocab columns are set to NEG."""
+        activations); padded vocab columns are set to NEG.  On a mesh the
+        columns are this rank's block of the vocabulary, masked at their
+        global indices, and 2-D decode logits are gathered whole."""
         cfg = self.cfg
         w = params.get("unembed")
         if w is not None:
             w = resolve_weight(
                 w, numerics.weight_format(cfg.policy, "unembed"), x.dtype)
-        logits = (x @ w if w is not None else x @ params["embed"].T)
+        Vp = cfg.vocab_padded
+        if w is not None:
+            logits = tp_columns(torch.matmul, x, w, Vp)
+        else:
+            logits = tp_columns(lambda x_, e: x_ @ e.T, x, params["embed"],
+                                Vp, dim=0)
         logits = softcap(logits.to(torch.float32), cfg.final_softcap)
         if cfg.vocab_padded > cfg.vocab:
-            keep = torch.arange(cfg.vocab_padded,
-                                device=logits.device) < cfg.vocab
+            n = logits.shape[-1]
+            lo = shard_start(n, cfg.vocab_padded)
+            keep = torch.arange(lo, lo + n, device=logits.device) < cfg.vocab
             logits = torch.where(keep, logits, NEG)
+        if logits.ndim == 2:
+            logits = hint(logits, "logits_decode")
         return logits
 
     def _assemble_inputs(self, params, batch) -> Tuple[Any, Any, Any]:
@@ -283,7 +314,8 @@ class Model:
         int64 [..., n_layers, 2, B, KV, hd].  Equal to the reference's
         ``randint(fold_in(k_or_v_key, position), (KV, hd), ...)``.  None
         without a key or when the pages are float (their writes draw no
-        noise)."""
+        noise).  On a mesh: this rank's KV heads of the whole draw, the
+        bits the reference's partitionable threefry gives a shard."""
         cfg = self.cfg
         if key is None or not numerics.kv_quantized(cfg.policy):
             return None
@@ -292,7 +324,8 @@ class Model:
         pos = positions.reshape(*lead, 1, 1, positions.shape[-1])
         slot_keys = prng.fold_in(keys[..., None, :], pos)       # [.., L,2,B,2]
         fmt = numerics.kv_format(cfg.policy)
-        return kv_noise(slot_keys, (cfg.n_kv_heads, cfg.hd), fmt)
+        return tp_local(kv_noise(slot_keys, (cfg.n_kv_heads, cfg.hd), fmt),
+                        -2)
 
     def _paged_token_step(self, params, cache, tokens, lengths,
                           block_tables, *, page_size: int, noise, active,

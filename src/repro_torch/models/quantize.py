@@ -28,8 +28,8 @@ from ..core.quant import QTensor, quantize
 from ..kernels.common import code_to_f32
 from ..numerics.policy import Policy
 
-__all__ = ["QUANT_WEIGHT_NAMES", "quantize_params", "as_qtensor",
-           "resolve_weight"]
+__all__ = ["QUANT_WEIGHT_NAMES", "quantize_params", "quantize_leaf",
+           "as_qtensor", "resolve_weight"]
 
 QUANT_WEIGHT_NAMES = {
     "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_uk", "w_uv",
@@ -48,26 +48,32 @@ def quantize_params(params, policy: Union[Policy, str, None] = None,
     ``layer_pattern_period``, which names layer ``i``'s sites
     ``blocks.{i % period}``, as the reference's scan pattern does.
     Returns a new dict; the float leaves that stay are shared."""
-    if isinstance(policy, str):
-        fmt, pol = policy, None
-    else:
-        pol = policy
-        fmt = pol.weights.fmt if pol is not None and pol.weight_quant else "e4m3"
-
     def walk(node, path):
         if isinstance(node, dict):
             return {k: walk(v, path + (k,)) for k, v in node.items()}
         if isinstance(node, list):
-            return [walk(v, path + (str(i % period),))
-                    for i, v in enumerate(node)]
-        if path[-1] in QUANT_WEIGHT_NAMES and node.ndim >= 2:
-            site_fmt = fmt
-            if pol is not None and pol.weight_quant:
-                site_fmt = pol.resolve("weights", ".".join(path)).fmt
-            return quantize(node, site_fmt)
-        return node
+            return [walk(v, path + (i,)) for i, v in enumerate(node)]
+        return quantize_leaf(path, node, policy, period=period)
 
     return walk(params, ())
+
+
+def quantize_leaf(path, node, policy: Union[Policy, str, None] = None, *,
+                  period: int = 1):
+    """One leaf of :func:`quantize_params`: ``node`` at ``path`` (its keys,
+    layer indices as ints, e.g. ``("blocks", 7, "attn", "wq")``) as a
+    :class:`QTensor` when it is an eligible weight, else itself.  A mesh
+    engine calls it on each whole weight as it is drawn, before the cut,
+    so the codes and the per-tensor scale are the TP=1 ones."""
+    if not (path[-1] in QUANT_WEIGHT_NAMES and node.ndim >= 2):
+        return node
+    if isinstance(policy, str):
+        return quantize(node, policy)
+    if policy is None or not policy.weight_quant:
+        return quantize(node, "e4m3")
+    site = ".".join(str(k % period) if isinstance(k, int) else str(k)
+                    for k in path)
+    return quantize(node, policy.resolve("weights", site).fmt)
 
 
 _DECODE_TABLES = {}

@@ -118,7 +118,7 @@ def matmul(x, w, pol: Optional[Policy], *, site: str = "", bias=None):
 
 
 def elementwise(op: str, x, y=None, pol: Optional[Policy] = None, *,
-                site: str = ""):
+                site: str = "", reduce=None):
     """Paper elementwise op (mul/div/square/recip/sqrt/rsqrt) under the
     policy: quantize -> LNS code-domain op -> dequantize, or the plain
     float op when the policy leaves elementwise in full precision.
@@ -128,7 +128,9 @@ def elementwise(op: str, x, y=None, pol: Optional[Policy] = None, *,
     reference, which here is kernel K5 for CUDA tensors (its plain version
     for CPU tensors); ``"ref"`` runs the plain version on any device.  The
     codes carry no gradient; the result's gradient flows through the
-    per-tensor scales, as in the reference.
+    per-tensor scales, as in the reference.  ``reduce`` maps each
+    per-tensor absmax before its scale is taken (``core.quant.quantize``):
+    on a tensor-parallel mesh, the maximum over the ranks' blocks.
     """
     ep = pol.resolve("elementwise", site) if pol is not None else None
     if ep is None or not ep.quantized:
@@ -144,8 +146,8 @@ def elementwise(op: str, x, y=None, pol: Optional[Policy] = None, *,
     from ..core.quant import quantize
     from ..kernels import ops as kops
 
-    qx = quantize(x, ep.fmt)
-    qy = None if y is None else quantize(y, ep.fmt)
+    qx = quantize(x, ep.fmt, reduce=reduce)
+    qy = None if y is None else quantize(y, ep.fmt, reduce=reduce)
     impl = "pallas" if ep.impl == "auto" else ep.impl
     out = kops.elementwise_q(op, qx, qy, mode=ep.mode, impl=impl)
     return out.dequantize().to(x.dtype)
@@ -185,17 +187,17 @@ def _kv_mode(pol: Optional[Policy], op: str, has_noise: bool) -> str:
 
 
 def kv_write_token(pol: Optional[Policy], pages, scales, new, page_ids,
-                   rows, *, noise=None, write_mask=None):
+                   rows, *, noise=None, write_mask=None, amax=None):
     """One decode token's K or V into its page, in place (see
-    ``serving.page_pool.write_token_page``); fmt/mode resolved here: FP8
-    codes when the policy quantizes the KV cache, else the float row in
-    the pages' dtype (``fmt=None``)."""
+    ``serving.page_pool.write_token_page``, also for ``amax``); fmt/mode
+    resolved here: FP8 codes when the policy quantizes the KV cache, else
+    the float row in the pages' dtype (``fmt=None``)."""
     from ..serving.page_pool import write_token_page
 
     return write_token_page(
         pages, scales, new, page_ids, rows, fmt=kv_format(pol),
         mode=_kv_mode(pol, "kv_write", noise is not None), noise=noise,
-        write_mask=write_mask)
+        write_mask=write_mask, amax=amax)
 
 
 def kv_encode(x, pol: Optional[Policy], *, noise=None):
@@ -224,15 +226,17 @@ def kv_decode(x, pol: Optional[Policy]):
 
 
 def kv_write_prefill(pol: Optional[Policy], pages, scales, src, page_ids, *,
-                     key=None):
+                     key=None, amax=None, heads=None):
     """Splice one prefill row of the dense cache into fresh pages, in place
-    (see ``serving.page_pool.write_prefill_pages``); fmt/mode resolved
-    here, the rescale's mode from the policy's ``kv_rescale``."""
+    (see ``serving.page_pool.write_prefill_pages``, also for ``amax`` and
+    ``heads``); fmt/mode resolved here, the rescale's mode from the
+    policy's ``kv_rescale``."""
     from ..serving.page_pool import write_prefill_pages
 
     return write_prefill_pages(
         pages, scales, src, page_ids, fmt=kv_format(pol),
-        mode=_kv_mode(pol, "kv_rescale", key is not None), key=key)
+        mode=_kv_mode(pol, "kv_rescale", key is not None), key=key,
+        amax=amax, heads=heads)
 
 
 def _attention_qk(pol: Optional[Policy], site: str):
@@ -244,10 +248,11 @@ def _attention_qk(pol: Optional[Policy], site: str):
 
 def attention(q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths,
               pol: Optional[Policy], *, n_kv_heads: int, window: int = 0,
-              cap: float = 0.0, site: str = ""):
+              cap: float = 0.0, site: str = "", q_amax=None):
     """Paged decode attention under the policy: QK^T in the LNS integer
     domain off the page codes when the KV cache is quantized, a float
-    product off float pages otherwise.  Returns [B, 1, H, dv] in
+    product off float pages otherwise (``q_amax``: see
+    ``kernels.paged_attention.quantize_q``).  Returns [B, 1, H, dv] in
     q.dtype."""
     from ..kernels.paged_attention import paged_decode_attention
 
@@ -255,7 +260,7 @@ def attention(q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths,
     return paged_decode_attention(
         q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths,
         fmt=kv_format(pol), n_kv_heads=n_kv_heads, mode=mode, window=window,
-        cap=cap, impl=impl)
+        cap=cap, impl=impl, q_amax=q_amax)
 
 
 def kv_fused_write_attend(q, k_new, v_new, k_pages, v_pages, k_scale,
@@ -263,11 +268,13 @@ def kv_fused_write_attend(q, k_new, v_new, k_pages, v_pages, k_scale,
                           pol: Optional[Policy], *,
                           n_kv_heads: int, k_noise=None, v_noise=None,
                           write_mask=None, window: int = 0, cap: float = 0.0,
-                          site: str = ""):
+                          site: str = "", amax=None):
     """Fused decode-token KV write + paged attention, policy-resolved: the
     write resolves like :func:`kv_write_token`, the QK^T like
-    :func:`attention`.  Returns ``(out, k_pages, k_scale, v_pages,
-    v_scale)``; the cache tensors are updated in place."""
+    :func:`attention` (``amax``: see
+    ``kernels.paged_attention.fused_decode_write_attend``).  Returns
+    ``(out, k_pages, k_scale, v_pages, v_scale)``; the cache tensors are
+    updated in place."""
     from ..kernels.paged_attention import fused_decode_write_attend
 
     mode, impl = _attention_qk(pol, site)
@@ -276,4 +283,4 @@ def kv_fused_write_attend(q, k_new, v_new, k_pages, v_pages, k_scale,
         lengths, fmt=kv_format(pol), n_kv_heads=n_kv_heads, mode=mode,
         kv_mode=_kv_mode(pol, "kv_write", k_noise is not None),
         k_noise=k_noise, v_noise=v_noise, write_mask=write_mask,
-        window=window, cap=cap, impl=impl)
+        window=window, cap=cap, impl=impl, amax=amax)

@@ -203,6 +203,13 @@ def run_serving(make_engine: Callable, queue, *, gen: int,
     Heartbeats carry per-step scheduler stats for an orchestrator.
     ``stats["restored_from"]`` is the step of the last snapshot restored,
     at startup or after a kill (None when none was).
+
+    Tensor-parallel: every rank of a mesh runs this with the same
+    arguments and a ``make_engine`` that builds its mesh engine (or, after
+    a kill, any engine: a TP=1 successor restores the same snapshot).  The
+    plan's draws are deterministic, so a kill or an overrun happens on
+    every rank at the same step; snapshots gather the shards and rank 0
+    writes them and the heartbeats.
     """
     from ..launch.serve import sample as _sample
     from ..serving import (ChaosHarness, ContinuousScheduler, EngineKilled,
@@ -308,6 +315,7 @@ def run_serving(make_engine: Callable, queue, *, gen: int,
                             "chaos_faults_total", kind=kind).value = float(v)
             continue
         if (heartbeat_path is not None
+                and (eng.mesh is None or eng.mesh.rank == 0)
                 and sched.steps % max(heartbeat_every, 1) == 0):
             write_heartbeat(pathlib.Path(heartbeat_path), sched.steps, extra={
                 "active": len(sched.active),

@@ -620,7 +620,7 @@ def encode_kv(x, scale, fmt: str, mode: str = "stochastic", noise=None):
 
 def token_row_codes(scales, new, page_ids, rows, *, fmt: Optional[str],
                     mode: str = "stochastic", noise=None, write_mask=None,
-                    store_dtype=None):
+                    store_dtype=None, amax=None):
     """The per-row half of :func:`write_token_page`: everything but the
     scatter.  Returns ``(page_ids [B] int64 with masked lanes redirected to
     the null page, row codes [B, KV, hd] uint8, page scale [B])``.  A row-0
@@ -628,7 +628,9 @@ def token_row_codes(scales, new, page_ids, rows, *, fmt: Optional[str],
     lane is unmasked; later rows reuse the page's scale.  Float pages
     (``fmt=None``): the row is ``new`` cast to ``store_dtype`` (the pages'
     dtype, when given), no noise is read, and the scales are the pages'
-    own, untouched."""
+    own, untouched.  The row's absmax spans every KV head: ``amax`` [B]
+    when the caller took it (on a tensor-parallel mesh, the maximum over
+    the ranks), else ``new``'s own."""
     page_ids = page_ids.to(torch.int64)
     if write_mask is not None:
         write_mask = write_mask.to(torch.bool)
@@ -636,7 +638,8 @@ def token_row_codes(scales, new, page_ids, rows, *, fmt: Optional[str],
     if fmt is None:
         row = new if store_dtype is None else new.to(store_dtype)
         return page_ids, row, scales[page_ids]
-    amax = new.to(torch.float32).abs().amax(dim=(1, 2))
+    if amax is None:
+        amax = new.to(torch.float32).abs().amax(dim=(1, 2))
     fresh = rows == 0
     if write_mask is not None:
         fresh = fresh & write_mask
@@ -668,7 +671,7 @@ def scatter_token_rows(pages, page_ids, rows, codes, write_mask=None):
 
 def write_token_page(pages, scales, new, page_ids, rows, *,
                      fmt: Optional[str], mode: str = "stochastic",
-                     noise=None, write_mask=None):
+                     noise=None, write_mask=None, amax=None):
     """Scatter one decode token's K or V into its page, per slot, in place.
 
     pages: [P, page, KV, hd] uint8 codes (float when ``fmt`` is None);
@@ -676,12 +679,12 @@ def write_token_page(pages, scales, new, page_ids, rows, *,
     float; page_ids/rows: [B] (physical page and row of each write);
     ``noise``: [B, KV, hd] for stochastic rounding; ``write_mask``: [B]
     bool — masked lanes land in the null page, never claim a scale and
-    leave it unchanged (see :func:`scatter_token_rows`).
-    Returns (pages, scales), the updated inputs.
+    leave it unchanged (see :func:`scatter_token_rows`); ``amax``: see
+    :func:`token_row_codes`.  Returns (pages, scales), the updated inputs.
     """
     page_ids, codes, s = token_row_codes(
         scales, new, page_ids, rows, fmt=fmt, mode=mode, noise=noise,
-        write_mask=write_mask, store_dtype=pages.dtype)
+        write_mask=write_mask, store_dtype=pages.dtype, amax=amax)
     scatter_token_rows(pages, page_ids, rows, codes, write_mask)
     if fmt is not None:
         scales.index_put_((page_ids,), s)
@@ -695,15 +698,18 @@ def _rbits(key: torch.Tensor, shape) -> torch.Tensor:
 
 
 def rescale_codes(codes, inv_scale, fmt: str, mode: str = "stochastic",
-                  key=None):
+                  key=None, heads=None):
     """Rescale FP8 codes by ``inv_scale`` in the code domain: ``code' =
     lns_mul(code, encode(inv_scale))``, the paper's integer-add multiply
     (``core.lns.lns_op``).  For a power-of-two ratio (the page-scale
     contract) every carry-in is 0 and the rescale is exact; otherwise
     ``mode="stochastic"`` picks the RD or RU carry-in per element by one
     bit drawn from ``key`` (a key ``[2]``, or a batch ``[..., 2]`` for the
-    leading dims of ``codes``), bit for bit the reference's draw.  E4M3
-    has no directed mul expressions: stochastic falls back to RNE."""
+    leading dims of ``codes``), bit for bit the reference's draw.
+    ``heads=(first, whole)``: ``codes`` hold KV heads (dimension -2)
+    ``first`` onwards of ``whole`` (a mesh rank's), and the bits are drawn
+    for every head and cut to them.  E4M3 has no directed mul
+    expressions: stochastic falls back to RNE."""
     ratio = encode(torch.as_tensor(inv_scale, dtype=torch.float32), fmt,
                    "rne")
     ratio = torch.broadcast_to(ratio, codes.shape)
@@ -711,16 +717,44 @@ def rescale_codes(codes, inv_scale, fmt: str, mode: str = "stochastic",
         if key is None:
             raise ValueError("stochastic rescale needs a PRNG key")
         lead = key.ndim - 1
-        return lns_op(fmt, "mul", "stochastic", codes, ratio,
-                      rbits=_rbits(key, codes.shape[lead:]))
+        shape = list(codes.shape[lead:])
+        if heads is None:
+            rbits = _rbits(key, shape)
+        else:
+            first, shape[-2] = heads[0], heads[1]
+            rbits = _rbits(key, shape).narrow(-2, first, codes.shape[-2])
+        return lns_op(fmt, "mul", "stochastic", codes, ratio, rbits=rbits)
     if mode == "stochastic":
         mode = "rne"
     return lns_op(fmt, "mul", mode, codes, ratio)
 
 
+def _pad_pages(src, n_pages: int, page: int):
+    """src [..., S, KV, hd] zero-padded to [..., n_pages, page, KV, hd]."""
+    pad = n_pages * page - src.shape[-3]
+    if pad:
+        src = torch.cat([src, src.new_zeros(*src.shape[:-3], pad,
+                                             *src.shape[-2:])], dim=-3)
+    return src.reshape(*src.shape[:-3], n_pages, page, *src.shape[-2:])
+
+
+def prefill_page_amax(src, n_pages: int, page: int, fmt: str):
+    """Each prefill page's absmax over its rows and KV heads, [...,
+    n_pages], of scale-1 FP8 codes ``src`` [..., S, KV, hd] spliced into
+    pages of ``page`` rows (:func:`write_prefill_pages`)."""
+    return _page_amax(_pad_pages(src, n_pages, page), fmt)
+
+
+def _page_amax(srcp, fmt: str):
+    from ..kernels.common import code_to_f32
+
+    vals = code_to_f32(srcp, fmt)  # scale-1 decode of the dense codes
+    return vals.abs().amax(dim=(-3, -2, -1))
+
+
 def write_prefill_pages(pages, scales, src, page_ids, *,
                         fmt: Optional[str], mode: str = "stochastic",
-                        key=None):
+                        key=None, amax=None, heads=None):
     """Splice a prefill cache row into freshly allocated pages, in place.
 
     pages: [..., P, page, KV, hd]; scales: [..., P]; src: [..., S, KV, hd],
@@ -730,27 +764,23 @@ def write_prefill_pages(pages, scales, src, page_ids, *,
     Each page's scale comes from its whole content's absmax
     (:func:`pow2_page_scale`) and the codes are rescaled to it by
     :func:`rescale_codes`.  Float pages take ``src`` cast to their dtype.
-    Returns (pages, scales), the updated inputs."""
+    A mesh rank's ``src`` holds its KV heads only: the caller passes the
+    pages' absmax over every head (``amax`` [..., n_pages], the maximum
+    over the ranks of :func:`prefill_page_amax`) and ``heads`` (see
+    :func:`rescale_codes`).  Returns (pages, scales), the updated inputs."""
     page_ids = torch.as_tensor(page_ids, dtype=torch.int64,
                                device=pages.device)
     n_pages = int(page_ids.shape[0])
-    page = pages.shape[-3]
-    S = src.shape[-3]
-    pad = n_pages * page - S
-    if pad:
-        src = torch.cat([src, src.new_zeros(*src.shape[:-3], pad,
-                                             *src.shape[-2:])], dim=-3)
-    srcp = src.reshape(*src.shape[:-3], n_pages, page, *src.shape[-2:])
+    srcp = _pad_pages(src, n_pages, pages.shape[-3])
     lead = (slice(None),) * (pages.ndim - 4)
     if fmt is None:
         pages[lead + (page_ids,)] = srcp.to(pages.dtype)
         return pages, scales
-    from ..kernels.common import code_to_f32
-
-    vals = code_to_f32(srcp, fmt)  # scale-1 decode of the dense codes
-    s = pow2_page_scale(vals.abs().amax(dim=(-3, -2, -1)), fmt)
+    if amax is None:
+        amax = _page_amax(srcp, fmt)
+    s = pow2_page_scale(amax, fmt)
     codes = rescale_codes(srcp, (1.0 / s)[..., None, None, None], fmt,
-                          mode=mode, key=key)
+                          mode=mode, key=key, heads=heads)
     pages[lead + (page_ids,)] = codes
     scales[lead + (page_ids,)] = s
     return pages, scales

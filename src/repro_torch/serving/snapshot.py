@@ -28,6 +28,12 @@ by its position, never by the step or the batch), so an engine whose
 codes, scales, pool and hashes are restored exactly draws, from then on,
 the rounding bits an uninterrupted run would have drawn: survivors'
 tokens are bitwise equal across a kill.
+
+The layout is mesh-independent: a tensor-parallel engine gathers its
+cache and its spills over the KV heads (every rank takes part), rank 0
+writes while the others wait at a barrier, and a load cuts each rank's
+heads back out (``Engine.place_cache``).  So a TP=1 snapshot restores on
+TP=2 and the other way round.
 """
 from __future__ import annotations
 
@@ -96,8 +102,11 @@ def save_snapshot(ckpt_dir, eng, sched: ContinuousScheduler,
     if eng.pool is None:
         raise ValueError("serving snapshots cover the paged cache only")
     now = sched.clock()
-    arrays = {"cache": eng.cache}
-    spills = {str(r.rid): r.spill["state"] for r in sched.preempted}
+    # the whole cache and spills, whatever the mesh (collectives: every
+    # rank of a mesh calls this)
+    arrays = {"cache": eng.gather_cache()}
+    spills = {str(r.rid): eng.gather_cache(r.spill["state"])
+              for r in sched.preempted}
     if spills:
         arrays["spills"] = spills
     sets = {"finished": sched.finished,
@@ -122,8 +131,12 @@ def save_snapshot(ckpt_dir, eng, sched: ContinuousScheduler,
                         else sampler_rng.bit_generator.state),
         "telemetry": sched.tel.state_dict(),
     }
-    store.save(ckpt_dir, arrays, step=sched.steps,
-               data_state=data_state).result()
+    mesh = eng.mesh
+    if mesh is None or mesh.rank == 0:
+        store.save(ckpt_dir, arrays, step=sched.steps,
+                   data_state=data_state).result()
+    if mesh is not None:
+        mesh.barrier()  # on disk before any rank goes on
 
 
 def _check_leaf(key: str, t, shape, dtype) -> None:
@@ -140,27 +153,34 @@ def load_snapshot(ckpt_dir, eng, sched: ContinuousScheduler,
     """Restore a snapshot (the latest, or ``step``) into a freshly built
     engine and scheduler of the killed ones' geometry.  Every cache leaf
     is copied into the engine's own tensors on ``eng.device`` (shape and
-    dtype checked); spill tensors stay on the host, as
-    ``Engine.preempt_slot`` keeps them.  Returns the restored step."""
+    dtype checked, after the cut to a mesh rank's KV heads); spill tensors
+    stay on the host, as ``Engine.preempt_slot`` keeps them.  Returns the
+    restored step."""
     flat, manifest = store.restore_raw(pathlib.Path(ckpt_dir), step=step)
     data = manifest["data_state"]
     if data.get("kind") != "serving":
         raise ValueError(f"{ckpt_dir} holds a non-serving checkpoint")
     now = sched.clock()
 
+    cache = eng.place_cache({name: flat[store.path_key(("cache", name))]
+                             for name in eng.cache})
     for name, like in eng.cache.items():
         key = store.path_key(("cache", name))
-        _check_leaf(key, flat[key], like.shape, like.dtype)
-        like.copy_(flat[key])
+        _check_leaf(key, cache[name], like.shape, like.dtype)
+        like.copy_(cache[name])
     spill_state: dict = {}
     for key, t in flat.items():
         part, *rest = key.split("/")
         if part == "spills":
             rid, name = rest
-            like = eng.cache[name]
-            _check_leaf(key, t, (like.shape[0], t.shape[1], *like.shape[2:]),
-                        like.dtype)
             spill_state.setdefault(rid, {})[name] = t
+    for rid, state in spill_state.items():
+        spill_state[rid] = eng.place_cache(state)
+        for name, t in spill_state[rid].items():
+            like = eng.cache[name]
+            _check_leaf(f"spills/{rid}/{name}", t,
+                        (like.shape[0], t.shape[1], *like.shape[2:]),
+                        like.dtype)
 
     eng.pool.load_state_dict(data["pool"])
     eng._step = data["engine"]["step"]

@@ -382,10 +382,10 @@ def test_gate_inputs_equal_fused_and_unfused_in_every_row(monkeypatch):
     seen = {}
     real = numerics.elementwise
 
-    def spy(op, x, y=None, pol=None, *, site=""):
+    def spy(op, x, y=None, pol=None, *, site="", reduce=None):
         seen.setdefault(fused, []).append((x.detach().clone(),
                                            y.detach().clone()))
-        return real(op, x, y, pol, site=site)
+        return real(op, x, y, pol, site=site, reduce=reduce)
 
     monkeypatch.setattr(layers.numerics, "elementwise", spy)
     queue = [np.arange(5) + 3, np.arange(17) + 50, np.arange(2) + 9]

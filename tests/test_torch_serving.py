@@ -339,13 +339,16 @@ def test_engine_defaults_to_cuda_and_refuses_a_cpu_only_host():
         serve.Engine(cfg, slots=1, max_seq=8)
 
 
-@pytest.mark.parametrize("kw", [dict(mesh="1x2")])
+@pytest.mark.parametrize("kw", [dict(n_experts=8)])
 def test_later_slice_features_raise(kw):
-    """Tensor-parallel serving (ROADMAP.md Queue 1 item 9) still raises;
-    the dense cache, which raised here before, is served since
-    (``tests/test_torch_bucketed.py``)."""
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _engine(**kw)
+    """The model families of ROADMAP.md Queue 1 item 11 still raise.  The
+    dense cache (``tests/test_torch_bucketed.py``) and tensor-parallel
+    serving (item 9, ``tests/test_torch_mesh.py``), which raised here
+    before, are served since."""
+    cfg = dataclasses.replace(
+        get_config("qwen2-0.5b", smoke=True, policy="serve_fp8_paged"), **kw)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        serve.Engine(cfg, slots=1, max_seq=8, device="cpu")
 
 
 def test_cli_on_cpu(capsys):

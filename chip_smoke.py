@@ -20,8 +20,8 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
    reads only the admissible pages and combines on the chip) against its
    plain PyTorch version (the per-page partials and their combine) at the
    attention geometries of qwen2-0.5b (KV 2, G 7, hd 64), gemma3-12b (KV
-   8, G 2, hd 256), gemma2-27b (KV 16, G 2, hd 128) and qwen3-14b (KV 8,
-   G 5, hd 128), each with B=8, page 16, up to 64 pages per slot, ragged
+   8, G 2, hd 256), gemma2-27b (KV 16, G 2, hd 128), qwen3-14b (KV 8,
+   G 5, hd 128) and granite-moe-3b-a800m (KV 8, G 3, hd 64), each with B=8, page 16, up to 64 pages per slot, ragged
    lengths, masked lanes, fresh-page rows, e5m2 pages, stochastic writes
    (and, past qwen2's, window 32 with softcap 50): new pages and scales
    bitwise, output within
@@ -49,7 +49,9 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
    same first-step logits (rtol = atol = 1e-3) through K1 and through the
    plain attention;
 6. traces a short window of that path with ``torch.profiler`` (card
-   busy share, launches per sub-step, the kernels that take the time);
+   busy share, launches per sub-step, the kernels that take the time;
+   every traced window of the script at depth 6 since PR 26, cut for
+   time);
 7. the same under the default policy (the serve CLI's default: float KV
    pages of the model's dtype, bf16): the same 8 requests fused on and
    off, bitwise equal streams, K1's float instance launched n_layers x
@@ -71,8 +73,9 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     row, lead the tied LM head) served by a 4-slot Engine, page 16,
     worst-case pool: 8 requests of one shared 64-token prefix and their
     own tails, 16 generated tokens, under serve_fp8_paged and the default
-    policy, twice each (prefix cache off and on, fused decode; unfused
-    decode runs in 11, cut for time): the two token streams bitwise equal,
+    policy (its first 6 layers since PR 26, cut for time), twice each
+    (prefix cache off and on, fused decode; unfused decode runs in 11,
+    cut for time): the two token streams bitwise equal,
     every stream varied (at least two distinct tokens), at least 256
     prefix hit tokens with the cache on, K1 launched n_layers x sub-steps
     times and its other instance never (after 17, a short traced window
@@ -102,20 +105,20 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     snapshot's bytes on disk, save and restore seconds, the chaos run's
     wall against the fault-free run's, the fault and terminal counts and
     the peak memory;
-13. tensor-parallel serving (this slice's path, ``mesh_path``): a (1, 2)
+13. tensor-parallel serving (``mesh_path``): a (1, 2)
     mesh of two ranks, spawned processes that share this one card over
     gloo (NCCL refuses two ranks on one device; a correctness run, not a
     speed-up claim), each serving gemma3-12b at full width on its shard
     (16/8 heads split 8/4, d_ff 7,680 a rank, the embedding's vocab rows
     halved; the main path's weights handed over by CUDA IPC and cut), the
-    8 requests of 10 with the prefix cache on: on FP8 pages at full depth
-    and on bf16 pages at depth 6; the same two runs at TP=1 in a process
-    of their own.  The ranks and that process run cuBLAS without split-K
-    workspaces (``CUBLAS_WORKSPACE_CONFIG=:0:0``, ``launch/mesh.py``: the
-    TP gate needs a product's column blocks computed as in the whole
-    product), the rest of the script with them.  Gates: each rank's
-    streams bitwise equal to that TP=1 process's, a digest of the whole
-    cache gathered over the ranks equal to its, K1 launched
+    8 requests of 10 with the prefix cache on, on FP8 and on bf16 pages at
+    depth 6 (FP8 at full depth until PR 26).  Every process of the script runs
+    cuBLAS without split-K workspaces (``CUBLAS_WORKSPACE_CONFIG=:0:0``,
+    set at its start by ``launch.mesh.require_column_stable_cublas``, as
+    every card engine requires), so the ranks are held to this process's
+    own runs: 11's worst-case pools under both policies.
+    Gates: each rank's streams bitwise equal to those runs', a digest of
+    the whole cache gathered over the ranks equal to theirs, K1 launched
     n_layers x sub-steps by each rank at 4 KV heads, each rank's first
     n_layers K1 calls within rtol = atol = 1e-4 of the plain version;
     then K1's partials mode on each rank, both instances: one shard's
@@ -125,8 +128,7 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     2e-6.  Before the run, K1 at the shard's geometry is timed in both
     modes and both instances.  Printed beside the card's name and power
     limit: the transport, each rank's peak memory, the wall and decode
-    tokens/s, and whether the TP=1 process's streams and cache equal 10's
-    and 11's, made with split-K;
+    tokens/s;
 14. the bucketed scheduler at full width: gemma3-12b on the main path's
     weights, the same 8 requests on 4 slots, under serve_fp8_paged and
     the default policy, all at depth 6 (cut for time), 16 generated
@@ -163,6 +165,22 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     layer's weights at M = 4 (decode) and M = 32 (the bucketed prefill)
     beside the bound, the plain version and, for K2, ``torch.matmul`` on
     decoded bf16;
+17a. the MoE family on the main path (``moe_path``): granite-moe-3b-a800m
+    at full width (32 layers, 24/8 heads, hd 64, every layer 40 experts
+    top-8 of d_ff 512, sorted capacity dispatch, ~6.6 GB of bf16 weights
+    drawn on the card and redrawn as in 9), the 8 requests of 10 on 4
+    slots: on FP8 pages at full depth, prefix off, fused (varied streams,
+    K1 at G 3 launched n_layers x sub-steps, the first n_layers K1 calls
+    within rtol = atol = 1e-4 of the plain version); at depth 6 (cut for
+    time) FP8 pages prefix on fused, on unfused and off fused (streams
+    bitwise equal, >= 256 prefix hit tokens), bf16 pages prefix on, and a
+    bucketed run (the pairs its prefills drop by capacity printed); the
+    float32 first-step logits at depth 2 through K1 and through the plain
+    attention as in 19; TP=2 at depth 6 on both page kinds as in 13, held
+    to this process's depth-6 prefix-on runs.  Printed: K1's time at
+    granite's geometry, the walls, decode tokens/s and peak memory, the
+    busiest expert's share of its layer's routed pairs; then a short
+    traced window of granite's FP8 serving path at depth 6, as in 6;
 18. windows on the model path: gemma3-12b at full width, depth 6,
     float32, on FP8 and on float32 pages: a 1,040-token prompt prefilled
     through K1 (from the 1,024th token on every K1 call held to its plain
@@ -263,7 +281,7 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
 K1's numbers in the ``kernels`` line are those of gemma3-12b's geometry
 (KV 8, G 2, hd 256), its launches those of the main path's prefix-on
 fused run under serve_fp8_paged (K1's float instance: under the default
-policy); qwen2-0.5b's are printed beside them as before.  The
+policy, at depth 6); qwen2-0.5b's are printed beside them as before.  The
 ``dequant_matmul_static_weights`` and ``lns_matmul_static_weights``
 entries are K2 and K3 on static weights: card time per gemma3-12b layer
 (its seven matmuls) at M = 4, launches those of phase 17, the largest
@@ -285,6 +303,12 @@ launches are those of its path through the autotuner (phase 26,
 measurement included), its times those of qwen2-0.5b B 1 x S 8192 bf16,
 and its ``max_abs_err`` the largest float32 difference from the plain
 version in phase 24.
+
+The ``*_paged_partials_granite_moe`` entries are K1 at granite's
+geometry (KV 8, G 3, hd 64): card time from 3 and 4, launches those of
+17a's prefix-on FP8 run at full depth (LNS) and its depth-6 bf16 run
+(float), ``max_abs_err`` the larger of 3's (or 4's) and 17a's shadowed
+calls.
 
 The ``*_tp2_shard`` entries are K1 per rank of 13 (``lns`` on FP8 pages,
 ``float`` on bf16 pages): card time at the shard's geometry (KV 4, G 2,
@@ -402,9 +426,11 @@ def device_ms(fn, iters: int, only: str = "", warmup: int = 3):
 # qwen2-0.5b's is the one of PRs 11-21; gemma3-12b's is this slice's main
 # path's, at which K1 is timed for the kernels line.
 K1_GEOMETRIES = (("qwen2-0.5b", 2, 7, 64), ("gemma3-12b", 8, 2, 256),
-                 ("gemma2-27b", 16, 2, 128), ("qwen3-14b", 8, 5, 128))
-K1_TIMED = ("qwen2-0.5b", "gemma3-12b")
+                 ("gemma2-27b", 16, 2, 128), ("qwen3-14b", 8, 5, 128),
+                 ("granite-moe-3b-a800m", 8, 3, 64))
+K1_TIMED = ("qwen2-0.5b", "gemma3-12b", "granite-moe-3b-a800m")
 K1_MAIN = "gemma3-12b"
+MOE_ARCH = "granite-moe-3b-a800m"
 
 
 def k1_inputs(dev, seed: int = 0, KV: int = 2, G: int = 7, hd: int = 64):
@@ -693,7 +719,8 @@ def check_k1(dev) -> dict:
     ``K1_GEOMETRIES`` (and, past qwen2-0.5b's, with window 32 and softcap
     50), the edge cases of :func:`check_k1_edges`, then its timings at the
     ``K1_TIMED`` geometries.  Returns the main path's (gemma3-12b's)
-    timings and the largest error over all geometries."""
+    timings, granite's under ``"moe"``, and the largest error over all
+    geometries."""
     err, timed = 0.0, {}
     for name, KV, G, hd in K1_GEOMETRIES:
         c = k1_inputs(dev, KV=KV, G=G, hd=hd)
@@ -704,7 +731,7 @@ def check_k1(dev) -> dict:
         err = max(err, check_k1_edges(c, label))
         if name in K1_TIMED:
             timed[name] = _time_k1(c, label, lns=True)
-    return dict(max_abs_err=err, **timed[K1_MAIN])
+    return dict(max_abs_err=err, moe=timed[MOE_ARCH], **timed[K1_MAIN])
 
 
 FLOAT_K1_CASES = (("bfloat16", 0, 0.0), ("float32", 0, 0.0),
@@ -717,7 +744,8 @@ def check_k1_float(dev) -> dict:
     bf16 with window 32 and softcap 50): new pages bitwise, scales
     unchanged, output within rtol = atol = 1e-4, fused == unfused bitwise;
     then its times on bf16 pages (the serving path's) at the ``K1_TIMED``
-    geometries beside the byte bound."""
+    geometries beside the byte bound.  Returns them as :func:`check_k1`
+    does."""
     import torch
     from repro_torch.kernels import paged_attention as pa
 
@@ -764,7 +792,7 @@ def check_k1_float(dev) -> dict:
             c = k1_float_inputs(dev, torch.bfloat16, **geo)
             timed[name] = _time_k1(c, f"K1 float {name} (bf16 pages)",
                                    lns=False)
-    return dict(max_abs_err=err, **timed[K1_MAIN])
+    return dict(max_abs_err=err, moe=timed[MOE_ARCH], **timed[K1_MAIN])
 
 
 SERVE_PLENS = (5, 17, 33, 64, 9, 48, 2, 26)   # the serving phases' prompts
@@ -776,7 +804,7 @@ def _policy_label(cfg, policy) -> str:
 
 
 QWEN_DEPTH = 6     # qwen2-0.5b's serving phases: its first 6 of 24 layers
-PROFILE_DEPTH = 6  # gemma3-12b's traced window: one whole 5:1 period
+PROFILE_DEPTH = 6  # every traced window (gemma3-12b: one whole 5:1 period)
 
 
 def serve_main_path(dev, policy="serve_fp8_paged", plens=SERVE_PLENS,
@@ -1172,10 +1200,12 @@ def _cache_digest(cache) -> str:
     return h.hexdigest()
 
 
-def prefix_main_path(dev, policy, params=None) -> dict:
+def prefix_main_path(dev, policy, params=None, depth=None) -> dict:
     """This slice's main path: full-width, full-depth gemma3-12b (48
-    layers, 5 local layers of window 1,024 to each global one, hd 256)
-    served through the Engine with the prefix cache, 4 slots, page 16, a
+    layers, 5 local layers of window 1,024 to each global one, hd 256;
+    its first ``depth`` layers when given, as on bf16 pages since PR 26,
+    cut for time) served through the Engine with the prefix cache, 4
+    slots, page 16, a
     worst-case pool; 8 requests of a shared 64-token prefix and their own
     tails, 16 generated tokens each, chunk 4.  Two runs, fused decode:
     prefix off and prefix on (unfused decode runs at depth 6 in
@@ -1190,18 +1220,22 @@ def prefix_main_path(dev, policy, params=None) -> dict:
     from repro_torch.configs import get_config
 
     cfg = get_config("gemma3-12b", policy=policy)
+    served = params
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+        served = _shallow(params, depth)
     label = _policy_label(cfg, policy)
     queue = _prefix_queue(cfg)
     runs = {}
     for prefix_on, fused_on in ((False, True), (True, True)):
-        eng = _prefix_engine(dev, cfg, params, prefix_cache=prefix_on,
+        eng = _prefix_engine(dev, cfg, served, prefix_cache=prefix_on,
                              fused_decode=fused_on)
-        if params is None:
-            params = _lively(eng).params
+        if served is None:
+            params = served = _lively(eng).params
         run = _counted_run(eng, queue, PREFIX_GEN)
         run["digest"] = _cache_digest(eng.cache)
         hits = run["stats"]["prefix_hit_tokens"]
-        print(f"# gemma3-12b serve {label}, prefix "
+        print(f"# gemma3-12b depth {cfg.n_layers} serve {label}, prefix "
               f"{'on' if prefix_on else 'off'}, fused={fused_on}: "
               f"{len(queue)} requests, {run['stats']['steps']} steps, "
               f"{run['substeps']} sub-steps, {run['lns']} K1 LNS and "
@@ -1216,7 +1250,8 @@ def prefix_main_path(dev, policy, params=None) -> dict:
         del eng
         torch.cuda.empty_cache()
     streams = [r["outputs"] for r in runs.values()]
-    distinct = _require_varied(streams[0], f"gemma3-12b {label}")
+    distinct = _require_varied(streams[0], f"gemma3-12b {label}",
+                               0.0 if depth is None else 0.25)
     if streams[1] != streams[0]:
         raise AssertionError(f"gemma3-12b {label}: token streams differ with "
                              "the prefix cache on/off")
@@ -1553,18 +1588,19 @@ def chaos_path(dev, params, fp8_base: dict, bf16_base: dict) -> None:
 # Tensor-parallel serving: two ranks of a mesh on one card
 # --------------------------------------------------------------------------- #
 MESH_TP = 2
-MESH_BF16_DEPTH = 6        # bf16 pages: one whole 5:1 period, as in 11
+MESH_DEPTH = 6             # both page kinds: one whole 5:1 period, as in 11
 MESH_BACKEND = "gloo"      # NCCL refuses two ranks on one device
 MESH_TIMEOUT_S = 600.0     # the whole two-rank run, spawn to join
 MESH_K1 = dict(KV=8 // MESH_TP, G=2, hd=256)   # gemma3-12b's K1 per shard
 
 
-def _mesh_serve(mesh, device, policy, depth: int, params) -> dict:
+def _mesh_serve(mesh, device, policy, depth: int, params,
+                arch: str = K1_MAIN) -> dict:
     """One rank's serving run (in its own process): the prefix phase's
-    engine on ``mesh`` (prefix on, fused decode, a worst-case pool; None:
-    the TP=1 engine), its own draw replaced by its cut of ``params`` (the
-    parent's tensors, by CUDA IPC: the replicated leaves are shared, the
-    sharded ones copied), the 8 requests through :func:`_counted_run` (K1
+    ``arch`` engine on ``mesh`` (prefix on, fused decode, a worst-case
+    pool), its own draw replaced by its cut of ``params`` (the parent's
+    tensors, by CUDA IPC: the replicated leaves are shared, the sharded
+    ones copied), the 8 requests through :func:`_counted_run` (K1
     launched n_layers x sub-steps by this rank, at its KV heads), its
     first n_layers K1 calls held to the plain version
     (:class:`_ShadowK1`); then the whole cache, gathered over the ranks,
@@ -1574,13 +1610,12 @@ def _mesh_serve(mesh, device, policy, depth: int, params) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.parallel import sharding
 
-    cfg = dataclasses.replace(get_config("gemma3-12b", policy=policy),
+    cfg = dataclasses.replace(get_config(arch, policy=policy),
                               n_layers=depth)
     eng = _prefix_engine(device, cfg, None, prefix_cache=True, mesh=mesh)
     eng.params = None          # the engine's own draw, before the cut
     torch.cuda.empty_cache()
-    eng.params = (params if mesh is None else
-                  sharding.shard_params(cfg, params, mesh, cfg.policy))
+    eng.params = sharding.shard_params(cfg, params, mesh, cfg.policy)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with _ShadowK1(limit=cfg.n_layers) as shadow:
@@ -1639,24 +1674,70 @@ def _mesh_partials(mesh) -> dict:
                 float_launches=pa.paged_attend.float_partials_launches)
 
 
-def _mesh_rank(mesh, params, tp1: bool = False) -> dict:
-    """The body of each rank of :func:`mesh_path` (``tp1``: of its TP=1
-    run, one process whose engine has no mesh).  cuBLAS runs without
-    split-K workspaces in this process (``launch/mesh.py``): a column
-    block of a product is then computed as inside the whole product."""
+def _mesh_rank(mesh, params, arch: str = K1_MAIN, partials: bool = True
+               ) -> dict:
+    """The body of each rank of :func:`mesh_path` and :func:`moe_path`:
+    ``arch`` on FP8 pages and on bf16 pages at the depth of ``params``,
+    then, when asked, K1's partials mode.  The process inherits the parent's
+    ``CUBLAS_WORKSPACE_CONFIG`` (no split-K, set at the script's start),
+    which its engines require."""
     import torch
-    from repro_torch.launch.mesh import CUBLAS_DETERMINISTIC
 
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_DETERMINISTIC
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    engine_mesh = None if tp1 else mesh
-    fp8 = _mesh_serve(engine_mesh, mesh.device, "serve_fp8_paged",
-                      len(params["blocks"]), params)
-    bf16 = _mesh_serve(engine_mesh, mesh.device, None, MESH_BF16_DEPTH,
-                       _shallow(params, MESH_BF16_DEPTH))
+    depth = len(params["blocks"])
+    fp8 = _mesh_serve(mesh, mesh.device, "serve_fp8_paged", depth, params,
+                      arch)
+    bf16 = _mesh_serve(mesh, mesh.device, None, depth, params, arch)
     return dict(rank=mesh.rank, transport=mesh.transport, fp8=fp8,
-                bf16=bf16, partials=None if tp1 else _mesh_partials(mesh))
+                bf16=bf16, partials=_mesh_partials(mesh) if partials else None)
+
+
+def _spawn_ranks(dev, *args) -> tuple:
+    """``_mesh_rank(mesh, *args)`` on ``MESH_TP`` spawned ranks sharing
+    this card over ``MESH_BACKEND``; returns (the ranks' results,
+    spawn-to-join seconds)."""
+    import tempfile
+    from repro_torch.launch.mesh import run_ranks
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = run_ranks(_mesh_rank, MESH_TP,
+                          init_file=os.path.join(tmp, "store"),
+                          backend=MESH_BACKEND, device=dev,
+                          args=args, timeout=MESH_TIMEOUT_S, threads=2)
+    return ranks, time.perf_counter() - t0
+
+
+def _gate_ranks(ranks, key: str, base: dict, label: str, kv_heads: int,
+                depth: int, card: str) -> None:
+    """Every rank's run ``key`` against the TP=1 run ``base`` of this
+    process: streams and the digest of the cache gathered over the ranks
+    equal, K1 at ``kv_heads`` KV heads, at least ``depth`` K1 calls
+    shadowed."""
+    for r in ranks:
+        got = r[key]
+        if got["outputs"] != base["outputs"]:
+            raise AssertionError(f"{label}: rank {r['rank']}'s streams "
+                                 "differ from the TP=1 streams")
+        if got["digest"] != base["digest"]:
+            raise AssertionError(f"{label}: rank {r['rank']}'s gathered "
+                                 "cache differs from the TP=1 cache")
+        if got["kv_heads"] != kv_heads or got["shadow_calls"] < depth:
+            raise AssertionError(f"{label}: rank {r['rank']}: "
+                                 f"{got['kv_heads']} KV heads, "
+                                 f"{got['shadow_calls']} K1 calls shadowed")
+        print(f"# {label}, rank {r['rank']} ({r['transport']}): "
+              f"{got['substeps']} sub-steps, {got['launches']} K1 "
+              f"launches at {got['kv_heads']} KV heads, "
+              f"{got['hits']} prefix hit tokens, {got['wall']:.3f} s "
+              f"wall, {got['decode_tok_s']:.2f} decode tok/s, peak "
+              f"{got['peak'] / 2**30:.2f} GiB of its own; first "
+              f"{got['shadow_calls']} K1 calls within "
+              f"{got['shadow_err']:.3e} of plain; [{card}]", flush=True)
+    print(f"# {label}: streams of both ranks bitwise equal to this "
+          f"process's TP=1 run, whole cache digest {base['digest'][:16]} "
+          f"equal (TP=1 wall {base['wall']:.3f} s); [{card}]", flush=True)
 
 
 def mesh_path(dev, params, fp8_base: dict, bf16_base: dict) -> dict:
@@ -1664,28 +1745,23 @@ def mesh_path(dev, params, fp8_base: dict, bf16_base: dict) -> dict:
     one card (one process each, ``MESH_BACKEND`` between them: a
     correctness run, not a speed-up claim).  Each rank serves
     gemma3-12b at full width (16/8 heads split 8/4, d_ff 7,680 a rank, the
-    embedding's vocab rows halved) on the main path's weights: the 8
-    shared-prefix requests, prefix on, fused decode, on FP8 pages at full
-    depth and on bf16 pages at depth ``MESH_BF16_DEPTH``.  The TP=1 runs
-    it is held to are the same runs in one process of their own, since
-    the ranks and they run cuBLAS without split-K workspaces
-    (``CUBLAS_WORKSPACE_CONFIG=:0:0``, read once a process), and the
-    rest of this script with them, whose decode products they make 2.5x
-    slower (``scripts/cublas_workspace_ab.py``).
+    embedding's vocab rows halved) on the main path's weights, their
+    first ``MESH_DEPTH`` layers (cut for time since PR 26): the 8
+    shared-prefix requests, prefix on, fused decode, on FP8 and on bf16
+    pages.  The TP=1 runs they are held to are this process's own, 11's
+    worst-case pools (``fp8_base``, ``bf16_base``); every process of the
+    script runs cuBLAS without split-K (``CUBLAS_WORKSPACE_CONFIG=:0:0``,
+    set at its start).
     Gates: every rank's streams bitwise equal to the TP=1 runs', the
     digest of the whole cache gathered over the ranks equal to theirs,
     K1 launched n_layers x sub-steps by every rank at 4 KV heads, each
     rank's first n_layers K1 calls within rtol = atol = 1e-4 of the plain
-    version; then K1's partials mode (:func:`_mesh_partials`).  Printed
-    beside them: whether the TP=1 runs equal this process's
-    (``fp8_base``: the main path's prefix-on run; ``bf16_base``: 11's
-    worst-case pool), made with split-K.  Before the run, this process
-    times K1 at the shard's geometry in both modes and both instances.
-    Prints the transport, each rank's peak memory, the run's wall and
-    decode tokens/s, beside the card's name and power limit."""
-    import tempfile
+    version; then K1's partials mode (:func:`_mesh_partials`).  Before
+    the run, this process times K1 at the shard's geometry in both modes
+    and both instances.  Prints the transport, each rank's peak memory,
+    the run's wall and decode tokens/s, beside the card's name and power
+    limit."""
     import torch
-    from repro_torch.launch.mesh import run_ranks
 
     card = card_line()
     timed = {}
@@ -1699,61 +1775,12 @@ def mesh_path(dev, params, fp8_base: dict, bf16_base: dict) -> dict:
         timed[lns, mode] = _time_k1(c, what, lns=lns, partials=mode)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()   # the ranks draw their own cut first
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        (tp1,) = run_ranks(_mesh_rank, 1, init_file=os.path.join(tmp, "one"),
-                           backend=MESH_BACKEND, device=dev,
-                           args=(params, True), timeout=MESH_TIMEOUT_S,
-                           threads=2)
-        tp1_wall = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        ranks = run_ranks(_mesh_rank, MESH_TP,
-                          init_file=os.path.join(tmp, "store"),
-                          backend=MESH_BACKEND, device=dev,
-                          args=(params, False), timeout=MESH_TIMEOUT_S,
-                          threads=2)
-    spawn_wall = time.perf_counter() - t0
-    for key, split_k, depth in (("fp8", fp8_base, len(params["blocks"])),
-                                ("bf16", bf16_base, MESH_BF16_DEPTH)):
-        label = (f"gemma3-12b depth {depth} "
+    ranks, spawn_wall = _spawn_ranks(dev, _shallow(params, MESH_DEPTH))
+    for key, base in (("fp8", fp8_base), ("bf16", bf16_base)):
+        label = (f"gemma3-12b depth {MESH_DEPTH} "
                  f"{'serve_fp8_paged' if key == 'fp8' else 'bf16 pages'} "
                  f"TP={MESH_TP} on one card (correctness only)")
-        base = tp1[key]
-        _require_varied(base["outputs"], f"{label}: TP=1",
-                        0.0 if key == "fp8" else 0.25)
-        same = ("equal" if (base["outputs"], base["digest"])
-                == (split_k["outputs"], split_k["digest"]) else "differ")
-        print(f"# {label}: TP=1 without split-K (its own process) "
-              f"{base['wall']:.3f} s wall, {base['decode_tok_s']:.2f} "
-              f"decode tok/s, cache digest {base['digest'][:16]}; streams "
-              f"and cache {same} to the run with split-K (digest "
-              f"{split_k['digest'][:16]}, {split_k['wall']:.3f} s); "
-              f"[{card}]", flush=True)
-        for r in ranks:
-            got = r[key]
-            if got["outputs"] != base["outputs"]:
-                raise AssertionError(f"{label}: rank {r['rank']}'s streams "
-                                     "differ from the TP=1 streams")
-            if got["digest"] != base["digest"]:
-                raise AssertionError(f"{label}: rank {r['rank']}'s gathered "
-                                     "cache differs from the TP=1 cache")
-            if (got["kv_heads"] != MESH_K1["KV"]
-                    or got["shadow_calls"] < depth):
-                raise AssertionError(f"{label}: rank {r['rank']}: "
-                                     f"{got['kv_heads']} KV heads, "
-                                     f"{got['shadow_calls']} K1 calls "
-                                     "shadowed")
-            print(f"# {label}, rank {r['rank']} ({r['transport']}): "
-                  f"{got['substeps']} sub-steps, {got['launches']} K1 "
-                  f"launches at {got['kv_heads']} KV heads, "
-                  f"{got['hits']} prefix hit tokens, {got['wall']:.3f} s "
-                  f"wall, {got['decode_tok_s']:.2f} decode tok/s, peak "
-                  f"{got['peak'] / 2**30:.2f} GiB of its own; first "
-                  f"{got['shadow_calls']} K1 calls within "
-                  f"{got['shadow_err']:.3e} of plain; [{card}]", flush=True)
-        print(f"# {label}: streams of both ranks bitwise equal to TP=1's, "
-              f"whole cache digest {base['digest'][:16]} equal (TP=1 wall "
-              f"{base['wall']:.3f} s); [{card}]", flush=True)
+        _gate_ranks(ranks, key, base, label, MESH_K1["KV"], MESH_DEPTH, card)
     for r in ranks:
         p = r["partials"]
         print(f"# K1 partials mode on rank {r['rank']} (KV {MESH_K1['KV']}, "
@@ -1762,8 +1789,8 @@ def mesh_path(dev, params, fp8_base: dict, bf16_base: dict) -> dict:
               f"2e-6 of paged_attend, max |diff| LNS {p['errs']['lns']:.3e}, "
               f"float {p['errs']['float']:.3e}; {p['launches']} LNS and "
               f"{p['float_launches']} float partials launches", flush=True)
-    print(f"# mesh run: {MESH_TP} ranks, spawn to join {spawn_wall:.1f} s "
-          f"(the TP=1 process {tp1_wall:.1f} s); [{card}]", flush=True)
+    print(f"# mesh run: {MESH_TP} ranks, spawn to join {spawn_wall:.1f} s; "
+          f"[{card}]", flush=True)
     first = ranks[0]
     return dict(
         timed=timed, fp8=first["fp8"], bf16=first["bf16"],
@@ -1772,6 +1799,229 @@ def mesh_path(dev, params, fp8_base: dict, bf16_base: dict) -> dict:
         partials=first["partials"],
         partials_err={k: max(r["partials"]["errs"][k] for r in ranks)
                       for k in ("lns", "float")})
+
+
+# --------------------------------------------------------------------------- #
+# The MoE family: granite-moe-3b-a800m on the main path
+# --------------------------------------------------------------------------- #
+MOE_SHALLOW_DEPTH = 6   # the depth-6 contracts, bf16, bucketed and TP=2
+MOE_LOGIT_DEPTH = 2
+
+
+class _MoeStats:
+    """Within the block, the routing of every MoE layer call is counted on
+    the card: the (token, expert) pairs each expert of each layer receives
+    (idle slots' rows included; the stack calls its layers in order, so
+    call ``i`` is layer ``i mod n_layers``), and, in calls whose groups
+    hold more than one token (a bucketed prefill), the pairs dropped by
+    capacity out of all pairs."""
+
+    def __init__(self, cfg):
+        self.L, self.E = cfg.n_layers, cfg.n_experts
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+
+        self.moe, self.real = moe, (moe.route, moe.dispatch)
+        self.calls, self.load = 0, None
+        self.dropped = self.pairs = 0
+
+        def route(router, xg, k):
+            out = self.real[0](router, xg, k)
+            ids = out[3]
+            if self.load is None:
+                self.load = torch.zeros((self.L, self.E), dtype=torch.int64,
+                                        device=ids.device)
+            self.load[self.calls % self.L] += (
+                ids.reshape(-1, 1)
+                == torch.arange(self.E, device=ids.device)).sum(0)
+            self.calls += 1
+            return out
+
+        def dispatch(ids, E, C):
+            d = self.real[1](ids, E, C)
+            if ids.shape[1] > 1:
+                self.dropped = self.dropped + (~d["keep"]).sum()
+                self.pairs += d["keep"].numel()
+            return d
+
+        moe.route, moe.dispatch = route, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route, self.moe.dispatch = self.real
+        return False
+
+    def busiest(self) -> tuple:
+        """(the largest share of a layer's routed pairs that one expert
+        took, its layer, its expert)."""
+        load = self.load.to(float)
+        share = load / load.sum(1, keepdim=True)
+        i = int(share.argmax())
+        return float(share.max()), i // self.E, i % self.E
+
+
+def _logits_through_k1(dev, arch: str, depth: int) -> None:
+    """``arch`` at full width, depth ``depth``, float32 parameters: the
+    first-step logits (a prefill chunk and a decode step) through K1,
+    every K1 call held to its plain version on the same inputs, and
+    through the plain attention, on both page kinds
+    (:func:`_gate_logits`: within rtol = atol = 1e-3 on float32 pages,
+    printed on FP8 pages)."""
+    import torch
+    from repro_torch.configs import get_config
+
+    for policy in ("serve_fp8_paged", None):
+        base = dataclasses.replace(get_config(arch, policy=policy),
+                                   n_layers=depth)
+        cfg = dataclasses.replace(base, param_dtype="float32")
+        with _ShadowK1() as shadow:
+            kern = _first_step_logits(dev, cfg)
+        plain = _first_step_logits(dev, dataclasses.replace(
+            cfg, numerics=_plain_attention_policy(base.policy)))
+        torch.cuda.empty_cache()
+        if shadow.calls != depth * 5:     # 4 prompt + 1 decode
+            raise AssertionError(f"{shadow.calls} K1 calls, want "
+                                 f"{depth * 5}")
+        _gate_logits(kern, plain, f"{arch} depth {depth}, float32, "
+                     f"{_policy_label(cfg, policy)} ({shadow.calls} K1 "
+                     f"calls each within {shadow.err:.3e} of the plain "
+                     "version)", cfg.policy.kv_quantized)
+
+
+def moe_path(dev, k1: dict, k1f: dict) -> dict:
+    """Phase: granite-moe-3b-a800m (32 layers, d_model 1536, 24/8 heads,
+    hd 64, every layer 40 experts top-8 of d_ff 512, ~3.3 B parameters)
+    served on the main path at full width, on weights drawn on the card
+    from seed 0 and redrawn by :func:`_lively`: the 8 shared-prefix
+    requests of :func:`prefix_main_path`, 4 slots, page 16, chunk 4.
+    On FP8 pages at full depth, prefix off, fused decode; then, cut for
+    time, at depth ``MOE_SHALLOW_DEPTH``: FP8 pages prefix on fused (TP=2's
+    baseline), prefix on unfused and prefix off fused, bf16 pages prefix
+    on fused, and a bucketed run on FP8 pages (its prefills route whole
+    prompts, so capacity drops pairs).  Gates: every stream varied, the
+    depth-6 FP8 streams bitwise equal (fused == unfused, prefix on ==
+    off; the two prefix-on caches' digests equal), >= 256 prefix hit
+    tokens with the cache on, K1 launched n_layers x sub-steps in every
+    run (its other instance never), each run's first n_layers K1 calls
+    within rtol = atol = 1e-4 of the plain version; the float32
+    first-step logits at depth ``MOE_LOGIT_DEPTH``
+    (:func:`_logits_through_k1`); TP=2, two ranks on this card
+    (:func:`_mesh_rank` at depth ``MOE_SHALLOW_DEPTH`` on both page
+    kinds), streams and gathered cache digest equal to this process's
+    prefix-on runs.  Prints K1's time at granite's geometry (``k1``,
+    ``k1f``: :func:`check_k1` and :func:`check_k1_float`), every run's
+    wall, decode tokens/s and peak memory above what the process held
+    before it, the busiest expert's share of a layer's routed pairs in
+    the full-depth run, and the pairs the bucketed prefills dropped,
+    beside the card's name and power limit."""
+    import torch
+    from repro_torch.configs import get_config
+
+    card = card_line()
+    for what, t in (("LNS (FP8 pages)", k1), ("float (bf16 pages)", k1f)):
+        print(f"# K1 {what} at granite's geometry (KV 8, G 3, hd 64): "
+              f"{t['ms']:.5f} ms, plain {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']}; "
+              f"{t['ms'] / t['bound_ms']:.0f}x); [{card}]", flush=True)
+    full = get_config(MOE_ARCH, policy="serve_fp8_paged")
+    queue = _prefix_queue(full)
+    params, runs = None, {}
+
+    def serve(key, policy=None, depth=MOE_SHALLOW_DEPTH, scheduler=None,
+              **kw):
+        nonlocal params
+        cfg = dataclasses.replace(get_config(MOE_ARCH, policy=policy),
+                                  n_layers=depth)
+        eng = _prefix_engine(dev, cfg, None if params is None
+                             else _shallow(params, depth), **kw)
+        if params is None:
+            params = _lively(eng).params
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with _ShadowK1(limit=depth) as shadow:
+            run = _counted_run(eng, queue, PREFIX_GEN,
+                               scheduler=scheduler or "continuous")
+        peak = torch.cuda.max_memory_allocated() - held
+        run.update(digest=_cache_digest(eng.cache), err=shadow.err)
+        del eng
+        torch.cuda.empty_cache()
+        hits = run["stats"]["prefix_hit_tokens"]
+        label = f"{MOE_ARCH} depth {depth} {_policy_label(cfg, policy)}, {key}"
+        if (hits >= 4 * PREFIX_SHARED) != kw.get("prefix_cache", False):
+            raise AssertionError(f"{label}: {hits} prefix hit tokens")
+        if shadow.calls < min(depth, run["launches"]):
+            raise AssertionError(f"{label}: {shadow.calls} K1 calls "
+                                 "shadowed")
+        print(f"# {label}: {run['stats']['steps']} steps, "
+              f"{run['substeps']} sub-steps, {run['lns']} K1 LNS and "
+              f"{run['flt']} K1 float launches, {hits} prefix hit tokens, "
+              f"{run['wall']:.3f} s wall, "
+              f"{run['stats']['decode_tok_s']:.2f} decode tok/s, peak "
+              f"{peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held "
+              f"before; first {shadow.calls} K1 calls within "
+              f"{shadow.err:.3e} of plain; [{card}]", flush=True)
+        runs[key] = run
+        return run
+
+    with _MoeStats(full) as stats:
+        serve("prefix off, fused", "serve_fp8_paged", full.n_layers)
+    share, layer, expert = stats.busiest()
+    print(f"# {MOE_ARCH}: the busiest expert (layer {layer}, expert "
+          f"{expert}) took {100 * share:.2f}% of its layer's routed pairs "
+          f"(uniform {100 / full.n_experts:.2f}%) in the full-depth run "
+          f"({stats.calls} MoE calls)", flush=True)
+    distinct = _require_varied(runs["prefix off, fused"]["outputs"],
+                               MOE_ARCH)
+    print(f"# {MOE_ARCH} full depth: distinct tokens per stream {distinct}",
+          flush=True)
+
+    base = {"fp8": serve("fp8 prefix on, fused", "serve_fp8_paged",
+                         prefix_cache=True),
+            "bf16": serve("bf16 prefix on, fused", prefix_cache=True)}
+    unfused = serve("fp8 prefix on, unfused", "serve_fp8_paged",
+                    prefix_cache=True, fused_decode=False)
+    off = serve("fp8 prefix off, fused", "serve_fp8_paged")
+    for key, run in base.items():
+        _require_varied(run["outputs"], f"{MOE_ARCH} depth "
+                        f"{MOE_SHALLOW_DEPTH} {key}", constant_share=0.25)
+    if (unfused["outputs"], unfused["digest"]) != (
+            base["fp8"]["outputs"], base["fp8"]["digest"]) \
+            or off["outputs"] != base["fp8"]["outputs"]:
+        raise AssertionError(f"{MOE_ARCH} depth {MOE_SHALLOW_DEPTH}: token "
+                             "streams differ with fused decode on/off or "
+                             "the prefix cache on/off")
+    print(f"# {MOE_ARCH} depth {MOE_SHALLOW_DEPTH} serve_fp8_paged: token "
+          "streams bitwise equal with fused decode on and off and the "
+          "prefix cache on and off, the prefix-on caches bitwise equal",
+          flush=True)
+    with _MoeStats(dataclasses.replace(full, n_layers=MOE_SHALLOW_DEPTH)
+                   ) as drops:
+        serve("bucketed", "serve_fp8_paged", scheduler="bucketed")
+    print(f"# {MOE_ARCH} depth {MOE_SHALLOW_DEPTH} serve_fp8_paged, "
+          f"bucketed: its prefills dropped {int(drops.dropped)} of "
+          f"{drops.pairs} routed pairs by capacity (factor "
+          f"{full.capacity_factor})", flush=True)
+
+    _logits_through_k1(dev, MOE_ARCH, MOE_LOGIT_DEPTH)
+
+    ranks, spawn_wall = _spawn_ranks(dev, _shallow(params, MOE_SHALLOW_DEPTH),
+                                     MOE_ARCH, False)
+    for key in ("fp8", "bf16"):
+        label = (f"{MOE_ARCH} depth {MOE_SHALLOW_DEPTH} "
+                 f"{'serve_fp8_paged' if key == 'fp8' else 'bf16 pages'} "
+                 f"TP={MESH_TP} on one card (correctness only)")
+        _gate_ranks(ranks, key, base[key], label, full.n_kv_heads // MESH_TP,
+                    MOE_SHALLOW_DEPTH, card)
+    print(f"# {MOE_ARCH} mesh run: {MESH_TP} ranks, spawn to join "
+          f"{spawn_wall:.1f} s; [{card}]", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return dict(fp8=runs["prefix off, fused"], bf16=base["bf16"],
+                fp8_err=max(r["err"] for r in runs.values() if r["lns"]),
+                bf16_err=base["bf16"]["err"])
 
 
 def _plain_attention_policy(pol):
@@ -1955,22 +2205,7 @@ def dense_family_path(dev, arch: str) -> None:
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import Engine
 
-    for policy in ("serve_fp8_paged", None):
-        base = dataclasses.replace(get_config(arch, policy=policy),
-                                   n_layers=DENSE_DEPTH)
-        cfg = dataclasses.replace(base, param_dtype="float32")
-        with _ShadowK1() as shadow:
-            kern = _first_step_logits(dev, cfg)
-        plain = _first_step_logits(dev, dataclasses.replace(
-            cfg, numerics=_plain_attention_policy(base.policy)))
-        torch.cuda.empty_cache()
-        if shadow.calls != DENSE_DEPTH * 5:     # 4 prompt + 1 decode
-            raise AssertionError(f"{shadow.calls} K1 calls, want "
-                                 f"{DENSE_DEPTH * 5}")
-        _gate_logits(kern, plain, f"{arch} depth {DENSE_DEPTH}, float32, "
-                     f"{_policy_label(cfg, policy)} ({shadow.calls} K1 "
-                     f"calls each within {shadow.err:.3e} of the plain "
-                     "version)", cfg.policy.kv_quantized)
+    _logits_through_k1(dev, arch, DENSE_DEPTH)
     cfg = dataclasses.replace(get_config(arch), n_layers=DENSE_DEPTH)
     plens, gen = SERVE_PLENS[:4], 8
     rng = np.random.default_rng(0)
@@ -3338,10 +3573,11 @@ def check_train_k5_against_plain(dev) -> None:
           f"{gp:.6f}", flush=True)
 
 
-def profile_train_step(dev, policy=None) -> None:
+def profile_train_step(dev, policy=None, depth=None) -> None:
     """One profiled full-width train step (after a warm-up step) under
-    ``--quant fp8_lns_pallas``, or under ``policy``: wall time, card-busy
-    share, launches, the kernels that take the time."""
+    ``--quant fp8_lns_pallas``, or under ``policy``, of the first
+    ``depth`` layers when given: wall time, card-busy share, launches,
+    the kernels that take the time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3354,6 +3590,8 @@ def profile_train_step(dev, policy=None) -> None:
         cfg = get_config("qwen2-0.5b", policy=policy)
         label = policy.name + (" + K5 gate" if policy.elementwise.quantized
                                else "")
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     state, step, batch_of = _train_setup(dev, cfg)
     state, _ = step(state, batch_of(0))
     torch.cuda.synchronize()
@@ -3373,8 +3611,8 @@ def profile_train_step(dev, policy=None) -> None:
     k3 = sum(us for k, us, _ in rows if "lns_matmul_kernel" in k) / 1e6
     k2 = sum(us for k, us, _ in rows if "dequant_matmul_kernel" in k) / 1e6
     k5 = sum(us for k, us, _ in rows if "fp8_elementwise_kernel" in k) / 1e6
-    print(f"# profiled train step ({label}, full width, batch 8 x "
-          f"seq 128): {wall:.4f} s wall; card busy {busy:.4f} s "
+    print(f"# profiled train step ({label}, full width, depth "
+          f"{cfg.n_layers}, batch 8 x seq 128): {wall:.4f} s wall; card busy {busy:.4f} s "
           f"({100 * busy / wall:.2f}% of the wall); K3 {k3:.4f} s "
           f"({100 * k3 / busy:.2f}% of busy); K2 {k2:.4f} s "
           f"({100 * k2 / busy:.2f}%); K5 {k5:.5f} s; "
@@ -4024,6 +4262,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # before any phase touches the card, as the serve CLI does: cuBLAS
+    # without split-K in this process and the ranks it spawns
+    from repro_torch.launch.mesh import require_column_stable_cublas
+
+    require_column_stable_cublas("cuda")
     # full float32 products in every comparison on the card (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4046,20 +4289,21 @@ def main() -> int:
     k1f = _phase(check_k1_float, dev)
     _phase(serve_main_path, dev)
     _phase(check_against_plain_engine, dev)
-    _phase(profile_main_path, dev)
+    _phase(profile_main_path, dev, depth=PROFILE_DEPTH)
     _phase(serve_main_path, dev, policy=None)
     _phase(check_against_plain_engine, dev, policy=None)
-    _phase(profile_main_path, dev, policy=None)
+    _phase(profile_main_path, dev, policy=None, depth=PROFILE_DEPTH)
     _phase(preemption_path, dev, "serve_fp8_paged")
     _phase(preemption_path, dev, None)
     served_prefix = _phase(prefix_main_path, dev, "serve_fp8_paged")
     params = served_prefix.pop("params")
-    served_prefix_float = _phase(prefix_main_path, dev, None, params)
+    served_prefix_float = _phase(prefix_main_path, dev, None, params,
+                                 PREFIX_PREEMPT_DEPTH)
     served_prefix_float.pop("params")
     shared = _phase(preempt_shared_path, dev, "serve_fp8_paged", params)
     shared_float = _phase(preempt_shared_path, dev, None, params)
     _phase(chaos_path, dev, params, shared, shared_float)
-    meshed = _phase(mesh_path, dev, params, served_prefix, shared_float)
+    meshed = _phase(mesh_path, dev, params, shared, shared_float)
     _phase(bucketed_path, dev, "serve_fp8_paged", params, shared["outputs"])
     _phase(bucketed_path, dev, None, params, shared_float["outputs"])
     _phase(bucketed_logits_path, dev, "serve_fp8_paged", params)
@@ -4068,6 +4312,8 @@ def main() -> int:
     del params
     static_k = _phase(static_kernel_path, dev, static.pop("codes"))
     torch.cuda.empty_cache()
+    moe = _phase(moe_path, dev, k1["moe"], k1f["moe"])
+    _phase(profile_main_path, dev, arch=MOE_ARCH, depth=PROFILE_DEPTH)
     _phase(profile_main_path, dev, arch="gemma3-12b", depth=PROFILE_DEPTH)
     _phase(profile_main_path, dev, policy=None, arch="gemma3-12b",
            depth=PROFILE_DEPTH)
@@ -4079,17 +4325,20 @@ def main() -> int:
     served_k5 = _phase(serve_main_path, dev, policy=k5_serve_policy(),
                        plens=(5, 17, 9, 2), gen=8)
     _phase(check_k5_engine_against_plain, dev)
-    _phase(profile_main_path, dev, policy=k5_serve_policy())
+    _phase(profile_main_path, dev, policy=k5_serve_policy(),
+           depth=PROFILE_DEPTH)
     _phase(check_k3_products, dev)
     mm = _phase(check_matmul_kernels, dev)
     trained = _phase(train_main_path, dev)
     trained_k2 = _phase(train_k2_path, dev)
     _phase(check_train_against_plain, dev)
-    _phase(profile_train_step, dev)
-    _phase(profile_train_step, dev, policy=get_policy("train_fp8"))
+    _phase(profile_train_step, dev, depth=PROFILE_DEPTH)
+    _phase(profile_train_step, dev, policy=get_policy("train_fp8"),
+           depth=PROFILE_DEPTH)
     _phase(train_k5_path, dev)
     _phase(check_train_k5_against_plain, dev)
-    _phase(profile_train_step, dev, policy=k5_train_policy())
+    _phase(profile_train_step, dev, policy=k5_train_policy(),
+           depth=PROFILE_DEPTH)
     k6 = _phase(check_k6, dev)
     k6.update(_phase(time_k6, dev))
     tuned = _phase(k6_autotune_path, dev)
@@ -4165,6 +4414,18 @@ def main() -> int:
                          else meshed[f"{'fp8' if lns else 'bf16'}_err"]),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=None))
+    for lns in (True, False):
+        t, inst = (k1, "lns") if lns else (k1f, "float")
+        kernels.append(dict(
+            name=f"{inst}_paged_partials_granite_moe", route="cuda",
+            source=src + "paged_attention.cu",
+            replaces="src/repro/kernels/paged_attention.py:400",
+            launches=moe["fp8" if lns else "bf16"]["launches"],
+            max_abs_err=max(t["max_abs_err"],
+                            moe["fp8_err" if lns else "bf16_err"]),
+            ms=t["moe"]["ms"], plain_ms=t["moe"]["plain_ms"],
+            bound_ms=t["moe"]["bound_ms"], bound_by=t["moe"]["bound_by"],
+            library_ms=None))
     for impl, name, line in (("fused_dequant", "dequant_matmul", 110),
                              ("lns", "lns_matmul", 62)):
         k = static_k[impl]

@@ -1,9 +1,9 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
 The port runs the dense GQA family (qwen2-0.5b, qwen3-14b, gemma2-27b,
-gemma3-12b); the reference's other architectures (MoE, MLA, SSM, hybrid,
-enc-dec, VLM) arrive with later slices and are refused by name until
-then.
+gemma3-12b) and the MoE stack with GQA attention (granite-moe-3b-a800m);
+the reference's other architectures (MLA with MoE, SSM, hybrid, enc-dec,
+VLM) arrive with later slices and are refused by name until then.
 """
 from __future__ import annotations
 
@@ -13,11 +13,12 @@ from typing import Any, Dict
 from .base import ModelConfig
 from .gemma2_27b import CONFIG as _gemma2
 from .gemma3_12b import CONFIG as _gemma3
+from .granite_moe_3b import CONFIG as _granite
 from .qwen2_0_5b import CONFIG as _qwen2
 from .qwen3_14b import CONFIG as _qwen3
 
 CONFIGS: Dict[str, ModelConfig] = {
-    c.name: c for c in [_qwen2, _gemma2, _qwen3, _gemma3]}
+    c.name: c for c in [_qwen2, _gemma2, _qwen3, _gemma3, _granite]}
 
 
 def legacy_quant_config(quant: str) -> Dict[str, Any]:
@@ -52,10 +53,10 @@ def get_config(arch: str, *, quant: str = "none", smoke: bool = False,
     reference's default ``QuantConfig`` (everything full precision)."""
     if arch not in CONFIGS:
         raise NotImplementedError(
-            f"architecture {arch!r} is not ported yet; the port runs the "
-            f"dense GQA family {sorted(CONFIGS)}; MoE, MLA, SSM, hybrid, "
-            "enc-dec and VLM architectures arrive with later slices "
-            "(ROADMAP.md Queue 1 item 11)")
+            f"architecture {arch!r} is not ported yet; the port runs "
+            f"{sorted(CONFIGS)}; MLA with MoE, SSM, hybrid, enc-dec and "
+            "VLM architectures arrive with later slices (ROADMAP.md Queue 1 "
+            "items 11b-11f)")
     cfg = CONFIGS[arch]
     if smoke:
         cfg = cfg.smoke()

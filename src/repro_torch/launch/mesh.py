@@ -38,10 +38,9 @@ product's columns the same way whatever their number: with the default
 workspace it picks, for some widths, an algorithm that splits the inner
 dimension (gemma3-12b's ``wq``, [4, 3840] x [3840, 4096], differs from its
 two [3840, 2048] halves), and with ``CUBLAS_WORKSPACE_CONFIG=:0:0`` it
-does not.  The serve CLI sets that variable under ``--mesh`` on the card
-before its first product (:data:`CUBLAS_DETERMINISTIC`); a program that
-compares a mesh engine with a TP=1 one sets it in every process before
-either runs.
+does not.  So every card engine, mesh or not, runs without split-K
+(:func:`require_column_stable_cublas`, called by ``Engine`` and the serve
+CLI): a plain run and a ``--mesh`` run print the same tokens.
 
     torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \\
         --arch qwen2-0.5b --smoke --device cpu --mesh 1x2
@@ -52,6 +51,7 @@ tests, ``chip_smoke.py``) over a ``FileStore``, with a hard time limit.
 from __future__ import annotations
 
 import math
+import os
 import queue as queue_mod
 import time
 import traceback
@@ -62,13 +62,43 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "make_production_mesh", "parse_mesh_arg", "run_ranks",
-           "CUBLAS_DETERMINISTIC"]
+           "CUBLAS_DETERMINISTIC", "require_column_stable_cublas"]
 
 # cuBLAS without split-K workspaces: a product's column block is computed
 # as it is inside the whole product (see the module docstring)
 CUBLAS_DETERMINISTIC = ":0:0"
 # a spawned rank's limit on any one collective: a hung peer fails it
 COLLECTIVE_TIMEOUT_S = 60.0
+
+
+def require_column_stable_cublas(device) -> None:
+    """Make this process's cuBLAS run without split-K workspaces before
+    its first product on ``device`` (nothing for a CPU device): set
+    ``CUBLAS_WORKSPACE_CONFIG`` to :data:`CUBLAS_DETERMINISTIC` while the
+    process has not initialised CUDA, the one state in which no cuBLAS
+    product can have run yet.  (On an H100 the variable still took effect
+    when set after CUDA's initialisation and after a small product,
+    ``scripts/cublas_workspace_ab.py --probe``; PyTorch promises no such
+    moment, so none is relied on.)  Raises ``RuntimeError`` when the
+    variable holds another value, or is unset once CUDA is initialised:
+    that process may already run cuBLAS with split-K, and its products
+    would not be the ones a mesh engine's shards compute."""
+    if torch.device(device).type != "cuda":
+        return
+    name, want = "CUBLAS_WORKSPACE_CONFIG", CUBLAS_DETERMINISTIC
+    have = os.environ.get(name)
+    if have == want:
+        return
+    if have is None and not torch.cuda.is_initialized():
+        os.environ[name] = want
+        return
+    why = (f"it is {have!r}" if have is not None else
+           "it is unset and CUDA is already initialised in this process")
+    raise RuntimeError(
+        f"card engines run cuBLAS without split-K: set {name}={want} before "
+        f"this process's first CUDA call ({why}); with split-K a product's "
+        "column block is not computed as inside the whole product, and "
+        "tensor-parallel streams part from single-device ones")
 
 
 class Mesh:

@@ -78,6 +78,7 @@ from ..serving import (CANCELLED, FINISHED, REJECTED, TIMED_OUT,
                        invariant_checks_enabled)
 from ..serving.page_pool import prefill_page_amax
 from ..serving.telemetry import Telemetry, _atomic_write
+from .mesh import require_column_stable_cublas
 
 __all__ = ["Engine", "cache_bytes", "sample", "run", "run_bucketed",
            "run_continuous", "main"]
@@ -141,6 +142,8 @@ class Engine:
             self._hint_specs = serve_hint_specs(cfg, mesh)
             device = mesh.device
         self.device = _resolve_device(device)
+        # before the first product: no card engine runs split-K
+        require_column_stable_cublas(self.device)
         self.cfg = cfg
         # fused_decode=True runs each sub-step's KV write and attention as
         # one K1 launch; False writes then attends.  Token streams are
@@ -1173,14 +1176,10 @@ def main(argv=None):
                          "phases line up with device traces")
     args = ap.parse_args(argv)
 
-    if args.mesh is not None and torch.device(args.device).type == "cuda":
-        # before the first product: a column block of a product is
-        # computed as it is in the whole one, so --mesh runs print the
-        # tokens of a run without --mesh made with the same setting
-        # (launch/mesh.py)
-        from .mesh import CUBLAS_DETERMINISTIC
-
-        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_DETERMINISTIC)
+    # before the first CUDA call: every card run computes its products
+    # without split-K, so a --mesh run prints the tokens of a run without
+    # it (launch/mesh.py)
+    require_column_stable_cublas(args.device)
     mesh = None if args.mesh is None else _cli_mesh(args.mesh, args.device)
     try:
         return _serve_cli(args, mesh, ap)

@@ -2,13 +2,17 @@
 dense-cache decode (the bucketed scheduler's model calls), and the paged
 cache with the paged decode/mixed steps of the serving path.
 
-Port of ``repro.models.model.Model`` for the dense GQA family (qwen2,
-qwen3's qk-norm, gemma2/3's sandwich norms, embedding scale, local/global
-windows and softcaps).
+Port of ``repro.models.model.Model`` for GQA attention stacks: the dense
+family (qwen2, qwen3's qk-norm, gemma2/3's sandwich norms, embedding
+scale, local/global windows and softcaps) and the MoE family without
+shared experts or leading dense layers (granite-moe-3b-a800m, served
+only: training with experts is refused).
 Parameters are a plain dict: ``embed`` [Vp, D], ``final_norm`` [D],
 optional ``unembed`` [D, Vp], and ``blocks``, a list of per-layer
 dicts with the reference's names (``ln1``, ``attn.wq``/``bq``/...,
-``ln2``, ``ffn.w_gate``/``w_up``/``w_down``).  :func:`params_from_jax`
+``ln2``, ``ffn.w_gate``/``w_up``/``w_down``; an MoE layer's ``ffn`` is
+``router`` float32 [D, E], ``w_gate``/``w_up`` [E, D, F] and ``w_down``
+[E, F, D]).  :func:`params_from_jax`
 carries a reference ``Model.init`` tree across (the tests' route); the
 chip has no JAX, so :meth:`Model.init` draws the same distributions from
 a torch ``Generator``.
@@ -42,21 +46,35 @@ from ..parallel.hints import (hint, shard_start, tp_columns, tp_local,
                               tp_lookup)
 from ..serving.page_pool import kv_noise
 from .layers import rms_norm, softcap
+from .moe import moe_init
 from .quantize import resolve_weight
-from .transformer import stack_decode, stack_forward
+from .transformer import ffn_kind, stack_decode, stack_forward
 
 NEG = -1.0e30
 AUX0 = {"moe_lb": 0.0, "moe_z": 0.0}
 
 
 def _check_supported(cfg) -> None:
-    if (cfg.family != "dense" or cfg.attn_impl != "gqa" or cfg.first_dense
-            or cfg.n_experts):
+    if (cfg.family not in ("dense", "moe") or cfg.attn_impl != "gqa"
+            or cfg.first_dense or cfg.n_shared_experts
+            or (cfg.family == "dense") != (cfg.n_experts == 0)):
         raise NotImplementedError(
             f"{cfg.name!r} (family={cfg.family!r}, attn={cfg.attn_impl!r}) "
             "is not ported yet; the port runs dense GQA stacks (qwen2, "
-            "qwen3, gemma2, gemma3); the other families arrive with later "
-            "slices (ROADMAP.md Queue 1 item 11)")
+            "qwen3, gemma2, gemma3) and MoE GQA stacks without shared "
+            "experts or leading dense layers (granite); the other families "
+            "arrive with later slices (ROADMAP.md Queue 1 item 11, "
+            "11b-11f)")
+
+
+def refuse_moe_training(cfg) -> None:
+    """Training with experts (``_expert_mm``'s STE route through K3 and
+    the aux losses) is not ported yet."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name!r}: training a model with experts is not ported "
+            "yet (ROADMAP.md Queue 1 item 11a (training)); the port serves "
+            "it")
 
 
 def params_from_jax(np_params, cfg) -> Dict[str, Any]:
@@ -64,7 +82,9 @@ def params_from_jax(np_params, cfg) -> Dict[str, Any]:
     ``jax.tree.map(np.asarray, params)``) as the port's parameter dict:
     the ``[n_blocks, ...]`` leading axis of ``params["blocks"]`` is
     unstacked into one dict per layer, names kept.  CPU float tensors in
-    the leaves' dtype (bfloat16 leaves become torch bfloat16).  A
+    the leaves' dtype and shape (bfloat16 leaves become torch bfloat16;
+    an MoE layer's 3-D experts and float32 router come across as they
+    are).  A
     quantized tree (``quantize_params``: ``QTensor`` leaves with codes
     ``[n_blocks, ...]`` and per-block scales ``[n_blocks, 1, 1]``) becomes
     port ``QTensor`` leaves, one per layer with its block's scale as a
@@ -140,11 +160,13 @@ class Model:
             if cfg.qk_norm:
                 attn.update(q_norm=zeros(a + ("q_norm",), hd),
                             k_norm=zeros(a + ("k_norm",), hd))
+            ffn = (moe_init(generator, cfg, put, f)
+                   if ffn_kind(cfg, i) == "moe" else
+                   {"w_gate": normal(f + ("w_gate",), D, F),
+                    "w_up": normal(f + ("w_up",), D, F),
+                    "w_down": normal(f + ("w_down",), F, D)})
             layer = {"ln1": zeros(("blocks", i, "ln1"), D), "attn": attn,
-                     "ln2": zeros(("blocks", i, "ln2"), D),
-                     "ffn": {"w_gate": normal(f + ("w_gate",), D, F),
-                             "w_up": normal(f + ("w_up",), D, F),
-                             "w_down": normal(f + ("w_down",), F, D)}}
+                     "ln2": zeros(("blocks", i, "ln2"), D), "ffn": ffn}
             if cfg.sandwich_norm:
                 layer.update(ln1_post=zeros(("blocks", i, "ln1_post"), D),
                              ln2_post=zeros(("blocks", i, "ln2_post"), D))
@@ -204,8 +226,10 @@ class Model:
         metrics {ce, moe_lb, moe_z}.  ``labels`` < 0 are ignored, as is the
         last position (the reference's mask); the CE runs over the padded
         vocabulary with the padding at NEG.  The dense family has no MoE
-        auxiliary terms: they are zeros, as in the reference."""
+        auxiliary terms: they are zeros, as in the reference.  A config
+        with experts raises (:func:`refuse_moe_training`)."""
         cfg = self.cfg
+        refuse_moe_training(cfg)
         x, positions, labels = self._assemble_inputs(params, batch)
         x = stack_forward(params["blocks"], x, cfg, positions=positions)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -1,12 +1,15 @@
-"""Decoder stack of the dense GQA family: the full-sequence forward of
+"""Decoder stack of the GQA family: the full-sequence forward of
 training and prefill, and single-token decode against the dense or the
 paged cache.
 
 Port of ``repro.models.transformer.sublayer_forward``/``stack_forward``
-and ``sublayer_decode``/``stack_decode`` for the dense pattern: a Python
-loop over per-layer parameter dicts replaces the reference's scan over
-stacked blocks.  The policy site of layer ``i`` is ``blocks.{i % period}``,
-the reference's name (the index within the scan pattern).
+and ``sublayer_decode``/``stack_decode`` for GQA attention stacks: a
+Python loop over per-layer parameter dicts replaces the reference's scan
+over stacked blocks.  The policy site of layer ``i`` is
+``blocks.{i % period}``, the reference's name (the index within the scan
+pattern).  Each layer's FFN is the gated MLP or the MoE layer
+(``models.moe``), by the reference's ``layer_specs`` rule
+(:func:`ffn_kind`); serving drops the MoE aux losses.
 """
 from __future__ import annotations
 
@@ -14,11 +17,32 @@ from torch.utils.checkpoint import checkpoint
 
 from .attention import gqa_decode, gqa_decode_paged, gqa_forward
 from .layers import gated_mlp, rms_norm
+from .moe import moe_ffn
+
+
+def ffn_kind(cfg, i: int) -> str:
+    """Layer ``i``'s FFN, "moe" or "mlp", by the reference's rule (its
+    third kind, no FFN, belongs to families the port does not run)."""
+    return "moe" if cfg.is_moe_layer(i) else "mlp"
+
+
+def _ffn(p, x, cfg, ffn: str, site: str):
+    """The FFN half of a sublayer on x (the residual after attention)."""
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if ffn == "moe":
+        out, _ = moe_ffn(p["ffn"], h, cfg, site=f"{site}.ffn")
+    else:
+        out = gated_mlp(h, p["ffn"], cfg.policy, cfg.act_fn,
+                        site=f"{site}.ffn")
+    if cfg.sandwich_norm:
+        out = rms_norm(out, p["ln2_post"], cfg.norm_eps)
+    return x + out
 
 
 def sublayer_forward(p, x, cfg, *, positions, is_global: bool = True,
-                     site: str = "blocks.*", want_cache: bool = False):
-    """One attention + MLP sublayer over a full sequence x [B, S, D].
+                     ffn: str = "mlp", site: str = "blocks.*",
+                     want_cache: bool = False):
+    """One attention + FFN sublayer over a full sequence x [B, S, D].
     Returns the new x, or (x, the layer's dense cache entries) when
     ``want_cache`` (prefill)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -27,12 +51,8 @@ def sublayer_forward(p, x, cfg, *, positions, is_global: bool = True,
                              want_cache=want_cache)
     if cfg.sandwich_norm:
         out = rms_norm(out, p["ln1_post"], cfg.norm_eps)
-    x = x + out
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    out = gated_mlp(h, p["ffn"], cfg.policy, cfg.act_fn, site=f"{site}.ffn")
-    if cfg.sandwich_norm:
-        out = rms_norm(out, p["ln2_post"], cfg.norm_eps)
-    return (x + out, cache) if want_cache else x + out
+    x = _ffn(p, x + out, cfg, ffn, site)
+    return (x, cache) if want_cache else x
 
 
 def stack_forward(layers, x, cfg, *, positions, mode: str = "train"):
@@ -51,6 +71,7 @@ def stack_forward(layers, x, cfg, *, positions, mode: str = "train"):
         for i, p in enumerate(layers):
             x, c = sublayer_forward(p, x, cfg, positions=positions,
                                     is_global=cfg.is_global_attn_layer(i),
+                                    ffn=ffn_kind(cfg, i),
                                     site=f"blocks.{i % period}",
                                     want_cache=True)
             caches.append(c)
@@ -65,13 +86,14 @@ def stack_forward(layers, x, cfg, *, positions, mode: str = "train"):
         x = checkpoint(sublayer_forward, p, x, cfg, use_reentrant=False,
                        positions=positions,
                        is_global=cfg.is_global_attn_layer(i),
-                       site=f"blocks.{i % period}")
+                       ffn=ffn_kind(cfg, i), site=f"blocks.{i % period}")
     return x
 
 
 def sublayer_decode(p, x, cfg, *, cache, paged=None, pos=None,
-                    is_global: bool = True, site: str = "blocks.*"):
-    """One attention + MLP sublayer on x [B, 1, D]; the layer's cache
+                    is_global: bool = True, ffn: str = "mlp",
+                    site: str = "blocks.*"):
+    """One attention + FFN sublayer on x [B, 1, D]; the layer's cache
     entries (page tensors with ``paged``, dense {"k", "v"} rows at ``pos``
     without) are updated in place.  Returns the new x."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -83,12 +105,7 @@ def sublayer_decode(p, x, cfg, *, cache, paged=None, pos=None,
                          cache=cache, pos=pos, site=f"{site}.attn")
     if cfg.sandwich_norm:
         out = rms_norm(out, p["ln1_post"], cfg.norm_eps)
-    x = x + out
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    out = gated_mlp(h, p["ffn"], cfg.policy, cfg.act_fn, site=f"{site}.ffn")
-    if cfg.sandwich_norm:
-        out = rms_norm(out, p["ln2_post"], cfg.norm_eps)
-    return x + out
+    return _ffn(p, x + out, cfg, ffn, site)
 
 
 def stack_decode(layers, cache, x, cfg, *, paged=None, noise=None,
@@ -103,6 +120,7 @@ def stack_decode(layers, cache, x, cfg, *, paged=None, noise=None,
         for i, p in enumerate(layers):
             x = sublayer_decode(p, x, cfg, cache=cache[i], pos=pos,
                                 is_global=cfg.is_global_attn_layer(i),
+                                ffn=ffn_kind(cfg, i),
                                 site=f"blocks.{i % period}")
         return x
     for i, p in enumerate(layers):
@@ -110,5 +128,5 @@ def stack_decode(layers, cache, x, cfg, *, paged=None, noise=None,
         layer_paged = dict(paged, noise=None if noise is None else noise[i])
         x = sublayer_decode(p, x, cfg, cache=layer_cache, paged=layer_paged,
                             is_global=cfg.is_global_attn_layer(i),
-                            site=f"blocks.{i % period}")
+                            ffn=ffn_kind(cfg, i), site=f"blocks.{i % period}")
     return x

@@ -61,7 +61,7 @@ def test_config_equal_reference(smoke):
 
 def test_unported_architectures_raise():
     with pytest.raises(NotImplementedError):
-        get_config("granite-moe-3b")
+        get_config("deepseek-v2-lite-16b")
 
 
 def test_rms_norm_and_rope_match_reference():

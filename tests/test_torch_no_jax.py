@@ -27,6 +27,7 @@ leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro")
                 and sys.modules[m] is not None)
 print(len(names))
+print("MODULES", " ".join(names))
 for line in failed + leaked:
     print("FAIL", line)
 """
@@ -40,3 +41,5 @@ def test_every_port_module_imports_without_jax():
     lines = out.stdout.splitlines()
     assert not [line for line in lines if line.startswith("FAIL")], lines
     assert int(lines[0]) >= 40, lines  # every subpackage was walked
+    modules = lines[1].split()[1:]
+    assert "repro_torch.models.moe" in modules, modules

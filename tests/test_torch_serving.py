@@ -339,12 +339,14 @@ def test_engine_defaults_to_cuda_and_refuses_a_cpu_only_host():
         serve.Engine(cfg, slots=1, max_seq=8)
 
 
-@pytest.mark.parametrize("kw", [dict(n_experts=8)])
+@pytest.mark.parametrize("kw", [dict(attn_impl="mla")])
 def test_later_slice_features_raise(kw):
-    """The model families of ROADMAP.md Queue 1 item 11 still raise.  The
-    dense cache (``tests/test_torch_bucketed.py``) and tensor-parallel
-    serving (item 9, ``tests/test_torch_mesh.py``), which raised here
-    before, are served since."""
+    """The model families of ROADMAP.md Queue 1 item 11 still raise (MLA
+    attention: deepseek, item 11b).  The dense cache
+    (``tests/test_torch_bucketed.py``), tensor-parallel serving (item 9,
+    ``tests/test_torch_mesh.py``) and experts (granite, item 11a,
+    ``tests/test_torch_moe.py``), which raised here before, are served
+    since."""
     cfg = dataclasses.replace(
         get_config("qwen2-0.5b", smoke=True, policy="serve_fp8_paged"), **kw)
     with pytest.raises(NotImplementedError, match="item 11"):

@@ -149,8 +149,9 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     after one on the paged cache and after a continuous (sub-step)
     prefill, within rtol = atol = 1e-3 on float32 pages, printed on FP8
     pages;
-16. static FP8 weights at full width and depth: ``Engine(static_weights=
-    True)`` under serve_fp8_paged, continuous, on the main path's weights
+16. static FP8 weights at full width, depth 6 (cut for time from full
+    depth): ``Engine(static_weights=True)`` under serve_fp8_paged,
+    continuous, on the main path's weights
     as E4M3 codes (each matmul decodes its weight to bf16 first), against
     an Engine on the decoded bf16 weights: token streams bitwise equal
     and varied; the weight bytes on the card, the peak memory, both walls
@@ -169,15 +170,16 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     at full width (32 layers, 24/8 heads, hd 64, every layer 40 experts
     top-8 of d_ff 512, sorted capacity dispatch, ~6.6 GB of bf16 weights
     drawn on the card and redrawn as in 9), the 8 requests of 10 on 4
-    slots: on FP8 pages at full depth, prefix off, fused (varied streams,
-    K1 at G 3 launched n_layers x sub-steps, the first n_layers K1 calls
-    within rtol = atol = 1e-4 of the plain version); at depth 6 (cut for
-    time) FP8 pages prefix on fused, on unfused and off fused (streams
-    bitwise equal, >= 256 prefix hit tokens), bf16 pages prefix on, and a
-    bucketed run (the pairs its prefills drop by capacity printed); the
+    slots, at depth 2 (cut for time, from full depth for FP8 prefix off
+    and from depth 6 for the rest): FP8 pages prefix on fused,
+    on unfused and off fused (streams bitwise equal and varied, >= 256
+    prefix hit tokens, K1 at G 3 launched n_layers x sub-steps, each run's
+    first n_layers K1 calls within rtol = atol = 1e-4 of the plain
+    version), bf16 pages prefix on, and a bucketed run (the pairs its
+    prefills drop by capacity printed); the
     float32 first-step logits at depth 2 through K1 and through the plain
-    attention as in 19; TP=2 at depth 6 on both page kinds as in 13, held
-    to this process's depth-6 prefix-on runs.  Printed: K1's time at
+    attention as in 19; TP=2 at depth 2 on both page kinds as in 13, held
+    to this process's depth-2 prefix-on runs.  Printed: K1's time at
     granite's geometry, the walls, decode tokens/s and peak memory, the
     busiest expert's share of its layer's routed pairs; then a short
     traced window of granite's FP8 serving path at depth 6, as in 6;
@@ -275,6 +277,30 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     K4 launches and no K3 or K2; then the first step of a float32 2-layer
     model through K4 and through its plain version (loss rtol 1e-4,
     gradient norm rtol 1e-3);
+28a. K3 and K2 over a batch of expert products (``check_moe_kernels``):
+    granite-moe-3b-a800m's three expert products at batch 8 x seq 128
+    ([40, 256, 1536] x [40, 1536, 512], [40, 256, 512] x [40, 512,
+    1536]), one launch each over all 40 experts, on codes quantized as
+    the STE quantizes them: within 2 K 2^-24 sum|products| of the plain
+    version applied expert by expert, each expert's slice bitwise equal to
+    the 2-D launch on it at the batch's tile, two calls bitwise; their
+    card time per layer beside the bound, the plain version and, for K2,
+    ``torch.bmm`` on the decoded bf16 operands;
+28b. MoE training (``moe_train_path``): granite-moe-3b-a800m at full
+    width and depth 8 (full depth does not fit the card's memory with the
+    float32 master and moments), ``--quant fp8_lns_pallas``, batch 8 x
+    seq 128, 4 steps, a checkpoint every 2, through ``run_training`` and
+    ``build_train_step``: finite losses and aux terms, 0 restarts, K3
+    launched 2 x 7 x 8 x 4 times (each expert product once over all
+    experts) and K2 never; the wall of each step, the peak memory and the
+    busiest expert's share; then one profiled train step at that depth;
+28c. the first step of a float32, depth-2, full-width granite through K3
+    and K2 and through their plain versions (loss rtol 1e-4, gradient
+    norm rtol 1e-3), and one MoE layer's forward and backward twice on one
+    input under both policies: output and the x, router and expert
+    gradients bitwise equal; then one granite train step at depth 2 with
+    every matmul through K4, which has no batch axis: 2 x (4 + 3 x 40) x
+    2 launches, none of K3 or K2;
 29. prints one JSON line of per-kernel numbers, then the card line again,
     and last ``{"ok": true, "device": {...}}``.
 
@@ -306,9 +332,16 @@ version in phase 24.
 
 The ``*_paged_partials_granite_moe`` entries are K1 at granite's
 geometry (KV 8, G 3, hd 64): card time from 3 and 4, launches those of
-17a's prefix-on FP8 run at full depth (LNS) and its depth-6 bf16 run
-(float), ``max_abs_err`` the larger of 3's (or 4's) and 17a's shadowed
-calls.
+17a's prefix-off FP8 run at depth 2 (LNS) and
+its depth-2 bf16 run (float), ``max_abs_err`` the larger of 3's (or 4's)
+and 17a's shadowed calls.
+
+The ``lns_matmul_experts`` and ``dequant_matmul_experts`` entries are K3
+and K2 over a batch of granite's expert products (28a): card time of a
+layer's three expert products (one launch each), the largest difference
+from the plain version there; launches those of 28b's training run (K3,
+each expert product's launch and the attention products' 2-D launches)
+and of 28c's K2 kernel step (2 x 7 x 2).
 
 The ``*_tp2_shard`` entries are K1 per rank of 13 (``lns`` on FP8 pages,
 ``float`` on bf16 pages): card time at the shard's geometry (KV 4, G 2,
@@ -1804,7 +1837,8 @@ def mesh_path(dev, params, fp8_base: dict, bf16_base: dict) -> dict:
 # --------------------------------------------------------------------------- #
 # The MoE family: granite-moe-3b-a800m on the main path
 # --------------------------------------------------------------------------- #
-MOE_SHALLOW_DEPTH = 6   # the depth-6 contracts, bf16, bucketed and TP=2
+MOE_SHALLOW_DEPTH = 2   # every run: the contracts, bf16, bucketed, TP=2
+# (cut from full depth and 6 to make time for the training phases)
 MOE_LOGIT_DEPTH = 2
 
 
@@ -1814,7 +1848,10 @@ class _MoeStats:
     (idle slots' rows included; the stack calls its layers in order, so
     call ``i`` is layer ``i mod n_layers``), and, in calls whose groups
     hold more than one token (a bucketed prefill), the pairs dropped by
-    capacity out of all pairs."""
+    capacity out of all pairs.  ``call_max`` is the largest share of one
+    call's routed pairs that one expert took (a training step's layers
+    run again in reverse order in the recompute, which the layer count
+    of :meth:`busiest` does not follow)."""
 
     def __init__(self, cfg):
         self.L, self.E = cfg.n_layers, cfg.n_experts
@@ -1824,7 +1861,7 @@ class _MoeStats:
         from repro_torch.models import moe
 
         self.moe, self.real = moe, (moe.route, moe.dispatch)
-        self.calls, self.load = 0, None
+        self.calls, self.load, self.call_max = 0, None, 0.0
         self.dropped = self.pairs = 0
 
         def route(router, xg, k):
@@ -1833,9 +1870,12 @@ class _MoeStats:
             if self.load is None:
                 self.load = torch.zeros((self.L, self.E), dtype=torch.int64,
                                         device=ids.device)
-            self.load[self.calls % self.L] += (
-                ids.reshape(-1, 1)
-                == torch.arange(self.E, device=ids.device)).sum(0)
+            load = (ids.reshape(-1, 1)
+                    == torch.arange(self.E, device=ids.device)).sum(0)
+            self.load[self.calls % self.L] += load
+            self.call_max = torch.maximum(
+                torch.as_tensor(self.call_max, device=ids.device),
+                load.max() / load.sum())
             self.calls += 1
             return out
 
@@ -1896,15 +1936,15 @@ def moe_path(dev, k1: dict, k1f: dict) -> dict:
     served on the main path at full width, on weights drawn on the card
     from seed 0 and redrawn by :func:`_lively`: the 8 shared-prefix
     requests of :func:`prefix_main_path`, 4 slots, page 16, chunk 4.
-    On FP8 pages at full depth, prefix off, fused decode; then, cut for
-    time, at depth ``MOE_SHALLOW_DEPTH``: FP8 pages prefix on fused (TP=2's
-    baseline), prefix on unfused and prefix off fused, bf16 pages prefix
-    on fused, and a bucketed run on FP8 pages (its prefills route whole
-    prompts, so capacity drops pairs).  Gates: every stream varied, the
-    depth-6 FP8 streams bitwise equal (fused == unfused, prefix on ==
-    off; the two prefix-on caches' digests equal), >= 256 prefix hit
-    tokens with the cache on, K1 launched n_layers x sub-steps in every
-    run (its other instance never), each run's first n_layers K1 calls
+    Cut for time to depth ``MOE_SHALLOW_DEPTH`` (from full depth for the
+    FP8 prefix-off run and from 6 for the rest): FP8 pages prefix
+    off fused, prefix on fused (TP=2's baseline) and prefix on unfused,
+    bf16 pages prefix on fused, and a bucketed run on FP8 pages (its
+    prefills route whole prompts, so capacity drops pairs).  Gates: every
+    stream varied, the FP8 streams bitwise equal (fused == unfused,
+    prefix on == off; the two prefix-on caches' digests equal), >= 256
+    prefix hit tokens with the cache on, K1 launched n_layers x sub-steps
+    in every run (its other instance never), each run's first n_layers K1 calls
     within rtol = atol = 1e-4 of the plain version; the float32
     first-step logits at depth ``MOE_LOGIT_DEPTH``
     (:func:`_logits_through_k1`); TP=2, two ranks on this card
@@ -1914,7 +1954,7 @@ def moe_path(dev, k1: dict, k1f: dict) -> dict:
     ``k1f``: :func:`check_k1` and :func:`check_k1_float`), every run's
     wall, decode tokens/s and peak memory above what the process held
     before it, the busiest expert's share of a layer's routed pairs in
-    the full-depth run, and the pairs the bucketed prefills dropped,
+    the prefix-off run, and the pairs the bucketed prefills dropped,
     beside the card's name and power limit."""
     import torch
     from repro_torch.configs import get_config
@@ -1966,24 +2006,20 @@ def moe_path(dev, k1: dict, k1f: dict) -> dict:
         runs[key] = run
         return run
 
-    with _MoeStats(full) as stats:
-        serve("prefix off, fused", "serve_fp8_paged", full.n_layers)
+    shallow = dataclasses.replace(full, n_layers=MOE_SHALLOW_DEPTH)
+    with _MoeStats(shallow) as stats:
+        off = serve("fp8 prefix off, fused", "serve_fp8_paged")
     share, layer, expert = stats.busiest()
     print(f"# {MOE_ARCH}: the busiest expert (layer {layer}, expert "
           f"{expert}) took {100 * share:.2f}% of its layer's routed pairs "
-          f"(uniform {100 / full.n_experts:.2f}%) in the full-depth run "
+          f"(uniform {100 / full.n_experts:.2f}%) in the prefix-off run "
           f"({stats.calls} MoE calls)", flush=True)
-    distinct = _require_varied(runs["prefix off, fused"]["outputs"],
-                               MOE_ARCH)
-    print(f"# {MOE_ARCH} full depth: distinct tokens per stream {distinct}",
-          flush=True)
 
     base = {"fp8": serve("fp8 prefix on, fused", "serve_fp8_paged",
                          prefix_cache=True),
             "bf16": serve("bf16 prefix on, fused", prefix_cache=True)}
     unfused = serve("fp8 prefix on, unfused", "serve_fp8_paged",
                     prefix_cache=True, fused_decode=False)
-    off = serve("fp8 prefix off, fused", "serve_fp8_paged")
     for key, run in base.items():
         _require_varied(run["outputs"], f"{MOE_ARCH} depth "
                         f"{MOE_SHALLOW_DEPTH} {key}", constant_share=0.25)
@@ -2019,7 +2055,7 @@ def moe_path(dev, k1: dict, k1f: dict) -> dict:
           f"{spawn_wall:.1f} s; [{card}]", flush=True)
     del params
     torch.cuda.empty_cache()
-    return dict(fp8=runs["prefix off, fused"], bf16=base["bf16"],
+    return dict(fp8=runs["fp8 prefix off, fused"], bf16=base["bf16"],
                 fp8_err=max(r["err"] for r in runs.values() if r["lns"]),
                 bf16_err=base["bf16"]["err"])
 
@@ -2243,6 +2279,7 @@ def dense_family_path(dev, arch: str) -> None:
 BUCKET_LOGIT_DEPTH = 6     # one whole 5:1 period, float32 parameters
 STATIC_PLENS = (5, 17, 9, 2)        # the static-weight phase's 4 requests
 STATIC_GEN = 8
+STATIC_DEPTH = 6           # one whole 5:1 period (cut for time from 48)
 KERNEL_DEPTH = 6           # one whole 5:1 period
 # K3's runs: its plain version, which every call is held to, takes ~0.15 s
 # a layer at M = 4, so K3 runs under the bucketed scheduler alone (its
@@ -2488,7 +2525,8 @@ def _weight_bytes(params) -> int:
 
 
 def static_weights_path(dev, params) -> dict:
-    """Static FP8 weights at full width and depth: gemma3-12b under
+    """Static FP8 weights at full width and depth ``STATIC_DEPTH`` (cut for
+    time): gemma3-12b under
     serve_fp8_paged, continuous scheduler, prefix off, 4 requests of 5-17
     tokens, 8 generated.  ``Engine(static_weights=True)`` serves the main
     path's weights quantized (``quantize_params``: E4M3 codes, one scale a
@@ -2508,12 +2546,15 @@ def static_weights_path(dev, params) -> dict:
     from repro_torch.launch.serve import Engine
     from repro_torch.models.quantize import quantize_params, resolve_weight
 
-    cfg = get_config("gemma3-12b", policy="serve_fp8_paged")
+    full = get_config("gemma3-12b", policy="serve_fp8_paged")
+    cfg = dataclasses.replace(full, n_layers=STATIC_DEPTH)
     rng = np.random.default_rng(6)
     queue = [rng.integers(0, cfg.vocab, size=n) for n in STATIC_PLENS]
-    bf16_bytes = _weight_bytes(params)
-    codes = quantize_params(params, cfg.policy,
+    shallow = _shallow(params, STATIC_DEPTH)
+    bf16_bytes = _weight_bytes(shallow)
+    codes = quantize_params(shallow, cfg.policy,
                             period=cfg.layer_pattern_period)
+    del shallow
     params.clear()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2551,7 +2592,8 @@ def static_weights_path(dev, params) -> dict:
     decode_ms, how = device_ms(lambda: [resolve_weight(q) for q in mats],
                                iters=10)
     qbytes = _weight_bytes(codes)
-    print(f"# gemma3-12b static weights (serve_fp8_paged, continuous, "
+    print(f"# gemma3-12b depth {cfg.n_layers} static weights "
+          f"(serve_fp8_paged, continuous, "
           f"{len(queue)} requests, {static['substeps']} sub-steps): weights "
           f"on the card {qbytes / 1e9:.3f} GB as codes against "
           f"{bf16_bytes / 1e9:.3f} GB of bf16; peak memory "
@@ -2560,7 +2602,8 @@ def static_weights_path(dev, params) -> dict:
           f"token streams bitwise equal (distinct tokens per stream "
           f"{distinct}); decoding one layer's 7 weights "
           f"{decode_ms:.4f} ms of card time ({how}), "
-          f"{cfg.n_layers * decode_ms:.2f} ms a sub-step", flush=True)
+          f"{full.n_layers * decode_ms:.2f} ms a full-depth sub-step",
+          flush=True)
     return dict(codes=codes, decode_ms=decode_ms, wall=static["wall"],
                 plain_wall=plain["wall"], weight_bytes=qbytes,
                 bf16_bytes=bf16_bytes, peak=peak)
@@ -3573,21 +3616,22 @@ def check_train_k5_against_plain(dev) -> None:
           f"{gp:.6f}", flush=True)
 
 
-def profile_train_step(dev, policy=None, depth=None) -> None:
-    """One profiled full-width train step (after a warm-up step) under
-    ``--quant fp8_lns_pallas``, or under ``policy``, of the first
-    ``depth`` layers when given: wall time, card-busy share, launches,
-    the kernels that take the time."""
+def profile_train_step(dev, policy=None, depth=None,
+                       arch="qwen2-0.5b") -> None:
+    """One profiled full-width train step of ``arch`` (after a warm-up
+    step) under ``--quant fp8_lns_pallas``, or under ``policy``, of the
+    first ``depth`` layers when given: wall time, card-busy share,
+    launches, the kernels that take the time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
 
     if policy is None:
-        cfg, label = get_config("qwen2-0.5b", quant="fp8_lns_pallas"), \
+        cfg, label = get_config(arch, quant="fp8_lns_pallas"), \
             "fp8_lns_pallas"
     else:
-        cfg = get_config("qwen2-0.5b", policy=policy)
+        cfg = get_config(arch, policy=policy)
         label = policy.name + (" + K5 gate" if policy.elementwise.quantized
                                else "")
     if depth is not None:
@@ -3611,7 +3655,7 @@ def profile_train_step(dev, policy=None, depth=None) -> None:
     k3 = sum(us for k, us, _ in rows if "lns_matmul_kernel" in k) / 1e6
     k2 = sum(us for k, us, _ in rows if "dequant_matmul_kernel" in k) / 1e6
     k5 = sum(us for k, us, _ in rows if "fp8_elementwise_kernel" in k) / 1e6
-    print(f"# profiled train step ({label}, full width, depth "
+    print(f"# profiled train step ({arch} {label}, full width, depth "
           f"{cfg.n_layers}, batch 8 x seq 128): {wall:.4f} s wall; card busy {busy:.4f} s "
           f"({100 * busy / wall:.2f}% of the wall); K3 {k3:.4f} s "
           f"({100 * k3 / busy:.2f}% of busy); K2 {k2:.4f} s "
@@ -3619,6 +3663,8 @@ def profile_train_step(dev, policy=None, depth=None) -> None:
           f"{sum(n for _, _, n in rows)} kernel launches", flush=True)
     for key, us, n in sorted(rows, key=lambda r: -r[1])[:6]:
         print(f"#   {us / 1e3:10.3f} ms  x{n:<6d} {key[:90]}", flush=True)
+    del state, step
+    torch.cuda.empty_cache()
 
 
 class _plain_matmuls:
@@ -4244,6 +4290,399 @@ def check_train_k4_against_plain(dev) -> None:
           f"{gp:.6f}", flush=True)
 
 
+# --------------------------------------------------------------------------- #
+# MoE training: granite-moe-3b-a800m through the batched expert products
+# --------------------------------------------------------------------------- #
+# Full depth (3.30 B parameters) needs ~100 GB at the AdamW update's peak
+# (float32 master, two moments, float32 gradients, the bf16 compute copy
+# and the update's new tensors: ~30 B a parameter); depth 8 (0.88 B) fits.
+MOE_TRAIN_DEPTH = 8
+MOE_TRAIN_STEPS = 4
+MOE_CHECK_DEPTH = 2        # the float32 comparisons and the K4 route
+# An expert layer's three products at batch 8 x seq 128 under grouped
+# dispatch: 8 groups of 128 tokens, capacity(128, 8, 40, 1.25) = 32 rows
+# an expert a group, so 256 rows an expert; (K, N) -> products of that
+# shape in a layer (w_gate and w_up, w_down).
+MOE_ROWS = 256
+MOE_EXPERT_MATMULS = {(1536, 512): 2, (512, 1536): 1}
+
+
+def _moe_train_config(depth: int, **kw):
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH, **kw), n_layers=depth)
+    C = moe.capacity(128, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+    if 8 * C != MOE_ROWS:
+        raise AssertionError(f"{MOE_ARCH}: capacity {C}, want "
+                             f"{MOE_ROWS // 8} rows a group")
+    return cfg
+
+
+def moe_train_path(dev) -> dict:
+    """Phase: MoE training, granite-moe-3b-a800m at full width (d_model
+    1536, 40 experts top-8 of d_ff 512, vocab 49,155 padded to 51,200,
+    tied) and depth ``MOE_TRAIN_DEPTH`` (cut for memory), under ``--quant
+    fp8_lns_pallas``: ``MOE_TRAIN_STEPS`` steps of batch 8 x seq 128
+    (``arith``), a checkpoint every 2, through ``runtime.fault.run_training``
+    and ``steps.build_train_step`` (the training CLI's own pieces; the CLI
+    has no depth flag).  Every STE product runs K3 once forward and once in
+    the checkpointed recompute: the four attention products one launch
+    each, the three expert products one launch each over all 40 experts.
+    Gates: finite losses and aux terms at steps 2 and 4, 0 restarts, K3
+    launches 2 x 7 x depth x steps, K2 none.  Prints the wall of every
+    step, the peak memory and the busiest expert's share of a layer's
+    routed pairs, beside the card's name and power limit."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.data.pipeline import DataConfig, Dataset
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import fault, steps
+
+    cfg = _moe_train_config(MOE_TRAIN_DEPTH, quant="fp8_lns_pallas")
+    n_steps = MOE_TRAIN_STEPS
+    want = 2 * MATMULS_PER_LAYER * cfg.n_layers * n_steps
+    model = Model(cfg, max_seq=128)
+    data = Dataset(DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=8,
+                              seed=0, kind="arith"))
+    marks = []
+
+    def init_state():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return steps.make_train_state(model, gen)
+
+    def mark(step):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_train_")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_matmul_counts()
+        with _MoeStats(cfg) as stats:
+            t0 = time.perf_counter()
+            state, history = fault.run_training(
+                train_step=steps.build_train_step(model, adamw.OptConfig(
+                    lr=1e-3, warmup_steps=10, total_steps=100)),
+                init_state=init_state, dataset=data, max_steps=n_steps,
+                ckpt_dir=tmp, ckpt_every=2, fault_hook=mark,
+                to_device=lambda b: {k: torch.from_numpy(v).to(dev)
+                                     for k, v in b.items()},
+                log=lambda *a: None)
+            torch.cuda.synchronize()
+            end = time.perf_counter()
+        k3, k2 = _matmul_counts()
+        peak = torch.cuda.max_memory_allocated() - held
+        n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+        del state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if [h["step"] for h in history] != [2, n_steps]:
+        raise AssertionError(f"unexpected log points {history}")
+    terms = [(h["loss"], h["ce"], h["moe_lb"], h["moe_z"]) for h in history]
+    if not all(math.isfinite(v) for t in terms for v in t):
+        raise AssertionError(f"non-finite loss or aux terms {terms}")
+    if any(h["restarts"] for h in history):
+        raise AssertionError(f"{history[-1]['restarts']} restarts")
+    if k3 != want or k2 != 0:
+        raise AssertionError(f"K3 launches {k3} (want 2 x 7 x "
+                             f"{cfg.n_layers} x {n_steps} = {want}), K2 "
+                             f"launches {k2} (want 0)")
+    walls = [b - a for a, b in zip(marks, marks[1:] + [end])]
+    share = float(stats.call_max)
+    print(f"# train {MOE_ARCH} fp8_lns_pallas: full width, depth "
+          f"{cfg.n_layers} ({n_params / 1e9:.3f} B parameters), batch 8 x "
+          f"seq 128, {n_steps} steps; (loss, ce, moe_lb, moe_z) at steps 2 "
+          f"and {n_steps}: {terms}; 0 restarts; {k3} K3 launches = 2 x 7 x "
+          f"{cfg.n_layers} x {n_steps} (each expert product one launch over "
+          f"{cfg.n_experts} experts), 0 K2; step walls "
+          f"{', '.join(f'{w:.3f}' for w in walls)} s (the first is the "
+          f"process's first granite step; the checkpoints of steps 2 and 4 "
+          f"are written while the next steps run, the last one waited for); "
+          f"{end - t0:.2f} s wall with init; peak {peak / 2**30:.2f} GiB "
+          f"above the "
+          f"{held / 2**30:.2f} GiB held before; the busiest expert took "
+          f"{100 * share:.2f}% of a layer's routed pairs in one call "
+          f"(uniform {100 / cfg.n_experts:.2f}%); [{card_line()}]",
+          flush=True)
+    return dict(launches=k3, walls=walls, peak=peak)
+
+
+def _moe_codes(dev, seed: int, act_fmt: str, w_fmt: str):
+    """FP8 codes of granite's expert products at batch 8 x seq 128, for
+    each shape of MOE_EXPERT_MATMULS: activations [40, 256, K] quantized
+    per (group, expert) block of 32 rows and weights [40, K, N] per
+    expert and output channel, as ``layers.ste_expert_matmul`` quantizes
+    them."""
+    import torch
+    from repro_torch.core.quant import quantize
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    E, G = 40, 8
+    out = {}
+    for K, N in MOE_EXPERT_MATMULS:
+        x = torch.randn((E, G, MOE_ROWS // G, K), generator=g, device=dev)
+        w = torch.randn((E, K, N), generator=g, device=dev) * 0.02
+        out[K, N] = (quantize(x, act_fmt, axis=(0, 1)).codes
+                     .view(E, MOE_ROWS, K),
+                     quantize(w, w_fmt, axis=(0, 2)).codes)
+    return out
+
+
+def check_moe_kernels(dev) -> dict:
+    """Phase: K3 (e4m3 RNE, ``fp8_lns_pallas``) and K2 (e5m2 x e4m3, bf16
+    compute, ``train_fp8``) over a batch of granite's 40 expert products,
+    one launch each, at the training shapes ([40, 256, 1536] x [40, 1536,
+    512] and [40, 256, 512] x [40, 512, 1536]) on codes quantized as the
+    STE quantizes them: every element within 2 K 2^-24 sum|products| of
+    the plain version applied expert by expert; each expert's slice
+    bitwise equal to the 2-D launch on that expert at the batch's tile;
+    two calls bitwise.  Then card time of a layer's three expert
+    products (one launch each) beside the bound (the larger of the bytes
+    at 3.35 TB/s and the operations at the dense 8-bit rate for K3, the
+    bf16 rate for K2), the plain version and, for K2, ``torch.bmm`` on the
+    decoded bf16 operands."""
+    import torch
+    from repro_torch.kernels import lns_matmul as lm
+    from repro_torch.kernels.common import code_to_f32
+
+    n_sm = _n_sm(dev)
+    card = card_line()
+    res = {}
+    for name, fmt, w_fmt, kw, kernel, plain, tiles, rate, only in (
+            ("K3", "e4m3", "e4m3", dict(fmt="e4m3", mode="rne"),
+             lm.lns_product_matmul, lm.lns_matmul_plain, lm.lns_tile,
+             INT8_OPS_PER_S, "lns_matmul_kernel"),
+            ("K2", "e5m2", "e4m3", dict(fmt="e5m2", w_fmt="e4m3",
+                                        compute_dtype=torch.bfloat16),
+             lm.dequant_matmul, lm.dequant_matmul_plain, lm.dequant_tile,
+             BF16_FLOP_PER_S, "dequant_matmul_kernel")):
+        codes = _moe_codes(dev, 20 if name == "K3" else 21, fmt, w_fmt)
+        err = 0.0
+        for (K, N), (x, w) in codes.items():
+            E, M = x.shape[:2]
+            tile = tiles(M, N, n_sm, E)
+            before = kernel.launches
+            got = kernel(x, w, **kw)
+            again = kernel(x, w, **kw)
+            if kernel.launches != before + 2:
+                raise AssertionError(f"{name}: {kernel.launches - before} "
+                                     "launches for two batched calls")
+            want = plain(x, w, **kw)
+            absum = plain(x & 0x7F, w & 0x7F, **kw)
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            if not torch.isfinite(got).all() or bool(
+                    (diff > _sum_bound(K, absum)).any()):
+                raise AssertionError(f"batched {name} differs from its plain "
+                                     f"version at {E}x{M}x{K}x{N}")
+            if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+                raise AssertionError(f"two batched {name} calls differ")
+            for e in range(E):
+                one = kernel(x[e], w[e], tile=tile, **kw)
+                if not torch.equal(got[e].view(torch.int32),
+                                   one.view(torch.int32)):
+                    raise AssertionError(f"batched {name} expert {e} differs "
+                                         "from the 2-D launch at tile "
+                                         f"{tile}")
+            err = max(err, float(diff.max()))
+            print(f"# batched {name} {E}x{M}x{K}x{N} (tile {tile}, one "
+                  f"launch): max |err| {float(diff.max()):.3e} vs the plain "
+                  "version expert by expert, within 2 K 2^-24 sum|products|; "
+                  f"each of the {E} experts bitwise its 2-D launch; two "
+                  "calls bitwise", flush=True)
+
+        def layer_ms(fn, iters, warmup=2, only_=only):
+            total, hows = 0.0, set()
+            for shape, count in MOE_EXPERT_MATMULS.items():
+                ms, how = device_ms(lambda: fn(*codes[shape]), iters=iters,
+                                    only=only_, warmup=warmup)
+                total += count * ms
+                hows.add(how)
+            return total, " / ".join(sorted(hows))
+
+        ms, how = layer_ms(lambda x, w: kernel(x, w, **kw), 20)
+        # the plain version's ~40,000 small launches a call: one call
+        # between CUDA events (the profiler's own cost is seconds here)
+        plain_ms = sum(count * cuda_ms(lambda: plain(*codes[shape], **kw),
+                                       iters=1, warmup=0)
+                       for shape, count in MOE_EXPERT_MATMULS.items())
+        prods = sum(c * 40 * MOE_ROWS * K * N
+                    for (K, N), c in MOE_EXPERT_MATMULS.items())
+        nbytes = sum(c * 40 * (MOE_ROWS * K + K * N + 4 * MOE_ROWS * N)
+                     for (K, N), c in MOE_EXPERT_MATMULS.items())
+        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        b_ops = 2 * prods / rate * 1e3
+        library = None
+        if name == "K2":
+            decoded = {s: (code_to_f32(x, "e5m2").to(torch.bfloat16),
+                           code_to_f32(w, "e4m3").to(torch.bfloat16))
+                       for s, (x, w) in codes.items()}
+            # graph replays between CUDA events: the profiler has counted
+            # a fraction of these kernels late in the process
+            library = sum(count * graph_ms(lambda: torch.bmm(*decoded[shape]))
+                          for shape, count in MOE_EXPERT_MATMULS.items())
+        res[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=max(b_bytes, b_ops),
+                         bound_by="bytes" if b_bytes >= b_ops
+                         else "operations", library_ms=library)
+        print(f"# batched {name}, granite's three expert products a layer "
+              f"(40 experts x {MOE_ROWS} rows, 3 launches; card time, "
+              f"{how}): kernel {ms:.4f} ms = {2 * prods / ms / 1e9:.1f} "
+              f"TFLOP/s; plain {plain_ms:.3f} ms (CUDA events); bound "
+              f"{res[name]['bound_ms']:.5f} ms = max({nbytes} B / 3.35 TB/s "
+              f"= {b_bytes:.5f} ms, {2 * prods} operations / "
+              f"{rate / 1e12:.0f} T/s = {b_ops:.5f} ms) -> "
+              f"{res[name]['bound_by']} (kernel / bound "
+              f"{ms / res[name]['bound_ms']:.1f})"
+              + ("" if library is None else
+                 f"; torch.bmm on decoded bf16 {library:.4f} ms (CUDA-graph "
+                 "events)")
+              + f"; [{card}]", flush=True)
+    return res
+
+
+def _moe_layer_twice(dev, policy_kw: dict) -> None:
+    """One granite MoE layer (bf16, full width, batch 8 x seq 128) forward
+    and backward twice on one input: the output and the gradients of x,
+    the router and the three expert weights must be bitwise equal."""
+    import torch
+    from repro_torch.models import moe
+
+    cfg = _moe_train_config(1, **policy_kw)
+    g = torch.Generator(device=dev).manual_seed(7)
+    p = moe.moe_init(g, cfg)
+    x = torch.randn((8, 128, cfg.d_model), generator=g,
+                    device=dev).to(cfg.pdtype)
+    probe = torch.randn((8, 128, cfg.d_model), generator=g, device=dev)
+
+    def run():
+        pp = {k: v.detach().clone().requires_grad_(True)
+              for k, v in p.items()}
+        xx = x.detach().clone().requires_grad_(True)
+        out, aux = moe.moe_ffn(pp, xx, cfg)
+        loss = ((out.float() * probe).sum() + 0.01 * aux["moe_lb"]
+                + 1e-3 * aux["moe_z"])
+        loss.backward()
+        return [out, xx.grad] + [pp[k].grad for k in
+                                 ("router", "w_gate", "w_up", "w_down")]
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    names = ("output", "x grad", "router grad", "w_gate grad", "w_up grad",
+             "w_down grad")
+    for name, a, b in zip(names, first, second):
+        if a is None or not torch.equal(a.view(torch.int16 if a.dtype ==
+                                               torch.bfloat16 else
+                                               torch.int32),
+                                        b.view(torch.int16 if b.dtype ==
+                                               torch.bfloat16 else
+                                               torch.int32)):
+            raise AssertionError(f"{MOE_ARCH} MoE layer: the {name} differs "
+                                 "between two runs on one input")
+        if not torch.isfinite(a).all() or not bool(a.abs().max() > 0):
+            raise AssertionError(f"{MOE_ARCH} MoE layer: the {name} is zero "
+                                 "or not finite")
+
+
+def check_moe_train_against_plain(dev) -> dict:
+    """Phase: the first step's loss and gradient global norm of a float32,
+    depth-2, full-width granite-moe-3b-a800m, through the kernels and
+    through their plain versions, for K3 (fp8_lns_pallas) and K2
+    (train_fp8): loss rtol 1e-4, gradient norm rtol 1e-3, as
+    :func:`check_train_against_plain` (the kernel runs launch 2 x 7 x 2
+    times, the plain runs none).  Then one granite MoE layer's forward and
+    backward twice on one input under each policy: bitwise equal (routing,
+    dispatch, combine and the pair gradients' sums in fixed orders).
+    Returns K2's launches in its kernel run."""
+    import torch
+
+    launches = {}
+    for label, kw in (("K3 fp8_lns_pallas", dict(quant="fp8_lns_pallas")),
+                      ("K2 train_fp8", dict(policy="train_fp8"))):
+        cfg = dataclasses.replace(
+            _moe_train_config(MOE_CHECK_DEPTH, **kw),
+            param_dtype="float32")
+        want = 2 * MATMULS_PER_LAYER * cfg.n_layers
+        out = []
+        for plain in (False, True):
+            state, step, batch_of = _train_setup(dev, cfg, seed=5)
+            before = _matmul_counts()
+            if plain:
+                with _plain_matmuls():
+                    _, metrics = step(state, batch_of(0))
+            else:
+                _, metrics = step(state, batch_of(0))
+            torch.cuda.synchronize()
+            used = [a - b for a, b in zip(_matmul_counts(), before)]
+            if sorted(used) != ([0, 0] if plain else [0, want]):
+                raise AssertionError(f"{label}: kernel launches {used} with "
+                                     f"plain={plain}, want {want} of one")
+            if not plain:
+                launches[label[:2]] = max(used)
+            out.append(tuple(float(metrics[k]) for k in
+                             ("loss", "grad_norm", "moe_lb", "moe_z")))
+            del state, step
+            torch.cuda.empty_cache()
+        (lk, gk, *ak), (lp, gp, *ap) = out
+        if not (math.isclose(lk, lp, rel_tol=1e-4)
+                and math.isclose(gk, gp, rel_tol=1e-3)
+                and all(math.isfinite(v) for v in ak + ap)):
+            raise AssertionError(f"{MOE_ARCH} {label}: kernels {out[0]} vs "
+                                 f"plain {out[1]}")
+        print(f"# {MOE_ARCH} {label}, depth {MOE_CHECK_DEPTH} float32, full "
+              f"width, first step: loss {lk:.7f} (kernels) vs {lp:.7f} "
+              f"(plain), grad norm {gk:.6f} vs {gp:.6f}, (moe_lb, moe_z) "
+              f"{tuple(round(v, 6) for v in ak)} vs "
+              f"{tuple(round(v, 6) for v in ap)}", flush=True)
+    for kw in (dict(quant="fp8_lns_pallas"), dict(policy="train_fp8")):
+        _moe_layer_twice(dev, kw)
+    print(f"# {MOE_ARCH} MoE layer (bf16, batch 8 x seq 128), "
+          "fp8_lns_pallas and train_fp8: output and the x, router and "
+          "expert gradients bitwise equal on a repeat", flush=True)
+    return dict(k2_launches=launches["K2"])
+
+
+def train_k4_moe_path(dev) -> None:
+    """Phase: one full-width granite train step at depth 2 under the
+    lns_loop policy (:func:`k4_train_policy`): K4 has no batch axis, so
+    each expert product launches it once per expert: 2 x (4 + 3 x 40) x 2
+    launches (forward and recompute), K3 and K2 none; finite loss and aux
+    terms."""
+    import torch
+    from repro_torch.kernels import lns_matmul as lm
+
+    cfg = _moe_train_config(MOE_CHECK_DEPTH, policy=k4_train_policy())
+    want = 2 * (4 + 3 * cfg.n_experts) * cfg.n_layers
+    state, step, batch_of = _train_setup(dev, cfg)
+    before = _matmul_counts() + (lm.lns_loop_matmul.launches,)
+    t0 = time.perf_counter()
+    _, metrics = step(state, batch_of(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k3, k2, k4 = [a - b for a, b in zip(
+        _matmul_counts() + (lm.lns_loop_matmul.launches,), before)]
+    terms = [float(metrics[k]) for k in ("loss", "moe_lb", "moe_z")]
+    del state, step
+    torch.cuda.empty_cache()
+    if (k4, k3, k2) != (want, 0, 0) or not all(map(math.isfinite, terms)):
+        raise AssertionError(f"{MOE_ARCH} lns_loop: K4 {k4} (want {want}), "
+                             f"K3 {k3}, K2 {k2}, (loss, moe_lb, moe_z) "
+                             f"{terms}")
+    print(f"# train {MOE_ARCH} lns_loop (K4), depth {cfg.n_layers}, one step: "
+          f"(loss, moe_lb, moe_z) {terms}; {k4} K4 launches = 2 x (4 + 3 x "
+          f"{cfg.n_experts}) x {cfg.n_layers} (one a product per expert), 0 "
+          f"K3, 0 K2; {wall:.2f} s wall", flush=True)
+
+
 def _phase(fn, *args, **kw):
     """Run one phase of :func:`main` and print its wall time."""
     t = time.perf_counter()
@@ -4345,6 +4784,11 @@ def main() -> int:
     k4 = _phase(check_k4, dev, mm["k3_ms"], mm["k3_bound"])
     trained_k4 = _phase(train_k4_path, dev)
     _phase(check_train_k4_against_plain, dev)
+    moe_k = _phase(check_moe_kernels, dev)
+    moe_trained = _phase(moe_train_path, dev)
+    _phase(profile_train_step, dev, depth=MOE_TRAIN_DEPTH, arch=MOE_ARCH)
+    moe_plain = _phase(check_moe_train_against_plain, dev)
+    _phase(train_k4_moe_path, dev)
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -4437,6 +4881,16 @@ def main() -> int:
             launches=k["launches"], max_abs_err=k["err"], ms=m4["ms"],
             plain_ms=m4["plain_ms"], bound_ms=m4["bound_ms"],
             bound_by=m4["bound_by"], library_ms=m4["library_ms"]))
+    for name, key, line, launches in (
+            ("lns_matmul_experts", "K3", 62, moe_trained["launches"]),
+            ("dequant_matmul_experts", "K2", 110, moe_plain["k2_launches"])):
+        k = moe_k[key]
+        kernels.append(dict(
+            name=name, route="cuda", source=src + "lns_matmul.cu",
+            replaces=f"src/repro/kernels/lns_matmul.py:{line}",
+            launches=launches, max_abs_err=k["err"], ms=k["ms"],
+            plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=k["library_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -129,9 +129,13 @@ class QTensor:
         return decode(self.codes, self.fmt) * self.scale
 
 
-def quantize(x, fmt: FP8Format | str = "e4m3", *, axis: Optional[int] = None,
-             mode: str = "rne", reduce=None) -> QTensor:
-    """Quantize a float tensor; ``axis`` keeps a per-channel scale along it.
+def quantize(x, fmt: FP8Format | str = "e4m3", *,
+             axis: Optional[int | tuple] = None, mode: str = "rne",
+             reduce=None) -> QTensor:
+    """Quantize a float tensor; ``axis`` keeps a per-channel scale along it
+    (a tuple keeps one scale per index of all its axes: ``(0, 2)`` of an
+    expert weight [E, D, F] gives scales [E, 1, F], as the reference's
+    per-channel ``quantize`` under a ``vmap`` over experts does).
 
     The scale maps the absmax onto the format's max_normal, so the full
     exponent range is used; the codes are ``encode(x / scale)`` (a true
@@ -147,8 +151,9 @@ def quantize(x, fmt: FP8Format | str = "e4m3", *, axis: Optional[int] = None,
     if axis is None:
         amax = x.abs().amax()
     else:
-        keep = axis % x.ndim
-        dims = tuple(i for i in range(x.ndim) if i != keep)
+        keep = {a % x.ndim for a in (axis if isinstance(axis, tuple)
+                                     else (axis,))}
+        dims = tuple(i for i in range(x.ndim) if i not in keep)
         amax = x.abs().amax(dim=dims, keepdim=True)
     if reduce is not None:
         amax = reduce(amax)

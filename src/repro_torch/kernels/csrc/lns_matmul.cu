@@ -3,7 +3,12 @@
 // matmul (K2).  All three take uint8 codes
 // x [M, K] and w [K, N] (row-major, contiguous) and write float32
 // out [M, N] = sum_k product(x[m, k], w[k, n]); the caller applies the
-// scales.
+// scales.  K3 and K2 also take a batch of products of one shape in one
+// launch, the counterpart of the reference's vmap over pallas_call (its
+// MoE expert products, one per expert): blockIdx.z picks the product, whose
+// x [M, K], w [K, N] and out [M, N] follow the previous one's in memory;
+// each product's blocks run exactly as a launch of its own at the same
+// tile, so product e of a batch is bitwise the 2-D launch on it.
 //
 // K3, lns_matmul_kernel, replaces the Pallas TPU kernel
 // repro/kernels/lns_matmul.py::_lns_kernel (impl "lns"), the paper's LNS
@@ -210,6 +215,10 @@ lns_matmul_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int m0 = blockIdx.y * BM_, n0 = blockIdx.x * BN_;
   const int wr = (warp / WN) * (BM_ / WM), wc0 = (warp % WN) * (BN_ / WN);
+  // product blockIdx.z of a batch: its own x, w and out, the same tiles
+  x += (size_t)blockIdx.z * M * K;
+  w += (size_t)blockIdx.z * K * N;
+  out += (size_t)blockIdx.z * M * N;
 
   // w's table, code-major: B [R, 256] transposed
   for (int c = tid; c < 256; c += T) {
@@ -347,7 +356,7 @@ lns_matmul_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
 
 template <int R, int BM_, int BN_, int WM, int WN, bool VEC>
 int launch_lns(const uint8_t* x, const uint8_t* w, const uint16_t* planes,
-               float* out, int M, int N, int K, const PlaneX& px,
+               float* out, int M, int N, int K, int batch, const PlaneX& px,
                cudaStream_t stream) {
   constexpr int bytes = plane_smem<R, BM_, BN_>();
   auto kernel = lns_matmul_kernel<R, BM_, BN_, WM, WN, VEC>;
@@ -356,7 +365,7 @@ int launch_lns(const uint8_t* x, const uint8_t* w, const uint16_t* planes,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((N + BN_ - 1) / BN_, (M + BM_ - 1) / BM_);
+  const dim3 grid((N + BN_ - 1) / BN_, (M + BM_ - 1) / BM_, batch);
   kernel<<<grid, WM * WN * 32, bytes, stream>>>(x, w, planes, out, M, N, K,
                                                 px);
   return (int)cudaGetLastError();
@@ -364,24 +373,25 @@ int launch_lns(const uint8_t* x, const uint8_t* w, const uint16_t* planes,
 
 template <int R>
 int launch_lns(const uint8_t* x, const uint8_t* w, const uint16_t* planes,
-               float* out, int M, int N, int K, const PlaneX& px, int tile,
-               cudaStream_t s) {
+               float* out, int M, int N, int K, int batch, const PlaneX& px,
+               int tile, cudaStream_t s) {
+  // K and N multiples of 16 keep every product's base of a batch aligned
   const bool vec = K % 16 == 0 && N % 16 == 0 &&
                    ((uintptr_t)x & 15) == 0 && ((uintptr_t)w & 15) == 0;
   if (tile == 128)
     return vec ? launch_lns<R, 128, 128, 2, 4, true>(x, w, planes, out, M, N,
-                                                     K, px, s)
+                                                     K, batch, px, s)
                : launch_lns<R, 128, 128, 2, 4, false>(x, w, planes, out, M,
-                                                      N, K, px, s);
+                                                      N, K, batch, px, s);
   if (tile == 64)
     return vec ? launch_lns<R, 64, 64, 2, 2, true>(x, w, planes, out, M, N,
-                                                   K, px, s)
+                                                   K, batch, px, s)
                : launch_lns<R, 64, 64, 2, 2, false>(x, w, planes, out, M, N,
-                                                    K, px, s);
+                                                    K, batch, px, s);
   return vec ? launch_lns<R, 32, 32, 2, 1, true>(x, w, planes, out, M, N, K,
-                                                 px, s)
+                                                 batch, px, s)
              : launch_lns<R, 32, 32, 2, 1, false>(x, w, planes, out, M, N, K,
-                                                  px, s);
+                                                  batch, px, s);
 }
 
 // K4's geometry (kernels/lns_matmul.py: LOOP_BM, LOOP_BN, LOOP_PITCH,
@@ -657,6 +667,10 @@ dequant_matmul_kernel(const uint8_t* __restrict__ x,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int m0 = blockIdx.y * BM_, n0 = blockIdx.x * BN_;
   const int wr = (warp / WN) * (BM_ / WM), wc0 = (warp % WN) * (BN_ / WN);
+  // product blockIdx.z of a batch: its own x, w and out, the same tiles
+  x += (size_t)blockIdx.z * M * K;
+  w += (size_t)blockIdx.z * K * N;
+  out += (size_t)blockIdx.z * M * N;
   // this thread's chunks: x row xr, codes [xk, xk + 16) of each k step;
   // w row wk of each k step, columns [wn, wn + 16)
   const int xr = tid / (kKB / 16), xk = (tid % (kKB / 16)) * 16;
@@ -756,8 +770,8 @@ dequant_matmul_kernel(const uint8_t* __restrict__ x,
 
 template <int BM_, int BN_, int WM, int WN, bool VEC>
 int launch_dequant(const uint8_t* x, const uint8_t* w, float* out, int M,
-                   int N, int K, const lns::Format& fx, const lns::Format& fw,
-                   cudaStream_t stream) {
+                   int N, int K, int batch, const lns::Format& fx,
+                   const lns::Format& fw, cudaStream_t stream) {
   constexpr int bytes = dequant_smem<BM_, BN_>();
   auto kernel = dequant_matmul_kernel<BM_, BN_, WM, WN, VEC>;
   if (bytes > 48 * 1024) {
@@ -765,7 +779,7 @@ int launch_dequant(const uint8_t* x, const uint8_t* w, float* out, int M,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((N + BN_ - 1) / BN_, (M + BM_ - 1) / BM_);
+  const dim3 grid((N + BN_ - 1) / BN_, (M + BM_ - 1) / BM_, batch);
   kernel<<<grid, WM * WN * 32, bytes, stream>>>(
       x, w, out, M, N, K, bf16_decode(fx), bf16_decode(fw));
   return (int)cudaGetLastError();
@@ -773,14 +787,15 @@ int launch_dequant(const uint8_t* x, const uint8_t* w, float* out, int M,
 
 template <int BM_, int BN_, int WM, int WN>
 int launch_dequant(const uint8_t* x, const uint8_t* w, float* out, int M,
-                   int N, int K, const lns::Format& fx, const lns::Format& fw,
-                   cudaStream_t stream) {
+                   int N, int K, int batch, const lns::Format& fx,
+                   const lns::Format& fw, cudaStream_t stream) {
+  // K and N multiples of 16 keep every product's base of a batch aligned
   const bool vec = K % 16 == 0 && N % 16 == 0 &&
                    ((uintptr_t)x & 15) == 0 && ((uintptr_t)w & 15) == 0;
-  return vec ? launch_dequant<BM_, BN_, WM, WN, true>(x, w, out, M, N, K, fx,
-                                                      fw, stream)
+  return vec ? launch_dequant<BM_, BN_, WM, WN, true>(x, w, out, M, N, K,
+                                                      batch, fx, fw, stream)
              : launch_dequant<BM_, BN_, WM, WN, false>(x, w, out, M, N, K,
-                                                       fx, fw, stream);
+                                                       batch, fx, fw, stream);
 }
 
 }  // namespace
@@ -789,13 +804,16 @@ extern "C" {
 
 // K3 on `stream`: `planes` is lns_plane_tables(fmt, mode).B, bf16 [R, 256]
 // (R = 4 or 8); x's bit rule from (man_bits, bias, min_normal_code,
-// bad_min, sign_classes); `tile` the block tile, 128, 64 or 32.
+// bad_min, sign_classes); `tile` the block tile, 128, 64 or 32.  `batch`
+// products in one launch: x [batch, M, K], w [batch, K, N] and out
+// [batch, M, N], each product blockIdx.z summed as a launch of its own.
 // Returns cudaGetLastError() (0 on success).
 int lns_matmul(const void* x, const void* w, const void* planes, void* out,
-               int M, int N, int K, int R, int man_bits, int bias,
+               int M, int N, int K, int batch, int R, int man_bits, int bias,
                int min_normal_code, int bad_min, int sign_classes, int tile,
                void* stream) {
-  if ((R != 4 && R != 8) || (tile != 128 && tile != 64 && tile != 32))
+  if ((R != 4 && R != 8) || (tile != 128 && tile != 64 && tile != 32) ||
+      batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   if (M <= 0 || N <= 0) return (int)cudaGetLastError();
   const PlaneX px{man_bits, bias, min_normal_code, bad_min, sign_classes};
@@ -803,8 +821,10 @@ int lns_matmul(const void* x, const void* w, const void* planes, void* out,
   const uint8_t* wc = (const uint8_t*)w;
   const uint16_t* p = (const uint16_t*)planes;
   const cudaStream_t s = (cudaStream_t)stream;
-  return R == 8 ? launch_lns<8>(xc, wc, p, (float*)out, M, N, K, px, tile, s)
-                : launch_lns<4>(xc, wc, p, (float*)out, M, N, K, px, tile, s);
+  return R == 8 ? launch_lns<8>(xc, wc, p, (float*)out, M, N, K, batch, px,
+                                tile, s)
+                : launch_lns<4>(xc, wc, p, (float*)out, M, N, K, batch, px,
+                                tile, s);
 }
 
 // K4 on `stream`: `tab` is kernels/lns_matmul.py::loop_tables(fmt, mode)
@@ -842,27 +862,28 @@ int lns_loop_matmul(const void* x, const void* w, const void* tab,
 }
 
 // K2 on `stream`: x decoded by format (x_*), w by format (w_*); `tile`
-// the block tile, 128 (128 x 128) or 64 (64 x 64).
-// Returns cudaGetLastError() (0 on success).
+// the block tile, 128 (128 x 128) or 64 (64 x 64).  `batch` products in
+// one launch, as for K3.  Returns cudaGetLastError() (0 on success).
 int dequant_matmul(const void* x, const void* w, void* out, int M, int N,
-                   int K, int x_man_bits, int x_bias, int x_min_normal_code,
-                   int x_max_normal_code, int w_man_bits, int w_bias,
-                   int w_min_normal_code, int w_max_normal_code, int tile,
-                   void* stream) {
+                   int K, int batch, int x_man_bits, int x_bias,
+                   int x_min_normal_code, int x_max_normal_code,
+                   int w_man_bits, int w_bias, int w_min_normal_code,
+                   int w_max_normal_code, int tile, void* stream) {
   const lns::Format fx{x_man_bits, x_bias, x_min_normal_code,
                        x_max_normal_code};
   const lns::Format fw{w_man_bits, w_bias, w_min_normal_code,
                        w_max_normal_code};
-  if (tile != 64 && tile != 128) return (int)cudaErrorInvalidValue;
+  if ((tile != 64 && tile != 128) || batch < 1 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
   if (M <= 0 || N <= 0) return (int)cudaGetLastError();
   const uint8_t* xc = (const uint8_t*)x;
   const uint8_t* wc = (const uint8_t*)w;
   const cudaStream_t s = (cudaStream_t)stream;
   return tile == 128
              ? launch_dequant<128, 128, 2, 4>(xc, wc, (float*)out, M, N, K,
-                                              fx, fw, s)
-             : launch_dequant<64, 64, 2, 2>(xc, wc, (float*)out, M, N, K, fx,
-                                            fw, s);
+                                              batch, fx, fw, s)
+             : launch_dequant<64, 64, 2, 2>(xc, wc, (float*)out, M, N, K,
+                                            batch, fx, fw, s);
 }
 
 }  // extern "C"

@@ -4,7 +4,12 @@ sequential seed form (K4) and the fused-dequant matmul (K2).  Port of
 
 All take uint8 codes ``x [M, K]`` and ``w [K, N]`` and return the float32
 ``[M, N]`` sum of the products; the caller (``ops.matmul_q``) applies the
-scales.
+scales.  Each also takes a batch of products of one shape, ``x [E, M, K]``
+and ``w [E, K, N]`` to ``[E, M, N]`` (the MoE expert products, which the
+reference runs as a ``vmap`` over its ``pallas_call``): K3 and K2 launch
+once for the whole batch, product e of it bitwise their 2-D launch on
+expert e at the same tile; K4 launches once per product.  The plain
+versions run a batch product by product.
 
 * ``impl="lns"`` -- K3, :func:`lns_product_matmul`: each product is the
   paper's integer add ``X + Y + K + c_in`` of the two codes (with the
@@ -69,6 +74,20 @@ __all__ = [
 _PLAIN_CHUNK = 1 << 22
 
 
+def _per_product(plain):
+    """``plain`` on a batch of products [E, M, K] x [E, K, N], one product
+    after another; 2-D operands go straight through."""
+    def run(x_codes, w_codes, **kw):
+        if x_codes.ndim == 3:
+            return torch.stack([plain(x, w, **kw)
+                                for x, w in zip(x_codes, w_codes)])
+        return plain(x_codes, w_codes, **kw)
+
+    run.__name__, run.__doc__ = plain.__name__, plain.__doc__
+    return run
+
+
+@_per_product
 def lns_matmul_plain(x_codes, w_codes, *, fmt: str, mode: str = "rne",
                      chunk: int = _PLAIN_CHUNK):
     """Plain version of K3: the same integer-add products as the kernel
@@ -158,6 +177,7 @@ def loop_split(M: int, N: int, K: int, n_sm: int) -> tuple:
     return -(-tiles // per), per
 
 
+@_per_product
 def lns_loop_matmul_plain(x_codes, w_codes, *, fmt: str, mode: str = "rne",
                           chunk: int = _PLAIN_CHUNK):
     """Plain version of K4, in the reference's order: the products of
@@ -191,6 +211,7 @@ def lns_loop_matmul_plain(x_codes, w_codes, *, fmt: str, mode: str = "rne",
     return out
 
 
+@_per_product
 def dequant_matmul_plain(x_codes, w_codes, *, fmt: str, w_fmt: str,
                          compute_dtype=torch.float32):
     """Plain version of K2: decode each side by bit placement in its own
@@ -203,23 +224,24 @@ def dequant_matmul_plain(x_codes, w_codes, *, fmt: str, w_fmt: str,
     return x @ w
 
 
-def dequant_tile(M: int, N: int, n_sm: int) -> int:
-    """K2's block tile for an [M, N] output on a card of ``n_sm`` SMs:
-    128 (128 x 128) when those tiles fill every SM at least once, else 64
-    (64 x 64), so narrow outputs still spread over the card."""
-    return 128 if -(-M // 128) * -(-N // 128) >= n_sm else 64
+def dequant_tile(M: int, N: int, n_sm: int, batch: int = 1) -> int:
+    """K2's block tile for ``batch`` [M, N] outputs in one launch on a card
+    of ``n_sm`` SMs: 128 (128 x 128) when the grid's tiles, over the whole
+    batch, fill every SM at least once, else 64 (64 x 64), so narrow
+    outputs still spread over the card."""
+    return 128 if batch * -(-M // 128) * -(-N // 128) >= n_sm else 64
 
 
 LNS_TILES = (128, 64, 32)
 
 
-def lns_tile(M: int, N: int, n_sm: int) -> int:
-    """K3's block tile for an [M, N] output on a card of ``n_sm`` SMs: the
-    largest of 128 (128 x 128), 64 (64 x 64) whose tiles fill every SM at
-    least once, else 32 (32 x 32), so narrow outputs still spread over
-    the card."""
+def lns_tile(M: int, N: int, n_sm: int, batch: int = 1) -> int:
+    """K3's block tile for ``batch`` [M, N] outputs in one launch on a card
+    of ``n_sm`` SMs: the largest of 128 (128 x 128), 64 (64 x 64) whose
+    tiles, over the whole batch, fill every SM at least once, else 32
+    (32 x 32), so narrow outputs still spread over the card."""
     for t in LNS_TILES[:-1]:
-        if -(-M // t) * -(-N // t) >= n_sm:
+        if batch * -(-M // t) * -(-N // t) >= n_sm:
             return t
     return LNS_TILES[-1]
 
@@ -230,32 +252,42 @@ def _lib():
     lib = load("lns_matmul")
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.lns_matmul.argtypes = [vp] * 4 + [ci] * 10 + [vp]
+        lib.lns_matmul.argtypes = [vp] * 4 + [ci] * 11 + [vp]
         lib.lns_matmul.restype = ci
         lib.lns_loop_matmul.argtypes = [vp] * 5 + [ci] * 7 + [vp]
         lib.lns_loop_matmul.restype = ci
-        lib.dequant_matmul.argtypes = [vp] * 3 + [ci] * 12 + [vp]
+        lib.dequant_matmul.argtypes = [vp] * 3 + [ci] * 13 + [vp]
         lib.dequant_matmul.restype = ci
         lib._typed = True
     return lib
 
 
 def _operands(x_codes, w_codes, what: str):
-    """Shape, type and device checks of a kernel launch; returns M, N, K."""
+    """Shape, type and device checks of a kernel launch: two 2-D operands,
+    or two batches of products [E, M, K] and [E, K, N]; returns M, N, K
+    and the batch E (1 for 2-D operands)."""
     for t, name in ((x_codes, "x_codes"), (w_codes, "w_codes")):
-        if t.dtype != torch.uint8 or t.ndim != 2:
-            raise ValueError(f"{what}: {name} must be a 2-D uint8 tensor, "
-                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.dtype != torch.uint8 or t.ndim not in (2, 3):
+            raise ValueError(f"{what}: {name} must be a 2-D or 3-D uint8 "
+                             f"tensor, got {t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
-    M, K = x_codes.shape
-    K2, N = w_codes.shape
-    if K != K2:
+    batch = x_codes.shape[0] if x_codes.ndim == 3 else 1
+    M, K = x_codes.shape[-2:]
+    K2, N = w_codes.shape[-2:]
+    if (K != K2 or x_codes.ndim != w_codes.ndim
+            or x_codes.shape[:-2] != w_codes.shape[:-2]):
         raise ValueError(f"{what}: contraction mismatch {tuple(x_codes.shape)}"
                          f" @ {tuple(w_codes.shape)}")
     if w_codes.device != x_codes.device:
         raise ValueError(f"{what}: both operands must be on one device")
-    return M, N, K
+    return M, N, K, batch
+
+
+def _out(x_codes, M, N, batch):
+    lead = (batch,) if x_codes.ndim == 3 else ()
+    return torch.empty(lead + (M, N), dtype=torch.float32,
+                       device=x_codes.device)
 
 
 def _device_type(t: torch.Tensor, what: str) -> str:
@@ -267,26 +299,27 @@ def _device_type(t: torch.Tensor, what: str) -> str:
 
 def lns_product_matmul(x_codes, w_codes, *, fmt: str, mode: str = "rne",
                        tile: int | None = None):
-    """K3: f32 [M, N] of the paper's LNS products, one format.  CUDA
-    tensors launch the kernel (``lns_product_matmul.launches`` counts it)
-    in the block tile ``tile`` (128, 64 or 32; :func:`lns_tile` picks it
-    when None); CPU tensors run :func:`lns_matmul_plain`."""
+    """K3: f32 [M, N] of the paper's LNS products, one format (or [E, M,
+    N] of a batch [E, M, K] x [E, K, N], in one launch).  CUDA tensors
+    launch the kernel (``lns_product_matmul.launches`` counts it) in the
+    block tile ``tile`` (128, 64 or 32; :func:`lns_tile` picks it over the
+    whole batch when None); CPU tensors run :func:`lns_matmul_plain`."""
     if _device_type(x_codes, "K3") == "cpu":
         return lns_matmul_plain(x_codes, w_codes, fmt=fmt, mode=mode)
-    M, N, K = _operands(x_codes, w_codes, "K3")
+    M, N, K, batch = _operands(x_codes, w_codes, "K3")
     dev = x_codes.device
     if tile is None:
         tile = lns_tile(M, N, torch.cuda.get_device_properties(
-            dev).multi_processor_count)
+            dev).multi_processor_count, batch)
     elif tile not in LNS_TILES:
         raise ValueError(f"K3: tile must be one of {LNS_TILES}, not {tile}")
     pt = lns_plane_tables(fmt, mode)
     f = FORMATS[fmt]
-    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    out = _out(x_codes, M, N, batch)
     err = _lib().lns_matmul(
         x_codes.data_ptr(), w_codes.data_ptr(),
         device_plane_table(fmt, mode, dev).data_ptr(), out.data_ptr(), M, N,
-        K, pt.R, f.man_bits, f.bias, f.min_normal_code, pt.bad_min,
+        K, batch, pt.R, f.man_bits, f.bias, f.min_normal_code, pt.bad_min,
         int(pt.sign_classes), tile,
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(err, "K3")
@@ -301,11 +334,15 @@ def lns_loop_matmul(x_codes, w_codes, *, fmt: str, mode: str = "rne"):
     """K4: f32 [M, N] of the paper's LNS products, one format, summed in
     the reference's seed order.  CUDA tensors launch the kernel
     (``lns_loop_matmul.launches`` counts it; a split over k tiles adds a
-    second, elementwise launch that adds the tiles' sums in order); CPU
-    tensors run :func:`lns_loop_matmul_plain`."""
+    second, elementwise launch that adds the tiles' sums in order); a
+    batch [E, M, K] x [E, K, N] launches it once per product (E counted
+    launches); CPU tensors run :func:`lns_loop_matmul_plain`."""
+    if x_codes.ndim == 3:
+        return torch.stack([lns_loop_matmul(x, w, fmt=fmt, mode=mode)
+                            for x, w in zip(x_codes, w_codes)])
     if _device_type(x_codes, "K4") == "cpu":
         return lns_loop_matmul_plain(x_codes, w_codes, fmt=fmt, mode=mode)
-    M, N, K = _operands(x_codes, w_codes, "K4")
+    M, N, K, _ = _operands(x_codes, w_codes, "K4")
     dev = x_codes.device
     tab = _device_loop_tables(fmt, mode, dev)
     R = lns_plane_tables(fmt, mode).R
@@ -327,11 +364,17 @@ def lns_loop_matmul(x_codes, w_codes, *, fmt: str, mode: str = "rne"):
 lns_loop_matmul.launches = 0
 
 
+DEQUANT_TILES = (128, 64)
+
+
 def dequant_matmul(x_codes, w_codes, *, fmt: str, w_fmt: str,
-                   compute_dtype=torch.float32):
+                   compute_dtype=torch.float32, tile: int | None = None):
     """K2: f32 [M, N] of the decoded operands' products, each side in its
-    own format.  CUDA tensors launch the kernel (``dequant_matmul.launches``
-    counts it); CPU tensors run :func:`dequant_matmul_plain`.  The kernel's
+    own format (or [E, M, N] of a batch [E, M, K] x [E, K, N], in one
+    launch).  CUDA tensors launch the kernel (``dequant_matmul.launches``
+    counts it) in the block tile ``tile`` (128 or 64; :func:`dequant_tile`
+    picks it over the whole batch when None); CPU tensors run
+    :func:`dequant_matmul_plain`.  The kernel's
     products are exact for ``compute_dtype`` bf16 and float32 alike."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"K2 computes in float32 or bfloat16, not "
@@ -339,16 +382,20 @@ def dequant_matmul(x_codes, w_codes, *, fmt: str, w_fmt: str,
     if _device_type(x_codes, "K2") == "cpu":
         return dequant_matmul_plain(x_codes, w_codes, fmt=fmt, w_fmt=w_fmt,
                                     compute_dtype=compute_dtype)
-    M, N, K = _operands(x_codes, w_codes, "K2")
+    M, N, K, batch = _operands(x_codes, w_codes, "K2")
     dev = x_codes.device
+    if tile is None:
+        tile = dequant_tile(M, N, torch.cuda.get_device_properties(
+            dev).multi_processor_count, batch)
+    elif tile not in DEQUANT_TILES:
+        raise ValueError(f"K2: tile must be one of {DEQUANT_TILES}, not "
+                         f"{tile}")
     fx, fw = FORMATS[fmt], FORMATS[w_fmt]
-    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    out = _out(x_codes, M, N, batch)
     err = _lib().dequant_matmul(
         x_codes.data_ptr(), w_codes.data_ptr(), out.data_ptr(), M, N, K,
-        fx.man_bits, fx.bias, fx.min_normal_code, fx.max_normal_code,
-        fw.man_bits, fw.bias, fw.min_normal_code, fw.max_normal_code,
-        dequant_tile(M, N, torch.cuda.get_device_properties(
-            dev).multi_processor_count),
+        batch, fx.man_bits, fx.bias, fx.min_normal_code, fx.max_normal_code,
+        fw.man_bits, fw.bias, fw.min_normal_code, fw.max_normal_code, tile,
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(err, "K2")
     dequant_matmul.launches += 1

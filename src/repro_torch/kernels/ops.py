@@ -34,19 +34,34 @@ def matmul_q(x: QTensor, w: QTensor, *, impl: str = "xla", mode: str = "rne",
     """Quantized matmul: [M, K] @ [K, N] -> f32 [M, N], scales applied.
 
     Per-tensor scales, or per-channel scales on the non-contracted axes:
-    ``x.scale`` broadcasts over rows, ``w.scale`` over columns."""
+    ``x.scale`` broadcasts over rows, ``w.scale`` over columns.
+
+    Expert products (the reference's ``vmap`` of this function over
+    experts): ``w`` codes [E, K, N] with scales [E, 1, N], one per expert
+    and output channel, and ``x`` codes [E, ..., K] (e.g. [E, G, C, K],
+    token groups of C rows) with scales broadcasting against them (e.g.
+    [E, G, 1, 1], one per group and expert).  The codes go through the
+    kernel as one batch [E, M, K] x [E, K, N] (K3 and K2 launch once);
+    returns f32 [E, ..., N]."""
     if impl == "auto":
         impl = choose_matmul_impl(x.codes.device)
+    xc = x.codes
+    if w.codes.ndim == 3:
+        xc = xc.reshape(w.codes.shape[0], -1, xc.shape[-1])
     if impl == "xla":
-        acc = dequant_matmul_plain(x.codes, w.codes, fmt=x.fmt, w_fmt=w.fmt,
+        acc = dequant_matmul_plain(xc, w.codes, fmt=x.fmt, w_fmt=w.fmt,
                                    compute_dtype=compute_dtype)
     elif impl in ("lns", "lns_loop", "fused_dequant"):
-        acc = lns_matmul(x.codes, w.codes, fmt=x.fmt, w_fmt=w.fmt,
+        acc = lns_matmul(xc, w.codes, fmt=x.fmt, w_fmt=w.fmt,
                          mode=mode, impl=impl, compute_dtype=compute_dtype)
     else:
         raise ValueError(f"unknown impl {impl!r}")
     w_scale = w.scale.to(torch.float32)
-    if w_scale.ndim:
+    if w.codes.ndim == 3:
+        E, N = w.codes.shape[0], w.codes.shape[-1]
+        acc = acc.view(*x.codes.shape[:-1], N)
+        w_scale = w_scale.reshape((E,) + (1,) * (acc.ndim - 2) + (N,))
+    elif w_scale.ndim:
         w_scale = w_scale.squeeze()[None, ...]
     return acc * x.scale * w_scale
 

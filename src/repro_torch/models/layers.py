@@ -1,8 +1,8 @@
 """Model building blocks: RMSNorm, RoPE, softcap, the policy-resolved
 linear with its straight-through FP8 matmul (and static FP8 weights), the
-gated MLP, the chunked online-softmax attention of the training forward
-and prefill, and the single-position attention of dense-cache decode.
-Port of
+MoE layer's straight-through expert products, the gated MLP, the chunked
+online-softmax attention of the training forward and prefill, and the
+single-position attention of dense-cache decode.  Port of
 ``repro.models.layers``: plain functions over parameter dicts of tensors,
 with the reference's dtype behaviour (norm and rope math in float32, the
 result cast back to the input dtype)."""
@@ -18,7 +18,8 @@ from ..kernels.common import code_to_f32
 from ..parallel.hints import hint, tp_columns, tp_max
 
 __all__ = ["rms_norm", "rope", "softcap", "qlinear", "gated_mlp",
-           "chunked_attention", "decode_attention", "NEG_INF"]
+           "bmm_experts", "ste_expert_matmul", "chunked_attention",
+           "decode_attention", "NEG_INF"]
 
 
 def rms_norm(x, scale, eps=1e-6):
@@ -85,6 +86,69 @@ def _ste_qmatmul(x2d, w, act_fmt, weight_fmt, impl, act_quant=True,
     straight-through gradients (see :class:`_STEQMatmul`)."""
     return _STEQMatmul.apply(x2d, w, act_fmt, weight_fmt, impl, act_quant,
                              mode, accum)
+
+
+def bmm_experts(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[E, M, K] @ [E, K, N]: one batched product on the card; expert by
+    expert on the CPU, whose batched BLAS may sum in an order that varies
+    with its threading."""
+    if a.device.type == "cuda":
+        return torch.bmm(a, b)
+    return torch.stack([a[e] @ b[e] for e in range(a.shape[0])])
+
+
+class _STEExpertMatmul(torch.autograd.Function):
+    """The expert products of an MoE layer with the straight-through
+    estimator: :class:`_STEQMatmul` on every (token group, expert) pair, as
+    the reference's ``custom_vjp`` under its two ``vmap``s (over groups in
+    ``_dispatch_group``, over experts in ``_expert_mm``).  x [E, G, C, Din]
+    (expert e's C rows of group g), w [E, Din, Dout].  Forward: each
+    expert's weight quantized per output channel over its own Din rows
+    (scales [E, 1, Dout]), each (group, expert) block of activations per
+    tensor (scales [E, G, 1, 1]), the codes through one batched
+    ``kernels.ops.matmul_q`` (K3 for impl ``lns``, K2 for
+    ``fused_dequant``: one launch for all experts), float32 [E, G, C,
+    Dout].  Weight-only: each expert's weight decoded, then a float
+    product.  Backward: the plain float products of the unquantized
+    operands in the weight dtype, ``g @ w^T`` and ``x^T @ g``, batched over
+    experts; the weight gradient sums every group's rows in one product
+    (the reference adds the groups' products)."""
+
+    @staticmethod
+    def forward(ctx, x, w, act_fmt, weight_fmt, impl, act_quant, mode,
+                accum):
+        ctx.save_for_backward(x, w)
+        E, G, C, Din = x.shape
+        qw = quantize(w, weight_fmt, axis=(0, 2))
+        if act_quant:
+            qx = quantize(x, act_fmt, axis=(0, 1), mode=mode)
+            return kops.matmul_q(
+                qx, qw, impl=impl, mode=mode,
+                compute_dtype=(torch.float32 if accum == "f32"
+                               else torch.bfloat16))
+        # weight-only: dequantize w, keep activations in compute dtype
+        wq = (code_to_f32(qw.codes, qw.fmt) * qw.scale).to(x.dtype)
+        y = bmm_experts(x.reshape(E, G * C, Din), wq)
+        return y.view(E, G, C, -1).to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        E, G, C, Din = x.shape
+        g = g.to(w.dtype).reshape(E, G * C, -1)
+        gx = bmm_experts(g, w.transpose(1, 2)).view(E, G, C, Din)
+        gw = bmm_experts(x.reshape(E, G * C, Din).transpose(1, 2), g)
+        return (gx.to(x.dtype), gw.to(w.dtype),
+                None, None, None, None, None, None)
+
+
+def ste_expert_matmul(x, w, act_fmt, weight_fmt, impl, act_quant=True,
+                      mode="rne", accum="bf16"):
+    """x [E, G, C, Din] float @ w [E, Din, Dout] float -> f32 [E, G, C,
+    Dout] through FP8 codes, with straight-through gradients (see
+    :class:`_STEExpertMatmul`)."""
+    return _STEExpertMatmul.apply(x, w, act_fmt, weight_fmt, impl,
+                                  act_quant, mode, accum)
 
 
 def qlinear(x, w, pol, b=None, site: str = ""):

@@ -5,8 +5,8 @@ cache with the paged decode/mixed steps of the serving path.
 Port of ``repro.models.model.Model`` for GQA attention stacks: the dense
 family (qwen2, qwen3's qk-norm, gemma2/3's sandwich norms, embedding
 scale, local/global windows and softcaps) and the MoE family without
-shared experts or leading dense layers (granite-moe-3b-a800m, served
-only: training with experts is refused).
+shared experts or leading dense layers (granite-moe-3b-a800m), served
+and trained (the loss adds the MoE aux terms).
 Parameters are a plain dict: ``embed`` [Vp, D], ``final_norm`` [D],
 optional ``unembed`` [D, Vp], and ``blocks``, a list of per-layer
 dicts with the reference's names (``ln1``, ``attn.wq``/``bq``/...,
@@ -51,7 +51,6 @@ from .quantize import resolve_weight
 from .transformer import ffn_kind, stack_decode, stack_forward
 
 NEG = -1.0e30
-AUX0 = {"moe_lb": 0.0, "moe_z": 0.0}
 
 
 def _check_supported(cfg) -> None:
@@ -65,16 +64,6 @@ def _check_supported(cfg) -> None:
             "experts or leading dense layers (granite); the other families "
             "arrive with later slices (ROADMAP.md Queue 1 item 11, "
             "11b-11f)")
-
-
-def refuse_moe_training(cfg) -> None:
-    """Training with experts (``_expert_mm``'s STE route through K3 and
-    the aux losses) is not ported yet."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name!r}: training a model with experts is not ported "
-            "yet (ROADMAP.md Queue 1 item 11a (training)); the port serves "
-            "it")
 
 
 def params_from_jax(np_params, cfg) -> Dict[str, Any]:
@@ -222,16 +211,18 @@ class Model:
 
     # ------------------------------------------------------------------ #
     def loss_fn(self, params, batch):
-        """Mean next-token cross entropy over the valid positions, and its
-        metrics {ce, moe_lb, moe_z}.  ``labels`` < 0 are ignored, as is the
-        last position (the reference's mask); the CE runs over the padded
-        vocabulary with the padding at NEG.  The dense family has no MoE
-        auxiliary terms: they are zeros, as in the reference.  A config
-        with experts raises (:func:`refuse_moe_training`)."""
+        """The reference's loss, ``ce + 0.01 moe_lb + 1e-3 moe_z``, and its
+        metrics {ce, moe_lb, moe_z}: the mean next-token cross entropy over
+        the valid positions (``labels`` < 0 are ignored, as is the last
+        position, the reference's mask; the CE runs over the padded
+        vocabulary with the padding at NEG), and the MoE layers' Switch
+        load-balance and router z-losses, each summed over layers
+        (:func:`stack_forward`).  The dense family has no MoE auxiliary
+        terms: they are zeros, as in the reference."""
         cfg = self.cfg
-        refuse_moe_training(cfg)
         x, positions, labels = self._assemble_inputs(params, batch)
-        x = stack_forward(params["blocks"], x, cfg, positions=positions)
+        x, moe_aux = stack_forward(params["blocks"], x, cfg,
+                                   positions=positions)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = self._unembed(params, x)
         S = x.shape[1]
@@ -242,7 +233,7 @@ class Model:
         ll = torch.gather(logits, -1, safe[..., None])[..., 0]
         ce = ((lse - ll) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        aux = {k: zero + v for k, v in AUX0.items()}
+        aux = {k: zero + v for k, v in moe_aux.items()}
         loss = ce + 0.01 * aux["moe_lb"] + 1e-3 * aux["moe_z"]
         return loss, {"ce": ce, **aux}
 

@@ -1,5 +1,5 @@
 """Mixture-of-experts FFN with sorted capacity dispatch: port of
-``repro.models.moe`` for serving.
+``repro.models.moe`` for serving and training.
 
 Token-choice top-k routing: a float32 router, softmax, the top k
 probabilities renormalised over the k.  Dispatch sorts the routed
@@ -8,7 +8,11 @@ expert and keeps the pairs under a static capacity ``C``; the kept
 tokens fill ``[E, C, D]`` buffers, three batched expert products run over
 them, and each token's k gated outputs are summed back in float32.  The
 aux losses (Switch load balance and router z-loss) are returned beside
-the output; serving drops them.
+the output; serving drops them, training adds them to the loss.  Under
+a training policy the expert products are the reference's
+straight-through FP8 products per (token group, expert)
+(``layers.ste_expert_matmul``: K3 or K2 launched once per product over
+all experts).
 
 Every step is deterministic on the card, so the port's bitwise contracts
 (fused == unfused, prefix on == off, TP=2 == TP=1) hold through the layer:
@@ -26,15 +30,17 @@ Every step is deterministic on the card, so the port's bitwise contracts
   the reference's formula;
 * under ``grouped`` dispatch (the default) every batch row routes alone,
   so a row's product shapes are fixed by the row count and ``C``, never by
-  what the other rows route.
+  what the other rows route;
+* in the backward, each token's k pair gradients are added in the same
+  ascending expert order (:class:`_GatherPairs`), never by the atomic
+  scatter-add of a gather's gradient, so a training step's gradients
+  repeat bit for bit too.
 
 The reference's ``shard_map`` route has no counterpart: a tensor-parallel
 engine replicates the 3-D expert leaves and ``router`` (its serve rules
 do too) and computes every expert whole on each rank, with no collective
 in the layer, so TP=N equals TP=1 bit for bit at every sequence length.
-Training through the experts (``_expert_mm``'s STE branch through K3)
-and shared experts are not ported (ROADMAP.md Queue 1 items 11a
-(training) and 11b).
+Shared experts are not ported (ROADMAP.md Queue 1 item 11b).
 """
 from __future__ import annotations
 
@@ -43,7 +49,7 @@ from typing import Dict, Tuple
 import torch
 
 from .. import numerics
-from .layers import _act
+from .layers import _act, bmm_experts, ste_expert_matmul
 from .quantize import resolve_weight
 
 __all__ = ["moe_init", "capacity", "route", "dispatch", "moe_ffn"]
@@ -75,8 +81,10 @@ def capacity(T: int, k: int, E: int, factor: float) -> int:
 
 
 def _router_logits(x: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
-    """x [..., D] @ router [D, E] in float32, TF32 off on the card."""
-    x = x.to(torch.float32)
+    """x [..., D] @ router [D, E] in float32, TF32 off on the card (a
+    train step's bf16 compute copy of the router is widened first, as the
+    reference's dtype promotion does)."""
+    x, router = x.to(torch.float32), router.to(torch.float32)
     if x.device.type != "cuda":
         return x @ router
     matmul = torch.backends.cuda.matmul
@@ -121,28 +129,50 @@ def dispatch(ids: torch.Tensor, E: int, C: int) -> Dict[str, torch.Tensor]:
                 rank_c=torch.where(keep, rank, C - 1))
 
 
-def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """[E, M, K] @ [E, K, N]: one batched product on the card; expert by
-    expert on the CPU, whose batched BLAS may sum in an order that varies
-    with its threading."""
-    if a.device.type == "cuda":
-        return torch.bmm(a, b)
-    return torch.stack([a[e] @ b[e] for e in range(a.shape[0])])
-
-
-def _expert_mm(buf, w, pol, site: str = ""):
-    """[E, M, Din] @ [E, Din, Dout] -> [E, M, Dout] in ``buf``'s dtype; a
-    static FP8 weight is decoded first (``resolve_weight``), as in the
-    reference.  The STE route of training policies is not ported."""
+def _expert_mm(buf, w, pol, site: str = "", groups: int = 1):
+    """[E, G * C, Din] @ [E, Din, Dout] -> [E, G * C, Dout] in ``buf``'s
+    dtype, ``buf`` holding each expert's C rows of each of ``groups`` token
+    groups; a static FP8 weight is decoded first (``resolve_weight``), as
+    in the reference.  Under a policy that quantizes weights on the fly
+    (training) the product is the straight-through FP8 product of every
+    (group, expert) pair (``layers.ste_expert_matmul``), with the formats
+    the reference's ``numerics.matmul`` resolves at ``site``."""
     if numerics.is_quantized_weight(w):
         fmt = numerics.weight_format(pol, site) or "e4m3"
         w = resolve_weight(w, fmt, buf.dtype)
     if pol is not None and pol.ste_weights:
-        raise NotImplementedError(
-            f"{site}: MoE expert products under a training policy "
-            f"({pol.name!r}, STE weights) are not ported yet (ROADMAP.md "
-            "Queue 1 item 11a (training))")
-    return _bmm(buf, w)
+        E, M, Din = buf.shape
+        y = ste_expert_matmul(buf.view(E, groups, M // groups, Din), w,
+                              *numerics.ste_arguments(pol, site))
+        return y.reshape(E, M, -1).to(buf.dtype)
+    return bmm_experts(buf, w)
+
+
+class _GatherPairs(torch.autograd.Function):
+    """rows [G, Tg * k, D] = xg [G, Tg, D] at each sorted pair's token, a
+    gather whose gradient adds each token's k pair gradients one after
+    another in ascending expert id (``pos`` [G, Tg, k]: the sorted
+    positions of token t's pairs, in that order), the combine's order: no
+    atomic scatter-add, so the backward repeats bit for bit on the
+    card."""
+
+    @staticmethod
+    def forward(ctx, xg, tok, pos):
+        ctx.save_for_backward(pos)
+        G, _, D = xg.shape
+        return torch.gather(xg, 1, tok[..., None].expand(G, tok.shape[1], D))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (pos,) = ctx.saved_tensors
+        G, Tg, k = pos.shape
+        D = grad.shape[-1]
+        parts = torch.gather(grad, 1, pos.reshape(G, Tg * k, 1).expand(
+            G, Tg * k, D)).view(G, Tg, k, D)
+        out = parts[:, :, 0]
+        for j in range(1, k):
+            out = out + parts[:, :, j]
+        return out, None, None
 
 
 def _dispatch_group(p, xg, cfg, site: str = "blocks.*.ffn"):
@@ -161,24 +191,25 @@ def _dispatch_group(p, xg, cfg, site: str = "blocks.*.ffn"):
     C = capacity(Tg, k, E, cfg.capacity_factor)
     d = dispatch(ids, E, C)
     g = torch.arange(G, device=dev)[:, None]
+    # each token's k pairs in ascending expert id: their sorted positions
+    pos = torch.empty_like(d["order"]).scatter_(
+        1, d["order"], torch.arange(Tg * k, device=dev).expand(G, Tg * k))
+    pos = torch.sort(pos.view(G, Tg, k), dim=-1).values
     # the kept pairs' cells of the [E, G, C] buffers, each dropped pair a
     # row of its own past them: every destination is written once
     dest = torch.where(d["keep"], (d["eid"] * G + g) * C + d["rank"],
                        E * G * C + g * (Tg * k)
                        + torch.arange(Tg * k, device=dev))
-    rows = torch.gather(xg, 1, d["tok"][..., None].expand(G, Tg * k, D))
+    rows = _GatherPairs.apply(xg, d["tok"], pos)
     buf = xg.new_zeros((E * G * C + G * Tg * k, D))
     buf[dest.reshape(-1)] = rows.reshape(-1, D)
     buf = buf[:E * G * C].view(E, G * C, D)
-    h = _act(_expert_mm(buf, p["w_gate"], cfg.policy, f"{site}.w_gate"),
+    h = _act(_expert_mm(buf, p["w_gate"], cfg.policy, f"{site}.w_gate", G),
              cfg.act_fn)
-    h = h * _expert_mm(buf, p["w_up"], cfg.policy, f"{site}.w_up")
-    y = _expert_mm(h, p["w_down"], cfg.policy, f"{site}.w_down")
+    h = h * _expert_mm(buf, p["w_up"], cfg.policy, f"{site}.w_up", G)
+    y = _expert_mm(h, p["w_down"], cfg.policy, f"{site}.w_down", G)
 
-    # each token's k pairs in ascending expert id: their sorted positions
-    pos = torch.empty_like(d["order"]).scatter_(
-        1, d["order"], torch.arange(Tg * k, device=dev).expand(G, Tg * k))
-    pos = torch.sort(pos.view(G, Tg, k), dim=-1).values.view(G, Tg * k)
+    pos = pos.view(G, Tg * k)
     cell = (torch.gather(d["eid"], 1, pos) * G + g) * C \
         + torch.gather(d["rank_c"], 1, pos)
     gate = torch.gather(gates.reshape(G, Tg * k), 1,

@@ -22,6 +22,7 @@ __all__ = [
     "is_quantized_weight",
     "dequantize_weight",
     "static_matmul_2d",
+    "ste_arguments",
     "matmul",
     "elementwise",
     "kv_quantized",
@@ -83,6 +84,20 @@ def static_matmul_2d(x2d, qw, pol: Policy, site: str = ""):
                          compute_dtype=_ACCUM_DTYPES[mp.accum])
 
 
+def ste_arguments(pol: Policy, site: str = "") -> tuple:
+    """The straight-through matmul's (act_fmt, weight_fmt, impl,
+    act_quant, mode, accum) at ``site`` under a policy that quantizes
+    weights on the fly, resolved as the reference's ``matmul`` does: the
+    activations take the matmul's format when it is quantized, else the
+    weights'; the single-format LNS products take the weights'."""
+    mp = pol.resolve("matmul", site)
+    wp = pol.resolve("weights", site)
+    act_fmt = mp.fmt if mp.quantized else wp.fmt
+    if mp.impl in SINGLE_FORMAT_IMPLS and act_fmt != wp.fmt:
+        act_fmt = wp.fmt  # the LNS product is single-format
+    return act_fmt, wp.fmt, mp.impl, mp.quantized, mp.mode, mp.accum
+
+
 def matmul(x, w, pol: Optional[Policy], *, site: str = "", bias=None):
     """[..., K] @ [K, N] under the policy; the reference's one matmul entry
     point.  ``w`` is a float tensor (STE-quantized, activations and weights
@@ -105,12 +120,8 @@ def matmul(x, w, pol: Optional[Policy], *, site: str = "", bias=None):
     elif pol is not None and pol.ste_weights:
         from ..models.layers import _ste_qmatmul
 
-        wp = pol.resolve("weights", site)
-        act_fmt = mp.fmt if mp.quantized else wp.fmt
-        if mp.impl in SINGLE_FORMAT_IMPLS and act_fmt != wp.fmt:
-            act_fmt = wp.fmt  # the LNS product is single-format
-        y = _ste_qmatmul(x.reshape(-1, shape[-1]), w, act_fmt, wp.fmt,
-                         mp.impl, mp.quantized, mp.mode, mp.accum)
+        y = _ste_qmatmul(x.reshape(-1, shape[-1]), w,
+                         *ste_arguments(pol, site))
         y = y.reshape(*shape[:-1], w.shape[-1]).to(x.dtype)
     else:
         y = x @ w

@@ -12,7 +12,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from ..models.model import Model, refuse_moe_training
+from ..models.model import Model
 from ..optim import adamw
 from ..optim.adamw import tree_leaves, tree_map
 
@@ -32,10 +32,10 @@ def make_train_state(model: Model, generator: Optional[torch.Generator] = None,
 
 def build_train_step(model: Model, opt_cfg: adamw.OptConfig) -> Callable:
     """``train_step(state, batch) -> (new_state, metrics)``; ``batch`` is
-    {tokens, labels} on the state's device.  A config with experts raises
-    (MoE training is not ported yet)."""
+    {tokens, labels} on the state's device.  ``metrics`` holds the loss,
+    its terms (ce, and the MoE aux losses, zeros without experts) and
+    AdamW's statistics."""
     cfg = model.cfg
-    refuse_moe_training(cfg)
 
     def train_step(state, batch):
         master = tree_map(lambda p: p.detach().requires_grad_(True),

@@ -19,6 +19,8 @@ own canonical NaN); K2's and K3's sums are held to the float32 summation
 bound 2 K 2^-24 sum|products|, since they add the same exact products in
 another order (K3 in every block tile and (format, mode) cell, NaN/inf
 against zero NaN as in the plain version).  TF32 is off for the plain versions' float32 products.
+K3 and K2 over a batch of expert products launch once, and each product
+of the batch is bitwise their 2-D launch on it at the same tile.
 K5's codes are integer results and compare bitwise in every cell, at
 every length to 64 and at every storage offset to 15.  K4 sums in the
 reference's order and is bitwise equal to its plain version (NaN as NaN),
@@ -460,6 +462,106 @@ def test_matmul_kernels_reject_operands_they_do_not_take(dev):
         lm.dequant_matmul(x.float(), w, fmt="e5m2", w_fmt="e4m3")
     with pytest.raises(ValueError, match="contraction"):
         lm.lns_product_matmul(x, x, fmt="e4m3")
+
+
+# --------------------------------------------------------------------------- #
+# K3 and K2 over a batch of expert products, one launch
+# --------------------------------------------------------------------------- #
+# (E, M, K, N): granite-moe-3b's expert products at batch 8 x seq 128 (G x
+# C = 256 rows an expert; w_gate/w_up, then w_down), its smoke size, and
+# ragged shapes (element loads; a single product)
+BATCHED = [(40, 256, 1536, 512), (40, 256, 512, 1536), (8, 48, 64, 64),
+           (3, 37, 70, 45), (1, 65, 33, 129)]
+
+
+def _batched_codes(E, M, K, N, fmt, w_fmt, dev):
+    g = torch.Generator().manual_seed(E + M + K + N)
+    return (_codes(g, (E, M, K), fmt, dev), _codes(g, (E, K, N), w_fmt, dev))
+
+
+def _batched_check(dev, kernel, plain, shape, tiles, code_fmts, **kw):
+    """One launch over the batch of ``shape`` (E, M, K, N), within the
+    float32 summation bound of the plain version applied product by
+    product; product e of the batch bitwise the 2-D launch on it at the
+    batch's tile; two calls bitwise.  ``code_fmts``: the formats the
+    random codes avoid NaN/inf patterns of (x's, w's)."""
+    E, M, K, N = shape
+    x, w = _batched_codes(E, M, K, N, *code_fmts, dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    tile = tiles(M, N, n_sm, E)
+    before = kernel.launches
+    got = kernel(x, w, **kw)
+    assert kernel.launches == before + 1
+    again = kernel(x, w, **kw)
+    want = plain(x, w, **kw)
+    absum = plain(x & 0x7F, w & 0x7F, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (E, M, N) and torch.isfinite(got).all()
+    assert bool(((got - want).abs() <= 2 * K * 2.0**-24 * absum).all())
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    for e in range(E):
+        one = kernel(x[e], w[e], tile=tile, **kw)
+        assert torch.equal(got[e].view(torch.int32), one.view(torch.int32))
+
+
+@pytest.mark.parametrize("E,M,K,N", BATCHED)
+@pytest.mark.parametrize("key", [("e4m3", "rne"), ("e5m2", "ru")],
+                         ids="-".join)
+def test_k3_batched_experts_match_plain_and_the_2d_launch(dev, key, E, M, K,
+                                                          N):
+    fmt, mode = key
+    _batched_check(dev, lm.lns_product_matmul, lm.lns_matmul_plain,
+                   (E, M, K, N), lm.lns_tile, (fmt, fmt), fmt=fmt, mode=mode)
+
+
+@pytest.mark.parametrize("E,M,K,N", BATCHED)
+@pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32])
+def test_k2_batched_experts_match_plain_and_the_2d_launch(dev, cd, E, M, K,
+                                                          N):
+    _batched_check(dev, lm.dequant_matmul, lm.dequant_matmul_plain,
+                   (E, M, K, N), lm.dequant_tile, ("e5m2", "e4m3"),
+                   fmt="e5m2", w_fmt="e4m3", compute_dtype=cd)
+
+
+def test_batched_tile_counts_the_whole_grid(dev):
+    """granite's expert products: one expert's [256, 512] output has 8
+    tiles of 128 x 128 and 32 of 64 x 64, under the card's SMs, so a 2-D
+    launch takes K3's 32 and K2's 64; the batch of 40 fills the card with
+    128 x 128 tiles, so K3 and K2 take 128 (counted over the whole grid,
+    not over one expert)."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert 32 < n_sm <= 320
+    assert lm.lns_tile(256, 512, n_sm) == 32
+    assert lm.lns_tile(256, 512, n_sm, 40) == 128
+    assert lm.dequant_tile(256, 512, n_sm) == 64
+    assert lm.dequant_tile(256, 512, n_sm, 40) == 128
+
+
+def test_k4_runs_a_batch_one_launch_a_product(dev):
+    """K4 has no batch axis: a batch of expert products launches it once
+    per product, each bitwise its plain version."""
+    x, w = _batched_codes(5, 33, 70, 20, "e4m3", "e4m3", dev)
+    before = lm.lns_loop_matmul.launches
+    got = lm.lns_loop_matmul(x, w, fmt="e4m3")
+    assert lm.lns_loop_matmul.launches == before + 5
+    want = lm.lns_loop_matmul_plain(x, w, fmt="e4m3")
+    torch.cuda.synchronize()
+    assert _nan_aware_equal(got, want)
+
+
+def test_batched_kernels_reject_mismatched_batches(dev):
+    x = torch.zeros((3, 4, 8), dtype=torch.uint8, device=dev)
+    w = torch.zeros((2, 8, 4), dtype=torch.uint8, device=dev)
+    for kernel, kw in ((lm.lns_product_matmul, dict(fmt="e4m3")),
+                       (lm.dequant_matmul, dict(fmt="e5m2", w_fmt="e4m3"))):
+        before = kernel.launches
+        with pytest.raises(ValueError, match="contraction"):
+            kernel(x, w, **kw)
+        with pytest.raises(ValueError, match="contraction"):
+            kernel(x, w[0], **kw)
+        assert kernel.launches == before
+    with pytest.raises(ValueError, match="tile"):
+        lm.dequant_matmul(x[0], w[0], fmt="e5m2", w_fmt="e4m3", tile=32)
 
 
 # --------------------------------------------------------------------------- #

@@ -24,8 +24,10 @@ fused == unfused, prefix on == off, preempt/restore == a worst-case pool,
 bucketed fused == unfused, static weights == the decoded bf16 weights,
 TP=2 == TP=1 under both schedulers (two spawned gloo ranks), and a chaos
 kill's survivors == the fault-free streams.  Then the split-K guard
-(``launch.mesh.require_column_stable_cublas``) and the trainer's refusal
-of experts.
+(``launch.mesh.require_column_stable_cublas``) and the training entry
+points, which refused experts before MoE training was ported and now
+train granite (its training is held against JAX in
+``test_torch_moe_train.py``).
 """
 import dataclasses
 import os
@@ -542,17 +544,30 @@ def test_serve_cli_requires_column_stable_cublas_on_every_run(monkeypatch):
 
 
 def test_training_with_experts_is_refused(tmp_path):
-    """Model.loss_fn, the train step and the training CLI refuse a config
-    with experts, naming Queue 1 item 11a (training)."""
+    """The three entry points that refused a config with experts until
+    ROADMAP Queue 1 item 11a (training) was ported now train granite:
+    ``Model.loss_fn`` and a step of ``steps.build_train_step`` return
+    finite aux terms (the sums over both MoE layers), and the training
+    CLI runs; shared experts (item 11b) are still refused by name."""
     _, cfg = _granite(None)
     model = Model(cfg)
     params = model.init(torch.Generator().manual_seed(0))
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
-             "labels": torch.zeros((1, 4), dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match=r"item 11a \(training\)"):
-        model.loss_fn(params, batch)
-    with pytest.raises(NotImplementedError, match=r"item 11a \(training\)"):
-        steps.build_train_step(model, None)
-    with pytest.raises(NotImplementedError, match=r"item 11a \(training\)"):
-        train.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--steps",
-                    "1", "--ckpt-dir", str(tmp_path)])
+    batch = {"tokens": torch.arange(8, dtype=torch.int64).view(1, 8),
+             "labels": torch.arange(1, 9, dtype=torch.int64).view(1, 8)}
+    loss, aux = model.loss_fn(params, batch)
+    assert set(aux) == {"ce", "moe_lb", "moe_z"}
+    assert all(bool(torch.isfinite(v)) for v in (loss, *aux.values()))
+    assert float(aux["moe_lb"]) > 0 and float(aux["moe_z"]) > 0
+    from repro_torch.optim import adamw
+
+    step = steps.build_train_step(model, adamw.OptConfig())
+    _, metrics = step(steps.make_train_state(model, params=params), batch)
+    assert all(bool(torch.isfinite(metrics[k]))
+               for k in ("loss", "moe_lb", "moe_z", "grad_norm"))
+    history = train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                          "--steps", "1", "--batch", "1", "--seq", "8",
+                          "--ckpt-every", "1", "--ckpt-dir", str(tmp_path)])
+    assert [h["step"] for h in history] == [1]
+    assert np.isfinite(history[0]["moe_lb"]) and history[0]["moe_z"] > 0
+    with pytest.raises(NotImplementedError, match="11b"):
+        Model(dataclasses.replace(cfg, n_shared_experts=1))

@@ -65,9 +65,10 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
    pool and once with 15 pages, where the scheduler spills slots to the
    host and restores them into fresh pages (at least one preemption and
    one restore): the token streams must be bitwise equal;
-10. the main path: full-width, full-depth gemma3-12b (48 layers,
-    5 local layers of window 1,024 to each global one, qk-norm, hd 256,
-    about 23.6 GB of bf16 weights drawn on the card and redrawn as in 9,
+10. the main path: full-width gemma3-12b (48 layers, 5 local layers
+    of window 1,024 to each global one, qk-norm, hd 256, about 23.6 GB of
+    bf16 weights at full depth; its first 12 layers, cut for time to make
+    room for 17b, about 6.7 GB, drawn on the card and redrawn as in 9,
     the embedding at 0.5 / sqrt(d_model), the sandwich norms' output
     gains 16 times larger so that the layers, not the last token's own
     row, lead the tied LM head) served by a 4-slot Engine, page 16,
@@ -183,6 +184,24 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     granite's geometry, the walls, decode tokens/s and peak memory, the
     busiest expert's share of its layer's routed pairs; then a short
     traced window of granite's FP8 serving path at depth 6, as in 6;
+17b. MLA with MoE on the main path (``mla_path``): deepseek-v2-lite-16b
+    at full width (27 layers: a dense first layer of d_ff 10,944, then 64
+    experts top-6 of d_ff 1,408 and 2 shared experts in each; MLA with a
+    512-wide latent; ~31.4 GB of bf16 weights drawn on the card and
+    redrawn as in 9), the 8 requests of 10 on 4 slots: at full depth one
+    FP8-latent run (E5M2 codes at scale 1, dense per-slot rows beside the
+    page pool; K1 never launched), every stream varied; at depth 2 (the
+    dense layer and one MoE layer), on FP8 and on bf16 latents, a rerun,
+    a preempting pool, a snapshot round trip while PREEMPTED and the
+    bucketed scheduler on the paged and the dense cache, all bitwise
+    (continuous vs bucketed printed); float32 first-step logits on the
+    card within rtol = atol = 1e-3 of the port's CPU engine on the same
+    weights; static weights bitwise equal to their decoded bf16 weights,
+    and through K2 6 x n_layers launches a sub-step, each call within
+    2 sqrt(K) 2^-24 sum|products| of its plain version, with K2's time on
+    one MoE layer's six products at M = 4.  Printed: the full-depth wall,
+    decode tokens/s, peak memory and the busiest expert's share; then a
+    short traced window at depth 6, as in 6;
 18. windows on the model path: gemma3-12b at full width, depth 6,
     float32, on FP8 and on float32 pages: a 1,040-token prompt prefilled
     through K1 (from the 1,024th token on every K1 call held to its plain
@@ -335,6 +354,11 @@ geometry (KV 8, G 3, hd 64): card time from 3 and 4, launches those of
 17a's prefix-off FP8 run at depth 2 (LNS) and
 its depth-2 bf16 run (float), ``max_abs_err`` the larger of 3's (or 4's)
 and 17a's shadowed calls.
+
+The ``dequant_matmul_static_weights_deepseek`` entry is K2 on
+deepseek-v2-lite-16b's static weights (17b): card time of one MoE layer's
+six products at M = 4, launches those of 17b's depth-2 K2 run, the
+largest difference from the plain version there.
 
 The ``lns_matmul_experts`` and ``dequant_matmul_experts`` entries are K3
 and K2 over a batch of granite's expert products (28a): card time of a
@@ -913,15 +937,18 @@ def _lively(eng, seed: int = 0):
 
     g = torch.Generator(device=eng.device).manual_seed(seed)
 
-    def redraw(t):
+    def redraw(t):  # in place: the card never holds two copies
         if isinstance(t, dict):
-            return {k: redraw(v) for k, v in t.items()}
-        if isinstance(t, list):
-            return [redraw(v) for v in t]
-        return (torch.randn(t.shape, generator=g, device=t.device)
-                * 0.5).to(t.dtype)
+            for v in t.values():
+                redraw(v)
+        elif isinstance(t, list):
+            for v in t:
+                redraw(v)
+        else:
+            t.copy_((torch.randn(t.shape, generator=g, device=t.device)
+                     * 0.5).to(t.dtype))
 
-    eng.params = redraw(eng.params)
+    redraw(eng.params)
     if eng.cfg.emb_scale:
         eng.params["embed"] = eng.params["embed"] / eng.cfg.d_model**0.5
     if eng.cfg.sandwich_norm:
@@ -933,8 +960,10 @@ def _lively(eng, seed: int = 0):
 
 
 def _shallow(params, depth: int):
-    """The first ``depth`` layers of the main path's weights."""
-    return dict(params, blocks=params["blocks"][:depth])
+    """The first ``depth`` layers of the main path's weights (the leading
+    dense ``prefix`` layers kept, then the first body layers)."""
+    return dict(params, blocks=params["blocks"][
+        :depth - len(params.get("prefix", ()))])
 
 
 def _require_varied(outputs: dict, what: str,
@@ -1017,8 +1046,9 @@ def preemption_path(dev, policy) -> dict:
                 restores=s_small["restores"])
 
 
-def _first_step_logits(dev, cfg):
-    """A prefill chunk and one decode step of a 2-slot Engine: logits."""
+def _first_step_logits(dev, cfg, params=None):
+    """A prefill chunk and one decode step of a 2-slot Engine (on
+    ``params`` when given, else on its own seed-3 draw): logits."""
     import numpy as np
     from repro_torch.launch.serve import Engine
 
@@ -1026,6 +1056,8 @@ def _first_step_logits(dev, cfg):
     toks = rng.integers(0, cfg.vocab, size=(2, 4)).astype(np.int32)
     eng = Engine(cfg, slots=2, max_seq=16, page_size=16, rng_seed=3,
                  device=dev)
+    if params is not None:
+        eng.params = params
     eng.pool.ensure_capacity_batch(np.asarray([4, 3]))
     first = eng.step_chunk(toks, np.zeros(2, np.int32),
                            np.asarray([4, 3], np.int32))
@@ -1117,6 +1149,8 @@ def profile_main_path(dev, policy="serve_fp8_paged",
 # The dense GQA family and prefix caching: gemma3-12b's main path, and
 # gemma2-27b and qwen3-14b
 # --------------------------------------------------------------------------- #
+MAIN_DEPTH = 12    # gemma3-12b's FP8 main path: two whole 5:1 periods
+# (cut for time from 48, to pay for deepseek's phase)
 PREFIX_SHARED = 64                            # 4 full pages of 16
 PREFIX_TAILS = (5, 17, 9, 2, 26, 12, 31, 7)   # each request's own tail
 PREFIX_GEN = 16
@@ -1203,10 +1237,10 @@ def _counted_run(eng, queue, gen: int, scheduler: str = "continuous") -> dict:
     fp8 = eng.cfg.policy.kv_quantized
     launches, other = ((run["lns"], run["flt"]) if fp8
                        else (run["flt"], run["lns"]))
-    if eng.cache_impl == "dense":
+    if eng.cache_impl == "dense" or eng.cfg.attn_impl == "mla":
         if launches or other:
             raise AssertionError(f"K1 launched {launches} + {other} times "
-                                 "on the dense cache")
+                                 "on a cache without pages")
         run["launches"] = 0
         return run
     if launches != eng.cfg.n_layers * run["substeps"] or other:
@@ -1219,13 +1253,15 @@ def _counted_run(eng, queue, gen: int, scheduler: str = "continuous") -> dict:
 
 
 def _cache_digest(cache) -> str:
-    """SHA-256 of a paged cache's bytes (kp, vp, ks, vs in that order),
-    the cache's fingerprint for a bitwise comparison across processes."""
+    """SHA-256 of a paged cache's bytes (kp, vp, ks, vs in that order, or
+    MLA's ckv, kpe), the cache's fingerprint for a bitwise comparison
+    across processes."""
     import hashlib
     import torch
 
     h = hashlib.sha256()
-    for name in ("kp", "vp", "ks", "vs"):
+    for name in [n for n in ("kp", "vp", "ks", "vs", "ckv", "kpe")
+                 if n in cache]:
         t = cache[name].contiguous()
         h.update(name.encode())
         h.update(str(tuple(t.shape)).encode())
@@ -1234,12 +1270,12 @@ def _cache_digest(cache) -> str:
 
 
 def prefix_main_path(dev, policy, params=None, depth=None) -> dict:
-    """This slice's main path: full-width, full-depth gemma3-12b (48
-    layers, 5 local layers of window 1,024 to each global one, hd 256;
-    its first ``depth`` layers when given, as on bf16 pages since PR 26,
-    cut for time) served through the Engine with the prefix cache, 4
-    slots, page 16, a
-    worst-case pool; 8 requests of a shared 64-token prefix and their own
+    """This slice's main path: full-width gemma3-12b (48 layers, 5 local
+    layers of window 1,024 to each global one, hd 256; its first
+    ``depth`` layers when given: ``MAIN_DEPTH`` on FP8 pages and 6 on
+    bf16 pages, cut for time) served through the
+    Engine with the prefix cache, 4 slots, page 16, a worst-case pool; 8
+    requests of a shared 64-token prefix and their own
     tails, 16 generated tokens each, chunk 4.  Two runs, fused decode:
     prefix off and prefix on (unfused decode runs at depth 6 in
     :func:`preempt_shared_path`, cut for time).
@@ -1256,7 +1292,7 @@ def prefix_main_path(dev, policy, params=None, depth=None) -> dict:
     served = params
     if depth is not None:
         cfg = dataclasses.replace(cfg, n_layers=depth)
-        served = _shallow(params, depth)
+        served = None if params is None else _shallow(params, depth)
     label = _policy_label(cfg, policy)
     queue = _prefix_queue(cfg)
     runs = {}
@@ -2060,6 +2096,266 @@ def moe_path(dev, k1: dict, k1f: dict) -> dict:
                 bf16_err=base["bf16"]["err"])
 
 
+# --------------------------------------------------------------------------- #
+# MLA with MoE: deepseek-v2-lite-16b
+# --------------------------------------------------------------------------- #
+MLA_ARCH = "deepseek-v2-lite-16b"
+MLA_SHALLOW_DEPTH = 2     # the dense layer and one MoE layer
+MLA_K2_PER_LAYER = 6      # wq, w_dkv, wo and the prefix MLP's or the
+# shared experts' three; w_uk, w_uv, the routed experts and the unembed
+# are decoded before their products, as in the reference
+
+
+def _mla_layer_mats(layer) -> list:
+    """An MLA layer's static weights that multiply as codes (K2 under a
+    quantized matmul): attention's wq, w_dkv, wo, then the prefix MLP's or
+    the shared experts' three."""
+    ffn = layer["ffn"].get("shared", layer["ffn"])
+    return [layer["attn"][n] for n in ("wq", "w_dkv", "wo")] + \
+        [ffn[n] for n in ("w_gate", "w_up", "w_down")]
+
+
+def _mla_snapshot_roundtrip(dev, cfg, params, card) -> None:
+    """Save while a request sits PREEMPTED (its latents' rows spilled to
+    the host), load into a freshly built engine: every cache leaf and
+    spill tensor ``torch.equal``, the pool's state equal."""
+    import tempfile
+    import torch
+    from repro_torch.serving import (ContinuousScheduler, Request,
+                                     load_snapshot, save_snapshot)
+
+    def build():
+        eng = _prefix_engine(dev, cfg, params, num_pages=CHAOS_PAGES)
+        return eng, ContinuousScheduler(eng, chunk=4)
+
+    eng, sched = build()
+    for i, prompt in enumerate(_prefix_queue(cfg)):
+        sched.add(Request(rid=i, prompt=prompt, gen=PREFIX_GEN))
+    while not sched.preempted:
+        if not sched.pending():
+            raise AssertionError("the pool never forced a preemption")
+        sched.step()
+    with tempfile.TemporaryDirectory() as ckpt:
+        save_snapshot(ckpt, eng, sched)
+        eng2, sched2 = build()
+        step = load_snapshot(ckpt, eng2, sched2)
+        size = _latest_snapshot(ckpt)["bytes"]
+    spills = [(r.spill["state"], r2.spill["state"])
+              for r, r2 in zip(sched.preempted, sched2.preempted)]
+    if (step != sched.steps or len(spills) != len(sched.preempted)
+            or set(eng.cache) != {"ckv", "kpe"}
+            or eng2.pool.state_dict() != eng.pool.state_dict()
+            or any(not torch.equal(eng2.cache[k], t)
+                   for k, t in eng.cache.items())
+            or any(a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k])
+                   for a, b in spills for k in a)):
+        raise AssertionError("MLA snapshot round trip: restored state "
+                             "differs")
+    print(f"# {MLA_ARCH} depth {cfg.n_layers} {eng.cache['ckv'].dtype} "
+          f"latents: snapshot at step {step} with {len(spills)} PREEMPTED "
+          f"requests, {size} B on disk, loaded into a fresh engine: every "
+          f"cache leaf and spill tensor bitwise equal; [{card}]", flush=True)
+    del eng, eng2, sched, sched2, spills
+    torch.cuda.empty_cache()
+
+
+def mla_path(dev) -> dict:
+    """Phase: deepseek-v2-lite-16b (27 layers: one dense layer of d_ff
+    10,944, then 26 MoE layers of 64 experts top-6 of d_ff 1,408 and 2
+    shared; MLA with a 512-wide latent and 64 RoPE dims, 16 heads of qk
+    128 + 64 and v 128; ~15.7 B parameters, ~31.4 GB of bf16) served on the
+    main path at full width, on weights drawn on the card from seed 0 and
+    redrawn by :func:`_lively`, the 8 shared-prefix requests of
+    :func:`prefix_main_path`, 4 slots, page 16, chunk 4.  MLA keeps its
+    latents as dense per-slot rows beside the page pool and makes no
+    kernel call (the reference has none for it): K1 is launched never.
+
+    At full depth: one FP8-latent run (serve_fp8_paged: E5M2 codes at
+    scale 1, RNE), continuous scheduler, every stream varied; printed: the
+    wall, decode tokens/s, peak memory and the busiest expert's share of
+    its layer's routed pairs.  At depth ``MLA_SHALLOW_DEPTH`` (the dense
+    layer and one MoE layer), on both latent kinds (FP8, and bf16 as the
+    CLI's default): a rerun bitwise; a pool of ``PREFIX_PREEMPT_PAGES``
+    that preempts (each spilled slot's rows restored verbatim) bitwise
+    equal to the worst-case pool; a snapshot round trip while a request
+    sits PREEMPTED; the bucketed scheduler on the paged and on the dense
+    cache, bitwise equal; continuous against bucketed printed (share of
+    equal tokens, first divergence).  Float32 latents and parameters: the
+    first-step logits on the card within rtol = atol = 1e-3 of the port's
+    CPU engine on the same weights and tokens (no plain kernel version
+    exists for MLA, so this holds the path on the card).  Static weights:
+    streams bitwise equal to those of the bf16 weights decoded from the
+    same codes (serve_fp8_paged); under a policy whose matmuls take the
+    codes through K2 (``k_static_policy("fused_dequant")``),
+    ``MLA_K2_PER_LAYER`` x n_layers K2 launches a sub-step, none of K3,
+    every call within 2 sqrt(K) 2^-24 sum|products| of its plain version
+    (:class:`_ShadowMatmul`); then K2's card time on one MoE layer's six
+    products at M = 4 beside its bound, the plain version and
+    ``torch.matmul`` on the decoded bf16 weights."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QTensor
+    from repro_torch.models.quantize import quantize_params, resolve_weight
+
+    card = card_line()
+    full = get_config(MLA_ARCH, policy="serve_fp8_paged")
+    queue = _prefix_queue(full)
+    eng = _prefix_engine(dev, full, None)
+    params = _lively(eng).params
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    moe_layers = dataclasses.replace(full,
+                                     n_layers=full.n_layers - full.first_dense)
+    with _MoeStats(moe_layers) as stats:
+        run = _counted_run(eng, queue, PREFIX_GEN)
+    peak = torch.cuda.max_memory_allocated()
+    distinct = _require_varied(run["outputs"], f"{MLA_ARCH} full depth")
+    share, layer, expert = stats.busiest()
+    print(f"# {MLA_ARCH} full depth ({full.n_layers} layers) serve_fp8_paged "
+          f"(E5M2 latents): {len(queue)} requests, {run['stats']['steps']} "
+          f"steps, {run['substeps']} sub-steps, {run['wall']:.3f} s wall, "
+          f"{run['stats']['decode_tok_s']:.2f} decode tok/s, "
+          f"{run['wall'] / run['substeps'] * 1e3:.2f} ms a sub-step; "
+          f"{held / 2**30:.2f} GiB allocated before the run (the weights and "
+          f"what earlier phases hold), peak {peak / 2**30:.2f} GiB; latent "
+          f"cache {eng.kv_cache_bytes()} B "
+          f"({run['stats']['cache_bytes_per_token']:.0f} B a token); the "
+          f"busiest expert (MoE layer {layer}, expert {expert}) took "
+          f"{100 * share:.2f}% of its layer's routed pairs (uniform "
+          f"{100 / full.n_experts:.2f}%); distinct tokens per stream "
+          f"{distinct}; [{card}]", flush=True)
+    del eng
+    params = _shallow(params, MLA_SHALLOW_DEPTH)   # the rest freed
+    torch.cuda.empty_cache()
+    out = dict(full_wall=run["wall"], full_substeps=run["substeps"],
+               peak=peak, busiest=share)
+
+    def serve(policy, scheduler="continuous", served=None, **kw):
+        cfg = dataclasses.replace(get_config(MLA_ARCH, policy=policy),
+                                  n_layers=MLA_SHALLOW_DEPTH)
+        eng = _prefix_engine(dev, cfg, params if served is None else served,
+                             **kw)
+        r = _counted_run(eng, queue, PREFIX_GEN, scheduler=scheduler)
+        label = (f"{MLA_ARCH} depth {MLA_SHALLOW_DEPTH} "
+                 f"{_policy_label(cfg, policy)}, {scheduler}, "
+                 f"{eng.cache_impl} cache"
+                 + (f", {kw['num_pages'] - 1} pages" if "num_pages" in kw
+                    else ""))
+        print(f"# {label}: {r['stats']['steps']} steps, {r['substeps']} "
+              f"sub-steps, {r['stats'].get('preemptions', 0)} preemptions, "
+              f"{r['wall']:.3f} s wall", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+        return r
+
+    for policy, kind in (("serve_fp8_paged", "fp8"), (None, "bf16")):
+        base = serve(policy)
+        _require_varied(base["outputs"], f"{MLA_ARCH} depth "
+                        f"{MLA_SHALLOW_DEPTH} {kind}", constant_share=0.25)
+        again = serve(policy)
+        small = serve(policy, num_pages=PREFIX_PREEMPT_PAGES)
+        if small["stats"]["preemptions"] < 1 or \
+                small["stats"]["restores"] < 1:
+            raise AssertionError(f"{kind}: the small pool never preempted")
+        paged = serve(policy, "bucketed")
+        dense = serve(policy, "bucketed", cache_impl="dense")
+        for what, r in (("a rerun", again), ("preemption", small),
+                        ("the bucketed dense cache", dense)):
+            want = paged if r is dense else base
+            if r["outputs"] != want["outputs"]:
+                raise AssertionError(f"{MLA_ARCH} {kind}: token streams "
+                                     f"differ with {what}")
+        same, first = _agreement(base["outputs"], paged["outputs"])
+        print(f"# {MLA_ARCH} depth {MLA_SHALLOW_DEPTH} {kind} latents: "
+              "token streams bitwise equal on a rerun, under preemption "
+              f"({small['stats']['preemptions']} preemptions, "
+              f"{small['stats']['restores']} restores) and bucketed on the "
+              f"paged and the dense cache; continuous vs bucketed "
+              f"{100 * same:.1f} % of tokens equal, first divergence "
+              f"{first}", flush=True)
+        cfg = dataclasses.replace(get_config(MLA_ARCH, policy=policy),
+                                  n_layers=MLA_SHALLOW_DEPTH)
+        _mla_snapshot_roundtrip(dev, cfg, params, card)
+
+    # float32 latents and parameters: the card against the port's CPU run
+    cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_SHALLOW_DEPTH,
+                              param_dtype="float32")
+    own = _prefix_engine(dev, cfg, None).params
+
+    def to(tree, device):
+        if isinstance(tree, dict):
+            return {k: to(v, device) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, device) for v in tree]
+        return tree.to(device)
+
+    kern = _first_step_logits(dev, cfg, own)
+    host = _first_step_logits("cpu", cfg, to(own, "cpu"))
+    del own
+    torch.cuda.empty_cache()
+    np.testing.assert_allclose(kern, host, rtol=1e-3, atol=1e-3)
+    print(f"# {MLA_ARCH} depth {MLA_SHALLOW_DEPTH}, float32 latents and "
+          f"parameters: first-step logits on the card within "
+          f"{np.abs(kern - host).max():.3e} of the CPU engine's (max |logit| "
+          f"{np.abs(host).max():.3f}); [{card}]", flush=True)
+
+    # static weights: decoded == bf16 of the same codes; codes through K2
+    fp8 = dataclasses.replace(full, n_layers=MLA_SHALLOW_DEPTH)
+    codes = quantize_params(params, fp8.policy,
+                            period=fp8.layer_pattern_period)
+
+    def decoded(t):
+        if isinstance(t, dict):
+            return {k: decoded(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [decoded(v) for v in t]
+        return resolve_weight(t) if isinstance(t, QTensor) else t
+
+    static = serve("serve_fp8_paged", served=codes, static_weights=True)
+    plain = serve("serve_fp8_paged", served=decoded(codes))
+    _require_varied(static["outputs"], "deepseek static weights",
+                    constant_share=0.25)
+    if static["outputs"] != plain["outputs"]:
+        raise AssertionError(f"{MLA_ARCH} static weights: token streams "
+                             "differ from the bf16 weights decoded from the "
+                             "same codes")
+    k2cfg = dataclasses.replace(
+        get_config(MLA_ARCH), numerics=k_static_policy("fused_dequant"),
+        n_layers=MLA_SHALLOW_DEPTH)
+    eng = _prefix_engine(dev, k2cfg, codes)
+    _reset_matmul_counts()
+    with _ShadowMatmul("dequant_matmul") as shadow:
+        r = _counted_run(eng, queue, PREFIX_GEN)
+    k3, k2 = _matmul_counts()
+    want = MLA_K2_PER_LAYER * MLA_SHALLOW_DEPTH * r["substeps"]
+    print(f"# {MLA_ARCH} depth {MLA_SHALLOW_DEPTH} static weights through "
+          f"K2 (fused_dequant), continuous: {r['substeps']} sub-steps, {k2} "
+          f"K2 launches ({MLA_K2_PER_LAYER} x {MLA_SHALLOW_DEPTH} layers x "
+          f"sub-steps = {want}), {k3} K3; {shadow.calls} calls each within "
+          f"{shadow.err:.3e} of the plain version (at most "
+          f"{shadow.of_limit:.4f} of the limit {SHADOW_SUM_LIMIT} sqrt(K) "
+          f"2^-24 sum|products|) at (M, K, N) {sorted(shadow.shapes)}; "
+          f"{r['wall']:.3f} s wall; streams bitwise equal static vs decoded "
+          f"bf16 ({static['wall']:.3f} s, {plain['wall']:.3f} s)", flush=True)
+    if k2 != want or k3 or shadow.calls != want:
+        raise AssertionError(f"K2 on deepseek's static weights: {k2} "
+                             f"launches ({k3} of K3, {shadow.calls} calls), "
+                             f"want {want}")
+    _require_varied(r["outputs"], "deepseek static weights through K2",
+                    constant_share=0.25)
+    del eng
+    torch.cuda.empty_cache()
+    timed = _static_layer_ms(dev, _mla_layer_mats(codes["blocks"][0]),
+                             "fused_dequant", PREFIX_SLOTS,
+                             label=f"one {MLA_ARCH} MoE layer (6 products)")
+    del codes, params
+    torch.cuda.empty_cache()
+    out.update(k2_launches=k2, k2_err=shadow.err, k2=timed)
+    return out
+
+
 def _plain_attention_policy(pol):
     return pol.replace(attention_qk=dataclasses.replace(pol.attention_qk,
                                                         impl="ref"))
@@ -2586,9 +2882,7 @@ def static_weights_path(dev, params) -> dict:
     if static["outputs"] != plain["outputs"]:
         raise AssertionError("static weights: token streams differ from the "
                              "plain bf16 engine on the decoded codes")
-    layer = codes["blocks"][0]
-    mats = [layer["attn"][n] for n in ("wq", "wk", "wv", "wo")] + \
-        [layer["ffn"][n] for n in ("w_gate", "w_up", "w_down")]
+    mats = _gqa_mats(codes["blocks"][0])
     decode_ms, how = device_ms(lambda: [resolve_weight(q) for q in mats],
                                iters=10)
     qbytes = _weight_bytes(codes)
@@ -2686,11 +2980,20 @@ class _ShadowMatmul:
         return False
 
 
-def _static_layer_ms(dev, layer, impl: str, M: int) -> dict:
-    """Card time of one gemma3-12b layer's seven static-weight matmuls at
-    M rows (E4M3 codes of random activations times the layer's stored
-    codes): the kernel, its plain version and, for K2, ``torch.matmul`` on
-    the decoded bf16 operands; the function's bound (its bytes: the weight
+def _gqa_mats(layer) -> list:
+    """A GQA layer's seven static weights (attention, then the MLP)."""
+    return [layer["attn"][n] for n in ("wq", "wk", "wv", "wo")] + \
+        [layer["ffn"][n] for n in ("w_gate", "w_up", "w_down")]
+
+
+def _static_layer_ms(dev, mats, impl: str, M: int,
+                     label: str = "one gemma3-12b layer (7 matmuls)"
+                     ) -> dict:
+    """Card time of one layer's static-weight matmuls ``mats`` (QTensors;
+    gemma3-12b's seven, :func:`_gqa_mats`) at M rows (E4M3 codes of
+    random activations times the layer's stored codes): the kernel, its
+    plain version and, for K2, ``torch.matmul`` on the decoded bf16
+    operands; the function's bound (its bytes: the weight
     codes, x's codes and the float32 out, once each, over the memory rate;
     against its 2 M K N operations at the card's dense rate, bf16 for K2's
     float products, 8-bit for K3's) and, for K3, its R-fold plane work
@@ -2701,8 +3004,6 @@ def _static_layer_ms(dev, layer, impl: str, M: int) -> dict:
     from repro_torch.kernels.common import code_to_f32, lns_plane_tables
 
     g = torch.Generator(device=dev).manual_seed(M)
-    mats = [layer["attn"][n] for n in ("wq", "wk", "wv", "wo")] + \
-        [layer["ffn"][n] for n in ("w_gate", "w_up", "w_down")]
     xs = [quantize(torch.randn((M, q.codes.shape[0]), generator=g,
                                device=dev), "e4m3").codes for q in mats]
     if impl == "fused_dequant":
@@ -2756,7 +3057,7 @@ def _static_layer_ms(dev, layer, impl: str, M: int) -> dict:
     lib = ("" if res["library_ms"] is None else
            f", torch.matmul on decoded bf16 {res['library_ms']:.5f} ms")
     print(f"# {'K2' if impl == 'fused_dequant' else 'K3'} static weights, "
-          f"one gemma3-12b layer (7 matmuls) at M = {M}: kernel {ms:.5f} ms "
+          f"{label} at M = {M}: kernel {ms:.5f} ms "
           f"({how}), plain {plain_ms:.4f} ms{lib}; bound "
           f"{res['bound_ms']:.5f} ms = max({nbytes} B / 3.35 TB/s = "
           f"{b_bytes:.5f} ms, {2 * prods} operations = {b_ops:.5f} ms) -> "
@@ -2853,7 +3154,8 @@ def static_kernel_path(dev, codes) -> dict:
                   flush=True)
         res[impl]["launches"] = launches
         for M in (PREFIX_SLOTS, PREFIX_SLOTS * KERNEL_PLEN):
-            res[impl][M] = _static_layer_ms(dev, codes["blocks"][0], impl, M)
+            res[impl][M] = _static_layer_ms(
+                dev, _gqa_mats(codes["blocks"][0]), impl, M)
     return res
 
 
@@ -4734,7 +5036,8 @@ def main() -> int:
     _phase(profile_main_path, dev, policy=None, depth=PROFILE_DEPTH)
     _phase(preemption_path, dev, "serve_fp8_paged")
     _phase(preemption_path, dev, None)
-    served_prefix = _phase(prefix_main_path, dev, "serve_fp8_paged")
+    served_prefix = _phase(prefix_main_path, dev, "serve_fp8_paged", None,
+                           MAIN_DEPTH)
     params = served_prefix.pop("params")
     served_prefix_float = _phase(prefix_main_path, dev, None, params,
                                  PREFIX_PREEMPT_DEPTH)
@@ -4753,6 +5056,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe = _phase(moe_path, dev, k1["moe"], k1f["moe"])
     _phase(profile_main_path, dev, arch=MOE_ARCH, depth=PROFILE_DEPTH)
+    mla = _phase(mla_path, dev)
+    _phase(profile_main_path, dev, arch=MLA_ARCH, depth=PROFILE_DEPTH)
     _phase(profile_main_path, dev, arch="gemma3-12b", depth=PROFILE_DEPTH)
     _phase(profile_main_path, dev, policy=None, arch="gemma3-12b",
            depth=PROFILE_DEPTH)
@@ -4881,6 +5186,14 @@ def main() -> int:
             launches=k["launches"], max_abs_err=k["err"], ms=m4["ms"],
             plain_ms=m4["plain_ms"], bound_ms=m4["bound_ms"],
             bound_by=m4["bound_by"], library_ms=m4["library_ms"]))
+    k = mla["k2"]
+    kernels.append(dict(
+        name="dequant_matmul_static_weights_deepseek", route="cuda",
+        source=src + "lns_matmul.cu",
+        replaces="src/repro/kernels/lns_matmul.py:110",
+        launches=mla["k2_launches"], max_abs_err=mla["k2_err"], ms=k["ms"],
+        plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+        bound_by=k["bound_by"], library_ms=k["library_ms"]))
     for name, key, line, launches in (
             ("lns_matmul_experts", "K3", 62, moe_trained["launches"]),
             ("dequant_matmul_experts", "K2", 110, moe_plain["k2_launches"])):

@@ -1,9 +1,12 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
 The port runs the dense GQA family (qwen2-0.5b, qwen3-14b, gemma2-27b,
-gemma3-12b) and the MoE stack with GQA attention (granite-moe-3b-a800m);
-the reference's other architectures (MLA with MoE, SSM, hybrid, enc-dec,
-VLM) arrive with later slices and are refused by name until then.
+gemma3-12b), the MoE stack with GQA attention (granite-moe-3b-a800m) and
+MLA with MoE, shared experts and a leading dense layer
+(deepseek-v2-lite-16b; served, its training refused until ROADMAP.md
+Queue 1 item 11b-train); the reference's other architectures (SSM,
+hybrid, enc-dec, VLM) arrive with later slices and are refused by name
+until then.
 """
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ import dataclasses
 from typing import Any, Dict
 
 from .base import ModelConfig
+from .deepseek_v2_lite_16b import CONFIG as _deepseek
 from .gemma2_27b import CONFIG as _gemma2
 from .gemma3_12b import CONFIG as _gemma3
 from .granite_moe_3b import CONFIG as _granite
@@ -18,7 +22,8 @@ from .qwen2_0_5b import CONFIG as _qwen2
 from .qwen3_14b import CONFIG as _qwen3
 
 CONFIGS: Dict[str, ModelConfig] = {
-    c.name: c for c in [_qwen2, _gemma2, _qwen3, _gemma3, _granite]}
+    c.name: c for c in [_qwen2, _gemma2, _qwen3, _gemma3, _granite,
+                        _deepseek]}
 
 
 def legacy_quant_config(quant: str) -> Dict[str, Any]:
@@ -54,9 +59,9 @@ def get_config(arch: str, *, quant: str = "none", smoke: bool = False,
     if arch not in CONFIGS:
         raise NotImplementedError(
             f"architecture {arch!r} is not ported yet; the port runs "
-            f"{sorted(CONFIGS)}; MLA with MoE, SSM, hybrid, enc-dec and "
-            "VLM architectures arrive with later slices (ROADMAP.md Queue 1 "
-            "items 11b-11f)")
+            f"{sorted(CONFIGS)}; SSM, hybrid, enc-dec and VLM "
+            "architectures arrive with later slices (ROADMAP.md Queue 1 "
+            "items 11c-11f)")
     cfg = CONFIGS[arch]
     if smoke:
         cfg = cfg.smoke()

@@ -2,8 +2,9 @@
 
 One frozen dataclass describes every architecture of the reference's zoo;
 the port runs its dense GQA family (qwen2-0.5b, qwen3-14b, gemma2-27b,
-gemma3-12b).  The legacy ``QuantConfig`` shim is not ported: ``numerics``
-holds the :class:`~repro_torch.numerics.Policy` directly.  ``smoke()`` derives the
+gemma3-12b), granite-moe-3b-a800m and deepseek-v2-lite-16b.  The
+legacy ``QuantConfig`` shim is not ported: ``numerics`` holds the
+:class:`~repro_torch.numerics.Policy` directly.  ``smoke()`` derives the
 same reduced config as the reference for CPU tests.
 """
 from __future__ import annotations

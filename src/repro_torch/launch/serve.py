@@ -13,6 +13,12 @@ Port of ``repro.launch.serve`` for its single-device paths:
   equal to the cache off); or with the dense per-slot cache
   (``cache_impl="dense"``: scale-1 FP8 codes or floats, a ring buffer of
   the window's length for local layers);
+* MLA stacks (deepseek-v2-lite-16b) on every one of those paths but the
+  prefix cache and the mesh, which the reference refuses too: their
+  latents are dense per-slot rows beside the page pool
+  (``models.model.SLOT_LEAVES``), written by every sub-step at each
+  slot's position, spliced by a bucketed prefill, and spilled and
+  restored by a preemption as the slot's whole rows, verbatim;
 * ``static_weights=True``: the eligible weights held as FP8 codes
   (``models.quantize``), decoded before each float product or, under a
   policy that quantizes matmuls, multiplied as codes by K2
@@ -25,10 +31,11 @@ Port of ``repro.launch.serve`` for its single-device paths:
   ``sample``; and the CLI.
 
 Every paged token, prefill or decode, is a single-token sub-step of
-``Model.step_paged`` or ``Model.decode_step_paged``, whose attention
+``Model.step_paged`` or ``Model.decode_step_paged``, whose GQA attention
 layers launch the hand-written CUDA kernel K1
 (``kernels/paged_attention.py``: its float instance on float pages, its
-LNS instance on FP8 pages).
+LNS instance on FP8 pages); MLA's absorbed decode is float32 products in
+plain PyTorch, as in the reference, which has no kernel for it.
 
 The engine runs on the card unless the caller passes ``device="cpu"``
 (the tests), and raises when no GPU is present — there is no silent CPU
@@ -52,6 +59,8 @@ streams and the gathered cache are the TP=1 engine's bit for bit.
         --shared-prefix 64
     python -m repro_torch.launch.serve --arch gemma3-12b --scheduler bucketed \\
         --cache-impl dense
+    python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \\
+        --policy serve_fp8_paged
 """
 from __future__ import annotations
 
@@ -69,6 +78,7 @@ from .. import numerics
 from ..configs import get_config
 from ..core import prng
 from ..models import Model
+from ..models.model import SLOT_LEAVES
 from ..models.quantize import quantize_leaf
 from ..parallel import sharding
 from ..parallel.hints import serve_hint_specs, use_hints
@@ -205,7 +215,8 @@ class Engine:
         self.pool = PagePool(num_pages, page_size, slots,
                              self.max_pages_per_slot)
         self.cache = self.place_cache(self.model.make_paged_cache(
-            num_pages, page_size, self.device))
+            num_pages, page_size, self.device, slots=slots,
+            max_seq=max_seq))
         # device mirror of pool.block_tables, re-uploaded only when the
         # pool's version moves (at most one transfer per mutating step)
         self._bt_device = None
@@ -429,16 +440,19 @@ class Engine:
         with self.tel.span("kv_write", kind="cow", src=old, dst=new):
             src = torch.tensor([old], dtype=torch.int64, device=self.device)
             dst = torch.tensor([new], dtype=torch.int64, device=self.device)
-            for t in self.cache.values():
-                t.index_copy_(1, dst, t.index_select(1, src))
+            for name, t in self.cache.items():
+                if name not in SLOT_LEAVES:
+                    t.index_copy_(1, dst, t.index_select(1, src))
 
     # ------------------------------------------------------------------ #
     # Preemption
     # ------------------------------------------------------------------ #
     def preempt_slot(self, slot: int) -> dict:
         """Spill ``slot`` to the host: copy its unregistered pages'
-        contents (codes and scales, or float rows) out of every layer
-        verbatim, never re-quantized, then free them, so a later
+        contents (codes and scales, or float rows) and its rows of every
+        dense per-slot leaf (MLA's latents, ``SLOT_LEAVES``: the whole
+        ``[n_layers, 1, S, ...]``) out of every layer verbatim, never
+        re-quantized, then free the pages, so a later
         :meth:`restore_slot` is bit-identical.  Registered prefix pages are
         neither copied nor freed: they stay resident under a pin
         (``PagePool.spill_slot``).  Returns the spill record, which also
@@ -449,8 +463,10 @@ class Engine:
     def _preempt_slot(self, slot: int) -> dict:
         spilled, pinned = self.pool.spill_plan(slot)
         ids = torch.as_tensor(spilled, dtype=torch.int64, device=self.device)
+        row = torch.as_tensor([slot], dtype=torch.int64, device=self.device)
         # the index gather copies, so the host tensors never alias the cache
-        state = {name: t[:, ids].cpu() for name, t in self.cache.items()}
+        state = {name: t[:, row if name in SLOT_LEAVES else ids].cpu()
+                 for name, t in self.cache.items()}
         self.pool.spill_slot(slot)
         # the prompt's page hashes travel with the request, whichever slot
         # it is restored into
@@ -461,8 +477,9 @@ class Engine:
     def restore_slot(self, slot: int, record: dict) -> None:
         """Re-admit a preempted request into ``slot``: fresh pages (ids may
         differ from the spilled ones), the saved contents scattered back
-        into every layer, the pinned prefix pages re-referenced at their
-        logical indices, and the prompt's hashes bound to ``slot``."""
+        into every layer (dense per-slot rows into ``slot``'s), the pinned
+        prefix pages re-referenced at their logical indices, and the
+        prompt's hashes bound to ``slot``."""
         with self.tel.span("restore", slot=slot):
             self._restore_slot(slot, record)
 
@@ -473,8 +490,10 @@ class Engine:
             self._slot_hash[slot] = record["hashes"]
             self._slot_registered[slot] = record.get("registered", 0)
         ids = torch.as_tensor(new_ids, dtype=torch.int64, device=self.device)
+        row = torch.as_tensor([slot], dtype=torch.int64, device=self.device)
         for name, saved in record["state"].items():
-            self.cache[name][:, ids] = saved.to(self.device)
+            self.cache[name][:, row if name in SLOT_LEAVES else ids] = \
+                saved.to(self.device)
 
     # ------------------------------------------------------------------ #
     def _assert_writable(self, lengths: np.ndarray, n_new: np.ndarray) -> None:
@@ -529,17 +548,26 @@ class Engine:
     def _splice(self, small, slots: List[int], page_ids: np.ndarray,
                 keys) -> None:
         """Write each prefill row's dense cache entries into its slot, in
-        place: rows of the dense cache, or freshly allocated pages (each
-        page's scale from its whole content, the codes rescaled to it with
+        place: rows of the dense cache or of the paged cache's dense
+        per-slot leaves (MLA's latents, copied verbatim: the reference's
+        ``splice_dense_leaf``), or freshly allocated pages (each page's
+        scale from its whole content, the codes rescaled to it with
         stochastic carry-ins when ``keys`` is given).  Prefill row ``i``'s
         K and V take ``fold_in(keys, 2 i)`` and ``fold_in(keys, 2 i + 1)``,
         split per block.  On a mesh a page's scale comes from its absmax
         over every rank's KV heads, and the rescale's bits are drawn for
         every head and cut to this rank's."""
         cfg = self.cfg
+        if self.cache_impl == "paged" and cfg.attn_impl == "mla":
+            for name in SLOT_LEAVES:
+                leaf = self.cache[name]
+                src = torch.stack([c[name] for c in small])  # [L, n, S, w]
+                for i, slot in enumerate(slots):
+                    leaf[:, slot, :src.shape[2]] = src[:, i].to(leaf.dtype)
+            return
         if self.cache_impl == "dense":
             for entry, new in zip(self.cache, small):
-                for name in ("k", "v"):
+                for name in entry:
                     src = new[name]
                     if src.shape[1] > entry[name].shape[1]:
                         raise ValueError(
@@ -690,8 +718,10 @@ class Engine:
         return cache_bytes(self.cache)
 
     def kv_capacity_tokens(self) -> int:
-        """Tokens the cache memory holds (pool pages or dense rows)."""
-        if self.pool is not None:
+        """Tokens the cache memory holds: pool pages, or the dense rows of
+        a dense cache or of MLA's per-slot latents (whose pool only
+        accounts)."""
+        if self.pool is not None and self.cfg.attn_impl != "mla":
             return (self.pool.num_pages - 1) * self.page_size
         return self.slots * self.max_seq
 

@@ -3,7 +3,8 @@
 Port of ``repro.launch.train``, single-device: the model trains on the
 card unless ``--device cpu`` is given (without a card and without that
 flag it raises).  ``--mesh`` other than ``1x1`` (FSDP/TP training) is not
-ported yet.  Examples:
+ported yet, nor is training deepseek-v2-lite-16b (ROADMAP.md Queue 1 item
+11b-train; the port serves it).  Examples:
 
   # CPU smoke run on learnable synthetic data (plain kernel versions):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\

@@ -2,28 +2,38 @@
 dense-cache decode (the bucketed scheduler's model calls), and the paged
 cache with the paged decode/mixed steps of the serving path.
 
-Port of ``repro.models.model.Model`` for GQA attention stacks: the dense
+Port of ``repro.models.model.Model`` for attention stacks: the dense GQA
 family (qwen2, qwen3's qk-norm, gemma2/3's sandwich norms, embedding
-scale, local/global windows and softcaps) and the MoE family without
-shared experts or leading dense layers (granite-moe-3b-a800m), served
-and trained (the loss adds the MoE aux terms).
+scale, local/global windows and softcaps), the MoE family (granite-moe-3b-
+a800m), served and trained (the loss adds the MoE aux terms), and MLA with
+MoE, shared experts and a leading dense layer (deepseek-v2-lite-16b),
+served (its training waits for ROADMAP.md Queue 1 item 11b-train).
 Parameters are a plain dict: ``embed`` [Vp, D], ``final_norm`` [D],
-optional ``unembed`` [D, Vp], and ``blocks``, a list of per-layer
-dicts with the reference's names (``ln1``, ``attn.wq``/``bq``/...,
-``ln2``, ``ffn.w_gate``/``w_up``/``w_down``; an MoE layer's ``ffn`` is
-``router`` float32 [D, E], ``w_gate``/``w_up`` [E, D, F] and ``w_down``
-[E, F, D]).  :func:`params_from_jax`
+optional ``unembed`` [D, Vp], ``blocks``, a list of per-layer dicts with
+the reference's names (``ln1``, ``attn.wq``/``bq``/..., ``ln2``,
+``ffn.w_gate``/``w_up``/``w_down``; an MoE layer's ``ffn`` is ``router``
+float32 [D, E], ``w_gate``/``w_up`` [E, D, F], ``w_down`` [E, F, D] and,
+with shared experts, ``shared``; an MLA layer's ``attn`` is ``wq``,
+``w_dkv``, ``kv_norm``, ``w_uk``, ``w_uv``, ``wo``), and, with
+``first_dense`` leading layers, ``prefix``, their list (the reference's
+``params["prefix"]``; each an MLP of ``d_ff``).  :func:`params_from_jax`
 carries a reference ``Model.init`` tree across (the tests' route); the
 chip has no JAX, so :meth:`Model.init` draws the same distributions from
 a torch ``Generator``.
 
-The paged cache is {"kp", "vp": [n_layers, P, page, KV, hd], "ks", "vs":
-[n_layers, P] float32}: uint8 FP8 codes with their page scales when the
-policy quantizes the KV cache, pages of the parameters' dtype (scales
-unread) otherwise; the steps update it in place.  The dense cache is one
-{"k", "v": [B, W, KV, hd]} dict per layer, scale-1 FP8 codes or floats of
-the parameters' dtype, with ``W = min(S, window)`` rows for local layers
-(a ring buffer) and ``S`` for global ones.  Static FP8 weights
+The paged cache of a GQA stack is {"kp", "vp": [n_layers, P, page, KV,
+hd], "ks", "vs": [n_layers, P] float32}: uint8 FP8 codes with their page
+scales when the policy quantizes the KV cache, pages of the parameters'
+dtype (scales unread) otherwise; the steps update it in place.  MLA keeps
+no pages: its paged cache is the dense per-slot latents {"ckv": [n_layers,
+B, S, L], "kpe": [n_layers, B, S, dr]} beside the page pool (the
+reference's ``_entry_cache_paged``), scale-1 FP8 codes or floats, and the
+pool only accounts for the slots' tokens.  ``SLOT_LEAVES`` names the
+leaves indexed by slot on their second axis (the others by page).  The
+dense cache is one dict per layer, {"k", "v": [B, W, KV, hd]} or MLA's
+{"ckv", "kpe"}, scale-1 FP8 codes or floats of the parameters' dtype,
+with ``W = min(S, window)`` rows for local layers (a ring buffer) and
+``S`` for global ones.  Static FP8 weights
 (``models.quantize``) are ``QTensor`` leaves in place of float ones.
 
 On a tensor-parallel mesh (``parallel``) a rank's parameters are its cut
@@ -45,6 +55,7 @@ from ..core.quant import QTensor
 from ..parallel.hints import (hint, shard_start, tp_columns, tp_local,
                               tp_lookup)
 from ..serving.page_pool import kv_noise
+from .attention import mla_init
 from .layers import rms_norm, softcap
 from .moe import moe_init
 from .quantize import resolve_weight
@@ -52,18 +63,21 @@ from .transformer import ffn_kind, stack_decode, stack_forward
 
 NEG = -1.0e30
 
+# the paged cache's leaves indexed by slot on their second axis (MLA's
+# dense per-slot latents); every other leaf is indexed by page there
+SLOT_LEAVES = ("ckv", "kpe")
+
 
 def _check_supported(cfg) -> None:
-    if (cfg.family not in ("dense", "moe") or cfg.attn_impl != "gqa"
-            or cfg.first_dense or cfg.n_shared_experts
-            or (cfg.family == "dense") != (cfg.n_experts == 0)):
+    if (cfg.family not in ("dense", "moe") or cfg.attn_impl not in
+            ("gqa", "mla") or (cfg.family == "dense") != (cfg.n_experts == 0)):
         raise NotImplementedError(
             f"{cfg.name!r} (family={cfg.family!r}, attn={cfg.attn_impl!r}) "
             "is not ported yet; the port runs dense GQA stacks (qwen2, "
-            "qwen3, gemma2, gemma3) and MoE GQA stacks without shared "
-            "experts or leading dense layers (granite); the other families "
-            "arrive with later slices (ROADMAP.md Queue 1 item 11, "
-            "11b-11f)")
+            "qwen3, gemma2, gemma3), MoE GQA stacks (granite) and MLA with "
+            "MoE, shared experts and leading dense layers (deepseek); SSM, "
+            "hybrid, enc-dec and VLM families arrive with later slices "
+            "(ROADMAP.md Queue 1 item 11, 11c-11f)")
 
 
 def params_from_jax(np_params, cfg) -> Dict[str, Any]:
@@ -77,7 +91,8 @@ def params_from_jax(np_params, cfg) -> Dict[str, Any]:
     quantized tree (``quantize_params``: ``QTensor`` leaves with codes
     ``[n_blocks, ...]`` and per-block scales ``[n_blocks, 1, 1]``) becomes
     port ``QTensor`` leaves, one per layer with its block's scale as a
-    scalar."""
+    scalar.  The reference's ``prefix`` tuple (``first_dense`` leading
+    layers, unstacked there) becomes the list ``prefix``."""
     def conv(a):
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":
@@ -103,6 +118,8 @@ def params_from_jax(np_params, cfg) -> Dict[str, Any]:
     out = {k: tree(np_params[k], conv)
            for k in ("embed", "final_norm", "unembed") if k in np_params}
     out["blocks"] = layers
+    if "prefix" in np_params:
+        out["prefix"] = [tree(p, conv) for p in np_params["prefix"]]
     return out
 
 
@@ -118,8 +135,9 @@ class Model:
         """Random parameters with the reference's distributions (weights
         N(0, 0.02^2), biases and norm gains 0), on ``generator.device``.
         ``leaf(path, tensor)``, when given, maps every leaf as soon as it
-        is drawn (``path`` e.g. ``("blocks", 3, "attn", "wq")``), so a
-        mesh engine keeps its cut of each weight and never holds the whole
+        is drawn (``path`` e.g. ``("blocks", 3, "attn", "wq")``, or
+        ``("prefix", 0, ...)`` for a leading dense layer), so a mesh
+        engine keeps its cut of each weight and never holds the whole
         tree; the draws are the same either way."""
         cfg = self.cfg
         dev, dt = generator.device, cfg.pdtype
@@ -134,14 +152,15 @@ class Model:
         def zeros(path, *shape):
             return put(path, torch.zeros(shape, dtype=dt, device=dev))
 
-        params: Dict[str, Any] = {"embed": normal(("embed",), Vp, D)}
-        layers = []
-        for i in range(cfg.n_layers):
-            a, f = ("blocks", i, "attn"), ("blocks", i, "ffn")
-            attn = {"wq": normal(a + ("wq",), D, H * hd),
-                    "wk": normal(a + ("wk",), D, KV * hd),
-                    "wv": normal(a + ("wv",), D, KV * hd),
-                    "wo": normal(a + ("wo",), H * hd, D)}
+        def layer(path, i):
+            a, f = path + ("attn",), path + ("ffn",)
+            if cfg.attn_impl == "mla":
+                attn = mla_init(normal, zeros, cfg, a)
+            else:
+                attn = {"wq": normal(a + ("wq",), D, H * hd),
+                        "wk": normal(a + ("wk",), D, KV * hd),
+                        "wv": normal(a + ("wv",), D, KV * hd),
+                        "wo": normal(a + ("wo",), H * hd, D)}
             if cfg.qkv_bias:
                 attn.update(bq=zeros(a + ("bq",), H * hd),
                             bk=zeros(a + ("bk",), KV * hd),
@@ -154,17 +173,29 @@ class Model:
                    {"w_gate": normal(f + ("w_gate",), D, F),
                     "w_up": normal(f + ("w_up",), D, F),
                     "w_down": normal(f + ("w_down",), F, D)})
-            layer = {"ln1": zeros(("blocks", i, "ln1"), D), "attn": attn,
-                     "ln2": zeros(("blocks", i, "ln2"), D), "ffn": ffn}
+            out = {"ln1": zeros(path + ("ln1",), D), "attn": attn,
+                   "ln2": zeros(path + ("ln2",), D), "ffn": ffn}
             if cfg.sandwich_norm:
-                layer.update(ln1_post=zeros(("blocks", i, "ln1_post"), D),
-                             ln2_post=zeros(("blocks", i, "ln2_post"), D))
-            layers.append(layer)
-        params["blocks"] = layers
+                out.update(ln1_post=zeros(path + ("ln1_post",), D),
+                           ln2_post=zeros(path + ("ln2_post",), D))
+            return out
+
+        n0 = cfg.first_dense
+        params: Dict[str, Any] = {"embed": normal(("embed",), Vp, D)}
+        if n0:
+            params["prefix"] = [layer(("prefix", i), i) for i in range(n0)]
+        params["blocks"] = [layer(("blocks", j), n0 + j)
+                            for j in range(cfg.n_layers - n0)]
         params["final_norm"] = zeros(("final_norm",), D)
         if not cfg.tie_embeddings:
             params["unembed"] = normal(("unembed",), D, Vp)
         return params
+
+    @staticmethod
+    def layers(params) -> list:
+        """Every layer's parameters in order: the ``prefix`` (leading dense)
+        layers, then ``blocks``."""
+        return list(params.get("prefix", ())) + list(params["blocks"])
 
     # ------------------------------------------------------------------ #
     def _embed(self, params, tokens):
@@ -221,7 +252,7 @@ class Model:
         terms: they are zeros, as in the reference."""
         cfg = self.cfg
         x, positions, labels = self._assemble_inputs(params, batch)
-        x, moe_aux = stack_forward(params["blocks"], x, cfg,
+        x, moe_aux = stack_forward(self.layers(params), x, cfg,
                                    positions=positions)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = self._unembed(params, x)
@@ -241,11 +272,12 @@ class Model:
     def prefill(self, params, batch):
         """Full-sequence forward of a batch of equal-length prompts
         {"tokens" [n, S]}: the last position's logits [n, vocab_padded]
-        (float32) and one dense cache entry {"k", "v"} [n, S, KV, hd] per
-        layer, in the dense cache's representation."""
+        (float32) and one dense cache entry per layer ({"k", "v"} [n, S,
+        KV, hd], or MLA's {"ckv", "kpe"}), in the dense cache's
+        representation."""
         cfg = self.cfg
         x, positions, _ = self._assemble_inputs(params, batch)
-        x, caches = stack_forward(params["blocks"], x, cfg,
+        x, caches = stack_forward(self.layers(params), x, cfg,
                                   positions=positions, mode="prefill")
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self._unembed(params, x[:, -1]), caches
@@ -259,18 +291,24 @@ class Model:
         pos = torch.as_tensor(pos, dtype=torch.int64,
                               device=tokens.device).expand(B)
         x = self._embed(params, tokens[:, None])
-        x = stack_decode(params["blocks"], cache, x, cfg, pos=pos)
+        x = stack_decode(self.layers(params), cache, x, cfg, pos=pos)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self._unembed(params, x[:, 0]), cache
 
     def _entry_cache(self, i: int, B: int, S: int, device):
-        """Layer ``i``'s zero dense cache entry: a sliding-window layer
-        never attends past its window, so it keeps a ring buffer of
-        ``min(S, window)`` rows (keys carry RoPE from their absolute
-        position, so the rows' order does not matter)."""
+        """Layer ``i``'s zero dense cache entry: MLA's latents {"ckv" [B,
+        S, L], "kpe" [B, S, dr]}, or GQA's {"k", "v"}, where a
+        sliding-window layer never attends past its window, so it keeps a
+        ring buffer of ``min(S, window)`` rows (keys carry RoPE from their
+        absolute position, so the rows' order does not matter)."""
         cfg = self.cfg
         dt = (torch.uint8 if numerics.kv_quantized(cfg.policy)
               else cfg.pdtype)
+        if cfg.attn_impl == "mla":
+            return {"ckv": torch.zeros((B, S, cfg.kv_lora_rank), dtype=dt,
+                                       device=device),
+                    "kpe": torch.zeros((B, S, cfg.qk_rope_dim), dtype=dt,
+                                       device=device)}
         S_eff = S
         if cfg.window and not cfg.is_global_attn_layer(i):
             S_eff = min(S, cfg.window)
@@ -285,14 +323,27 @@ class Model:
                 for i in range(self.cfg.n_layers)]
 
     # ------------------------------------------------------------------ #
-    def make_paged_cache(self, num_pages: int, page_size: int,
-                         device) -> Dict[str, torch.Tensor]:
+    def make_paged_cache(self, num_pages: int, page_size: int, device,
+                         slots: int = 0, max_seq: int = 0
+                         ) -> Dict[str, torch.Tensor]:
         """Zero pages and unit scales for a ``num_pages``-page pool (page 0
         is the reserved null page), stacked over layers: uint8 codes when
-        the policy quantizes the KV cache, else ``cfg.pdtype``."""
+        the policy quantizes the KV cache, else ``cfg.pdtype``.  MLA keeps
+        its latents as dense per-slot rows instead (``slots`` x
+        ``max_seq``, default the model's ``max_seq``), stacked over layers:
+        {"ckv" [n_layers, slots, S, L], "kpe" [n_layers, slots, S, dr]}."""
         cfg = self.cfg
         dt = (torch.uint8 if numerics.kv_quantized(cfg.policy)
               else cfg.pdtype)
+        if cfg.attn_impl == "mla":
+            S = max_seq or self.max_seq
+            if not (slots and S):
+                raise ValueError("MLA's paged cache holds dense per-slot "
+                                 "latents: pass slots and max_seq")
+            return {name: torch.zeros((cfg.n_layers, slots, S, width),
+                                      dtype=dt, device=device)
+                    for name, width in (("ckv", cfg.kv_lora_rank),
+                                        ("kpe", cfg.qk_rope_dim))}
         shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.hd)
         return {
             "kp": torch.zeros(shape, dtype=dt, device=device),
@@ -308,17 +359,22 @@ class Model:
         """Per-layer (K, V) write keys [n_layers, 2, 2] of a step's stream
         key, derived exactly as the reference does: fold 0 (the block
         stack), split over blocks, fold the pattern index, split into the
-        K and V keys.  Computed on the host once per key and cached."""
+        K and V keys; a leading dense layer ``i`` folds ``1 + i`` instead
+        of the stack's 0.  Computed on the host once per key and
+        cached."""
         words = tuple(int(v) for v in key.tolist())
         if self._key_cache is not None and self._key_cache[0] == (words, device):
             return self._key_cache[1]
         cfg = self.cfg
         period = cfg.layer_pattern_period
-        n_blocks = cfg.n_layers // period
+        n0 = cfg.first_dense
+        n_blocks = (cfg.n_layers - n0) // period
         k = torch.tensor(words, dtype=torch.int64)
         blocks = prng.split(prng.fold_in(k, 0), n_blocks)     # [nb, 2]
         per = torch.stack([prng.fold_in(blocks, j) for j in range(period)],
-                          dim=1).reshape(cfg.n_layers, 2)
+                          dim=1).reshape(n_blocks * period, 2)
+        if n0:
+            per = torch.cat([prng.fold_in(k, torch.arange(1, 1 + n0)), per])
         keys = prng.split(per, 2).to(device)                    # [L, 2, 2]
         self._key_cache = ((words, device), keys)
         return keys
@@ -328,11 +384,14 @@ class Model:
         batched draw: positions [..., B] (each slot's write position) ->
         int64 [..., n_layers, 2, B, KV, hd].  Equal to the reference's
         ``randint(fold_in(k_or_v_key, position), (KV, hd), ...)``.  None
-        without a key or when the pages are float (their writes draw no
-        noise).  On a mesh: this rank's KV heads of the whole draw, the
-        bits the reference's partitionable threefry gives a shard."""
+        without a key, when the pages are float (their writes draw no
+        noise) or when no layer keeps its KV in pages (MLA's latents are
+        dense rows, encoded RNE).  On a mesh: this rank's KV heads of the
+        whole draw, the bits the reference's partitionable threefry gives
+        a shard."""
         cfg = self.cfg
-        if key is None or not numerics.kv_quantized(cfg.policy):
+        if (key is None or not numerics.kv_quantized(cfg.policy)
+                or cfg.attn_impl != "gqa"):
             return None
         keys = self.kv_write_keys(key, positions.device)        # [L, 2, 2]
         lead = positions.shape[:-1]
@@ -349,8 +408,8 @@ class Model:
         paged = {"block_tables": block_tables, "lengths": lengths,
                  "page_size": page_size, "active": active, "fused": fused}
         x = self._embed(params, tokens[:, None])
-        x = stack_decode(params["blocks"], cache, x, self.cfg, paged=paged,
-                         noise=noise)
+        x = stack_decode(self.layers(params), cache, x, self.cfg,
+                         paged=paged, noise=noise)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return self._unembed(params, x[:, 0])
 

@@ -40,7 +40,10 @@ The reference's ``shard_map`` route has no counterpart: a tensor-parallel
 engine replicates the 3-D expert leaves and ``router`` (its serve rules
 do too) and computes every expert whole on each rank, with no collective
 in the layer, so TP=N equals TP=1 bit for bit at every sequence length.
-Shared experts are not ported (ROADMAP.md Queue 1 item 11b).
+Shared experts (deepseek-v2-lite: ``n_shared_experts`` x ``moe_d_ff``
+wide) are one gated MLP over every token, ``p["shared"]``, added to the
+routed output in the layer's dtype under both dispatch modes, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -49,7 +52,7 @@ from typing import Dict, Tuple
 import torch
 
 from .. import numerics
-from .layers import _act, bmm_experts, ste_expert_matmul
+from .layers import _act, bmm_experts, gated_mlp, ste_expert_matmul
 from .quantize import resolve_weight
 
 __all__ = ["moe_init", "capacity", "route", "dispatch", "moe_ffn"]
@@ -58,21 +61,30 @@ __all__ = ["moe_init", "capacity", "route", "dispatch", "moe_ffn"]
 def moe_init(generator: torch.Generator, cfg, put=None, path=()):
     """The reference's MoE leaves drawn from ``generator`` (on its
     device): ``router`` float32 [D, E], ``w_gate``/``w_up`` [E, D, F] and
-    ``w_down`` [E, F, D] in the parameter dtype, all N(0, 0.02^2).
-    ``put(path, tensor)`` maps each leaf as it is drawn (``Model.init``'s
-    hook)."""
+    ``w_down`` [E, F, D] in the parameter dtype, all N(0, 0.02^2), and
+    with shared experts ``shared`` {``w_gate``/``w_up`` [D, Fs],
+    ``w_down`` [Fs, D]}, Fs = n_shared_experts x F.  ``put(path,
+    tensor)`` maps each leaf as it is drawn (``Model.init``'s hook)."""
     D, E, F = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
     dev = generator.device
     put = put if put is not None else (lambda p, t: t)
 
     def normal(name, shape, dtype):
         w = torch.randn(shape, generator=generator, device=dev) * 0.02
-        return put(path + (name,), w.to(dtype))
+        names = name if isinstance(name, tuple) else (name,)
+        return put(path + names, w.to(dtype))
 
-    return {"router": normal("router", (D, E), torch.float32),
-            "w_gate": normal("w_gate", (E, D, F), cfg.pdtype),
-            "w_up": normal("w_up", (E, D, F), cfg.pdtype),
-            "w_down": normal("w_down", (E, F, D), cfg.pdtype)}
+    p = {"router": normal("router", (D, E), torch.float32),
+         "w_gate": normal("w_gate", (E, D, F), cfg.pdtype),
+         "w_up": normal("w_up", (E, D, F), cfg.pdtype),
+         "w_down": normal("w_down", (E, F, D), cfg.pdtype)}
+    if cfg.n_shared_experts:
+        Fs = cfg.n_shared_experts * F
+        p["shared"] = {
+            "w_gate": normal(("shared", "w_gate"), (D, Fs), cfg.pdtype),
+            "w_up": normal(("shared", "w_up"), (D, Fs), cfg.pdtype),
+            "w_down": normal(("shared", "w_down"), (Fs, D), cfg.pdtype)}
+    return p
 
 
 def capacity(T: int, k: int, E: int, factor: float) -> int:
@@ -241,7 +253,12 @@ def moe_ffn(p, x, cfg, site: str = "blocks.*.ffn") -> Tuple[torch.Tensor,
                                                              dict]:
     """x [B, S, D] -> (out [B, S, D], aux {moe_lb, moe_z}) under
     ``cfg.moe_dispatch``: ``grouped`` (the default) or
-    ``sorted_global``."""
+    ``sorted_global``; the shared experts' MLP added."""
     if cfg.moe_dispatch == "grouped":
-        return _moe_ffn_grouped(p, x, cfg, site=site)
-    return _moe_ffn_global(p, x, cfg, site=site)
+        out, aux = _moe_ffn_grouped(p, x, cfg, site=site)
+    else:
+        out, aux = _moe_ffn_global(p, x, cfg, site=site)
+    if "shared" in p:
+        out = out + gated_mlp(x, p["shared"], cfg.policy, cfg.act_fn,
+                              site=f"{site}.shared")
+    return out, aux

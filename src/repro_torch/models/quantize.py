@@ -16,7 +16,9 @@ scale and codes, bit for bit.  Everything else eligible (``unembed``) is
 per tensor in both.  Embedding tables, norms and biases stay float.  The
 per-site weight format comes from the policy's ``weights`` op class and
 its overrides, keyed by the reference's site names (``blocks.{j}.attn.wq``
-with ``j`` the index within the layer pattern).
+with ``j`` the index within the layer pattern, ``prefix.{i}.ffn.w_up``
+for leading dense layer ``i``, whose weights, unstacked in the reference,
+are per tensor there too).
 """
 from __future__ import annotations
 
@@ -45,8 +47,9 @@ def quantize_params(params, policy: Union[Policy, str, None] = None,
     ``policy``: a :class:`Policy` (per-site formats through its ``weights``
     op class and overrides), a bare format string (per-tensor in that
     format), or None (E4M3 everywhere).  ``period``: the config's
-    ``layer_pattern_period``, which names layer ``i``'s sites
-    ``blocks.{i % period}``, as the reference's scan pattern does.
+    ``layer_pattern_period``, which names body layer ``j``'s sites
+    ``blocks.{j % period}``, as the reference's scan pattern does (the
+    ``prefix`` layers keep their index).
     Returns a new dict; the float leaves that stay are shared."""
     def walk(node, path):
         if isinstance(node, dict):
@@ -71,7 +74,10 @@ def quantize_leaf(path, node, policy: Union[Policy, str, None] = None, *,
         return quantize(node, policy)
     if policy is None or not policy.weight_quant:
         return quantize(node, "e4m3")
-    site = ".".join(str(k % period) if isinstance(k, int) else str(k)
+    # a body layer's index is its place in the scan pattern; a leading
+    # dense layer's is its own (``prefix.{i}``)
+    site = ".".join(str(k % period)
+                    if isinstance(k, int) and path[0] == "blocks" else str(k)
                     for k in path)
     return quantize(node, policy.resolve("weights", site).fmt)
 

@@ -1,30 +1,47 @@
-"""Decoder stack of the GQA family: the full-sequence forward of
-training and prefill, and single-token decode against the dense or the
-paged cache.
+"""Decoder stack: the full-sequence forward of training and prefill, and
+single-token decode against the dense or the paged cache.
 
 Port of ``repro.models.transformer.sublayer_forward``/``stack_forward``
-and ``sublayer_decode``/``stack_decode`` for GQA attention stacks: a
-Python loop over per-layer parameter dicts replaces the reference's scan
-over stacked blocks.  The policy site of layer ``i`` is
-``blocks.{i % period}``, the reference's name (the index within the scan
-pattern).  Each layer's FFN is the gated MLP or the MoE layer
-(``models.moe``), by the reference's ``layer_specs`` rule
-(:func:`ffn_kind`); the training forward sums the MoE aux losses over
-layers, as the reference's scan carry does, and serving drops them.
+and ``sublayer_decode``/``stack_decode`` for attention stacks, GQA or
+MLA: a Python loop over per-layer parameter dicts replaces the
+reference's scan over stacked blocks.  ``layers`` is every layer in
+order, the config's ``first_dense`` leading layers (the reference's
+``prefix``, outside its scan) first.  The policy site of layer ``i`` is
+the reference's name (:func:`layer_site`): ``prefix.{i}`` for a leading
+layer, else ``blocks.{j % period}`` for body layer ``j = i -
+first_dense`` (the index within the scan pattern).  Each layer's FFN is
+the gated MLP or the MoE layer (``models.moe``), by the reference's
+``layer_specs`` rule (:func:`ffn_kind`; a leading layer is an MLP of
+``d_ff``); the training forward sums the MoE aux losses over layers, as
+the reference's scan carry does, and serving drops them.
 """
 from __future__ import annotations
 
 from torch.utils.checkpoint import checkpoint
 
-from .attention import gqa_decode, gqa_decode_paged, gqa_forward
+from .attention import (gqa_decode, gqa_decode_paged, gqa_forward,
+                        mla_decode, mla_forward)
 from .layers import gated_mlp, rms_norm
 from .moe import moe_ffn
 
 
 def ffn_kind(cfg, i: int) -> str:
     """Layer ``i``'s FFN, "moe" or "mlp", by the reference's rule (its
-    third kind, no FFN, belongs to families the port does not run)."""
+    third kind, no FFN, belongs to families the port does not run; a
+    leading dense layer is never an MoE layer)."""
     return "moe" if cfg.is_moe_layer(i) else "mlp"
+
+
+def layer_site(cfg, i: int) -> str:
+    """The reference's policy site of layer ``i`` (absolute index)."""
+    if i < cfg.first_dense:
+        return f"prefix.{i}"
+    return f"blocks.{(i - cfg.first_dense) % cfg.layer_pattern_period}"
+
+
+def _layer_kw(cfg, i: int) -> dict:
+    return dict(is_global=cfg.is_global_attn_layer(i), ffn=ffn_kind(cfg, i),
+                site=layer_site(cfg, i))
 
 
 def _ffn(p, x, cfg, ffn: str, site: str, want_aux: bool = False):
@@ -52,9 +69,13 @@ def sublayer_forward(p, x, cfg, *, positions, is_global: bool = True,
     ``want_cache`` (prefill), or (x, moe_lb, moe_z) of an MoE layer when
     ``want_aux`` (training)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    out, cache = gqa_forward(p["attn"], h, cfg, is_global=is_global,
-                             positions=positions, site=f"{site}.attn",
-                             want_cache=want_cache)
+    if cfg.attn_impl == "mla":
+        out, cache = mla_forward(p["attn"], h, cfg, positions=positions,
+                                 site=f"{site}.attn", want_cache=want_cache)
+    else:
+        out, cache = gqa_forward(p["attn"], h, cfg, is_global=is_global,
+                                 positions=positions, site=f"{site}.attn",
+                                 want_cache=want_cache)
     if cfg.sandwich_norm:
         out = rms_norm(out, p["ln1_post"], cfg.norm_eps)
     x = _ffn(p, x + out, cfg, ffn, site, want_aux)
@@ -73,16 +94,13 @@ def stack_forward(layers, x, cfg, *, positions, mode: str = "train"):
     backward, as under ``jax.checkpoint``; an MoE layer's aux losses leave
     the checkpoint beside x, so their gradients reach its router.
     ``mode="prefill"`` runs without checkpoints and returns (x, one dense
-    cache entry {"k", "v"} [B, S, KV, hd] per layer)."""
-    period = cfg.layer_pattern_period
+    cache entry per layer: {"k", "v"} [B, S, KV, hd], or MLA's {"ckv",
+    "kpe"} [B, S, L] and [B, S, dr])."""
     if mode == "prefill":
         caches = []
         for i, p in enumerate(layers):
             x, c = sublayer_forward(p, x, cfg, positions=positions,
-                                    is_global=cfg.is_global_attn_layer(i),
-                                    ffn=ffn_kind(cfg, i),
-                                    site=f"blocks.{i % period}",
-                                    want_cache=True)
+                                    want_cache=True, **_layer_kw(cfg, i))
             caches.append(c)
         return x, caches
     if mode != "train":
@@ -93,12 +111,10 @@ def stack_forward(layers, x, cfg, *, positions, mode: str = "train"):
             "'minimal'; ROADMAP.md Queue 1 item 12)")
     aux = {"moe_lb": 0.0, "moe_z": 0.0}
     for i, p in enumerate(layers):
-        ffn = ffn_kind(cfg, i)
+        kw = _layer_kw(cfg, i)
         out = checkpoint(sublayer_forward, p, x, cfg, use_reentrant=False,
-                         positions=positions,
-                         is_global=cfg.is_global_attn_layer(i), ffn=ffn,
-                         site=f"blocks.{i % period}", want_aux=True)
-        if ffn == "moe":
+                         positions=positions, want_aux=True, **kw)
+        if kw["ffn"] == "moe":
             x, lb, z = out
             aux = {"moe_lb": aux["moe_lb"] + lb, "moe_z": aux["moe_z"] + z}
         else:
@@ -111,9 +127,18 @@ def sublayer_decode(p, x, cfg, *, cache, paged=None, pos=None,
                     site: str = "blocks.*"):
     """One attention + FFN sublayer on x [B, 1, D]; the layer's cache
     entries (page tensors with ``paged``, dense {"k", "v"} rows at ``pos``
-    without) are updated in place.  Returns the new x."""
+    without; MLA's dense {"ckv", "kpe"} rows at ``pos``, or at
+    ``paged["lengths"]`` under ``paged["active"]``, on either path) are
+    updated in place.  Returns the new x."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if paged is not None and "kp" in cache:
+    if cfg.attn_impl == "mla":
+        if paged is not None:
+            pos, active = paged["lengths"], paged.get("active")
+        else:
+            active = None
+        out = mla_decode(p["attn"], h, cfg, cache=cache, pos=pos,
+                         active=active, site=f"{site}.attn")
+    elif paged is not None and "kp" in cache:
         out = gqa_decode_paged(p["attn"], h, cfg, is_global=is_global,
                                cache=cache, paged=paged, site=f"{site}.attn")
     else:
@@ -126,23 +151,20 @@ def sublayer_decode(p, x, cfg, *, cache, paged=None, pos=None,
 
 def stack_decode(layers, cache, x, cfg, *, paged=None, noise=None,
                  pos=None):
-    """Run every layer.  Paged (``paged`` given): ``cache`` is {"kp", "vp",
-    "ks", "vs"} stacked over layers on the leading axis and ``noise``
-    [n_layers, 2, B, KV, hd] or None.  Dense: ``cache`` is one {"k", "v"}
+    """Run every layer.  Paged (``paged`` given): ``cache`` is the paged
+    cache, its tensors stacked over layers on the leading axis ({"kp",
+    "vp", "ks", "vs"}, or MLA's dense per-slot {"ckv", "kpe"}), and
+    ``noise`` [n_layers, 2, B, KV, hd] or None.  Dense: ``cache`` is one
     dict per layer and ``pos`` [B] the new tokens' positions.  Returns the
     new x."""
-    period = cfg.layer_pattern_period
     if paged is None:
         for i, p in enumerate(layers):
             x = sublayer_decode(p, x, cfg, cache=cache[i], pos=pos,
-                                is_global=cfg.is_global_attn_layer(i),
-                                ffn=ffn_kind(cfg, i),
-                                site=f"blocks.{i % period}")
+                                **_layer_kw(cfg, i))
         return x
     for i, p in enumerate(layers):
         layer_cache = {name: t[i] for name, t in cache.items()}
         layer_paged = dict(paged, noise=None if noise is None else noise[i])
         x = sublayer_decode(p, x, cfg, cache=layer_cache, paged=layer_paged,
-                            is_global=cfg.is_global_attn_layer(i),
-                            ffn=ffn_kind(cfg, i), site=f"blocks.{i % period}")
+                            **_layer_kw(cfg, i))
     return x

@@ -548,7 +548,8 @@ def test_training_with_experts_is_refused(tmp_path):
     ROADMAP Queue 1 item 11a (training) was ported now train granite:
     ``Model.loss_fn`` and a step of ``steps.build_train_step`` return
     finite aux terms (the sums over both MoE layers), and the training
-    CLI runs; shared experts (item 11b) are still refused by name."""
+    CLI runs; training with shared experts (item 11b-train; item 11b
+    serves them) is still refused by name."""
     _, cfg = _granite(None)
     model = Model(cfg)
     params = model.init(torch.Generator().manual_seed(0))
@@ -569,5 +570,6 @@ def test_training_with_experts_is_refused(tmp_path):
                           "--ckpt-every", "1", "--ckpt-dir", str(tmp_path)])
     assert [h["step"] for h in history] == [1]
     assert np.isfinite(history[0]["moe_lb"]) and history[0]["moe_z"] > 0
-    with pytest.raises(NotImplementedError, match="11b"):
-        Model(dataclasses.replace(cfg, n_shared_experts=1))
+    with pytest.raises(NotImplementedError, match="11b-train"):
+        steps.build_train_step(Model(dataclasses.replace(
+            cfg, n_shared_experts=1)), adamw.OptConfig())

@@ -452,10 +452,12 @@ def test_train_cli_trains_granite_on_cpu(tmp_path, capsys):
 
 
 def test_shared_experts_and_leading_dense_layers_are_still_refused():
-    """deepseek-v2-lite's shared experts and first_dense layers (ROADMAP
-    Queue 1 item 11b) stay refused by name, for training as for
-    serving."""
+    """deepseek-v2-lite's shared experts and first_dense layers are
+    served since ROADMAP Queue 1 item 11b, and their training stays
+    refused by name (item 11b-train): a model with either is built, and
+    its train step is refused."""
     _, cfg = _configs()
     for change in (dict(n_shared_experts=2), dict(first_dense=1)):
-        with pytest.raises(NotImplementedError, match="11b"):
-            Model(dataclasses.replace(cfg, **change))
+        model = Model(dataclasses.replace(cfg, **change))
+        with pytest.raises(NotImplementedError, match="11b-train"):
+            steps.build_train_step(model, adamw.OptConfig())

@@ -320,6 +320,28 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     gradients bitwise equal; then one granite train step at depth 2 with
     every matmul through K4, which has no batch axis: 2 x (4 + 3 x 40) x
     2 launches, none of K3 or K2;
+28d. deepseek-v2-lite-16b's kernels (``check_mla_kernels``): 28a at its
+    routed products (64 experts x 128 rows, [64, 128, 2048] x [64, 2048,
+    1408] and [64, 128, 1408] x [64, 1408, 2048]); at M = 1024, K3 on
+    ``w_dkv`` (N 576) and on the dense layer's ``w_down`` (K 10,944, a
+    partial last k tile) within the sum bound of the plain version, K4
+    there bitwise; their card time beside the bound and the plain
+    version;
+28e. MLA training (``mla_train_path``): deepseek at full width and depth
+    3 (the dense layer and two MoE layers; full depth needs ~470 GB under
+    AdamW), ``--quant fp8_lns_pallas``, batch 8 x seq 128, 4 steps, one
+    checkpoint at the last, through ``run_training`` and
+    ``build_train_step``: finite loss, ce and aux terms at every step, 0
+    restarts, K3 launched 4 x (8 + 22 x 2) times (the dense layer's
+    products once a step, outside the checkpoints) and K2 never; the step
+    walls, the checkpoint's bytes and write time, the peak memory and the
+    busiest expert's share; then one profiled train step at that depth;
+28f. the first step of a float32, depth-2, full-width deepseek through
+    K3 and K2 and through their plain versions (loss rtol 1e-4, gradient
+    norm rtol 1e-3; 8 + 22 launches with the kernels, none plain), one
+    MLA + MoE layer's forward and backward twice on one input under both
+    policies (the output and every gradient bitwise), then one depth-2
+    step through K4: 8 + 2 x (5 + 3 + 3 x 64) launches, none of K3 or K2;
 29. prints one JSON line of per-kernel numbers, then the card line again,
     and last ``{"ok": true, "device": {...}}``.
 
@@ -365,7 +387,13 @@ and K2 over a batch of granite's expert products (28a): card time of a
 layer's three expert products (one launch each), the largest difference
 from the plain version there; launches those of 28b's training run (K3,
 each expert product's launch and the attention products' 2-D launches)
-and of 28c's K2 kernel step (2 x 7 x 2).
+and of 28c's K2 kernel step (2 x 7 x 2).  The ``*_experts_deepseek``
+entries are the same at deepseek's routed products (28d), launches those
+of 28e's training run (K3) and of 28f's K2 kernel step (8 + 22); the
+``lns_loop_matmul_deepseek_w_down`` entry is K4 on the dense layer's
+``w_down`` at M = 1024 (28d), launches those of 28f's K4 step.  The plain
+versions' times in 28a and 28d are of the call the check makes, between
+CUDA events.
 
 The ``*_tp2_shard`` entries are K1 per rank of 13 (``lns`` on FP8 pages,
 ``float`` on bf16 pages): card time at the shard's geometry (KV 4, G 2,
@@ -423,6 +451,20 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed_call(fn):
+    """(``fn()``, its wall in ms between CUDA events): one call, no
+    warm-up, as ``cuda_ms(fn, iters=1, warmup=0)``, keeping the result."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def _device_us(evt) -> float:
@@ -4718,46 +4760,57 @@ def moe_train_path(dev) -> dict:
     return dict(launches=k3, walls=walls, peak=peak)
 
 
-def _moe_codes(dev, seed: int, act_fmt: str, w_fmt: str):
-    """FP8 codes of granite's expert products at batch 8 x seq 128, for
-    each shape of MOE_EXPERT_MATMULS: activations [40, 256, K] quantized
-    per (group, expert) block of 32 rows and weights [40, K, N] per
-    expert and output channel, as ``layers.ste_expert_matmul`` quantizes
-    them."""
+def _expert_geometry(arch: str):
+    """(experts, groups, rows an expert, {(K, N): products a layer}) of
+    ``arch``'s routed expert products at batch 8 x seq 128."""
+    if arch == MLA_ARCH:
+        return 64, 8, MLA_ROWS, MLA_EXPERT_MATMULS
+    return 40, 8, MOE_ROWS, MOE_EXPERT_MATMULS
+
+
+def _moe_codes(dev, seed: int, act_fmt: str, w_fmt: str, arch=MOE_ARCH):
+    """FP8 codes of ``arch``'s expert products at batch 8 x seq 128, for
+    each shape of its expert matmuls (granite: activations [40, 256, K],
+    quantized per (group, expert) block of 32 rows; deepseek: [64, 128,
+    K], blocks of 16), and weights [E, K, N] per expert and output
+    channel, as ``layers.ste_expert_matmul`` quantizes them."""
     import torch
     from repro_torch.core.quant import quantize
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    E, G = 40, 8
+    E, G, rows, matmuls = _expert_geometry(arch)
     out = {}
-    for K, N in MOE_EXPERT_MATMULS:
-        x = torch.randn((E, G, MOE_ROWS // G, K), generator=g, device=dev)
+    for K, N in matmuls:
+        x = torch.randn((E, G, rows // G, K), generator=g, device=dev)
         w = torch.randn((E, K, N), generator=g, device=dev) * 0.02
         out[K, N] = (quantize(x, act_fmt, axis=(0, 1)).codes
-                     .view(E, MOE_ROWS, K),
+                     .view(E, rows, K),
                      quantize(w, w_fmt, axis=(0, 2)).codes)
     return out
 
 
-def check_moe_kernels(dev) -> dict:
+def check_moe_kernels(dev, arch=MOE_ARCH) -> dict:
     """Phase: K3 (e4m3 RNE, ``fp8_lns_pallas``) and K2 (e5m2 x e4m3, bf16
-    compute, ``train_fp8``) over a batch of granite's 40 expert products,
-    one launch each, at the training shapes ([40, 256, 1536] x [40, 1536,
-    512] and [40, 256, 512] x [40, 512, 1536]) on codes quantized as the
-    STE quantizes them: every element within 2 K 2^-24 sum|products| of
-    the plain version applied expert by expert; each expert's slice
-    bitwise equal to the 2-D launch on that expert at the batch's tile;
-    two calls bitwise.  Then card time of a layer's three expert
-    products (one launch each) beside the bound (the larger of the bytes
-    at 3.35 TB/s and the operations at the dense 8-bit rate for K3, the
-    bf16 rate for K2), the plain version and, for K2, ``torch.bmm`` on the
-    decoded bf16 operands."""
+    compute, ``train_fp8``) over a batch of ``arch``'s expert products,
+    one launch each, at the training shapes (granite: [40, 256, 1536] x
+    [40, 1536, 512] and [40, 256, 512] x [40, 512, 1536]; deepseek: [64,
+    128, 2048] x [64, 2048, 1408] and [64, 128, 1408] x [64, 1408, 2048])
+    on codes quantized as the STE quantizes them: every element within 2
+    K 2^-24 sum|products| of the plain version applied expert by expert;
+    each expert's slice bitwise equal to the 2-D launch on that expert at
+    the batch's tile; two calls bitwise.  Then card time of a layer's
+    three expert products (one launch each) beside the bound (the larger
+    of the bytes at 3.35 TB/s and the operations at the dense 8-bit rate
+    for K3, the bf16 rate for K2), the plain version and ``torch.bmm`` on
+    the decoded bf16 operands (the library time of K2; a yardstick of
+    the shape only for K3, whose products no PyTorch call computes)."""
     import torch
     from repro_torch.kernels import lns_matmul as lm
     from repro_torch.kernels.common import code_to_f32
 
     n_sm = _n_sm(dev)
     card = card_line()
+    E_all, _, rows, matmuls = _expert_geometry(arch)
     res = {}
     for name, fmt, w_fmt, kw, kernel, plain, tiles, rate, only in (
             ("K3", "e4m3", "e4m3", dict(fmt="e4m3", mode="rne"),
@@ -4767,8 +4820,9 @@ def check_moe_kernels(dev) -> dict:
                                         compute_dtype=torch.bfloat16),
              lm.dequant_matmul, lm.dequant_matmul_plain, lm.dequant_tile,
              BF16_FLOP_PER_S, "dequant_matmul_kernel")):
-        codes = _moe_codes(dev, 20 if name == "K3" else 21, fmt, w_fmt)
-        err = 0.0
+        codes = _moe_codes(dev, 20 if name == "K3" else 21, fmt, w_fmt,
+                           arch)
+        err, plain_one = 0.0, {}
         for (K, N), (x, w) in codes.items():
             E, M = x.shape[:2]
             tile = tiles(M, N, n_sm, E)
@@ -4778,7 +4832,9 @@ def check_moe_kernels(dev) -> dict:
             if kernel.launches != before + 2:
                 raise AssertionError(f"{name}: {kernel.launches - before} "
                                      "launches for two batched calls")
-            want = plain(x, w, **kw)
+            # the plain version's ~40,000 small launches a call: this one
+            # call between CUDA events (the profiler's own cost is seconds)
+            want, plain_one[K, N] = timed_call(lambda: plain(x, w, **kw))
             absum = plain(x & 0x7F, w & 0x7F, **kw)
             torch.cuda.synchronize()
             diff = (got - want).abs()
@@ -4804,7 +4860,7 @@ def check_moe_kernels(dev) -> dict:
 
         def layer_ms(fn, iters, warmup=2, only_=only):
             total, hows = 0.0, set()
-            for shape, count in MOE_EXPERT_MATMULS.items():
+            for shape, count in matmuls.items():
                 ms, how = device_ms(lambda: fn(*codes[shape]), iters=iters,
                                     only=only_, warmup=warmup)
                 total += count * ms
@@ -4812,32 +4868,28 @@ def check_moe_kernels(dev) -> dict:
             return total, " / ".join(sorted(hows))
 
         ms, how = layer_ms(lambda x, w: kernel(x, w, **kw), 20)
-        # the plain version's ~40,000 small launches a call: one call
-        # between CUDA events (the profiler's own cost is seconds here)
-        plain_ms = sum(count * cuda_ms(lambda: plain(*codes[shape], **kw),
-                                       iters=1, warmup=0)
-                       for shape, count in MOE_EXPERT_MATMULS.items())
-        prods = sum(c * 40 * MOE_ROWS * K * N
-                    for (K, N), c in MOE_EXPERT_MATMULS.items())
-        nbytes = sum(c * 40 * (MOE_ROWS * K + K * N + 4 * MOE_ROWS * N)
-                     for (K, N), c in MOE_EXPERT_MATMULS.items())
+        plain_ms = sum(count * plain_one[shape]
+                       for shape, count in matmuls.items())
+        prods = sum(c * E_all * rows * K * N for (K, N), c in matmuls.items())
+        nbytes = sum(c * E_all * (rows * K + K * N + 4 * rows * N)
+                     for (K, N), c in matmuls.items())
         b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         b_ops = 2 * prods / rate * 1e3
-        library = None
-        if name == "K2":
-            decoded = {s: (code_to_f32(x, "e5m2").to(torch.bfloat16),
-                           code_to_f32(w, "e4m3").to(torch.bfloat16))
-                       for s, (x, w) in codes.items()}
-            # graph replays between CUDA events: the profiler has counted
-            # a fraction of these kernels late in the process
-            library = sum(count * graph_ms(lambda: torch.bmm(*decoded[shape]))
-                          for shape, count in MOE_EXPERT_MATMULS.items())
+        decoded = {s: (code_to_f32(x, fmt).to(torch.bfloat16),
+                       code_to_f32(w, w_fmt).to(torch.bfloat16))
+                   for s, (x, w) in codes.items()}
+        # graph replays between CUDA events: the profiler has counted a
+        # fraction of these kernels late in the process
+        bmm = sum(count * graph_ms(lambda: torch.bmm(*decoded[shape]))
+                  for shape, count in matmuls.items())
+        del decoded
+        library = bmm if name == "K2" else None
         res[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=max(b_bytes, b_ops),
                          bound_by="bytes" if b_bytes >= b_ops
-                         else "operations", library_ms=library)
-        print(f"# batched {name}, granite's three expert products a layer "
-              f"(40 experts x {MOE_ROWS} rows, 3 launches; card time, "
+                         else "operations", library_ms=library, bmm_ms=bmm)
+        print(f"# batched {name}, {arch}'s three expert products a layer "
+              f"({E_all} experts x {rows} rows, 3 launches; card time, "
               f"{how}): kernel {ms:.4f} ms = {2 * prods / ms / 1e9:.1f} "
               f"TFLOP/s; plain {plain_ms:.3f} ms (CUDA events); bound "
               f"{res[name]['bound_ms']:.5f} ms = max({nbytes} B / 3.35 TB/s "
@@ -4845,9 +4897,9 @@ def check_moe_kernels(dev) -> dict:
               f"{rate / 1e12:.0f} T/s = {b_ops:.5f} ms) -> "
               f"{res[name]['bound_by']} (kernel / bound "
               f"{ms / res[name]['bound_ms']:.1f})"
-              + ("" if library is None else
-                 f"; torch.bmm on decoded bf16 {library:.4f} ms (CUDA-graph "
-                 "events)")
+              + f"; torch.bmm on decoded bf16 {bmm:.4f} ms (CUDA-graph "
+              "events" + ("" if library is not None else
+                          ", a yardstick of the shape only") + ")"
               + f"; [{card}]", flush=True)
     return res
 
@@ -4985,6 +5037,400 @@ def train_k4_moe_path(dev) -> None:
           f"K3, 0 K2; {wall:.2f} s wall", flush=True)
 
 
+# --------------------------------------------------------------------------- #
+# MLA training: deepseek-v2-lite-16b through the STE products
+# --------------------------------------------------------------------------- #
+# Full depth (15.7 B parameters) needs ~470 GB under AdamW (~30 B a
+# parameter, as for granite); depth 3, the dense layer and two MoE layers
+# (1.670 B), fits one card.
+MLA_TRAIN_DEPTH = 3
+MLA_TRAIN_STEPS = 4
+MLA_CHECK_DEPTH = 2        # the float32 comparisons, the layer, K4
+MLA_PLAIN_BATCH = 8        # the float32 comparison's batch (x seq 128)
+MLA_PREFIX_STE = 8         # the dense layer's STE products: MLA 5, FFN 3
+MLA_MOE_STE = 11           # an MoE layer's: MLA 5, shared 3, routed 3
+# An MoE layer's routed products at batch 8 x seq 128 under grouped
+# dispatch: 8 groups of 128 tokens, capacity(128, 6, 64, 1.25) = 16 rows
+# an expert a group, so 128 rows an expert; (K, N) -> products of that
+# shape in a layer (w_gate and w_up, w_down).
+MLA_ROWS = 128
+MLA_EXPERT_MATMULS = {(2048, 1408): 2, (1408, 2048): 1}
+# 2-D products at M = 1024 that no earlier path reaches: w_dkv's N = 576
+# (4.5 tiles of 128) and the dense layer's w_down, K = 10,944 (85.5 k
+# tiles of 128: the last one partial)
+MLA_DENSE_MATMULS = {"w_dkv": (2048, 576), "w_down": (10944, 2048)}
+
+
+def _mla_train_config(depth: int, **kw):
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config(MLA_ARCH, **kw), n_layers=depth)
+    C = moe.capacity(128, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+    if 8 * C != MLA_ROWS:
+        raise AssertionError(f"{MLA_ARCH}: capacity {C}, want "
+                             f"{MLA_ROWS // 8} rows a group")
+    return cfg
+
+
+def _mla_k3_per_step(cfg) -> int:
+    """K3 (or K2) launches of one train step: the leading dense layer's
+    products once (outside the checkpoints), each MoE layer's twice
+    (forward and recompute), each routed product one launch over all
+    experts."""
+    return MLA_PREFIX_STE + 2 * MLA_MOE_STE * (cfg.n_layers - cfg.first_dense)
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def mla_train_path(dev) -> dict:
+    """Phase: MLA training, deepseek-v2-lite-16b at full width (d_model
+    2048, MLA latent 512 + 64, 16 heads of qk 192 and v 128, 64 experts
+    top-6 of d_ff 1,408 and 2 shared, a dense first layer of d_ff 10,944,
+    vocab 102,400 untied) and depth ``MLA_TRAIN_DEPTH`` (cut for memory),
+    under ``--quant fp8_lns_pallas``: ``MLA_TRAIN_STEPS`` steps of batch 8
+    x seq 128 (``arith``) through ``runtime.fault.run_training`` and
+    ``steps.build_train_step`` (the training CLI's own pieces; the CLI has
+    no depth flag), one checkpoint, at the last step.  The dense layer's 8
+    STE products run K3 once (it is outside the checkpoints, as in the
+    reference); each MoE layer's 11 (MLA 5, shared 3, routed 3, each
+    routed product one launch over all 64 experts) twice.  Gates: finite
+    loss, ce, moe_lb and moe_z at every step, 0 restarts, K3 launches
+    ``MLA_TRAIN_STEPS`` x (8 + 22 x (depth - 1)), K2 none.  Prints the
+    wall of every step, the checkpoint's bytes and write time, the peak
+    memory, the parameter count and the busiest expert's share of a
+    layer's routed pairs, beside the card's name and power limit."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.data.pipeline import DataConfig, Dataset
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import fault, steps
+
+    cfg = _mla_train_config(MLA_TRAIN_DEPTH, quant="fp8_lns_pallas")
+    n_steps = MLA_TRAIN_STEPS
+    want = n_steps * _mla_k3_per_step(cfg)
+    model = Model(cfg, max_seq=128)
+    data = Dataset(DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=8,
+                              seed=0, kind="arith"))
+    marks, terms, saves = [], [], []
+    step_fn = steps.build_train_step(model, adamw.OptConfig(
+        lr=1e-3, warmup_steps=10, total_steps=100))
+
+    def train_step(state, batch):
+        state, metrics = step_fn(state, batch)
+        terms.append(tuple(float(metrics[k])
+                           for k in ("loss", "ce", "moe_lb", "moe_z")))
+        return state, metrics
+
+    def init_state():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return steps.make_train_state(model, gen)
+
+    def mark(step):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    real_save = fault.store.save
+
+    def timed_save(*a, **kw):
+        t = time.perf_counter()
+        pending = real_save(*a, **kw)
+        copied = time.perf_counter()
+        pending.add_done_callback(
+            lambda _: saves.append((copied - t, time.perf_counter() - t)))
+        return pending
+
+    moe_layers = dataclasses.replace(cfg,
+                                     n_layers=cfg.n_layers - cfg.first_dense)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mla_train_")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_matmul_counts()
+        fault.store.save = timed_save
+        with _MoeStats(moe_layers) as stats:
+            t0 = time.perf_counter()
+            state, history = fault.run_training(
+                train_step=train_step, init_state=init_state, dataset=data,
+                max_steps=n_steps, ckpt_dir=tmp, ckpt_every=n_steps,
+                fault_hook=mark,
+                to_device=lambda b: {k: torch.from_numpy(v).to(dev)
+                                     for k, v in b.items()},
+                log=lambda *a: None)
+            torch.cuda.synchronize()
+            end = time.perf_counter()
+        k3, k2 = _matmul_counts()
+        peak = torch.cuda.max_memory_allocated() - held
+        n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+        ckpt_bytes = _dir_bytes(os.path.join(tmp, f"step-{n_steps}"))
+        del state
+    finally:
+        fault.store.save = real_save
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if [h["step"] for h in history] != [n_steps] or len(terms) != n_steps:
+        raise AssertionError(f"unexpected log points {history}, {terms}")
+    if not all(math.isfinite(v) for t in terms for v in t):
+        raise AssertionError(f"non-finite loss or aux terms {terms}")
+    if any(h["restarts"] for h in history):
+        raise AssertionError(f"{history[-1]['restarts']} restarts")
+    if k3 != want or k2 != 0:
+        raise AssertionError(f"K3 launches {k3} (want {n_steps} x (8 + 22 x "
+                             f"{cfg.n_layers - cfg.first_dense}) = {want}), "
+                             f"K2 launches {k2} (want 0)")
+    if len(saves) != 1 or ckpt_bytes <= 0:
+        raise AssertionError(f"checkpoints {saves}, {ckpt_bytes} B")
+    walls = [b - a for a, b in zip(marks, marks[1:] + [end])]
+    share = float(stats.call_max)
+    print(f"# train {MLA_ARCH} fp8_lns_pallas: full width, depth "
+          f"{cfg.n_layers} (the dense layer and "
+          f"{cfg.n_layers - cfg.first_dense} MoE layers; "
+          f"{n_params / 1e9:.3f} B parameters), batch 8 x seq 128, {n_steps} "
+          f"steps; (loss, ce, moe_lb, moe_z) at every step: {terms}; 0 "
+          f"restarts; {k3} K3 launches = {n_steps} x (8 + 22 x "
+          f"{cfg.n_layers - cfg.first_dense}) (the dense layer's products "
+          f"once a step, each routed product one launch over "
+          f"{cfg.n_experts} experts), 0 K2; step walls "
+          f"{', '.join(f'{w:.3f}' for w in walls)} s (the first is the "
+          f"process's first deepseek step; the last includes the "
+          f"checkpoint's host copy and waits for its write); checkpoint "
+          f"{ckpt_bytes} B, host copy {saves[0][0]:.2f} s, on disk after "
+          f"{saves[0][1]:.2f} s; {end - t0:.2f} s wall with init; peak "
+          f"{peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held "
+          f"before; the busiest expert took {100 * share:.2f}% of a layer's "
+          f"routed pairs in one call (uniform {100 / cfg.n_experts:.2f}%); "
+          f"[{card_line()}]", flush=True)
+    return dict(launches=k3, walls=walls, peak=peak)
+
+
+def _mla_layer_twice(dev, policy_kw: dict) -> None:
+    """One deepseek MLA + MoE layer (bf16, full width, batch 8 x seq 128)
+    forward and backward twice on one input: the output and the gradients
+    of x and of every leaf (MLA's six, the router, the routed and the
+    shared experts') must be bitwise equal."""
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import sublayer_forward
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    cfg = _mla_train_config(MLA_CHECK_DEPTH, **policy_kw)
+    g = torch.Generator(device=dev).manual_seed(7)
+    p = Model(cfg).init(g)["blocks"][0]
+    x = torch.randn((8, 128, cfg.d_model), generator=g,
+                    device=dev).to(cfg.pdtype)
+    probe = torch.randn((8, 128, cfg.d_model), generator=g, device=dev)
+    positions = torch.arange(128, device=dev).expand(8, 128)
+
+    def run():
+        pp = tree_map(lambda v: v.detach().clone().requires_grad_(True), p)
+        xx = x.detach().clone().requires_grad_(True)
+        out, lb, z = sublayer_forward(pp, xx, cfg, positions=positions,
+                                      ffn="moe", site="blocks.0",
+                                      want_aux=True)
+        ((out.float() * probe).sum() + 0.01 * lb + 1e-3 * z).backward()
+        return [out, xx.grad] + [t.grad for t in tree_leaves(pp)]
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(first, second)):
+        view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        if not torch.equal(a.view(view), b.view(view)):
+            raise AssertionError(f"{MLA_ARCH} MLA + MoE layer: tensor {i} "
+                                 "(output, x grad, then the leaves' grads) "
+                                 "differs between two runs on one input")
+        if not torch.isfinite(a).all() or not bool(a.abs().max() > 0):
+            raise AssertionError(f"{MLA_ARCH} MLA + MoE layer: tensor {i} is "
+                                 "zero or not finite")
+
+
+def check_mla_train_against_plain(dev) -> dict:
+    """Phase: the first step's loss and gradient global norm of a float32,
+    depth-2 (the dense layer and one MoE layer), full-width
+    deepseek-v2-lite-16b at batch ``MLA_PLAIN_BATCH`` x seq 128, through
+    the kernels and through their plain versions, for K3 (fp8_lns_pallas)
+    and K2 (train_fp8): loss rtol 1e-4, gradient norm rtol 1e-3, as
+    :func:`check_train_against_plain` (the kernel runs launch 8 + 22
+    times, the plain runs none).  Then one MLA + MoE layer's forward and
+    backward twice on one input under each policy: bitwise equal.  Returns
+    K2's launches in its kernel run."""
+    import torch
+
+    launches = {}
+    for label, kw in (("K3 fp8_lns_pallas", dict(quant="fp8_lns_pallas")),
+                      ("K2 train_fp8", dict(policy="train_fp8"))):
+        cfg = dataclasses.replace(
+            _mla_train_config(MLA_CHECK_DEPTH, **kw), param_dtype="float32")
+        want = _mla_k3_per_step(cfg)
+        out, walls = [], []
+        for plain in (False, True):
+            state, step, batch_of = _train_setup(dev, cfg, seed=5,
+                                                 batch=MLA_PLAIN_BATCH)
+            before = _matmul_counts()
+            t0 = time.perf_counter()
+            if plain:
+                with _plain_matmuls():
+                    _, metrics = step(state, batch_of(0))
+            else:
+                _, metrics = step(state, batch_of(0))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            used = [a - b for a, b in zip(_matmul_counts(), before)]
+            if sorted(used) != ([0, 0] if plain else [0, want]):
+                raise AssertionError(f"{label}: kernel launches {used} with "
+                                     f"plain={plain}, want {want} of one")
+            if not plain:
+                launches[label[:2]] = max(used)
+            out.append(tuple(float(metrics[k]) for k in
+                             ("loss", "grad_norm", "moe_lb", "moe_z")))
+            del state, step
+            torch.cuda.empty_cache()
+        (lk, gk, *ak), (lp, gp, *ap) = out
+        if not (math.isclose(lk, lp, rel_tol=1e-4)
+                and math.isclose(gk, gp, rel_tol=1e-3)
+                and all(math.isfinite(v) for v in ak + ap)):
+            raise AssertionError(f"{MLA_ARCH} {label}: kernels {out[0]} vs "
+                                 f"plain {out[1]}")
+        print(f"# {MLA_ARCH} {label}, depth {MLA_CHECK_DEPTH} float32, full "
+              f"width, batch {MLA_PLAIN_BATCH} x seq 128, first step: loss "
+              f"{lk:.7f} (kernels, {want} launches) vs {lp:.7f} (plain), "
+              f"grad norm {gk:.6f} vs {gp:.6f}, (moe_lb, moe_z) "
+              f"{tuple(round(v, 6) for v in ak)} vs "
+              f"{tuple(round(v, 6) for v in ap)}; walls {walls[0]:.2f} s vs "
+              f"{walls[1]:.2f} s", flush=True)
+    for kw in (dict(quant="fp8_lns_pallas"), dict(policy="train_fp8")):
+        _mla_layer_twice(dev, kw)
+    print(f"# {MLA_ARCH} MLA + MoE layer (bf16, batch 8 x seq 128), "
+          "fp8_lns_pallas and train_fp8: output and the gradients of x and "
+          "of every leaf bitwise equal on a repeat", flush=True)
+    return dict(k2_launches=launches["K2"])
+
+
+def train_k4_mla_path(dev) -> dict:
+    """Phase: one full-width deepseek train step at depth 2 under the
+    lns_loop policy (:func:`k4_train_policy`): K4 has no batch axis, so
+    each routed product launches it once per expert: 8 + 2 x (5 + 3 + 3 x
+    64) launches (the dense layer once, the MoE layer forward and
+    recompute), K3 and K2 none; finite loss and aux terms."""
+    import torch
+    from repro_torch.kernels import lns_matmul as lm
+
+    cfg = _mla_train_config(MLA_CHECK_DEPTH, policy=k4_train_policy())
+    moe_layers = cfg.n_layers - cfg.first_dense
+    want = MLA_PREFIX_STE + 2 * (5 + 3 + 3 * cfg.n_experts) * moe_layers
+    state, step, batch_of = _train_setup(dev, cfg)
+    before = _matmul_counts() + (lm.lns_loop_matmul.launches,)
+    t0 = time.perf_counter()
+    _, metrics = step(state, batch_of(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k3, k2, k4 = [a - b for a, b in zip(
+        _matmul_counts() + (lm.lns_loop_matmul.launches,), before)]
+    terms = [float(metrics[k]) for k in ("loss", "ce", "moe_lb", "moe_z")]
+    del state, step
+    torch.cuda.empty_cache()
+    if (k4, k3, k2) != (want, 0, 0) or not all(map(math.isfinite, terms)):
+        raise AssertionError(f"{MLA_ARCH} lns_loop: K4 {k4} (want {want}), "
+                             f"K3 {k3}, K2 {k2}, (loss, ce, moe_lb, moe_z) "
+                             f"{terms}")
+    print(f"# train {MLA_ARCH} lns_loop (K4), depth {cfg.n_layers}, one "
+          f"step: (loss, ce, moe_lb, moe_z) {terms}; {k4} K4 launches = 8 + "
+          f"2 x (5 + 3 + 3 x {cfg.n_experts}) x {moe_layers} (one a product "
+          f"per expert), 0 K3, 0 K2; {wall:.2f} s wall", flush=True)
+    return dict(launches=k4)
+
+
+def check_mla_kernels(dev) -> dict:
+    """Phase: the kernels at deepseek's new shapes.  K3 and K2 over one
+    MoE layer's three routed products, 64 experts of 128 rows
+    (:func:`check_moe_kernels`); then at M = 1024 on codes quantized as
+    the STE quantizes them (``MLA_DENSE_MATMULS``): K3 on ``w_dkv`` (N =
+    576, a half tile of 128 at the edge) and on the dense layer's
+    ``w_down`` (K = 10,944, a partial last k tile), each within 2 K 2^-24
+    sum|products| of its plain version and two calls bitwise; K4 on
+    ``w_down``, bitwise its plain version (NaN as NaN) and two calls
+    bitwise.  Card times beside the function's bound (codes in, float32
+    out at 3.35 TB/s, or two 8-bit operations a product at the dense
+    8-bit rate), the plain versions and ``torch.matmul`` on the decoded
+    bf16 operands (a yardstick of the shape only)."""
+    import torch
+    from repro_torch.core.quant import quantize
+    from repro_torch.kernels import lns_matmul as lm
+    from repro_torch.kernels.common import code_to_f32
+
+    res = {"experts": check_moe_kernels(dev, MLA_ARCH)}
+    card = card_line()
+    g = torch.Generator(device=dev).manual_seed(22)
+    M = SMOKE_M
+    for name, (K, N) in MLA_DENSE_MATMULS.items():
+        x = quantize(torch.randn((M, K), generator=g, device=dev),
+                     "e4m3").codes
+        w = quantize(torch.randn((K, N), generator=g, device=dev) * 0.02,
+                     "e4m3", axis=-1).codes
+        nbytes = M * K + K * N + 4 * M * N
+        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        b_ops = 2 * M * K * N / INT8_OPS_PER_S * 1e3
+        bound = max(b_bytes, b_ops)
+        bound_by = "bytes" if b_bytes >= b_ops else "operations"
+        routes = [("K3", lm.lns_product_matmul, lm.lns_matmul_plain,
+                   "lns_matmul_kernel")]
+        if name == "w_down":
+            routes.append(("K4", lm.lns_loop_matmul, lm.lns_loop_matmul_plain,
+                           "lns_loop_matmul"))
+        decoded = (code_to_f32(x, "e4m3").to(torch.bfloat16),
+                   code_to_f32(w, "e4m3").to(torch.bfloat16))
+        mm = graph_ms(lambda: torch.matmul(*decoded))
+        for kname, kernel, plain, only in routes:
+            got = kernel(x, w, fmt="e4m3", mode="rne")
+            again = kernel(x, w, fmt="e4m3", mode="rne")
+            want, plain_ms = timed_call(lambda: plain(x, w, fmt="e4m3",
+                                                      mode="rne"))
+            if kname == "K4":
+                if not _nan_aware_bitwise(got, want):
+                    raise AssertionError(f"K4 differs from its plain version "
+                                         f"at {M}x{K}x{N}")
+                err = 0.0
+            else:
+                absum = plain(x & 0x7F, w & 0x7F, fmt="e4m3", mode="rne")
+                diff = (got - want).abs()
+                if not torch.isfinite(got).all() or bool(
+                        (diff > _sum_bound(K, absum)).any()):
+                    raise AssertionError(f"K3 differs from its plain version "
+                                         f"at {M}x{K}x{N}")
+                err = float(diff.max())
+            if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+                raise AssertionError(f"two {kname} calls differ at "
+                                     f"{M}x{K}x{N}")
+            ms, how = device_ms(lambda: kernel(x, w, fmt="e4m3", mode="rne"),
+                                iters=10, only=only)
+            res[kname, name] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bound, bound_by=bound_by,
+                                    matmul_ms=mm)
+            print(f"# {kname} {MLA_ARCH} {name} {M}x{K}x{N} (e4m3, RNE): "
+                  + ("bitwise its plain version (NaN as NaN)"
+                     if kname == "K4" else
+                     f"max |err| {err:.3e} within 2 K 2^-24 sum|products| "
+                     "of its plain version")
+                  + f", two calls bitwise; kernel {ms:.4f} ms ({how}); plain "
+                  f"{plain_ms:.3f} ms (CUDA events); bound {bound:.5f} ms = "
+                  f"max({nbytes} B / 3.35 TB/s = {b_bytes:.5f} ms, "
+                  f"{2 * M * K * N} operations / 1979 T/s = {b_ops:.5f} ms) "
+                  f"-> {bound_by} (kernel / bound {ms / bound:.1f}); "
+                  f"torch.matmul on decoded bf16 {mm:.4f} ms (CUDA-graph "
+                  f"events, a yardstick of the shape only); [{card}]",
+                  flush=True)
+        del decoded
+    return res
+
+
 def _phase(fn, *args, **kw):
     """Run one phase of :func:`main` and print its wall time."""
     t = time.perf_counter()
@@ -5094,6 +5540,11 @@ def main() -> int:
     _phase(profile_train_step, dev, depth=MOE_TRAIN_DEPTH, arch=MOE_ARCH)
     moe_plain = _phase(check_moe_train_against_plain, dev)
     _phase(train_k4_moe_path, dev)
+    mla_k = _phase(check_mla_kernels, dev)
+    mla_trained = _phase(mla_train_path, dev)
+    _phase(profile_train_step, dev, depth=MLA_TRAIN_DEPTH, arch=MLA_ARCH)
+    mla_plain = _phase(check_mla_train_against_plain, dev)
+    mla_k4 = _phase(train_k4_mla_path, dev)
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -5204,6 +5655,25 @@ def main() -> int:
             launches=launches, max_abs_err=k["err"], ms=k["ms"],
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"]))
+    for name, key, line, launches in (
+            ("lns_matmul_experts_deepseek", "K3", 62, mla_trained["launches"]),
+            ("dequant_matmul_experts_deepseek", "K2", 110,
+             mla_plain["k2_launches"])):
+        k = mla_k["experts"][key]
+        kernels.append(dict(
+            name=name, route="cuda", source=src + "lns_matmul.cu",
+            replaces=f"src/repro/kernels/lns_matmul.py:{line}",
+            launches=launches, max_abs_err=k["err"], ms=k["ms"],
+            plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=k["library_ms"]))
+    k = mla_k["K4", "w_down"]
+    kernels.append(dict(
+        name="lns_loop_matmul_deepseek_w_down", route="cuda",
+        source=src + "lns_matmul.cu",
+        replaces="src/repro/kernels/lns_matmul.py:91",
+        launches=mla_k4["launches"], max_abs_err=k["err"], ms=k["ms"],
+        plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+        bound_by=k["bound_by"], library_ms=None))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

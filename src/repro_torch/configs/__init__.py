@@ -3,10 +3,9 @@
 The port runs the dense GQA family (qwen2-0.5b, qwen3-14b, gemma2-27b,
 gemma3-12b), the MoE stack with GQA attention (granite-moe-3b-a800m) and
 MLA with MoE, shared experts and a leading dense layer
-(deepseek-v2-lite-16b; served, its training refused until ROADMAP.md
-Queue 1 item 11b-train); the reference's other architectures (SSM,
-hybrid, enc-dec, VLM) arrive with later slices and are refused by name
-until then.
+(deepseek-v2-lite-16b), each served and trained; the reference's other
+architectures (SSM, hybrid, enc-dec, VLM) arrive with later slices and
+are refused by name until then.
 """
 from __future__ import annotations
 

@@ -2,13 +2,19 @@
 
 Port of ``repro.launch.train``, single-device: the model trains on the
 card unless ``--device cpu`` is given (without a card and without that
-flag it raises).  ``--mesh`` other than ``1x1`` (FSDP/TP training) is not
-ported yet, nor is training deepseek-v2-lite-16b (ROADMAP.md Queue 1 item
-11b-train; the port serves it).  Examples:
+flag it raises).  Every architecture the port serves trains (the dense
+GQA family, granite-moe-3b-a800m, deepseek-v2-lite-16b); ``--mesh`` other
+than ``1x1`` (FSDP/TP training) is not ported yet (ROADMAP.md Queue 1
+item 12).  Examples:
 
   # CPU smoke run on learnable synthetic data (plain kernel versions):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --smoke --device cpu --steps 20 --batch 4 --seq 32 --data arith
+
+  # deepseek-v2-lite-16b (MLA, shared experts, a leading dense layer):
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch deepseek-v2-lite-16b --smoke --device cpu \\
+      --quant fp8_lns_pallas --steps 8 --batch 4 --seq 32 --lr 1e-2
 
   # full-width FP8 training through the paper's LNS matmul kernel (K3):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\

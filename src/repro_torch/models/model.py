@@ -7,7 +7,7 @@ family (qwen2, qwen3's qk-norm, gemma2/3's sandwich norms, embedding
 scale, local/global windows and softcaps), the MoE family (granite-moe-3b-
 a800m), served and trained (the loss adds the MoE aux terms), and MLA with
 MoE, shared experts and a leading dense layer (deepseek-v2-lite-16b),
-served (its training waits for ROADMAP.md Queue 1 item 11b-train).
+served and trained.
 Parameters are a plain dict: ``embed`` [Vp, D], ``final_norm`` [D],
 optional ``unembed`` [D, Vp], ``blocks``, a list of per-layer dicts with
 the reference's names (``ln1``, ``attn.wq``/``bq``/..., ``ln2``,

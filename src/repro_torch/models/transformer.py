@@ -88,11 +88,13 @@ def stack_forward(layers, x, cfg, *, positions, mode: str = "train"):
     ``mode="train"`` returns (the new x, aux {"moe_lb", "moe_z"}: each MoE
     layer's aux losses summed over layers in order, float32 scalars, 0.0
     without MoE layers).  Under the config's ``remat_policy`` "minimal"
-    (the reference's ``nothing_saveable``), each layer runs under
+    (the reference's ``nothing_saveable``), each body layer runs under
     ``torch.utils.checkpoint``: only its input is kept, and its forward,
     quantized matmul kernels and routing included, runs again in the
     backward, as under ``jax.checkpoint``; an MoE layer's aux losses leave
-    the checkpoint beside x, so their gradients reach its router.
+    the checkpoint beside x, so their gradients reach its router.  The
+    ``first_dense`` leading layers run once, without a checkpoint, as the
+    reference's ``_run_prefix`` runs them outside its scan's remat.
     ``mode="prefill"`` runs without checkpoints and returns (x, one dense
     cache entry per layer: {"k", "v"} [B, S, KV, hd], or MLA's {"ckv",
     "kpe"} [B, S, L] and [B, S, dr])."""
@@ -112,8 +114,13 @@ def stack_forward(layers, x, cfg, *, positions, mode: str = "train"):
     aux = {"moe_lb": 0.0, "moe_z": 0.0}
     for i, p in enumerate(layers):
         kw = _layer_kw(cfg, i)
-        out = checkpoint(sublayer_forward, p, x, cfg, use_reentrant=False,
-                         positions=positions, want_aux=True, **kw)
+        if i < cfg.first_dense:
+            out = sublayer_forward(p, x, cfg, positions=positions,
+                                   want_aux=True, **kw)
+        else:
+            out = checkpoint(sublayer_forward, p, x, cfg,
+                             use_reentrant=False, positions=positions,
+                             want_aux=True, **kw)
         if kw["ffn"] == "moe":
             x, lb, z = out
             aux = {"moe_lb": aux["moe_lb"] + lb, "moe_z": aux["moe_z"] + z}

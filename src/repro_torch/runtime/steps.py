@@ -34,15 +34,12 @@ def build_train_step(model: Model, opt_cfg: adamw.OptConfig) -> Callable:
     """``train_step(state, batch) -> (new_state, metrics)``; ``batch`` is
     {tokens, labels} on the state's device.  ``metrics`` holds the loss,
     its terms (ce, and the MoE aux losses, zeros without experts) and
-    AdamW's statistics.  Refuses the configs the port serves but does not
-    train yet: deepseek-v2-lite's MLA, shared experts and leading dense
-    layers."""
+    AdamW's statistics.  Every config the port serves trains, MLA,
+    shared experts and leading dense layers included; what stays refused
+    is FSDP/TP training (``launch.train``'s ``--mesh`` beyond 1x1) and
+    ``remat_policy="dots"`` (``models.transformer.stack_forward``), both
+    ROADMAP.md Queue 1 item 12."""
     cfg = model.cfg
-    if cfg.attn_impl == "mla" or cfg.n_shared_experts or cfg.first_dense:
-        raise NotImplementedError(
-            f"training {cfg.name!r} (MLA attention, shared experts or "
-            "leading dense layers) is not ported yet (ROADMAP.md Queue 1 "
-            "item 11b-train); the port serves it")
 
     def train_step(state, batch):
         master = tree_map(lambda p: p.detach().requires_grad_(True),

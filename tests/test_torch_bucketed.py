@@ -36,6 +36,7 @@ from repro_torch.launch import serve
 from repro_torch.models import Model, params_from_jax
 from repro_torch.runtime.steps import build_decode_step, build_prefill_step
 from repro_torch.serving import ServeControl, page_pool as pp
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 RTOL = ATOL = 2e-4
 NUMERICS = {"fp8": dict(policy="serve_fp8_paged"), "float": dict(quant="none")}

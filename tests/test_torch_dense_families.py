@@ -31,6 +31,7 @@ from repro_torch.core.prng import fold_in, prng_key
 from repro_torch.launch import serve
 from repro_torch.models import Model, params_from_jax
 from repro_torch.optim.adamw import tree_leaves, tree_map
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ["qwen3-14b", "gemma2-27b", "gemma3-12b"]
 RTOL = ATOL = 2e-4

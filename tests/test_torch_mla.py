@@ -30,8 +30,9 @@ that streams follow the context), each bitwise: a rerun, preempt/restore
 == a worst-case pool, bucketed on the paged cache == on the dense cache,
 static weights == the bf16 weights decoded from the same codes, a
 snapshot round trip, a chaos kill's survivors; the static products per
-layer that reach K2; no KV noise for a stack without pages; and what is
-refused (the prefix cache, a mesh, training).
+layer that reach K2; no KV noise for a stack without pages; what is
+refused (the prefix cache, a mesh) and that training runs
+(``test_torch_mla_train.py`` holds it against JAX).
 """
 import dataclasses
 
@@ -65,6 +66,7 @@ from repro_torch.runtime import fault, steps
 from repro_torch.serving import (ContinuousScheduler, FaultPlan, Request,
                                  load_snapshot, save_snapshot)
 from test_torch_mesh import _stand_in
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 ARCH = "deepseek-v2-lite-16b"
 F32_TOL = 1e-5     # x the largest |output|: float32 sums in another order
@@ -593,10 +595,13 @@ def test_cli_serves_both_latent_kinds(capsys):
 # --------------------------------------------------------------------------- #
 # What is refused
 # --------------------------------------------------------------------------- #
-def test_prefix_cache_mesh_and_training_are_refused(tmp_path):
+def test_prefix_cache_and_mesh_are_refused_and_deepseek_trains(tmp_path):
     """As in the reference: the prefix cache and mesh serving need a
-    pure-GQA paged cache (MLA keeps dense per-slot latents); training
-    deepseek waits for ROADMAP.md Queue 1 item 11b-train."""
+    pure-GQA paged cache (MLA keeps dense per-slot latents).  Training
+    deepseek, refused until ROADMAP.md Queue 1 item 11b-train, runs: a
+    step of ``steps.build_train_step`` and the training CLI give finite
+    terms; FSDP/TP training (``--mesh``) and ``remat_policy="dots"`` stay
+    refused (item 12)."""
     jcfg, cfg = _cfgs()
     for eng_cls, kw in ((jserve.Engine, {}), (serve.Engine,
                                                dict(device="cpu"))):
@@ -606,8 +611,24 @@ def test_prefix_cache_mesh_and_training_are_refused(tmp_path):
     for mod, c in ((jserve, jcfg), (serve, cfg)):
         with pytest.raises(ValueError, match="pure-GQA paged cache"):
             mod.Engine._validate_mesh(c, _stand_in(2), "paged")
-    with pytest.raises(NotImplementedError, match="11b-train"):
-        steps.build_train_step(Model(cfg), adamw.OptConfig())
-    with pytest.raises(NotImplementedError, match="11b-train"):
-        train.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--steps",
-                    "1", "--ckpt-dir", str(tmp_path)])
+    model = Model(_cfgs(None)[1])
+    batch = {"tokens": torch.arange(8, dtype=torch.int64).view(1, 8),
+             "labels": torch.arange(1, 9, dtype=torch.int64).view(1, 8)}
+    _, metrics = steps.build_train_step(model, adamw.OptConfig())(
+        steps.make_train_state(model, torch.Generator().manual_seed(0)),
+        batch)
+    assert all(bool(torch.isfinite(metrics[k]))
+               for k in ("loss", "moe_lb", "moe_z", "grad_norm"))
+    history = train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                          "--steps", "1", "--batch", "1", "--seq", "8",
+                          "--ckpt-every", "1", "--ckpt-dir", str(tmp_path)])
+    assert [h["step"] for h in history] == [1]
+    assert np.isfinite(history[0]["loss"]) and history[0]["moe_z"] > 0
+    with pytest.raises(NotImplementedError, match="item 12"):
+        train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                    "--mesh", "1x2", "--ckpt-dir", str(tmp_path)])
+    dots = Model(dataclasses.replace(model.cfg, remat_policy="dots"))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        steps.build_train_step(dots, adamw.OptConfig())(
+            steps.make_train_state(dots, torch.Generator().manual_seed(0)),
+            batch)

@@ -59,6 +59,7 @@ from repro_torch.parallel import sharding
 from repro_torch.runtime import fault, steps
 from repro_torch.serving import FaultPlan
 from test_torch_mesh import _jax_specs, _port_specs, _stand_in
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 ARCH = workers.ARCH
 ROUTE_GAP = 1e-6       # adjacent top-(k+1) probabilities at least this far
@@ -543,13 +544,12 @@ def test_serve_cli_requires_column_stable_cublas_on_every_run(monkeypatch):
     assert seen == ["cpu", torch.device("cpu")]
 
 
-def test_training_with_experts_is_refused(tmp_path):
+def test_training_with_experts_trains(tmp_path):
     """The three entry points that refused a config with experts until
     ROADMAP Queue 1 item 11a (training) was ported now train granite:
     ``Model.loss_fn`` and a step of ``steps.build_train_step`` return
     finite aux terms (the sums over both MoE layers), and the training
-    CLI runs; training with shared experts (item 11b-train; item 11b
-    serves them) is still refused by name."""
+    CLI runs; with shared experts (item 11b-train) a step trains too."""
     _, cfg = _granite(None)
     model = Model(cfg)
     params = model.init(torch.Generator().manual_seed(0))
@@ -570,6 +570,13 @@ def test_training_with_experts_is_refused(tmp_path):
                           "--ckpt-every", "1", "--ckpt-dir", str(tmp_path)])
     assert [h["step"] for h in history] == [1]
     assert np.isfinite(history[0]["moe_lb"]) and history[0]["moe_z"] > 0
-    with pytest.raises(NotImplementedError, match="11b-train"):
-        steps.build_train_step(Model(dataclasses.replace(
-            cfg, n_shared_experts=1)), adamw.OptConfig())
+    shared = Model(dataclasses.replace(cfg, n_shared_experts=1))
+    params = shared.init(torch.Generator().manual_seed(0))
+    assert "shared" in params["blocks"][0]["ffn"]
+    step = steps.build_train_step(shared, adamw.OptConfig())
+    new, metrics = step(steps.make_train_state(shared, params=params), batch)
+    assert all(bool(torch.isfinite(metrics[k]))
+               for k in ("loss", "moe_lb", "moe_z", "grad_norm"))
+    moved = new["params"]["blocks"][0]["ffn"]["shared"]["w_down"]
+    assert not torch.equal(moved, params["blocks"][0]["ffn"]["shared"][
+        "w_down"].to(moved.dtype))

@@ -52,6 +52,7 @@ from repro_torch.models import Model, moe, params_from_jax
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.runtime import fault, steps
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 ARCH = "granite-moe-3b-a800m"
 POLICIES = {"train_bf16": dict(policy="train_bf16"),
@@ -451,13 +452,23 @@ def test_train_cli_trains_granite_on_cpu(tmp_path, capsys):
     assert "[train:cpu] done" in capsys.readouterr().out
 
 
-def test_shared_experts_and_leading_dense_layers_are_still_refused():
-    """deepseek-v2-lite's shared experts and first_dense layers are
-    served since ROADMAP Queue 1 item 11b, and their training stays
-    refused by name (item 11b-train): a model with either is built, and
-    its train step is refused."""
+def test_shared_experts_and_leading_dense_layers_train():
+    """deepseek-v2-lite's shared experts and first_dense layers, refused
+    for training until ROADMAP Queue 1 item 11b-train, train on granite's
+    smoke config: a step of each returns finite terms and moves the new
+    leaves (the shared experts' ``w_down``, the prefix layer's)."""
     _, cfg = _configs()
-    for change in (dict(n_shared_experts=2), dict(first_dense=1)):
+    batch = _torch_batch(_batch(cfg, B=1, S=8))
+    for change, leaf in ((dict(n_shared_experts=2),
+                          lambda p: p["blocks"][0]["ffn"]["shared"]["w_down"]),
+                         (dict(first_dense=1),
+                          lambda p: p["prefix"][0]["ffn"]["w_down"])):
         model = Model(dataclasses.replace(cfg, **change))
-        with pytest.raises(NotImplementedError, match="11b-train"):
-            steps.build_train_step(model, adamw.OptConfig())
+        state = steps.make_train_state(
+            model, torch.Generator().manual_seed(0))
+        before = leaf(state["params"]).clone()
+        state, metrics = steps.build_train_step(model, adamw.OptConfig())(
+            state, batch)
+        assert all(np.isfinite(float(metrics[k]))
+                   for k in ("loss", "moe_lb", "moe_z", "grad_norm"))
+        assert not torch.equal(leaf(state["params"]), before)

@@ -38,6 +38,7 @@ from repro_torch.models import Model, layers, params_from_jax, transformer
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.runtime import fault, steps
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 POLICIES = {"train_bf16": dict(policy="train_bf16"),
             "fp8_lns_pallas": dict(quant="fp8_lns_pallas"),

@@ -67,8 +67,9 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
    one restore): the token streams must be bitwise equal;
 10. the main path: full-width gemma3-12b (48 layers, 5 local layers
     of window 1,024 to each global one, qk-norm, hd 256, about 23.6 GB of
-    bf16 weights at full depth; its first 12 layers, cut for time to make
-    room for 17b, about 6.7 GB, drawn on the card and redrawn as in 9,
+    bf16 weights at full depth; its first 6 layers, one whole 5:1
+    period, cut for time to make room for 17b and 17c, 4.7 GB with the
+    tied embedding (16's count), drawn on the card and redrawn as in 9,
     the embedding at 0.5 / sqrt(d_model), the sandwich norms' output
     gains 16 times larger so that the layers, not the last token's own
     row, lead the tied LM head) served by a 4-slot Engine, page 16,
@@ -127,9 +128,10 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     split between the ranks and merged by ``combine_partials_psum``
     against ``paged_attend`` on the whole table, within rtol 2e-5 / atol
     2e-6.  Before the run, K1 at the shard's geometry is timed in both
-    modes and both instances.  Printed beside the card's name and power
-    limit: the transport, each rank's peak memory, the wall and decode
-    tokens/s;
+    modes and both instances; the ranks then run in the background while
+    this process runs 14 and 15 (``mesh_start``), so their walls are not
+    a speed.  Printed beside the card's name and power limit: the
+    transport, each rank's peak memory, the wall and decode tokens/s;
 14. the bucketed scheduler at full width: gemma3-12b on the main path's
     weights, the same 8 requests on 4 slots, under serve_fp8_paged and
     the default policy, all at depth 6 (cut for time), 16 generated
@@ -179,8 +181,9 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     version), bf16 pages prefix on, and a bucketed run (the pairs its
     prefills drop by capacity printed); the
     float32 first-step logits at depth 2 through K1 and through the plain
-    attention as in 19; TP=2 at depth 2 on both page kinds as in 13, held
-    to this process's depth-2 prefix-on runs.  Printed: K1's time at
+    attention as in 19; TP=2 at depth 2 on both page kinds as in 13
+    (started once the weights are drawn, beside the rest of the phase),
+    held to this process's depth-2 prefix-on runs.  Printed: K1's time at
     granite's geometry, the walls, decode tokens/s and peak memory, the
     busiest expert's share of its layer's routed pairs; then a short
     traced window of granite's FP8 serving path at depth 6, as in 6;
@@ -188,7 +191,9 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     at full width (27 layers: a dense first layer of d_ff 10,944, then 64
     experts top-6 of d_ff 1,408 and 2 shared experts in each; MLA with a
     512-wide latent; ~31.4 GB of bf16 weights drawn on the card and
-    redrawn as in 9), the 8 requests of 10 on 4 slots: at full depth one
+    redrawn as in 9), the 8 requests of 10 on 4 slots: at depth 3 (the
+    dense layer and two MoE layers; cut for time from full depth, to make
+    room for 17c) one
     FP8-latent run (E5M2 codes at scale 1, dense per-slot rows beside the
     page pool; K1 never launched), every stream varied; at depth 2 (the
     dense layer and one MoE layer), on FP8 and on bf16 latents, a rerun,
@@ -197,15 +202,38 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     (continuous vs bucketed printed); float32 first-step logits on the
     card within rtol = atol = 1e-3 of the port's CPU engine on the same
     weights; static weights bitwise equal to their decoded bf16 weights,
-    and through K2 6 x n_layers launches a sub-step, each call within
+    and through K2 (4 prompts of 8 tokens, cut for time) 6 x n_layers
+    launches a sub-step, each call within
     2 sqrt(K) 2^-24 sum|products| of its plain version, with K2's time on
     one MoE layer's six products at M = 4.  Printed: the full-depth wall,
     decode tokens/s, peak memory and the busiest expert's share; then a
     short traced window at depth 6, as in 6;
+17c. the SSM family on the main path (``ssm_path``): mamba2-780m at full
+    width (48 SSD layers, d_model 1536, d_inner 3072, 48 heads of 64,
+    d_state 128; ~1.5 GB of bf16 weights drawn on the card and redrawn
+    as in 9, with Mamba2's published ranges for the decays and steps), the
+    8 requests of 10 on 4 slots, at full depth under the CLI's default
+    policy and serve_fp8_paged (every stream varied, the two bitwise
+    equal: an SSM reads no KV setting; K1 never launched; each SSD layer's
+    conv inputs and state are dense per-slot leaves of the paged cache);
+    at depth 2 a rerun, a preempting pool, fused vs unfused, the
+    bucketed scheduler on the paged and the dense cache, all bitwise, and
+    a snapshot round trip while PREEMPTED; float32 first-step logits on
+    the card within rtol = atol = 1e-3 of the port's CPU engine; static
+    weights bitwise equal to their decoded bf16 weights; the codes
+    through K2 (continuous) and K3 (bucketed) on 4 prompts of 8 tokens
+    (cut for time), 6 x n_layers launches a model call, each call within
+    2 sqrt(K) 2^-24 sum|products| of its plain version; then a traced
+    window at full depth, as in 6, and
+    (``check_ssm_kernels``) K2 and K3 at the six static products' shapes
+    (N 3,072, 128 and 48, K 1,536 and 3,072) at M = 4 and 95 against the
+    plain version, and their card time on one layer's six products at
+    M = 4;
 18. windows on the model path: gemma3-12b at full width, depth 6,
-    float32, on FP8 and on float32 pages: a 1,040-token prompt prefilled
-    through K1 (from the 1,024th token on every K1 call held to its plain
-    version on the model's own inputs at rtol = atol = 1e-4), then from
+    float32, on FP8 and on float32 pages: a 1,040-token prompt, its first
+    1,023 tokens prefilled in one batched call (spliced into pages), the
+    rest through K1 (every K1 call held to its plain version on the
+    model's own inputs at rtol = atol = 1e-4), then from
     that cache the last prompt token (the local window of 1,024 skips
     page 0) and one decode step through K1 and through the plain
     attention: logits within rtol = atol = 1e-3 on float32 pages, printed
@@ -332,16 +360,20 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     AdamW), ``--quant fp8_lns_pallas``, batch 8 x seq 128, 4 steps, one
     checkpoint at the last, through ``run_training`` and
     ``build_train_step``: finite loss, ce and aux terms at every step, 0
-    restarts, K3 launched 4 x (8 + 22 x 2) times (the dense layer's
-    products once a step, outside the checkpoints) and K2 never; the step
+    restarts, K3 launched 4 x (8 + 21 x 2) times (the dense layer's
+    products once a step, outside the checkpoints; an MoE layer's twice
+    but the shared experts' down product, once, after the checkpoint, as
+    the reference's remat drops it from the recompute) and K2 never; the
+    step
     walls, the checkpoint's bytes and write time, the peak memory and the
     busiest expert's share; then one profiled train step at that depth;
 28f. the first step of a float32, depth-2, full-width deepseek through
     K3 and K2 and through their plain versions (loss rtol 1e-4, gradient
-    norm rtol 1e-3; 8 + 22 launches with the kernels, none plain), one
+    norm rtol 1e-3; 8 + 21 launches with the kernels, none plain), one
     MLA + MoE layer's forward and backward twice on one input under both
     policies (the output and every gradient bitwise), then one depth-2
-    step through K4: 8 + 2 x (5 + 3 + 3 x 64) launches, none of K3 or K2;
+    step through K4: 8 + (5 + 3 + 3 x 64) + (5 + 2 + 3 x 64) launches,
+    none of K3 or K2;
 29. prints one JSON line of per-kernel numbers, then the card line again,
     and last ``{"ok": true, "device": {...}}``.
 
@@ -382,6 +414,12 @@ deepseek-v2-lite-16b's static weights (17b): card time of one MoE layer's
 six products at M = 4, launches those of 17b's depth-2 K2 run, the
 largest difference from the plain version there.
 
+The ``*_static_weights_mamba2`` entries are K2 and K3 on mamba2-780m's
+static weights (17c): card time of one layer's six products at M = 4,
+launches those of 17c's depth-2 K2 (continuous) and K3 (bucketed) runs,
+the largest difference from the plain version there and at the six
+shapes.
+
 The ``lns_matmul_experts`` and ``dequant_matmul_experts`` entries are K3
 and K2 over a batch of granite's expert products (28a): card time of a
 layer's three expert products (one launch each), the largest difference
@@ -389,7 +427,7 @@ from the plain version there; launches those of 28b's training run (K3,
 each expert product's launch and the attention products' 2-D launches)
 and of 28c's K2 kernel step (2 x 7 x 2).  The ``*_experts_deepseek``
 entries are the same at deepseek's routed products (28d), launches those
-of 28e's training run (K3) and of 28f's K2 kernel step (8 + 22); the
+of 28e's training run (K3) and of 28f's K2 kernel step (8 + 21); the
 ``lns_loop_matmul_deepseek_w_down`` entry is K4 on the dense layer's
 ``w_down`` at M = 1024 (28d), launches those of 28f's K4 step.  The plain
 versions' times in 28a and 28d are of the call the check makes, between
@@ -467,11 +505,6 @@ def timed_call(fn):
     return out, start.elapsed_time(end)
 
 
-def _device_us(evt) -> float:
-    return getattr(evt, "device_time_total", None) or getattr(
-        evt, "cuda_time_total", 0.0)
-
-
 def graph_ms(fn, launches: int = 50, replays: int = 10) -> float:
     """Time per call between CUDA events over replays of a CUDA graph of
     ``launches`` calls: no host launch overhead between the kernels."""
@@ -495,6 +528,29 @@ def graph_ms(fn, launches: int = 50, replays: int = 10) -> float:
     return start.elapsed_time(end) / (launches * replays)
 
 
+def _device_rows(prof) -> list:
+    """(name, device us, count) of every kernel, copy and set a
+    ``torch.profiler`` trace recorded on the card, summed by name.  Read
+    from the trace's raw events: ``key_averages`` first builds an event
+    object for every launch and the host calls around it, seconds for a
+    plain version's 10^4-10^5 launches; where this PyTorch keeps no raw
+    events, from ``key_averages``' device rows."""
+    from torch.autograd import DeviceType
+
+    rows = {}
+    try:
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                us, n = rows.get(e.name(), (0.0, 0))
+                rows[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    except AttributeError:
+        return [(e.key, getattr(e, "self_device_time_total", None)
+                 or e.self_cuda_time_total, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+    return [(name, us, n) for name, (us, n) in rows.items()]
+
+
 def device_ms(fn, iters: int, only: str = "", warmup: int = 3):
     """Card time per call: the summed device time of the CUDA kernels
     (whose names contain ``only``, if given) that ``iters`` calls ran,
@@ -513,10 +569,10 @@ def device_ms(fn, iters: int, only: str = "", warmup: int = 3):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    seen = [e for e in prof.key_averages()
-            if only in e.key and _device_us(e) > 0]
-    us = sum(_device_us(e) for e in seen)
-    if us > 0 and not (only and sum(e.count for e in seen) % iters):
+    seen = [(us, n) for name, us, n in _device_rows(prof)
+            if only in name and us > 0]
+    us = sum(u for u, _ in seen)
+    if us > 0 and not (only and sum(n for _, n in seen) % iters):
         return us / iters / 1e3, "profiler"
     return graph_ms(fn), "cuda-graph events"
 
@@ -532,9 +588,12 @@ K1_MAIN = "gemma3-12b"
 MOE_ARCH = "granite-moe-3b-a800m"
 
 
-def k1_inputs(dev, seed: int = 0, KV: int = 2, G: int = 7, hd: int = 64):
+def k1_inputs(dev, seed: int = 0, KV: int = 2, G: int = 7, hd: int = 64,
+              fp8_pages: bool = True):
     """One decode sub-step of attention: 8 slots, page 16, up to 64 pages
-    a slot, at the geometry (KV, G, hd) (qwen2-0.5b's by default)."""
+    a slot, at the geometry (KV, G, hd) (qwen2-0.5b's by default).  The
+    pages are drawn on the host and encoded on ``dev``; with ``fp8_pages``
+    False they stay float32 on ``dev`` (the same draw)."""
     import torch
     from repro_torch.core import prng
     from repro_torch.core.quant import encode
@@ -553,11 +612,15 @@ def k1_inputs(dev, seed: int = 0, KV: int = 2, G: int = 7, hd: int = 64):
     keys = prng.fold_in(prng.split(prng.prng_key(seed), 2)[:, None, :],
                         lengths[None, :])                   # [2, B, 2]
     noise = kv_noise(keys, (KV, hd), "e5m2")
+
+    def _pages(x):
+        return encode(x, "e5m2") if fp8_pages else x
+
     return dict(
         q=torch.randn((B, 1, KV * G, hd), generator=g).to(dev),
         k_new=(torch.randn((B, KV, hd), generator=g) * 3).to(dev),
         v_new=(torch.randn((B, KV, hd), generator=g) * 3).to(dev),
-        kp=encode(kf, "e5m2").to(dev), vp=encode(vf, "e5m2").to(dev),
+        kp=_pages(kf.to(dev)), vp=_pages(vf.to(dev)),
         ks=(2.0 ** torch.randint(-2, 3, (P,), generator=g)).float().to(dev),
         vs=(2.0 ** torch.randint(-2, 3, (P,), generator=g)).float().to(dev),
         bt=bt.to(torch.int32).to(dev), lengths=lengths.to(torch.int32).to(dev),
@@ -571,7 +634,7 @@ def k1_float_inputs(dev, pdt, seed: int = 0, **geo):
     the query stays float32, and float pages draw no noise."""
     import torch
 
-    c = k1_inputs(dev, seed, **geo)
+    c = k1_inputs(dev, seed, fp8_pages=False, **geo)
     g = torch.Generator(device="cpu").manual_seed(seed + 7)
     for name in ("kp", "vp"):
         c[name] = torch.randn(c[name].shape, generator=g).to(dev, pdt)
@@ -1137,7 +1200,6 @@ def profile_main_path(dev, policy="serve_fp8_paged",
     the tracing."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import Engine, run_continuous
@@ -1159,10 +1221,7 @@ def profile_main_path(dev, policy="serve_fp8_paged",
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     substeps = int(eng.tel.counter_value("serve_substeps_total") - sub0)
-    rows = [(e.key, getattr(e, "self_device_time_total", None)
-             or e.self_cuda_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    rows = _device_rows(prof)
     busy = sum(us for _, us, _ in rows) / 1e6
     if busy <= 0:
         print(f"# profile of {arch}'s serving path: {substeps} sub-steps in "
@@ -1191,8 +1250,8 @@ def profile_main_path(dev, policy="serve_fp8_paged",
 # The dense GQA family and prefix caching: gemma3-12b's main path, and
 # gemma2-27b and qwen3-14b
 # --------------------------------------------------------------------------- #
-MAIN_DEPTH = 12    # gemma3-12b's FP8 main path: two whole 5:1 periods
-# (cut for time from 48, to pay for deepseek's phase)
+MAIN_DEPTH = 6     # gemma3-12b's FP8 main path: one whole 5:1 period
+# (cut for time from 48, to pay for deepseek's and mamba2's phases)
 PREFIX_SHARED = 64                            # 4 full pages of 16
 PREFIX_TAILS = (5, 17, 9, 2, 26, 12, 31, 7)   # each request's own tail
 PREFIX_GEN = 16
@@ -1279,7 +1338,7 @@ def _counted_run(eng, queue, gen: int, scheduler: str = "continuous") -> dict:
     fp8 = eng.cfg.policy.kv_quantized
     launches, other = ((run["lns"], run["flt"]) if fp8
                        else (run["flt"], run["lns"]))
-    if eng.cache_impl == "dense" or eng.cfg.attn_impl == "mla":
+    if eng.cache_impl == "dense" or eng.cfg.attn_impl != "gqa":
         if launches or other:
             raise AssertionError(f"K1 launched {launches} + {other} times "
                                  "on a cache without pages")
@@ -1820,6 +1879,35 @@ def _spawn_ranks(dev, *args) -> tuple:
     return ranks, time.perf_counter() - t0
 
 
+class _Background:
+    """``fn(*args)`` on a thread of this process while the caller goes on:
+    :meth:`join` returns its result or raises its error.  For
+    :func:`_spawn_ranks`, whose thread waits on the ranks' queue (the
+    ranks are processes of their own), so that this process's next
+    phases run meanwhile; the caller keeps the tensors it handed over
+    alive until the join."""
+
+    def __init__(self, fn, *args):
+        import threading
+
+        self._box = {}
+
+        def run():
+            try:
+                self._box["out"] = fn(*args)
+            except BaseException as err:   # re-raised by join()
+                self._box["err"] = err
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def join(self):
+        self._thread.join()
+        if "err" in self._box:
+            raise self._box["err"]
+        return self._box["out"]
+
+
 def _gate_ranks(ranks, key: str, base: dict, label: str, kv_heads: int,
                 depth: int, card: str) -> None:
     """Every rank's run ``key`` against the TP=1 run ``base`` of this
@@ -1851,7 +1939,32 @@ def _gate_ranks(ranks, key: str, base: dict, label: str, kv_heads: int,
           f"equal (TP=1 wall {base['wall']:.3f} s); [{card}]", flush=True)
 
 
-def mesh_path(dev, params, fp8_base: dict, bf16_base: dict) -> dict:
+def mesh_start(dev, params) -> dict:
+    """Phase: K1 timed at the shard's geometry in both modes and both
+    instances, then :func:`mesh_path`'s two ranks started in the
+    background (:class:`_Background`) on the first ``MESH_DEPTH`` layers
+    of ``params``; the phases up to :func:`mesh_path` run meanwhile and
+    must not free ``params``."""
+    import torch
+
+    timed = {}
+    for lns, mode in ((True, False), (True, True), (False, False),
+                      (False, True)):
+        c = (k1_inputs(dev, **MESH_K1) if lns
+             else k1_float_inputs(dev, torch.bfloat16, **MESH_K1))
+        what = (f"K1 {'LNS' if lns else 'float (bf16 pages)'} gemma3-12b "
+                f"TP={MESH_TP} shard (KV {MESH_K1['KV']}, G {MESH_K1['G']}, "
+                f"hd {MESH_K1['hd']}){' partials mode' if mode else ''}")
+        timed[lns, mode] = _time_k1(c, what, lns=lns, partials=mode)
+        del c
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # the ranks draw their own cut first
+    shard = _shallow(params, MESH_DEPTH)
+    return dict(timed=timed, shard=shard,
+                job=_Background(_spawn_ranks, dev, shard))
+
+
+def mesh_path(dev, started: dict, fp8_base: dict, bf16_base: dict) -> dict:
     """Phase: tensor-parallel serving, two ranks of a (1, 2) mesh on this
     one card (one process each, ``MESH_BACKEND`` between them: a
     correctness run, not a speed-up claim).  Each rank serves
@@ -1867,26 +1980,16 @@ def mesh_path(dev, params, fp8_base: dict, bf16_base: dict) -> dict:
     digest of the whole cache gathered over the ranks equal to theirs,
     K1 launched n_layers x sub-steps by every rank at 4 KV heads, each
     rank's first n_layers K1 calls within rtol = atol = 1e-4 of the plain
-    version; then K1's partials mode (:func:`_mesh_partials`).  Before
-    the run, this process times K1 at the shard's geometry in both modes
-    and both instances.  Prints the transport, each rank's peak memory,
-    the run's wall and decode tokens/s, beside the card's name and power
-    limit."""
-    import torch
-
+    version; then K1's partials mode (:func:`_mesh_partials`).  The ranks
+    were started by :func:`mesh_start` (``started``), which timed K1 at
+    the shard's geometry first, and ran beside this process's phases
+    since: their walls are not a speed.  Prints the transport, each
+    rank's peak memory, the run's wall and decode tokens/s, beside the
+    card's name and power limit."""
     card = card_line()
-    timed = {}
-    for lns, mode in ((True, False), (True, True), (False, False),
-                      (False, True)):
-        c = (k1_inputs(dev, **MESH_K1) if lns
-             else k1_float_inputs(dev, torch.bfloat16, **MESH_K1))
-        what = (f"K1 {'LNS' if lns else 'float (bf16 pages)'} gemma3-12b "
-                f"TP={MESH_TP} shard (KV {MESH_K1['KV']}, G {MESH_K1['G']}, "
-                f"hd {MESH_K1['hd']}){' partials mode' if mode else ''}")
-        timed[lns, mode] = _time_k1(c, what, lns=lns, partials=mode)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()   # the ranks draw their own cut first
-    ranks, spawn_wall = _spawn_ranks(dev, _shallow(params, MESH_DEPTH))
+    timed = started["timed"]
+    ranks, spawn_wall = started.pop("job").join()
+    del started["shard"]
     for key, base in (("fp8", fp8_base), ("bf16", bf16_base)):
         label = (f"gemma3-12b depth {MESH_DEPTH} "
                  f"{'serve_fp8_paged' if key == 'fp8' else 'bf16 pages'} "
@@ -2087,6 +2190,9 @@ def moe_path(dev, k1: dict, k1f: dict) -> dict:
     shallow = dataclasses.replace(full, n_layers=MOE_SHALLOW_DEPTH)
     with _MoeStats(shallow) as stats:
         off = serve("fp8 prefix off, fused", "serve_fp8_paged")
+    # the TP=2 ranks on these weights run beside the rest of this phase
+    shard = _shallow(params, MOE_SHALLOW_DEPTH)
+    mesh_job = _Background(_spawn_ranks, dev, shard, MOE_ARCH, False)
     share, layer, expert = stats.busiest()
     print(f"# {MOE_ARCH}: the busiest expert (layer {layer}, expert "
           f"{expert}) took {100 * share:.2f}% of its layer's routed pairs "
@@ -2121,8 +2227,8 @@ def moe_path(dev, k1: dict, k1f: dict) -> dict:
 
     _logits_through_k1(dev, MOE_ARCH, MOE_LOGIT_DEPTH)
 
-    ranks, spawn_wall = _spawn_ranks(dev, _shallow(params, MOE_SHALLOW_DEPTH),
-                                     MOE_ARCH, False)
+    ranks, spawn_wall = mesh_job.join()
+    del shard
     for key in ("fp8", "bf16"):
         label = (f"{MOE_ARCH} depth {MOE_SHALLOW_DEPTH} "
                  f"{'serve_fp8_paged' if key == 'fp8' else 'bf16 pages'} "
@@ -2142,6 +2248,7 @@ def moe_path(dev, k1: dict, k1f: dict) -> dict:
 # MLA with MoE: deepseek-v2-lite-16b
 # --------------------------------------------------------------------------- #
 MLA_ARCH = "deepseek-v2-lite-16b"
+MLA_MAIN_DEPTH = 3        # the FP8-latent run (cut for time from 27)
 MLA_SHALLOW_DEPTH = 2     # the dense layer and one MoE layer
 MLA_K2_PER_LAYER = 6      # wq, w_dkv, wo and the prefix MLP's or the
 # shared experts' three; w_uk, w_uv, the routed experts and the unembed
@@ -2157,10 +2264,12 @@ def _mla_layer_mats(layer) -> list:
         [ffn[n] for n in ("w_gate", "w_up", "w_down")]
 
 
-def _mla_snapshot_roundtrip(dev, cfg, params, card) -> None:
-    """Save while a request sits PREEMPTED (its latents' rows spilled to
-    the host), load into a freshly built engine: every cache leaf and
-    spill tensor ``torch.equal``, the pool's state equal."""
+def _slot_snapshot_roundtrip(dev, arch: str, cfg, params, card,
+                             leaves) -> None:
+    """Save while a request sits PREEMPTED (its rows of the dense per-slot
+    leaves ``leaves`` spilled to the host: MLA's latents, SSD's conv
+    inputs and states), load into a freshly built engine: every cache leaf
+    and spill tensor ``torch.equal``, the pool's state equal."""
     import tempfile
     import torch
     from repro_torch.serving import (ContinuousScheduler, Request,
@@ -2185,18 +2294,20 @@ def _mla_snapshot_roundtrip(dev, cfg, params, card) -> None:
     spills = [(r.spill["state"], r2.spill["state"])
               for r, r2 in zip(sched.preempted, sched2.preempted)]
     if (step != sched.steps or len(spills) != len(sched.preempted)
-            or set(eng.cache) != {"ckv", "kpe"}
+            or set(eng.cache) != set(leaves)
             or eng2.pool.state_dict() != eng.pool.state_dict()
             or any(not torch.equal(eng2.cache[k], t)
                    for k, t in eng.cache.items())
+            or any(set(a) != set(leaves) for a, _ in spills)
             or any(a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k])
                    for a, b in spills for k in a)):
-        raise AssertionError("MLA snapshot round trip: restored state "
+        raise AssertionError(f"{arch} snapshot round trip: restored state "
                              "differs")
-    print(f"# {MLA_ARCH} depth {cfg.n_layers} {eng.cache['ckv'].dtype} "
-          f"latents: snapshot at step {step} with {len(spills)} PREEMPTED "
-          f"requests, {size} B on disk, loaded into a fresh engine: every "
-          f"cache leaf and spill tensor bitwise equal; [{card}]", flush=True)
+    kinds = ", ".join(f"{k} {eng.cache[k].dtype}" for k in leaves)
+    print(f"# {arch} depth {cfg.n_layers} ({kinds}): snapshot at step "
+          f"{step} with {len(spills)} PREEMPTED requests, {size} B on disk, "
+          f"loaded into a fresh engine: every cache leaf and spill tensor "
+          f"bitwise equal; [{card}]", flush=True)
     del eng, eng2, sched, sched2, spills
     torch.cuda.empty_cache()
 
@@ -2205,17 +2316,20 @@ def mla_path(dev) -> dict:
     """Phase: deepseek-v2-lite-16b (27 layers: one dense layer of d_ff
     10,944, then 26 MoE layers of 64 experts top-6 of d_ff 1,408 and 2
     shared; MLA with a 512-wide latent and 64 RoPE dims, 16 heads of qk
-    128 + 64 and v 128; ~15.7 B parameters, ~31.4 GB of bf16) served on the
-    main path at full width, on weights drawn on the card from seed 0 and
+    128 + 64 and v 128; ~15.7 B parameters, ~31.4 GB of bf16 at full depth)
+    served on the main path at full width, on weights drawn on the card
+    from seed 0 and
     redrawn by :func:`_lively`, the 8 shared-prefix requests of
     :func:`prefix_main_path`, 4 slots, page 16, chunk 4.  MLA keeps its
     latents as dense per-slot rows beside the page pool and makes no
     kernel call (the reference has none for it): K1 is launched never.
 
-    At full depth: one FP8-latent run (serve_fp8_paged: E5M2 codes at
-    scale 1, RNE), continuous scheduler, every stream varied; printed: the
-    wall, decode tokens/s, peak memory and the busiest expert's share of
-    its layer's routed pairs.  At depth ``MLA_SHALLOW_DEPTH`` (the dense
+    At depth ``MLA_MAIN_DEPTH`` (the dense layer and two MoE layers; cut
+    for time from full depth to pay for :func:`ssm_path`): one FP8-latent
+    run (serve_fp8_paged: E5M2 codes at scale 1, RNE), continuous
+    scheduler, every stream varied (at most a quarter on one token);
+    printed: the wall, decode tokens/s, peak memory and the busiest
+    expert's share of its layer's routed pairs.  At depth ``MLA_SHALLOW_DEPTH`` (the dense
     layer and one MoE layer), on both latent kinds (FP8, and bf16 as the
     CLI's default): a rerun bitwise; a pool of ``PREFIX_PREEMPT_PAGES``
     that preempts (each spilled slot's rows restored verbatim) bitwise
@@ -2228,8 +2342,10 @@ def mla_path(dev) -> dict:
     exists for MLA, so this holds the path on the card).  Static weights:
     streams bitwise equal to those of the bf16 weights decoded from the
     same codes (serve_fp8_paged); under a policy whose matmuls take the
-    codes through K2 (``k_static_policy("fused_dequant")``),
-    ``MLA_K2_PER_LAYER`` x n_layers K2 launches a sub-step, none of K3,
+    codes through K2 (``k_static_policy("fused_dequant")``) on the 4
+    prompts of 8 tokens of :func:`_kernel_queue` (cut for time from the 8
+    requests), ``MLA_K2_PER_LAYER`` x n_layers K2 launches a sub-step,
+    none of K3,
     every call within 2 sqrt(K) 2^-24 sum|products| of its plain version
     (:class:`_ShadowMatmul`); then K2's card time on one MoE layer's six
     products at M = 4 beside its bound, the plain version and
@@ -2237,11 +2353,11 @@ def mla_path(dev) -> dict:
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.quant import QTensor
-    from repro_torch.models.quantize import quantize_params, resolve_weight
+    from repro_torch.models.quantize import quantize_params
 
     card = card_line()
-    full = get_config(MLA_ARCH, policy="serve_fp8_paged")
+    full = dataclasses.replace(get_config(MLA_ARCH, policy="serve_fp8_paged"),
+                               n_layers=MLA_MAIN_DEPTH)
     queue = _prefix_queue(full)
     eng = _prefix_engine(dev, full, None)
     params = _lively(eng).params
@@ -2253,9 +2369,11 @@ def mla_path(dev) -> dict:
     with _MoeStats(moe_layers) as stats:
         run = _counted_run(eng, queue, PREFIX_GEN)
     peak = torch.cuda.max_memory_allocated()
-    distinct = _require_varied(run["outputs"], f"{MLA_ARCH} full depth")
+    distinct = _require_varied(run["outputs"],
+                               f"{MLA_ARCH} depth {full.n_layers}",
+                               constant_share=0.25)
     share, layer, expert = stats.busiest()
-    print(f"# {MLA_ARCH} full depth ({full.n_layers} layers) serve_fp8_paged "
+    print(f"# {MLA_ARCH} depth {full.n_layers} serve_fp8_paged "
           f"(E5M2 latents): {len(queue)} requests, {run['stats']['steps']} "
           f"steps, {run['substeps']} sub-steps, {run['wall']:.3f} s wall, "
           f"{run['stats']['decode_tok_s']:.2f} decode tok/s, "
@@ -2319,7 +2437,8 @@ def mla_path(dev) -> dict:
               f"{first}", flush=True)
         cfg = dataclasses.replace(get_config(MLA_ARCH, policy=policy),
                                   n_layers=MLA_SHALLOW_DEPTH)
-        _mla_snapshot_roundtrip(dev, cfg, params, card)
+        _slot_snapshot_roundtrip(dev, MLA_ARCH, cfg, params, card,
+                                 ("ckv", "kpe"))
 
     # float32 latents and parameters: the card against the port's CPU run
     cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_SHALLOW_DEPTH,
@@ -2347,16 +2466,8 @@ def mla_path(dev) -> dict:
     fp8 = dataclasses.replace(full, n_layers=MLA_SHALLOW_DEPTH)
     codes = quantize_params(params, fp8.policy,
                             period=fp8.layer_pattern_period)
-
-    def decoded(t):
-        if isinstance(t, dict):
-            return {k: decoded(v) for k, v in t.items()}
-        if isinstance(t, list):
-            return [decoded(v) for v in t]
-        return resolve_weight(t) if isinstance(t, QTensor) else t
-
     static = serve("serve_fp8_paged", served=codes, static_weights=True)
-    plain = serve("serve_fp8_paged", served=decoded(codes))
+    plain = serve("serve_fp8_paged", served=_decoded(codes))
     _require_varied(static["outputs"], "deepseek static weights",
                     constant_share=0.25)
     if static["outputs"] != plain["outputs"]:
@@ -2369,7 +2480,7 @@ def mla_path(dev) -> dict:
     eng = _prefix_engine(dev, k2cfg, codes)
     _reset_matmul_counts()
     with _ShadowMatmul("dequant_matmul") as shadow:
-        r = _counted_run(eng, queue, PREFIX_GEN)
+        r = _counted_run(eng, _kernel_queue(k2cfg), KERNEL_GEN)
     k3, k2 = _matmul_counts()
     want = MLA_K2_PER_LAYER * MLA_SHALLOW_DEPTH * r["substeps"]
     print(f"# {MLA_ARCH} depth {MLA_SHALLOW_DEPTH} static weights through "
@@ -2396,6 +2507,341 @@ def mla_path(dev) -> dict:
     torch.cuda.empty_cache()
     out.update(k2_launches=k2, k2_err=shadow.err, k2=timed)
     return out
+
+
+# --------------------------------------------------------------------------- #
+# The SSM family: mamba2-780m
+# --------------------------------------------------------------------------- #
+SSM_ARCH = "mamba2-780m"
+SSM_SHALLOW_DEPTH = 2     # the contracts, the float32 logits, K2 and K3
+SSM_K_PER_LAYER = 6       # w_z, w_x, w_B, w_C, w_dt, out_proj: all as codes
+SSM_LEAVES = ("conv", "state")
+# a layer's six static products, (K, N); at decode M = the 4 slots
+SSM_MATMULS = {"w_z": (1536, 3072), "w_x": (1536, 3072), "w_B": (1536, 128),
+               "w_C": (1536, 128), "w_dt": (1536, 48),
+               "out_proj": (3072, 1536)}
+# the main path's longest bucketed prefill: one 95-token prompt (every
+# prompt of the queue has a length of its own), M = 95
+SSM_PREFILL_M = PREFIX_SHARED + max(PREFIX_TAILS)
+
+
+def _lively_ssm(eng, seed: int = 0):
+    """:func:`_lively`, then each SSD layer's decay and step leaves as
+    Mamba2's published init draws them (A in [1, 16] through ``A_log``, dt
+    log-uniform in [0.001, 0.1] through ``dt_bias``, softplus' inverse),
+    and ``w_dt`` scaled by 1 / sqrt(d_model), so that its projection is of
+    order 1: at std 0.5 that projection is ~20, dt as large, and every
+    state forgets its past within one token, so a state spilled or
+    restored wrongly would not show in the streams."""
+    import torch
+
+    _lively(eng, seed)
+    g = torch.Generator(device=eng.device).manual_seed(seed + 1)
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    for layer in eng.params["blocks"]:
+        m = layer["mamba"]
+        nh = m["A_log"].shape[0]
+        m["A_log"].copy_(torch.log(1.0 + 15.0 * torch.rand(
+            nh, generator=g, device=eng.device)))
+        dt = torch.exp(lo + (hi - lo) * torch.rand(nh, generator=g,
+                                                    device=eng.device))
+        m["dt_bias"].copy_(dt + torch.log(-torch.expm1(-dt)))
+        m["w_dt"].mul_(eng.cfg.d_model ** -0.5)
+    return eng
+
+
+def _decoded(tree):
+    """A parameter tree with every static ``QTensor`` decoded to bf16."""
+    from repro_torch.core.quant import QTensor
+    from repro_torch.models.quantize import resolve_weight
+
+    if isinstance(tree, dict):
+        return {k: _decoded(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_decoded(v) for v in tree]
+    return resolve_weight(tree) if isinstance(tree, QTensor) else tree
+
+
+def ssm_path(dev) -> dict:
+    """Phase: mamba2-780m (48 SSD layers, d_model 1536, d_inner 3072, 48
+    heads of 64, d_state 128, conv width 4, vocab 50,280 tied; no
+    attention, no FFN; ~1.5 GB of bf16 weights) served at full width on
+    weights drawn on the card from seed 0 and redrawn by
+    :func:`_lively_ssm`, the 8 shared-prefix requests of
+    :func:`prefix_main_path`, 4 slots, page 16, chunk 4.  Each SSD layer
+    keeps its conv inputs and its state as dense per-slot leaves of the
+    paged cache (zeroed at each admission, spilled and restored by slot);
+    no kernel serves the mixer (the reference has none), so K1 is launched
+    never.
+
+    At full depth, the serve CLI's default policy and serve_fp8_paged, the
+    continuous scheduler: every stream varied (the strict rule), both
+    policies' streams bitwise equal (an SSM stack reads none of the KV
+    settings); printed: the wall, sub-steps, the wall a sub-step, decode
+    tokens/s, the cache's bytes and the peak memory.  At depth
+    ``SSM_SHALLOW_DEPTH``, the default policy: a rerun, a pool of
+    ``PREFIX_PREEMPT_PAGES`` that preempts, unfused decode, and the
+    bucketed scheduler on the paged and the dense cache, each bitwise
+    equal to its pair (continuous vs bucketed printed); a snapshot round
+    trip while a request sits PREEMPTED.  Float32 parameters: the
+    first-step logits on the card within rtol = atol = 1e-3 of the port's
+    CPU engine on the same weights.  Static weights (serve_fp8_paged):
+    streams bitwise equal to those of the bf16 weights decoded from the
+    same codes; under :func:`k_static_policy` the codes through K2
+    (continuous, every matmul at M = 4) and K3 (bucketed: one prefill at
+    M = 32, its plain version being slow), both on the 4 prompts of 8
+    tokens of :func:`_kernel_queue` (cut for time from the 8 requests),
+    each
+    ``SSM_K_PER_LAYER`` x n_layers launches a model call and none of the
+    other, every call within 2 sqrt(K) 2^-24 sum|products| of its plain
+    version (:class:`_ShadowMatmul`)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models.quantize import quantize_params
+
+    card = card_line()
+    queue = _prefix_queue(get_config(SSM_ARCH))
+    params, full = None, {}
+    for policy in (None, "serve_fp8_paged"):
+        cfg = get_config(SSM_ARCH, policy=policy)
+        label = policy or "default policy"
+        eng = _prefix_engine(dev, cfg, params)
+        if params is None:
+            params = _lively_ssm(eng).params
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run = _counted_run(eng, queue, PREFIX_GEN)
+        peak = torch.cuda.max_memory_allocated()
+        distinct = _require_varied(run["outputs"],
+                                   f"{SSM_ARCH} full depth {label}")
+        print(f"# {SSM_ARCH} full depth ({cfg.n_layers} layers) {label}: "
+              f"{len(queue)} requests, {run['stats']['steps']} steps, "
+              f"{run['substeps']} sub-steps, {run['wall']:.3f} s wall, "
+              f"{run['wall'] / run['substeps'] * 1e3:.3f} ms a sub-step, "
+              f"{run['stats']['decode_tok_s']:.2f} decode tok/s; "
+              f"{held / 2**30:.2f} GiB allocated before the run, peak "
+              f"{peak / 2**30:.2f} GiB; conv and state cache "
+              f"{eng.kv_cache_bytes()} B ({eng.kv_cache_bytes() // PREFIX_SLOTS}"
+              f" B a slot); distinct tokens per stream {distinct}; [{card}]",
+              flush=True)
+        full[label] = dict(wall=run["wall"], substeps=run["substeps"],
+                           outputs=run["outputs"], peak=peak)
+        del eng
+        torch.cuda.empty_cache()
+    streams = [r["outputs"] for r in full.values()]
+    if streams[0] != streams[1]:
+        raise AssertionError(f"{SSM_ARCH}: the default policy's and "
+                             "serve_fp8_paged's streams differ, though an "
+                             "SSM stack reads no KV setting")
+    params = _shallow(params, SSM_SHALLOW_DEPTH)   # the rest freed
+    torch.cuda.empty_cache()
+    out = dict(full=full)
+
+    def serve(policy=None, scheduler="continuous", served=None, **kw):
+        cfg = dataclasses.replace(get_config(SSM_ARCH, policy=policy),
+                                  n_layers=SSM_SHALLOW_DEPTH)
+        eng = _prefix_engine(dev, cfg, params if served is None else served,
+                             **kw)
+        r = _counted_run(eng, queue, PREFIX_GEN, scheduler=scheduler)
+        label = (f"{SSM_ARCH} depth {SSM_SHALLOW_DEPTH} "
+                 f"{policy or 'default policy'}, {scheduler}, "
+                 f"{eng.cache_impl} cache"
+                 + (f", {kw['num_pages'] - 1} pages" if "num_pages" in kw
+                    else "")
+                 + (", unfused" if kw.get("fused_decode") is False else ""))
+        print(f"# {label}: {r['stats']['steps']} steps, {r['substeps']} "
+              f"sub-steps, {r['stats'].get('preemptions', 0)} preemptions, "
+              f"{r['wall']:.3f} s wall", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+        return r
+
+    base = serve()
+    _require_varied(base["outputs"], f"{SSM_ARCH} depth {SSM_SHALLOW_DEPTH}",
+                    constant_share=0.25)
+    again = serve()
+    small = serve(num_pages=PREFIX_PREEMPT_PAGES)
+    if small["stats"]["preemptions"] < 1 or small["stats"]["restores"] < 1:
+        raise AssertionError(f"{SSM_ARCH}: the small pool never preempted")
+    unfused = serve(fused_decode=False)
+    paged = serve(scheduler="bucketed")
+    dense = serve(scheduler="bucketed", cache_impl="dense")
+    for what, r in (("a rerun", again), ("preemption", small),
+                    ("unfused decode", unfused),
+                    ("the bucketed dense cache", dense)):
+        want = paged if r is dense else base
+        if r["outputs"] != want["outputs"]:
+            raise AssertionError(f"{SSM_ARCH}: token streams differ with "
+                                 f"{what}")
+    same, first = _agreement(base["outputs"], paged["outputs"])
+    print(f"# {SSM_ARCH} depth {SSM_SHALLOW_DEPTH}: token streams bitwise "
+          f"equal on a rerun, under preemption "
+          f"({small['stats']['preemptions']} preemptions, "
+          f"{small['stats']['restores']} restores), fused vs unfused and "
+          f"bucketed on the paged and the dense cache; continuous vs "
+          f"bucketed {100 * same:.1f} % of tokens equal, first divergence "
+          f"{first}", flush=True)
+    cfg = dataclasses.replace(get_config(SSM_ARCH),
+                              n_layers=SSM_SHALLOW_DEPTH)
+    _slot_snapshot_roundtrip(dev, SSM_ARCH, cfg, params, card, SSM_LEAVES)
+
+    # float32 parameters: the card against the port's CPU run
+    cfg = dataclasses.replace(get_config(SSM_ARCH), n_layers=SSM_SHALLOW_DEPTH,
+                              param_dtype="float32")
+    own = _lively_ssm(_prefix_engine(dev, cfg, None)).params
+
+    def to(tree, device):
+        if isinstance(tree, dict):
+            return {k: to(v, device) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, device) for v in tree]
+        return tree.to(device)
+
+    kern = _first_step_logits(dev, cfg, own)
+    host = _first_step_logits("cpu", cfg, to(own, "cpu"))
+    del own
+    torch.cuda.empty_cache()
+    np.testing.assert_allclose(kern, host, rtol=1e-3, atol=1e-3)
+    print(f"# {SSM_ARCH} depth {SSM_SHALLOW_DEPTH}, float32 parameters and "
+          f"states: first-step logits on the card within "
+          f"{np.abs(kern - host).max():.3e} of the CPU engine's (max |logit| "
+          f"{np.abs(host).max():.3f}); [{card}]", flush=True)
+
+    # static weights: decoded == bf16 of the same codes; codes through K2/K3
+    fp8 = dataclasses.replace(get_config(SSM_ARCH, policy="serve_fp8_paged"),
+                              n_layers=SSM_SHALLOW_DEPTH)
+    codes = quantize_params(params, fp8.policy,
+                            period=fp8.layer_pattern_period)
+    static = serve("serve_fp8_paged", served=codes, static_weights=True)
+    plain = serve("serve_fp8_paged", served=_decoded(codes))
+    _require_varied(static["outputs"], f"{SSM_ARCH} static weights",
+                    constant_share=0.25)
+    if static["outputs"] != plain["outputs"]:
+        raise AssertionError(f"{SSM_ARCH} static weights: token streams "
+                             "differ from the bf16 weights decoded from the "
+                             "same codes")
+    short = _kernel_queue(fp8)
+    for impl, which, scheduler in (
+            ("fused_dequant", "dequant_matmul", "continuous"),
+            ("lns", "lns_product_matmul", "bucketed")):
+        kcfg = dataclasses.replace(
+            get_config(SSM_ARCH), numerics=k_static_policy(impl),
+            n_layers=SSM_SHALLOW_DEPTH)
+        eng = Engine(kcfg, slots=PREFIX_SLOTS,
+                     max_seq=KERNEL_PLEN + KERNEL_GEN, page_size=16,
+                     rng_seed=0, device=dev)
+        eng.params = codes
+        prefills = []
+        real_prefill = eng.prefill_batch
+
+        def counted(prompts, slots, real=real_prefill, seen=prefills):
+            seen.append(len(prompts) * len(prompts[0]))
+            return real(prompts, slots)
+
+        eng.prefill_batch = counted
+        _reset_matmul_counts()
+        with _ShadowMatmul(which) as shadow:
+            r = _counted_run(eng, short, KERNEL_GEN, scheduler)
+        k3, k2 = _matmul_counts()
+        got, other = (k2, k3) if impl == "fused_dequant" else (k3, k2)
+        calls = r["substeps"] + len(prefills)
+        want = SSM_K_PER_LAYER * SSM_SHALLOW_DEPTH * calls
+        kname = "K2" if impl == "fused_dequant" else "K3"
+        print(f"# {SSM_ARCH} depth {SSM_SHALLOW_DEPTH} static weights "
+              f"through {kname} ({impl}), {scheduler}: {r['substeps']} "
+              f"sub-steps and {len(prefills)} batched prefills (M "
+              f"{prefills}), {got} {kname} launches ({SSM_K_PER_LAYER} x "
+              f"{SSM_SHALLOW_DEPTH} layers x model calls = {want}), {other} "
+              f"of the other; {shadow.calls} calls each within "
+              f"{shadow.err:.3e} of the plain version (at most "
+              f"{shadow.of_limit:.4f} of the limit {SHADOW_SUM_LIMIT} "
+              f"sqrt(K) 2^-24 sum|products|) at (M, K, N) "
+              f"{sorted(shadow.shapes)}; {r['wall']:.3f} s wall; "
+              f"[{card}]", flush=True)
+        if got != want or other or shadow.calls != want:
+            raise AssertionError(f"{kname} on {SSM_ARCH}'s static weights: "
+                                 f"{got} launches ({other} of the other, "
+                                 f"{shadow.calls} calls), want {want}")
+        if scheduler == "bucketed" and prefills != [
+                PREFIX_SLOTS * KERNEL_PLEN]:
+            raise AssertionError(f"bucketed prefills {prefills}")
+        _require_varied(r["outputs"], f"{SSM_ARCH} static weights through "
+                        f"{kname}", constant_share=0.25)
+        out[impl] = dict(launches=got, err=shadow.err)
+        del eng
+        torch.cuda.empty_cache()
+    out.update(static_wall=static["wall"], decoded_wall=plain["wall"])
+    del codes, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_ssm_kernels(dev) -> dict:
+    """Phase: K3 and K2 at mamba2-780m's six static products
+    (``SSM_MATMULS``: ``w_z``/``w_x`` N 3,072, ``w_B``/``w_C`` N 128,
+    ``w_dt`` N 48, a partial tile of every K3 tile (128, 64, 32) and of
+    K2's 64, and ``out_proj`` K 3,072), each at M = 4 (decode, the 4
+    slots) and M = ``SSM_PREFILL_M`` (the main path's longest bucketed
+    prefill, a partial row tile), on E4M3 codes of random activations
+    times a per-tensor E4M3 weight: every element within 2 sqrt(K) 2^-24
+    sum|products| of the plain version (:class:`_ShadowMatmul`'s limit)
+    and two calls bitwise.  Then each kernel's card time on one layer's
+    six products at M = 4 beside its bound, the plain version and, for
+    K2, ``torch.matmul`` on the decoded bf16 weights
+    (:func:`_static_layer_ms`)."""
+    import torch
+    from repro_torch.core.quant import quantize
+    from repro_torch.kernels import lns_matmul as lm
+
+    card = card_line()
+    g = torch.Generator(device=dev).manual_seed(30)
+    mats, res = [], {"fused_dequant": {"err": 0.0}, "lns": {"err": 0.0}}
+    routes = {"fused_dequant": (
+        "K2", lambda x, w: lm.dequant_matmul(
+            x, w, fmt="e4m3", w_fmt="e4m3", compute_dtype=torch.float32),
+        lambda x, w: lm.dequant_matmul_plain(
+            x, w, fmt="e4m3", w_fmt="e4m3", compute_dtype=torch.float32)),
+        "lns": ("K3", lambda x, w: lm.lns_product_matmul(
+            x, w, fmt="e4m3", mode="rne"),
+            lambda x, w: lm.lns_matmul_plain(x, w, fmt="e4m3", mode="rne"))}
+    for name, (K, N) in SSM_MATMULS.items():
+        q = quantize(torch.randn((K, N), generator=g, device=dev) * 0.02,
+                     "e4m3")
+        mats.append(q)
+        for M in (PREFIX_SLOTS, SSM_PREFILL_M):
+            x = quantize(torch.randn((M, K), generator=g, device=dev),
+                         "e4m3").codes
+            for impl, (kname, kernel, plain) in routes.items():
+                got, again = kernel(x, q.codes), kernel(x, q.codes)
+                want = plain(x, q.codes)
+                absum = plain(x & 0x7F, q.codes & 0x7F)
+                limit = SHADOW_SUM_LIMIT * K ** 0.5 * 2.0**-24 * absum
+                diff = (got - want).abs()
+                if not torch.isfinite(got).all() or bool(
+                        (diff > limit).any()):
+                    raise AssertionError(f"{kname} differs from its plain "
+                                         f"version at {SSM_ARCH} {name} "
+                                         f"{M}x{K}x{N}")
+                if not torch.equal(got.view(torch.int32),
+                                   again.view(torch.int32)):
+                    raise AssertionError(f"two {kname} calls differ at "
+                                         f"{M}x{K}x{N}")
+                err = float(diff.max())
+                res[impl]["err"] = max(res[impl]["err"], err)
+                print(f"# {kname} {SSM_ARCH} {name} {M}x{K}x{N} (e4m3, "
+                      f"RNE): max |err| {err:.3e}, at most "
+                      f"{float((diff / limit.clamp_min(1e-38)).max()):.4f} "
+                      f"of {SHADOW_SUM_LIMIT} sqrt(K) 2^-24 sum|products| "
+                      "of its plain version; two calls bitwise", flush=True)
+    for impl in routes:
+        res[impl].update(_static_layer_ms(
+            dev, mats, impl, PREFIX_SLOTS,
+            label=f"one {SSM_ARCH} layer (6 products)"))
+    print(f"# {SSM_ARCH}'s kernel shapes checked; [{card}]", flush=True)
+    return res
 
 
 def _plain_attention_policy(pol):
@@ -2489,9 +2935,10 @@ def window_path(dev) -> None:
     """Windows on the model path: gemma3-12b at full width, depth 6 (5
     local layers and the global one), float32 parameters, on FP8 pages
     (serve_fp8_paged) and on float32 pages (the default policy).  One
-    slot prefills the first 1,039 tokens of a 1,040-token prompt through
-    K1, every K1 call from the 1,024th token on (where the window starts
-    to mask) held to its plain version on the same inputs
+    slot prefills the first 1,023 tokens of a 1,040-token prompt (those
+    the window leaves whole) in one batched call spliced into pages, then
+    the next 16 through K1 (where the window starts to mask), every K1
+    call held to its plain version on the same inputs
     (:class:`_ShadowK1`); then, from that cache, the last prompt token and
     one decode step (the local layers' window of 1,024 skips page 0) run
     once through K1 and once through the plain attention: their logits
@@ -2514,7 +2961,6 @@ def window_path(dev) -> None:
         early = cfg.window - 1  # sub-steps whose reads the window leaves whole
         eng = Engine(cfg, slots=1, max_seq=WINDOW_PROMPT + 1, page_size=16,
                      rng_seed=3, device=dev)
-        eng.pool.ensure_capacity_batch(np.asarray([WINDOW_PROMPT + 1]))
 
         def tail():
             last = prompt[:, -1:]
@@ -2525,8 +2971,10 @@ def window_path(dev) -> None:
 
         t0 = time.perf_counter()
         before = _launch_counts()
-        eng.step_chunk(prompt[:, :early], np.zeros(1, np.int32),
-                       np.asarray([early], np.int32))
+        # the tokens the window leaves whole: one batched prefill spliced
+        # into pages (no K1 call), then sub-steps through K1
+        eng.prefill_batch([prompt[0, :early]], [0])
+        eng.pool.ensure_capacity_batch(np.asarray([WINDOW_PROMPT + 1]))
         with _ShadowK1() as shadow:
             eng.step_chunk(prompt[:, early:n], np.asarray([early], np.int32),
                            np.asarray([n - early], np.int32))
@@ -2542,14 +2990,13 @@ def window_path(dev) -> None:
         none = [a - b for a, b in zip(_launch_counts(), before)]
         del eng, saved
         torch.cuda.empty_cache()
-        want = WINDOW_DEPTH * (WINDOW_PROMPT + 1)
-        shadowed = WINDOW_DEPTH * (WINDOW_PROMPT + 1 - early)
+        want = WINDOW_DEPTH * (WINDOW_PROMPT + 1 - early)
         got = launched[0] if fp8 else launched[1]
         if (got != want or sum(launched) != want or any(none)
-                or shadow.calls != shadowed):
+                or shadow.calls != want):
             raise AssertionError(f"K1 launches {launched} (plain run {none}, "
                                  f"shadowed calls {shadow.calls}), want "
-                                 f"{want} of one instance")
+                                 f"{want} of one instance, each shadowed")
         label = (f"gemma3-12b depth {WINDOW_DEPTH}, float32, "
                  f"{_policy_label(cfg, policy)}, {WINDOW_PROMPT}-token "
                  f"prompt (window {cfg.window} skips page 0 on the local "
@@ -2626,6 +3073,17 @@ KERNEL_SCHEDULERS = {"fused_dequant": ("continuous", "bucketed"),
                      "lns": ("bucketed",)}
 KERNEL_PLEN = 8            # 4 prompts of one length: one prefill, M = 32
 KERNEL_GEN = 4
+
+
+def _kernel_queue(cfg, seed: int = 7) -> list:
+    """The kernel runs' ``PREFIX_SLOTS`` prompts of ``KERNEL_PLEN`` random
+    tokens: every decode sub-step at M = the slots, and a bucketed run's
+    one prefill at M = ``PREFIX_SLOTS`` x ``KERNEL_PLEN``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab, size=KERNEL_PLEN)
+            for _ in range(PREFIX_SLOTS)]
 BUCKET_SHALLOW_DEPTH = 6   # the bucketed runs set against continuous ones
 # one gemma3-12b layer's seven static-weight matmuls: (K, N) -> count
 # (wq; wk and wv; wo; w_gate and w_up; w_down)
@@ -3072,7 +3530,7 @@ def _static_layer_ms(dev, mats, impl: str, M: int,
     ms, how = device_ms(lambda: [kern(i) for i in range(n)], iters=20,
                         only=only)
     plain_ms, _ = device_ms(lambda: [plain(i) for i in range(n)],
-                            iters=2 if impl == "lns" else 10, warmup=1)
+                            iters=1 if impl == "lns" else 10, warmup=1)
     res = dict(ms=ms, plain_ms=plain_ms, how=how, library_ms=None)
     if impl == "fused_dequant":
         dec = [(code_to_f32(x, "e4m3").to(torch.bfloat16),
@@ -3417,19 +3875,24 @@ INT32_OPCODES = {"IADD3", "IADD", "VIADD", "IMAD", "LOP3", "SHF", "ISETP",
                  "LEA", "IMNMX", "VIMNMX", "IABS"}
 
 
+_SASS = {}   # library path -> its functions' SASS: one cuobjdump each
+
+
 def _sass_functions(lib) -> dict:
-    """Each function's SASS in the built library ``lib`` (``cuobjdump``),
-    by mangled name."""
+    """Each function's SASS in the built library ``lib`` (``cuobjdump``,
+    once a library), by mangled name."""
     import re
     import shutil
     from repro_torch.kernels import cuda_build
 
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.path.dirname(cuda_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True, timeout=120).stdout
-    return {f.split(None, 1)[0]: f
-            for f in re.split(r"\n\s*Function : ", sass)[1:]}
+    if str(lib) not in _SASS:
+        tool = shutil.which("cuobjdump") or os.path.join(
+            os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True, timeout=120).stdout
+        _SASS[str(lib)] = {f.split(None, 1)[0]: f for f in
+                           re.split(r"\n\s*Function : ", sass)[1:]}
+    return _SASS[str(lib)]
 
 
 def sass_loop_mix(lib, kernel: str, per: str) -> dict:
@@ -3967,7 +4430,6 @@ def profile_train_step(dev, policy=None, depth=None,
     first ``depth`` layers when given: wall time, card-busy share,
     launches, the kernels that take the time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
 
@@ -3988,9 +4450,7 @@ def profile_train_step(dev, policy=None, depth=None,
         state, metrics = step(state, batch_of(1))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = [(e.key, getattr(e, "self_device_time_total", None)
-             or e.self_cuda_time_total, e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = _device_rows(prof)
     busy = sum(us for _, us, _ in rows) / 1e6
     if busy <= 0:
         print(f"# profiled train step: {wall:.4f} s wall; the profiler "
@@ -4449,7 +4909,8 @@ def check_k4(dev, k3_layer_ms: float, k3_bound: float) -> dict:
     """Phase: K4 bitwise against its plain version (NaN as NaN) at BENCH_1's
     512 x 512 x 512 (e4m3, RNE) and at the seven matmul shapes of one
     qwen2-0.5b layer at M = 1024 (the codes K3 was timed on); then its
-    card time per layer beside K3's, the plain version's and the bound,
+    card time per layer beside K3's, the plain version's (its checking
+    calls, one a shape between CUDA events, host included) and the bound,
     and K4 / K3 at 512^3.  K4 computes K3's function (the same products
     and sums), so its bound is ``k3_bound``, the function's
     (:func:`lns_function_bound`) per layer.  K4's own compiled
@@ -4468,11 +4929,14 @@ def check_k4(dev, k3_layer_ms: float, k3_bound: float) -> dict:
     cases = {(512, 512, 512): (x512, w512)}
     for (K, N), xw in _layer_codes(dev, 10, "e4m3", "e4m3").items():
         cases[SMOKE_M, K, N] = xw
+    plain_one = {}
     for shape, (x, w) in cases.items():
         got = lm.lns_loop_matmul(x, w, fmt="e4m3", mode="rne")
         again = lm.lns_loop_matmul(x, w, fmt="e4m3", mode="rne")
-        want = lm.lns_loop_matmul_plain(x, w, fmt="e4m3", mode="rne")
-        torch.cuda.synchronize()
+        # the plain version's ~10^5 small launches a call: this one call
+        # between CUDA events (the profiler's own cost is seconds)
+        want, plain_one[shape[1:]] = timed_call(
+            lambda: lm.lns_loop_matmul_plain(x, w, fmt="e4m3", mode="rne"))
         if not _nan_aware_bitwise(got, want):
             raise AssertionError(f"K4 differs from its plain version at "
                                  f"{shape}")
@@ -4490,13 +4954,10 @@ def check_k4(dev, k3_layer_ms: float, k3_bound: float) -> dict:
     def k4(shape):
         return lm.lns_loop_matmul(*layer[shape], fmt="e4m3", mode="rne")
 
-    def k4_plain(shape):
-        return lm.lns_loop_matmul_plain(*layer[shape], fmt="e4m3",
-                                        mode="rne")
-
     # "lns_loop_matmul": the kernel and the launch that adds split sums
     ms, how = _per_layer_ms(k4, "lns_loop_matmul", iters=10)
-    plain_ms, _ = _per_layer_ms(k4_plain, "", iters=1, warmup=1)
+    plain_ms = sum(count * plain_one[shape]
+                   for shape, count in LAYER_MATMULS.items())
     k4_512, _ = device_ms(lambda: lm.lns_loop_matmul(x512, w512, fmt="e4m3"),
                           iters=10, only="lns_loop_matmul")
     k3_512, _ = device_ms(lambda: lm.lns_product_matmul(x512, w512,
@@ -4523,7 +4984,8 @@ def check_k4(dev, k3_layer_ms: float, k3_bound: float) -> dict:
           f"{SM_CLOCK_HZ / 1e9:.2f} GHz)", flush=True)
     print(f"# K4 per layer (7 matmuls, M={SMOKE_M}; card time, {how}): "
           f"kernel {ms:.4f} ms (K3 {k3_layer_ms:.4f} ms, K4/K3 "
-          f"{ms / k3_layer_ms:.3f}); plain {plain_ms:.3f} ms; bound "
+          f"{ms / k3_layer_ms:.3f}); plain {plain_ms:.3f} ms (CUDA events, "
+          f"host included); bound "
           f"{bound:.5f} ms, K3's (the function's: max({nbytes} B / 3.35 "
           f"TB/s, {2 * prods} operations / 1979 TOP/s; an in-order sum "
           f"cannot use the 8-bit tensor rate)) (kernel / bound "
@@ -5049,6 +5511,7 @@ MLA_CHECK_DEPTH = 2        # the float32 comparisons, the layer, K4
 MLA_PLAIN_BATCH = 8        # the float32 comparison's batch (x seq 128)
 MLA_PREFIX_STE = 8         # the dense layer's STE products: MLA 5, FFN 3
 MLA_MOE_STE = 11           # an MoE layer's: MLA 5, shared 3, routed 3
+MLA_MOE_RECOMPUTE = 10     # all but the shared experts' down product
 # An MoE layer's routed products at batch 8 x seq 128 under grouped
 # dispatch: 8 groups of 128 tokens, capacity(128, 6, 64, 1.25) = 16 rows
 # an expert a group, so 128 rows an expert; (K, N) -> products of that
@@ -5075,10 +5538,12 @@ def _mla_train_config(depth: int, **kw):
 
 def _mla_k3_per_step(cfg) -> int:
     """K3 (or K2) launches of one train step: the leading dense layer's
-    products once (outside the checkpoints), each MoE layer's twice
-    (forward and recompute), each routed product one launch over all
-    experts."""
-    return MLA_PREFIX_STE + 2 * MLA_MOE_STE * (cfg.n_layers - cfg.first_dense)
+    products once (outside the checkpoints), each MoE layer's forward and
+    its recompute but the shared experts' down product (after the
+    checkpoint: the reference's remat drops it), each routed product one
+    launch over all experts: 8 + 21 (n_layers - 1)."""
+    return MLA_PREFIX_STE + (MLA_MOE_STE + MLA_MOE_RECOMPUTE) * (
+        cfg.n_layers - cfg.first_dense)
 
 
 def _dir_bytes(path) -> int:
@@ -5097,9 +5562,10 @@ def mla_train_path(dev) -> dict:
     no depth flag), one checkpoint, at the last step.  The dense layer's 8
     STE products run K3 once (it is outside the checkpoints, as in the
     reference); each MoE layer's 11 (MLA 5, shared 3, routed 3, each
-    routed product one launch over all 64 experts) twice.  Gates: finite
-    loss, ce, moe_lb and moe_z at every step, 0 restarts, K3 launches
-    ``MLA_TRAIN_STEPS`` x (8 + 22 x (depth - 1)), K2 none.  Prints the
+    routed product one launch over all 64 experts) twice but the shared
+    down product, once.  Gates: finite loss, ce, moe_lb and moe_z at
+    every step, 0 restarts, K3 launches ``MLA_TRAIN_STEPS`` x (8 + 21 x
+    (depth - 1)), K2 none.  Prints the
     wall of every step, the checkpoint's bytes and write time, the peak
     memory, the parameter count and the busiest expert's share of a
     layer's routed pairs, beside the card's name and power limit."""
@@ -5184,7 +5650,7 @@ def mla_train_path(dev) -> dict:
     if any(h["restarts"] for h in history):
         raise AssertionError(f"{history[-1]['restarts']} restarts")
     if k3 != want or k2 != 0:
-        raise AssertionError(f"K3 launches {k3} (want {n_steps} x (8 + 22 x "
+        raise AssertionError(f"K3 launches {k3} (want {n_steps} x (8 + 21 x "
                              f"{cfg.n_layers - cfg.first_dense}) = {want}), "
                              f"K2 launches {k2} (want 0)")
     if len(saves) != 1 or ckpt_bytes <= 0:
@@ -5196,7 +5662,7 @@ def mla_train_path(dev) -> dict:
           f"{cfg.n_layers - cfg.first_dense} MoE layers; "
           f"{n_params / 1e9:.3f} B parameters), batch 8 x seq 128, {n_steps} "
           f"steps; (loss, ce, moe_lb, moe_z) at every step: {terms}; 0 "
-          f"restarts; {k3} K3 launches = {n_steps} x (8 + 22 x "
+          f"restarts; {k3} K3 launches = {n_steps} x (8 + 21 x "
           f"{cfg.n_layers - cfg.first_dense}) (the dense layer's products "
           f"once a step, each routed product one launch over "
           f"{cfg.n_experts} experts), 0 K2; step walls "
@@ -5258,7 +5724,7 @@ def check_mla_train_against_plain(dev) -> dict:
     deepseek-v2-lite-16b at batch ``MLA_PLAIN_BATCH`` x seq 128, through
     the kernels and through their plain versions, for K3 (fp8_lns_pallas)
     and K2 (train_fp8): loss rtol 1e-4, gradient norm rtol 1e-3, as
-    :func:`check_train_against_plain` (the kernel runs launch 8 + 22
+    :func:`check_train_against_plain` (the kernel runs launch 8 + 21
     times, the plain runs none).  Then one MLA + MoE layer's forward and
     backward twice on one input under each policy: bitwise equal.  Returns
     K2's launches in its kernel run."""
@@ -5317,15 +5783,17 @@ def check_mla_train_against_plain(dev) -> dict:
 def train_k4_mla_path(dev) -> dict:
     """Phase: one full-width deepseek train step at depth 2 under the
     lns_loop policy (:func:`k4_train_policy`): K4 has no batch axis, so
-    each routed product launches it once per expert: 8 + 2 x (5 + 3 + 3 x
-    64) launches (the dense layer once, the MoE layer forward and
-    recompute), K3 and K2 none; finite loss and aux terms."""
+    each routed product launches it once per expert: 8 + (5 + 3 + 3 x 64)
+    + (5 + 2 + 3 x 64) launches (the dense layer once, the MoE layer
+    forward and recompute, the shared down product once), K3 and K2 none;
+    finite loss and aux terms."""
     import torch
     from repro_torch.kernels import lns_matmul as lm
 
     cfg = _mla_train_config(MLA_CHECK_DEPTH, policy=k4_train_policy())
     moe_layers = cfg.n_layers - cfg.first_dense
-    want = MLA_PREFIX_STE + 2 * (5 + 3 + 3 * cfg.n_experts) * moe_layers
+    want = MLA_PREFIX_STE + ((5 + 3 + 3 * cfg.n_experts)
+                             + (5 + 2 + 3 * cfg.n_experts)) * moe_layers
     state, step, batch_of = _train_setup(dev, cfg)
     before = _matmul_counts() + (lm.lns_loop_matmul.launches,)
     t0 = time.perf_counter()
@@ -5343,7 +5811,8 @@ def train_k4_mla_path(dev) -> dict:
                              f"{terms}")
     print(f"# train {MLA_ARCH} lns_loop (K4), depth {cfg.n_layers}, one "
           f"step: (loss, ce, moe_lb, moe_z) {terms}; {k4} K4 launches = 8 + "
-          f"2 x (5 + 3 + 3 x {cfg.n_experts}) x {moe_layers} (one a product "
+          f"((5 + 3 + 3 x {cfg.n_experts}) + (5 + 2 + 3 x {cfg.n_experts})) "
+          f"x {moe_layers} (one a product "
           f"per expert), 0 K3, 0 K2; {wall:.2f} s wall", flush=True)
     return dict(launches=k4)
 
@@ -5491,11 +5960,12 @@ def main() -> int:
     shared = _phase(preempt_shared_path, dev, "serve_fp8_paged", params)
     shared_float = _phase(preempt_shared_path, dev, None, params)
     _phase(chaos_path, dev, params, shared, shared_float)
-    meshed = _phase(mesh_path, dev, params, shared, shared_float)
+    mesh_run = _phase(mesh_start, dev, params)   # the ranks run meanwhile
     _phase(bucketed_path, dev, "serve_fp8_paged", params, shared["outputs"])
     _phase(bucketed_path, dev, None, params, shared_float["outputs"])
     _phase(bucketed_logits_path, dev, "serve_fp8_paged", params)
     _phase(bucketed_logits_path, dev, None, params)
+    meshed = _phase(mesh_path, dev, mesh_run, shared, shared_float)
     static = _phase(static_weights_path, dev, params)  # drops the bf16
     del params
     static_k = _phase(static_kernel_path, dev, static.pop("codes"))
@@ -5504,6 +5974,9 @@ def main() -> int:
     _phase(profile_main_path, dev, arch=MOE_ARCH, depth=PROFILE_DEPTH)
     mla = _phase(mla_path, dev)
     _phase(profile_main_path, dev, arch=MLA_ARCH, depth=PROFILE_DEPTH)
+    ssm = _phase(ssm_path, dev)
+    _phase(profile_main_path, dev, policy=None, arch=SSM_ARCH)
+    ssm_k = _phase(check_ssm_kernels, dev)
     _phase(profile_main_path, dev, arch="gemma3-12b", depth=PROFILE_DEPTH)
     _phase(profile_main_path, dev, policy=None, arch="gemma3-12b",
            depth=PROFILE_DEPTH)
@@ -5645,6 +6118,17 @@ def main() -> int:
         launches=mla["k2_launches"], max_abs_err=mla["k2_err"], ms=k["ms"],
         plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=k["library_ms"]))
+    for impl, name, line in (("fused_dequant", "dequant_matmul", 110),
+                             ("lns", "lns_matmul", 62)):
+        k = ssm_k[impl]
+        kernels.append(dict(
+            name=f"{name}_static_weights_mamba2", route="cuda",
+            source=src + "lns_matmul.cu",
+            replaces=f"src/repro/kernels/lns_matmul.py:{line}",
+            launches=ssm[impl]["launches"],
+            max_abs_err=max(k["err"], ssm[impl]["err"]), ms=k["ms"],
+            plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=k["library_ms"]))
     for name, key, line, launches in (
             ("lns_matmul_experts", "K3", 62, moe_trained["launches"]),
             ("dequant_matmul_experts", "K2", 110, moe_plain["k2_launches"])):

@@ -19,6 +19,12 @@ Port of ``repro.launch.serve`` for its single-device paths:
   (``models.model.SLOT_LEAVES``), written by every sub-step at each
   slot's position, spliced by a bucketed prefill, and spilled and
   restored by a preemption as the slot's whole rows, verbatim;
+* SSM stacks (mamba2-780m) on the same paths, with the same two
+  refusals: each SSD layer's conv inputs and state are dense per-slot
+  leaves of the paged cache too (``SLOT_LEAVES``), written whole by every
+  sub-step (an inactive slot's kept), spliced from a bucketed prefill's
+  end state, and spilled and restored verbatim, the state at the moment
+  of the spill;
 * ``static_weights=True``: the eligible weights held as FP8 codes
   (``models.quantize``), decoded before each float product or, under a
   policy that quantizes matmuls, multiplied as codes by K2
@@ -34,8 +40,9 @@ Every paged token, prefill or decode, is a single-token sub-step of
 ``Model.step_paged`` or ``Model.decode_step_paged``, whose GQA attention
 layers launch the hand-written CUDA kernel K1
 (``kernels/paged_attention.py``: its float instance on float pages, its
-LNS instance on FP8 pages); MLA's absorbed decode is float32 products in
-plain PyTorch, as in the reference, which has no kernel for it.
+LNS instance on FP8 pages); MLA's absorbed decode and the SSD mixer are
+float32 products in plain PyTorch, as in the reference, which has no
+kernel for them.
 
 The engine runs on the card unless the caller passes ``device="cpu"``
 (the tests), and raises when no GPU is present — there is no silent CPU
@@ -61,6 +68,7 @@ streams and the gathered cache are the TP=1 engine's bit for bit.
         --cache-impl dense
     python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \\
         --policy serve_fp8_paged
+    python -m repro_torch.launch.serve --arch mamba2-780m
 """
 from __future__ import annotations
 
@@ -297,8 +305,9 @@ class Engine:
     def prefix_cache_supported(cfg) -> bool:
         """Prefix caching shares pages, so every layer's KV state must live
         in the page pool: pure-GQA decoder-only stacks (every config the
-        port runs; the reference refuses MLA latents, SSM states and
-        cross/encoder caches, which are dense per-slot entries)."""
+        port runs but deepseek and mamba2; the reference refuses MLA
+        latents, SSM states and cross/encoder caches, which are dense
+        per-slot entries)."""
         if cfg.family in ("vlm", "encdec") or cfg.attn_impl != "gqa":
             return False
         return not cfg.first_dense and all(
@@ -367,7 +376,15 @@ class Engine:
         replaced by a copy-on-write clone (``PagePool.cow_page`` and a
         device copy of its contents) and the final prompt token is
         recomputed into it: bit-identical to the cached row, because KV
-        rounding is addressed by position."""
+        rounding is addressed by position.
+
+        Every fresh admission (the scheduler calls this for each, the
+        prefix cache on or off) first zeroes ``slot``'s rows of the dense
+        per-slot leaves: an SSD state summarises everything its slot has
+        seen, so a new request starts from the zero state, as a prefill
+        from scratch does, never from the slot's last occupant's (the
+        reference does not reset it: ROADMAP.md Queue 3)."""
+        self._clear_slot(slot)
         if not self.prefix_cache:
             return 0
         plen = int(np.asarray(prompt).shape[0])
@@ -385,6 +402,15 @@ class Engine:
             self._copy_page(old, new)
             matched = plen - 1
         return matched
+
+    def _clear_slot(self, slot: int) -> None:
+        """Zero ``slot``'s rows of every dense per-slot leaf of the paged
+        cache, on the device (nothing for a cache of pages only)."""
+        if self.pool is None:
+            return
+        for name, t in self.cache.items():
+            if name in SLOT_LEAVES:
+                t[:, slot].zero_()
 
     def note_prefilled(self, slot: int, n_prefilled: int) -> None:
         """Publish every prompt page ``slot`` has now fully written into
@@ -450,8 +476,9 @@ class Engine:
     def preempt_slot(self, slot: int) -> dict:
         """Spill ``slot`` to the host: copy its unregistered pages'
         contents (codes and scales, or float rows) and its rows of every
-        dense per-slot leaf (MLA's latents, ``SLOT_LEAVES``: the whole
-        ``[n_layers, 1, S, ...]``) out of every layer verbatim, never
+        dense per-slot leaf (``SLOT_LEAVES``: MLA's latents, the whole
+        ``[n_layers, 1, S, ...]``; SSD's conv inputs and state, a summary
+        of everything the slot has seen) out of every layer verbatim, never
         re-quantized, then free the pages, so a later
         :meth:`restore_slot` is bit-identical.  Registered prefix pages are
         neither copied nor freed: they stay resident under a pin
@@ -549,8 +576,9 @@ class Engine:
                 keys) -> None:
         """Write each prefill row's dense cache entries into its slot, in
         place: rows of the dense cache or of the paged cache's dense
-        per-slot leaves (MLA's latents, copied verbatim: the reference's
-        ``splice_dense_leaf``), or freshly allocated pages (each page's
+        per-slot leaves (MLA's latents, SSD's conv inputs and end state,
+        copied verbatim: the reference's ``splice_dense_leaf``), or
+        freshly allocated pages (each page's
         scale from its whole content, the codes rescaled to it with
         stochastic carry-ins when ``keys`` is given).  Prefill row ``i``'s
         K and V take ``fold_in(keys, 2 i)`` and ``fold_in(keys, 2 i + 1)``,
@@ -558,10 +586,10 @@ class Engine:
         over every rank's KV heads, and the rescale's bits are drawn for
         every head and cut to this rank's."""
         cfg = self.cfg
-        if self.cache_impl == "paged" and cfg.attn_impl == "mla":
-            for name in SLOT_LEAVES:
-                leaf = self.cache[name]
-                src = torch.stack([c[name] for c in small])  # [L, n, S, w]
+        if self.cache_impl == "paged" and "kp" not in self.cache:
+            for name, leaf in self.cache.items():
+                # [L, n, ...]: the layers that hold this leaf
+                src = torch.stack([c[name] for c in small if name in c])
                 for i, slot in enumerate(slots):
                     leaf[:, slot, :src.shape[2]] = src[:, i].to(leaf.dtype)
             return
@@ -719,9 +747,9 @@ class Engine:
 
     def kv_capacity_tokens(self) -> int:
         """Tokens the cache memory holds: pool pages, or the dense rows of
-        a dense cache or of MLA's per-slot latents (whose pool only
-        accounts)."""
-        if self.pool is not None and self.cfg.attn_impl != "mla":
+        a dense cache or of the paged cache's per-slot leaves (MLA's
+        latents, SSD's states: the pool only accounts)."""
+        if self.pool is not None and "kp" in self.cache:
             return (self.pool.num_pages - 1) * self.page_size
         return self.slots * self.max_seq
 

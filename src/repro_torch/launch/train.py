@@ -3,9 +3,9 @@
 Port of ``repro.launch.train``, single-device: the model trains on the
 card unless ``--device cpu`` is given (without a card and without that
 flag it raises).  Every architecture the port serves trains (the dense
-GQA family, granite-moe-3b-a800m, deepseek-v2-lite-16b); ``--mesh`` other
-than ``1x1`` (FSDP/TP training) is not ported yet (ROADMAP.md Queue 1
-item 12).  Examples:
+GQA family, granite-moe-3b-a800m, deepseek-v2-lite-16b) but mamba2-780m
+(ROADMAP.md Queue 1 item 11c-train); ``--mesh`` other than ``1x1``
+(FSDP/TP training) is not ported yet (item 12).  Examples:
 
   # CPU smoke run on learnable synthetic data (plain kernel versions):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
@@ -75,8 +75,9 @@ def main(argv=None):
         raise NotImplementedError(
             f"--mesh {args.mesh}: FSDP/TP training is not ported yet "
             "(ROADMAP.md Queue 1 item 12)")
-    device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke, quant=args.quant)
+    steps.check_trainable(cfg)
+    device = resolve_device(args.device)
     model = Model(cfg, max_seq=args.seq)
     opt_cfg = adamw.OptConfig(lr=args.lr, warmup_steps=10,
                               total_steps=args.steps)

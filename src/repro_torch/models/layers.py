@@ -18,6 +18,7 @@ from ..kernels.common import code_to_f32
 from ..parallel.hints import hint, tp_columns, tp_max
 
 __all__ = ["rms_norm", "rope", "softcap", "qlinear", "gated_mlp",
+           "gated_hidden",
            "bmm_experts", "ste_expert_matmul", "chunked_attention",
            "decode_attention", "NEG_INF"]
 
@@ -184,6 +185,14 @@ def gated_mlp(x, p, pol, act_fn="silu", site: str = "ffn"):
     ``reduce=tp_max``), and h is gathered before ``w_down``, which
     runs whole on every rank.  No-ops outside a mesh.
     """
+    return qlinear(gated_hidden(x, p, pol, act_fn, site), p["w_down"], pol,
+                   site=f"{site}.w_down")
+
+
+def gated_hidden(x, p, pol, act_fn="silu", site: str = "ffn"):
+    """The hidden activation of :func:`gated_mlp`, ``act(gate(x)) *
+    up(x)``, gathered whole on a mesh: the input of its ``w_down``
+    product."""
     F = _dims(p["w_down"])[0]  # the whole hidden width (w_down is whole)
 
     def columns(name):  # this rank's block of the F columns, on a mesh
@@ -197,8 +206,7 @@ def gated_mlp(x, p, pol, act_fn="silu", site: str = "ffn"):
     u = hint(u, "ffn_hidden")
     h = numerics.elementwise("mul", g, u, pol, site=f"{site}.gate_up",
                              reduce=tp_max)
-    h = hint(h, "ffn_gather")
-    return qlinear(h, p["w_down"], pol, site=f"{site}.w_down")
+    return hint(h, "ffn_gather")
 
 
 # --------------------------------------------------------------------------- #

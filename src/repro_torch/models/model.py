@@ -7,7 +7,8 @@ family (qwen2, qwen3's qk-norm, gemma2/3's sandwich norms, embedding
 scale, local/global windows and softcaps), the MoE family (granite-moe-3b-
 a800m), served and trained (the loss adds the MoE aux terms), and MLA with
 MoE, shared experts and a leading dense layer (deepseek-v2-lite-16b),
-served and trained.
+served and trained; and for the attention-free SSM stack (mamba2-780m),
+served.
 Parameters are a plain dict: ``embed`` [Vp, D], ``final_norm`` [D],
 optional ``unembed`` [D, Vp], ``blocks``, a list of per-layer dicts with
 the reference's names (``ln1``, ``attn.wq``/``bq``/..., ``ln2``,
@@ -16,7 +17,10 @@ float32 [D, E], ``w_gate``/``w_up`` [E, D, F], ``w_down`` [E, F, D] and,
 with shared experts, ``shared``; an MLA layer's ``attn`` is ``wq``,
 ``w_dkv``, ``kv_norm``, ``w_uk``, ``w_uv``, ``wo``), and, with
 ``first_dense`` leading layers, ``prefix``, their list (the reference's
-``params["prefix"]``; each an MLP of ``d_ff``).  :func:`params_from_jax`
+``params["prefix"]``; each an MLP of ``d_ff``).  An SSD layer is ``ln1``
+and ``mamba`` (``w_z``, ``w_x``, ``w_B``, ``w_C``, ``w_dt``, the conv
+weights and bias, float32 ``A_log``/``Dskip``/``dt_bias``, ``norm``,
+``out_proj``), with no FFN.  :func:`params_from_jax`
 carries a reference ``Model.init`` tree across (the tests' route); the
 chip has no JAX, so :meth:`Model.init` draws the same distributions from
 a torch ``Generator``.
@@ -28,10 +32,14 @@ dtype (scales unread) otherwise; the steps update it in place.  MLA keeps
 no pages: its paged cache is the dense per-slot latents {"ckv": [n_layers,
 B, S, L], "kpe": [n_layers, B, S, dr]} beside the page pool (the
 reference's ``_entry_cache_paged``), scale-1 FP8 codes or floats, and the
-pool only accounts for the slots' tokens.  ``SLOT_LEAVES`` names the
-leaves indexed by slot on their second axis (the others by page).  The
-dense cache is one dict per layer, {"k", "v": [B, W, KV, hd]} or MLA's
-{"ckv", "kpe"}, scale-1 FP8 codes or floats of the parameters' dtype,
+pool only accounts for the slots' tokens.  An SSD layer keeps its
+{"conv": [n, B, w - 1, d_inner + 2 N] of the parameters' dtype, "state":
+[n, B, heads, head_dim, N] float32} per slot likewise, stacked over the
+``n`` SSD layers (each mixer's leaves over its own layers).  ``SLOT_LEAVES`` names the leaves indexed
+by slot on their second axis (the others by page).  The dense cache is
+one dict per layer, {"k", "v": [B, W, KV, hd]}, MLA's {"ckv", "kpe"}
+or SSD's {"conv", "state"}, scale-1 FP8 codes or floats of the
+parameters' dtype (SSD's as in the paged cache),
 with ``W = min(S, window)`` rows for local layers (a ring buffer) and
 ``S`` for global ones.  Static FP8 weights
 (``models.quantize``) are ``QTensor`` leaves in place of float ones.
@@ -57,27 +65,40 @@ from ..parallel.hints import (hint, shard_start, tp_columns, tp_local,
 from ..serving.page_pool import kv_noise
 from .attention import mla_init
 from .layers import rms_norm, softcap
+from .mamba2 import dims as ssd_dims
+from .mamba2 import mamba2_init
 from .moe import moe_init
 from .quantize import resolve_weight
-from .transformer import ffn_kind, stack_decode, stack_forward
+from .transformer import (SSD_LEAVES, ffn_kind, mixer_kind, stack_decode,
+                          stack_forward)
 
 NEG = -1.0e30
 
 # the paged cache's leaves indexed by slot on their second axis (MLA's
-# dense per-slot latents); every other leaf is indexed by page there
-SLOT_LEAVES = ("ckv", "kpe")
+# dense per-slot latents, SSD's conv inputs and states); every other leaf
+# is indexed by page there
+SLOT_LEAVES = ("ckv", "kpe") + SSD_LEAVES
+
+# families of later slices, with their ROADMAP.md Queue 1 items
+_LATER = {"hybrid": "11d", "encdec": "11e", "vlm": "11f"}
 
 
 def _check_supported(cfg) -> None:
-    if (cfg.family not in ("dense", "moe") or cfg.attn_impl not in
-            ("gqa", "mla") or (cfg.family == "dense") != (cfg.n_experts == 0)):
+    item = _LATER.get(cfg.family)
+    attention = (cfg.family in ("dense", "moe")
+                 and cfg.attn_impl in ("gqa", "mla")
+                 and (cfg.family == "dense") == (cfg.n_experts == 0))
+    ssm = (cfg.family == "ssm" and cfg.attn_impl == "none"
+           and not cfg.n_experts)
+    if item is not None or not (attention or ssm):
         raise NotImplementedError(
             f"{cfg.name!r} (family={cfg.family!r}, attn={cfg.attn_impl!r}) "
             "is not ported yet; the port runs dense GQA stacks (qwen2, "
-            "qwen3, gemma2, gemma3), MoE GQA stacks (granite) and MLA with "
-            "MoE, shared experts and leading dense layers (deepseek); SSM, "
-            "hybrid, enc-dec and VLM families arrive with later slices "
-            "(ROADMAP.md Queue 1 item 11, 11c-11f)")
+            "qwen3, gemma2, gemma3), MoE GQA stacks (granite), MLA with "
+            "MoE, shared experts and leading dense layers (deepseek) and "
+            "SSM stacks (mamba2); hybrid, enc-dec and VLM families arrive "
+            "with later slices (ROADMAP.md Queue 1 item "
+            f"{item or '11, 11d-11f'})")
 
 
 def params_from_jax(np_params, cfg) -> Dict[str, Any]:
@@ -154,6 +175,11 @@ class Model:
 
         def layer(path, i):
             a, f = path + ("attn",), path + ("ffn",)
+            if mixer_kind(cfg, i) == "mamba":
+                return {"ln1": zeros(path + ("ln1",), D),
+                        "mamba": mamba2_init(generator, cfg, put,
+                                             path + ("mamba",)),
+                        **ffn_leaves(path, i)}
             if cfg.attn_impl == "mla":
                 attn = mla_init(normal, zeros, cfg, a)
             else:
@@ -168,17 +194,23 @@ class Model:
             if cfg.qk_norm:
                 attn.update(q_norm=zeros(a + ("q_norm",), hd),
                             k_norm=zeros(a + ("k_norm",), hd))
-            ffn = (moe_init(generator, cfg, put, f)
-                   if ffn_kind(cfg, i) == "moe" else
-                   {"w_gate": normal(f + ("w_gate",), D, F),
-                    "w_up": normal(f + ("w_up",), D, F),
-                    "w_down": normal(f + ("w_down",), F, D)})
             out = {"ln1": zeros(path + ("ln1",), D), "attn": attn,
-                   "ln2": zeros(path + ("ln2",), D), "ffn": ffn}
+                   **ffn_leaves(path, i)}
             if cfg.sandwich_norm:
                 out.update(ln1_post=zeros(path + ("ln1_post",), D),
                            ln2_post=zeros(path + ("ln2_post",), D))
             return out
+
+        def ffn_leaves(path, i):
+            f = path + ("ffn",)
+            kind = ffn_kind(cfg, i)
+            if kind == "none":
+                return {}
+            ffn = (moe_init(generator, cfg, put, f) if kind == "moe" else
+                   {"w_gate": normal(f + ("w_gate",), D, F),
+                    "w_up": normal(f + ("w_up",), D, F),
+                    "w_down": normal(f + ("w_down",), F, D)})
+            return {"ln2": zeros(path + ("ln2",), D), "ffn": ffn}
 
         n0 = cfg.first_dense
         params: Dict[str, Any] = {"embed": normal(("embed",), Vp, D)}
@@ -296,12 +328,16 @@ class Model:
         return self._unembed(params, x[:, 0]), cache
 
     def _entry_cache(self, i: int, B: int, S: int, device):
-        """Layer ``i``'s zero dense cache entry: MLA's latents {"ckv" [B,
-        S, L], "kpe" [B, S, dr]}, or GQA's {"k", "v"}, where a
-        sliding-window layer never attends past its window, so it keeps a
-        ring buffer of ``min(S, window)`` rows (keys carry RoPE from their
-        absolute position, so the rows' order does not matter)."""
+        """Layer ``i``'s zero dense cache entry: SSD's {"conv" [B, w - 1,
+        d_inner + 2 N] in the parameters' dtype, "state" [B, heads,
+        head_dim, N] float32}, MLA's latents {"ckv" [B, S, L], "kpe" [B,
+        S, dr]}, or GQA's {"k", "v"}, where a sliding-window layer never
+        attends past its window, so it keeps a ring buffer of ``min(S,
+        window)`` rows (keys carry RoPE from their absolute position, so
+        the rows' order does not matter)."""
         cfg = self.cfg
+        if mixer_kind(cfg, i) == "mamba":
+            return self._ssd_entry((B,), device)
         dt = (torch.uint8 if numerics.kv_quantized(cfg.policy)
               else cfg.pdtype)
         if cfg.attn_impl == "mla":
@@ -315,6 +351,18 @@ class Model:
         shape = (B, S_eff, cfg.n_kv_heads, cfg.hd)
         return {"k": torch.zeros(shape, dtype=dt, device=device),
                 "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    def _ssd_entry(self, lead: tuple, device) -> Dict[str, torch.Tensor]:
+        """Zero SSD leaves {conv, state} with the leading axes ``lead``
+        (the reference's ``_entry_cache``: the conv inputs in the
+        parameters' dtype, whatever the KV policy, the state float32)."""
+        cfg = self.cfg
+        di, nh, P, N = ssd_dims(cfg)
+        return {"conv": torch.zeros(
+                    lead + (cfg.ssm_conv_width - 1, di + 2 * N),
+                    dtype=cfg.pdtype, device=device),
+                "state": torch.zeros(lead + (nh, P, N),
+                                     dtype=torch.float32, device=device)}
 
     def make_cache(self, B: int, S: int, device=None):
         """Zero dense decode cache of ``B`` slots and ``S`` positions: one
@@ -331,8 +379,22 @@ class Model:
         the policy quantizes the KV cache, else ``cfg.pdtype``.  MLA keeps
         its latents as dense per-slot rows instead (``slots`` x
         ``max_seq``, default the model's ``max_seq``), stacked over layers:
-        {"ckv" [n_layers, slots, S, L], "kpe" [n_layers, slots, S, dr]}."""
+        {"ckv" [n_layers, slots, S, L], "kpe" [n_layers, slots, S, dr]}.
+        SSD layers keep {"conv", "state"} per slot (:meth:`_ssd_entry`),
+        stacked over the SSD layers: each mixer contributes its own leaves,
+        over its own layers."""
         cfg = self.cfg
+        n_ssd = sum(mixer_kind(cfg, i) == "mamba"
+                    for i in range(cfg.n_layers))
+        n_attn = cfg.n_layers - n_ssd
+        cache: Dict[str, torch.Tensor] = {}
+        if n_ssd:
+            if not slots:
+                raise ValueError("SSD layers keep dense per-slot states: "
+                                 "pass slots")
+            cache.update(self._ssd_entry((n_ssd, slots), device))
+        if not n_attn:
+            return cache
         dt = (torch.uint8 if numerics.kv_quantized(cfg.policy)
               else cfg.pdtype)
         if cfg.attn_impl == "mla":
@@ -340,19 +402,20 @@ class Model:
             if not (slots and S):
                 raise ValueError("MLA's paged cache holds dense per-slot "
                                  "latents: pass slots and max_seq")
-            return {name: torch.zeros((cfg.n_layers, slots, S, width),
-                                      dtype=dt, device=device)
-                    for name, width in (("ckv", cfg.kv_lora_rank),
-                                        ("kpe", cfg.qk_rope_dim))}
-        shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.hd)
-        return {
-            "kp": torch.zeros(shape, dtype=dt, device=device),
-            "vp": torch.zeros(shape, dtype=dt, device=device),
-            "ks": torch.ones((cfg.n_layers, num_pages), dtype=torch.float32,
-                             device=device),
-            "vs": torch.ones((cfg.n_layers, num_pages), dtype=torch.float32,
-                             device=device),
-        }
+            cache.update({name: torch.zeros((n_attn, slots, S, width),
+                                            dtype=dt, device=device)
+                          for name, width in (("ckv", cfg.kv_lora_rank),
+                                              ("kpe", cfg.qk_rope_dim))})
+            return cache
+        shape = (n_attn, num_pages, page_size, cfg.n_kv_heads, cfg.hd)
+        cache.update(
+            kp=torch.zeros(shape, dtype=dt, device=device),
+            vp=torch.zeros(shape, dtype=dt, device=device),
+            ks=torch.ones((n_attn, num_pages), dtype=torch.float32,
+                          device=device),
+            vs=torch.ones((n_attn, num_pages), dtype=torch.float32,
+                          device=device))
+        return cache
 
     # ------------------------------------------------------------------ #
     def kv_write_keys(self, key: torch.Tensor, device) -> torch.Tensor:
@@ -386,9 +449,9 @@ class Model:
         ``randint(fold_in(k_or_v_key, position), (KV, hd), ...)``.  None
         without a key, when the pages are float (their writes draw no
         noise) or when no layer keeps its KV in pages (MLA's latents are
-        dense rows, encoded RNE).  On a mesh: this rank's KV heads of the
-        whole draw, the bits the reference's partitionable threefry gives
-        a shard."""
+        dense rows, encoded RNE; an SSM stack has no KV).  On a mesh: this
+        rank's KV heads of the whole draw, the bits the reference's
+        partitionable threefry gives a shard."""
         cfg = self.cfg
         if (key is None or not numerics.kv_quantized(cfg.policy)
                 or cfg.attn_impl != "gqa"):

@@ -43,19 +43,23 @@ in the layer, so TP=N equals TP=1 bit for bit at every sequence length.
 Shared experts (deepseek-v2-lite: ``n_shared_experts`` x ``moe_d_ff``
 wide) are one gated MLP over every token, ``p["shared"]``, added to the
 routed output in the layer's dtype under both dispatch modes, as in the
-reference.
+reference.  In training their down product runs outside the layer's
+checkpoint (``shared_hidden``), so the backward's recompute skips it, as
+the reference's remat does.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
 from .. import numerics
-from .layers import _act, bmm_experts, gated_mlp, ste_expert_matmul
+from .layers import (_act, bmm_experts, gated_hidden, qlinear,
+                     ste_expert_matmul)
 from .quantize import resolve_weight
 
-__all__ = ["moe_init", "capacity", "route", "dispatch", "moe_ffn"]
+__all__ = ["moe_init", "capacity", "route", "dispatch", "moe_ffn",
+           "add_shared_down"]
 
 
 def moe_init(generator: torch.Generator, cfg, put=None, path=()):
@@ -249,16 +253,33 @@ def _moe_ffn_global(p, x, cfg, site: str = "blocks.*.ffn"):
     return out.reshape(B, S, D), {k_: v[0] for k_, v in aux.items()}
 
 
-def moe_ffn(p, x, cfg, site: str = "blocks.*.ffn") -> Tuple[torch.Tensor,
-                                                             dict]:
+def add_shared_down(p, out, hidden, cfg, site: str = "blocks.*.ffn"):
+    """The routed output plus the shared experts' down product of their
+    hidden activation (:func:`layers.gated_hidden`), in the layer's
+    dtype: the last step of :func:`moe_ffn`."""
+    return out + qlinear(hidden, p["shared"]["w_down"], cfg.policy,
+                         site=f"{site}.shared.w_down")
+
+
+def moe_ffn(p, x, cfg, site: str = "blocks.*.ffn",
+            shared_hidden: bool = False):
     """x [B, S, D] -> (out [B, S, D], aux {moe_lb, moe_z}) under
     ``cfg.moe_dispatch``: ``grouped`` (the default) or
-    ``sorted_global``; the shared experts' MLP added."""
+    ``sorted_global``; the shared experts' MLP added.  With
+    ``shared_hidden`` (a layer with shared experts under a training
+    checkpoint) it returns (the routed output, aux, the shared experts'
+    hidden activation) and leaves their down product and its add to
+    :func:`add_shared_down`, outside the checkpoint: no gradient reads
+    that product's output, so its forward must not run again in the
+    recompute, as the reference's remat drops it."""
     if cfg.moe_dispatch == "grouped":
         out, aux = _moe_ffn_grouped(p, x, cfg, site=site)
     else:
         out, aux = _moe_ffn_global(p, x, cfg, site=site)
-    if "shared" in p:
-        out = out + gated_mlp(x, p["shared"], cfg.policy, cfg.act_fn,
-                              site=f"{site}.shared")
-    return out, aux
+    if "shared" not in p:
+        return out, aux
+    hidden = gated_hidden(x, p["shared"], cfg.policy, cfg.act_fn,
+                          site=f"{site}.shared")
+    if shared_hidden:
+        return out, aux, hidden
+    return add_shared_down(p, out, hidden, cfg, site), aux

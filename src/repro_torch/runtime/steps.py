@@ -16,8 +16,8 @@ from ..models.model import Model
 from ..optim import adamw
 from ..optim.adamw import tree_leaves, tree_map
 
-__all__ = ["make_train_state", "build_train_step", "build_prefill_step",
-           "build_decode_step"]
+__all__ = ["make_train_state", "check_trainable", "build_train_step",
+           "build_prefill_step", "build_decode_step"]
 
 
 def make_train_state(model: Model, generator: Optional[torch.Generator] = None,
@@ -30,16 +30,29 @@ def make_train_state(model: Model, generator: Optional[torch.Generator] = None,
     return {"params": master, "opt": adamw.init(master)}
 
 
+def check_trainable(cfg) -> None:
+    """Raise for a config the port serves but does not train yet: the SSM
+    family, whose straight-through products and the gradient of the SSD
+    mixer's masked decays (the reference's ``where(mask, exp(diff), 0)``)
+    come with ROADMAP.md Queue 1 item 11c-train."""
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            f"training {cfg.name!r} (family='ssm') is not ported yet; the "
+            "port serves it (ROADMAP.md Queue 1 item 11c-train)")
+
+
 def build_train_step(model: Model, opt_cfg: adamw.OptConfig) -> Callable:
     """``train_step(state, batch) -> (new_state, metrics)``; ``batch`` is
     {tokens, labels} on the state's device.  ``metrics`` holds the loss,
     its terms (ce, and the MoE aux losses, zeros without experts) and
     AdamW's statistics.  Every config the port serves trains, MLA,
-    shared experts and leading dense layers included; what stays refused
-    is FSDP/TP training (``launch.train``'s ``--mesh`` beyond 1x1) and
-    ``remat_policy="dots"`` (``models.transformer.stack_forward``), both
-    ROADMAP.md Queue 1 item 12."""
+    shared experts and leading dense layers included, but the SSM family
+    (mamba2), whose training is ROADMAP.md Queue 1 item 11c-train; what
+    stays refused besides is FSDP/TP training (``launch.train``'s
+    ``--mesh`` beyond 1x1) and ``remat_policy="dots"``
+    (``models.transformer.stack_forward``), both item 12."""
     cfg = model.cfg
+    check_trainable(cfg)
 
     def train_step(state, batch):
         master = tree_map(lambda p: p.detach().requires_grad_(True),

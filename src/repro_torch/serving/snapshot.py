@@ -7,11 +7,12 @@ hard kill:
 
   * the device cache, the dict ``{kp, vp, ks, vs}`` stacked over layers
     (``Model.make_paged_cache``: uint8 codes and float32 scales on FP8
-    pages, ``cfg.pdtype`` rows on float pages), or MLA's dense per-slot
-    latents ``{ckv, kpe}`` ([n_layers, slots, S, ...], codes or floats),
-    and each PREEMPTED request's spill tensors (``Engine.preempt_slot``'s
-    host copies: its pages, or its latents' rows ``[n_layers, 1, S,
-    ...]``), as
+    pages, ``cfg.pdtype`` rows on float pages), or the dense per-slot
+    leaves: MLA's latents ``{ckv, kpe}`` ([n_layers, slots, S, ...],
+    codes or floats), SSD's ``{conv, state}`` ([n_layers, slots, ...],
+    bf16 conv inputs and float32 states), and each PREEMPTED request's
+    spill tensors (``Engine.preempt_slot``'s host copies: its pages, or
+    its rows of the per-slot leaves ``[n_layers, 1, ...]``), as
     leaves of :mod:`repro_torch.checkpoint.store` under the keys
     ``cache/<name>`` and ``spills/<rid>/<name>``, bf16 bit for bit, with
     the store's atomic ``tmp-N`` -> ``step-N`` rename;

@@ -19,8 +19,13 @@ go through the reference's functions and the port's:
 * three AdamW steps under ``fp8_lns_pallas``;
 * the products of a train step: the prefix layer runs once (outside the
   checkpoints, as the reference runs it outside its scan's remat), each
-  MoE layer twice, so K3 runs ``8 + 22 (n_layers - 1)`` times a step and
-  K4 ``8 + 2 (5 + 3 + 3 E) (n_layers - 1)``;
+  MoE layer twice but the shared experts' down product, once (after the
+  checkpoint: the reference's remat drops it from the recompute), so K3
+  runs ``8 + 21 (n_layers - 1)`` times a step, the reference's count, K2
+  as many under ``train_fp8``, and K4 ``8 + (5 + 3 + 3 E) + (5 + 2 +
+  3 E)`` per MoE layer; the loss, aux terms and every gradient bitwise
+  those of the layer's former structure, the whole layer under the
+  checkpoint;
 * kill and resume against an uninterrupted run, and the training CLI.
 
 Tolerances are ``test_torch_moe_train.py``'s: losses rtol 1e-5, every
@@ -315,11 +320,11 @@ def test_prefix_layer_runs_once_per_step(monkeypatch):
     """In a train step the leading dense layer's sublayer runs once and the
     MoE layer's twice (forward and checkpointed recompute), as in the
     reference, whose remat wraps only its scanned blocks: the port's
-    ``sublayer_forward`` calls by site, and its K3 calls, 8 + 2 x 11,
-    beside the interpreted Pallas calls of the reference's
-    ``value_and_grad``: 8 + 11 outside its remat and 10 inside.  The
-    reference's recompute drops the shared experts' down product, whose
-    output no gradient reads; ``torch.utils.checkpoint`` reruns it."""
+    ``sublayer_forward`` calls by site, and its K3 calls, 8 + 11 + 10,
+    equal to the interpreted Pallas calls of the reference's
+    ``value_and_grad``: 8 + 11 outside its remat and 10 inside.  Both
+    recomputes leave out the shared experts' down product, whose output
+    no gradient reads: the port runs it after the checkpoint."""
     jm, jparams, model, params, _ = _jax_loss("fp8_lns_pallas", "grouped")
     batch = _batch(model.cfg)
     closed = jax.make_jaxpr(jax.value_and_grad(jm.loss_fn, has_aux=True))(
@@ -332,20 +337,38 @@ def test_prefix_layer_runs_once_per_step(monkeypatch):
     step = steps.build_train_step(model, adamw.OptConfig())
     step(steps.make_train_state(model, params=params), _torch_batch(batch))
     assert sorted(sites) == ["blocks.0", "blocks.0", "prefix.0"]
-    assert calls["lns_product_matmul"] == 8 + 2 * 11
-    assert _pallas_calls(closed.jaxpr) == {False: 8 + 11, True: 11 - 1}
+    reference = _pallas_calls(closed.jaxpr)
+    assert reference == {False: 8 + 11, True: 11 - 1}
+    assert calls["lns_product_matmul"] == 8 + 11 + 10 == sum(
+        reference.values())
 
 
-@pytest.mark.parametrize("route", ["lns", "lns_loop"])
+def _k2_policies():
+    """``train_fp8`` with its matmuls through K2 (``fused_dequant``), the
+    route ``auto`` takes on the card."""
+    from repro.numerics import policy as jpolicy
+    from repro_torch import numerics
+
+    return tuple(
+        pol.replace(matmul=dataclasses.replace(pol.matmul,
+                                               impl="fused_dequant"))
+        for pol in (jpolicy.get_policy("train_fp8"),
+                    numerics.get_policy("train_fp8")))
+
+
+@pytest.mark.parametrize("route", ["lns", "lns_loop", "fused_dequant"])
 def test_kernel_calls_of_a_train_step(monkeypatch, route):
-    """K3 runs 8 + 22 (n_layers - 1) times a step (the prefix layer's 5
+    """K3 runs 8 + 21 (n_layers - 1) times a step (the prefix layer's 5
     MLA and 3 FFN products once; each MoE layer's 5 MLA, 3 shared and 3
-    routed products, one batched call each, twice) and K2 never; under a
-    matmul impl of lns_loop, K4 runs each expert's products one launch
-    each, 8 + 2 (5 + 3 + 3 E) (n_layers - 1), and K3 never."""
+    routed products, one batched call each, twice, but the shared down
+    product once) and K2 never; under ``train_fp8`` (impl
+    ``fused_dequant``) K2 as many and K3 never; under a matmul impl of
+    lns_loop, K4 runs each expert's products one launch each, 8 + (5 + 3
+    + 3 E) + (5 + 2 + 3 E) (n_layers - 1), and K3 never."""
     names = ("lns_product_matmul", "lns_loop_matmul", "dequant_matmul")
     calls = _counted(monkeypatch, names)
-    policy = _lns_loop_policies() if route == "lns_loop" else None
+    policy = {"lns_loop": _lns_loop_policies,
+              "fused_dequant": _k2_policies}.get(route, lambda: None)()
     _, _, model, params = _models(policy=policy)
     cfg = model.cfg
     step = steps.build_train_step(model, adamw.OptConfig())
@@ -354,12 +377,80 @@ def test_kernel_calls_of_a_train_step(monkeypatch, route):
     assert all(np.isfinite(float(metrics[k]))
                for k in ("loss", "moe_lb", "moe_z"))
     moe_layers = cfg.n_layers - cfg.first_dense
+    E = cfg.n_experts
     if route == "lns":
-        want = {"lns_product_matmul": 8 + 22 * moe_layers}
+        want = {"lns_product_matmul": 8 + 21 * moe_layers}
+    elif route == "fused_dequant":
+        want = {"dequant_matmul": 8 + 21 * moe_layers}
     else:
-        want = {"lns_loop_matmul": 8 + 2 * (5 + 3 + 3 * cfg.n_experts)
+        want = {"lns_loop_matmul": 8 + ((5 + 3 + 3 * E) + (5 + 2 + 3 * E))
                 * moe_layers}
     assert calls == {name: want.get(name, 0) for name in names}
+
+
+def _whole_layer_stack_forward(layers, x, cfg, *, positions, mode="train"):
+    """``stack_forward``'s training loop as it was before the shared
+    experts' down product left the checkpoint: every body layer whole
+    under ``torch.utils.checkpoint``."""
+    from torch.utils.checkpoint import checkpoint
+
+    assert mode == "train"
+    aux = {"moe_lb": 0.0, "moe_z": 0.0}
+    for i, p in enumerate(layers):
+        kw = transformer._layer_kw(cfg, i)
+        if i < cfg.first_dense:
+            out = transformer.sublayer_forward(p, x, cfg, positions=positions,
+                                               want_aux=True, **kw)
+        else:
+            out = checkpoint(transformer.sublayer_forward, p, x, cfg,
+                             use_reentrant=False, positions=positions,
+                             want_aux=True, **kw)
+        if kw["ffn"] == "moe":
+            x, lb, z = out
+            aux = {"moe_lb": aux["moe_lb"] + lb, "moe_z": aux["moe_z"] + z}
+        else:
+            x = out
+    return x, aux
+
+
+@pytest.mark.parametrize("key", ["fp8_lns_pallas", "train_bf16"])
+def test_shared_down_product_leaves_the_recompute_bitwise(monkeypatch, key):
+    """The loss, ce, aux terms and every gradient leaf of a step's loss
+    are bitwise those of the former structure (the whole MoE layer under
+    the checkpoint, kept above), which ran K3 8 + 22 times against the
+    new 8 + 21."""
+    from repro_torch.models import model as model_mod
+
+    _, _, model, params = _models(key)
+    batch = _torch_batch(_batch(model.cfg))
+
+    def loss_and_grads():
+        leaves = tree_leaves(params)
+        live = [t.detach().requires_grad_(True) for t in leaves]
+        it = iter(live)
+        loss, metrics = model.loss_fn(tree_map(lambda _: next(it), params),
+                                      batch)
+        return loss, metrics, torch.autograd.grad(loss, live,
+                                                  allow_unused=True)
+
+    calls = _counted(monkeypatch, ("lns_product_matmul",))
+    new = loss_and_grads()
+    n_new = calls["lns_product_matmul"]
+    monkeypatch.setattr(model_mod, "stack_forward",
+                        _whole_layer_stack_forward)
+    old = loss_and_grads()
+    n_old = calls["lns_product_matmul"] - n_new
+    if key == "fp8_lns_pallas":
+        assert (n_new, n_old) == (8 + 21, 8 + 22)
+    assert torch.equal(new[0], old[0])
+    assert set(new[1]) == {"ce", "moe_lb", "moe_z"}
+    for name in new[1]:
+        assert torch.equal(new[1][name], old[1][name]), name
+    assert len(new[2]) == len(old[2])
+    for g_new, g_old in zip(new[2], old[2]):
+        assert (g_new is None) == (g_old is None)
+        if g_new is not None:
+            assert torch.equal(g_new, g_old)
 
 
 # --------------------------------------------------------------------------- #

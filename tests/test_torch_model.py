@@ -60,10 +60,11 @@ def test_config_equal_reference(smoke):
 
 
 def test_unported_architectures_raise():
-    """mamba2-780m (ROADMAP.md Queue 1 item 11c) is refused by name;
-    deepseek-v2-lite-16b, refused here before, is served since item 11b."""
-    with pytest.raises(NotImplementedError, match="11c"):
-        get_config("mamba2-780m")
+    """jamba-v0.1-52b (ROADMAP.md Queue 1 item 11d) is refused by name;
+    deepseek-v2-lite-16b (item 11b) and mamba2-780m (item 11c), refused
+    here before, are served since."""
+    with pytest.raises(NotImplementedError, match="11d"):
+        get_config("jamba-v0.1-52b")
 
 
 def test_rms_norm_and_rope_match_reference():

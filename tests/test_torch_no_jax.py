@@ -43,3 +43,4 @@ def test_every_port_module_imports_without_jax():
     assert int(lines[0]) >= 40, lines  # every subpackage was walked
     modules = lines[1].split()[1:]
     assert "repro_torch.models.moe" in modules, modules
+    assert "repro_torch.models.mamba2" in modules, modules

@@ -212,7 +212,8 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     width (48 SSD layers, d_model 1536, d_inner 3072, 48 heads of 64,
     d_state 128; ~1.5 GB of bf16 weights drawn on the card and redrawn
     as in 9, with Mamba2's published ranges for the decays and steps), the
-    8 requests of 10 on 4 slots, at full depth under the CLI's default
+    8 requests of 10 on 4 slots, at depth 12 (cut for time from full
+    depth, which 28g trains) under the CLI's default
     policy and serve_fp8_paged (every stream varied, the two bitwise
     equal: an SSM reads no KV setting; K1 never launched; each SSD layer's
     conv inputs and state are dense per-slot leaves of the paged cache);
@@ -229,6 +230,24 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     (N 3,072, 128 and 48, K 1,536 and 3,072) at M = 4 and 95 against the
     plain version, and their card time on one layer's six products at
     M = 4;
+17d. the hybrid family (``hybrid_path``): jamba-v0.1-52b at full width
+    and depth 8 (one period: 7 SSD layers and one GQA layer of 32/8 heads
+    at hd 128, 4 MoE layers of 16 experts top-2 and 4 MLPs; ~13.3 B
+    parameters, 26.5 GB of bf16 drawn once on the card and redrawn as in
+    17c, the one weight set of the phase), the 8 requests of 10 under
+    serve_fp8_paged and the default policy (every stream varied; K1 at G
+    4 launched once a sub-step, each run's first 8 sub-steps' calls
+    within rtol = atol = 1e-4 of its plain version); on 4 prompts of 8
+    tokens (page 4) a rerun, unfused decode and a preempting pool bitwise
+    equal to the fused run, a snapshot round trip while PREEMPTED (pages,
+    scales and SSD leaves), the bucketed scheduler on both caches
+    (printed); static weights bitwise equal to their decoded bf16
+    weights, the codes through K2 (continuous) and K3 (bucketed), 58
+    launches a model call (the experts decoded first, as in the
+    reference), the first model call's each within 2 sqrt(K) 2^-24
+    sum|products| of its plain version; float32 first-step logits
+    through K1 against the plain attention, on both page kinds (within
+    1e-3 on float32 pages); then a traced window at depth 8, as in 6;
 18. windows on the model path: gemma3-12b at full width, depth 6,
     float32, on FP8 and on float32 pages: a 1,040-token prompt, its first
     1,023 tokens prefilled in one batched call (spliced into pages), the
@@ -334,11 +353,12 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     card time per layer beside the bound, the plain version and, for K2,
     ``torch.bmm`` on the decoded bf16 operands;
 28b. MoE training (``moe_train_path``): granite-moe-3b-a800m at full
-    width and depth 8 (full depth does not fit the card's memory with the
-    float32 master and moments), ``--quant fp8_lns_pallas``, batch 8 x
-    seq 128, 4 steps, a checkpoint every 2, through ``run_training`` and
-    ``build_train_step``: finite losses and aux terms, 0 restarts, K3
-    launched 2 x 7 x 8 x 4 times (each expert product once over all
+    width and depth 4 (cut for time from 8; full depth does not
+    fit the card's memory with the float32 master and moments),
+    ``--quant fp8_lns_pallas``, batch 8 x seq 128, 4 steps, a checkpoint
+    every 2, through ``run_training`` and ``build_train_step``: finite
+    losses and aux terms, 0 restarts, K3 launched 2 x 7 x 4 x 4 times
+    (each expert product once over all
     experts) and K2 never; the wall of each step, the peak memory and the
     busiest expert's share; then one profiled train step at that depth;
 28c. the first step of a float32, depth-2, full-width granite through K3
@@ -356,11 +376,12 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     there bitwise; their card time beside the bound and the plain
     version;
 28e. MLA training (``mla_train_path``): deepseek at full width and depth
-    3 (the dense layer and two MoE layers; full depth needs ~470 GB under
-    AdamW), ``--quant fp8_lns_pallas``, batch 8 x seq 128, 4 steps, one
-    checkpoint at the last, through ``run_training`` and
-    ``build_train_step``: finite loss, ce and aux terms at every step, 0
-    restarts, K3 launched 4 x (8 + 21 x 2) times (the dense layer's
+    2 (the dense layer and one MoE layer; cut for time from 3;
+    full depth needs ~470 GB under AdamW), ``--quant fp8_lns_pallas``,
+    batch 8 x seq 128, 4 steps, one checkpoint at the last, through
+    ``run_training`` and ``build_train_step``: finite loss, ce and aux
+    terms at every step, 0 restarts, K3 launched 4 x (8 + 21) times (the
+    dense layer's
     products once a step, outside the checkpoints; an MoE layer's twice
     but the shared experts' down product, once, after the checkpoint, as
     the reference's remat drops it from the recompute) and K2 never; the
@@ -374,6 +395,20 @@ nothing of JAX or of the JAX package) and needs one CUDA device and
     policies (the output and every gradient bitwise), then one depth-2
     step through K4: 8 + (5 + 3 + 3 x 64) + (5 + 2 + 3 x 64) launches,
     none of K3 or K2;
+28g. SSM training: mamba2-780m's six products at M = 1,024 through K3,
+    K2 (within the sum bound of the plain version) and K4 (bitwise), and
+    their card time (``check_ssm_train_kernels``); mamba2 at full width
+    and depth (``ssm_train_path``: 48 SSD layers, the model's own init),
+    ``--quant fp8_lns_pallas``, batch 8 x seq 128, 4 steps, one
+    checkpoint at the last, through ``run_training``: finite losses and
+    gradient norms, 0 restarts, K3 launched 4 x 2 x 6 x 48 times (each
+    SSD layer under the checkpoint), K2 never; one more step with A and
+    dt at Mamba2's init ranges, where the masked decays' exponents pass
+    float32's exp range (the reference's gradient is NaN there): finite,
+    every parameter finite after it; a traced step at depth 12; the
+    float32 first step at depth 2 through K3 and K2 and through their
+    plain versions (loss rtol 1e-4, gradient norm rtol 1e-3); one depth-2
+    step through K4 (2 x 6 x 2 launches, none of K3 or K2);
 29. prints one JSON line of per-kernel numbers, then the card line again,
     and last ``{"ok": true, "device": {...}}``.
 
@@ -419,6 +454,20 @@ static weights (17c): card time of one layer's six products at M = 4,
 launches those of 17c's depth-2 K2 (continuous) and K3 (bucketed) runs,
 the largest difference from the plain version there and at the six
 shapes.
+
+The ``*_paged_partials_jamba`` entries are K1 at jamba's geometry (KV
+8, G 4, hd 128): card time from 3 and 4, launches those of 17d's
+8-request runs (FP8 pages: LNS; bf16 pages: float), ``max_abs_err`` the
+larger of 3's (or 4's) and 17d's held calls.  The
+``*_static_weights_jamba`` entries are K2 and K3 on jamba's static
+weights: card time of one SSD layer's six products at M = 4 (``w_B`` and
+``w_C`` at N 16), launches those of 17d's K2 (continuous) and K3
+(bucketed) runs, the largest difference from the plain version there.
+The ``*_train_mamba2`` entries are K3, K2 and K4 at mamba2's six training
+products (28g): card time of the six at M = 1,024, launches those of
+28g's training run (K3), its float32 K2 step and its K4 step; the plain
+versions' times are of one call between CUDA events (K4's: its checking
+call on the host's clock).
 
 The ``lns_matmul_experts`` and ``dequant_matmul_experts`` entries are K3
 and K2 over a batch of granite's expert products (28a): card time of a
@@ -582,10 +631,13 @@ def device_ms(fn, iters: int, only: str = "", warmup: int = 3):
 # path's, at which K1 is timed for the kernels line.
 K1_GEOMETRIES = (("qwen2-0.5b", 2, 7, 64), ("gemma3-12b", 8, 2, 256),
                  ("gemma2-27b", 16, 2, 128), ("qwen3-14b", 8, 5, 128),
-                 ("granite-moe-3b-a800m", 8, 3, 64))
-K1_TIMED = ("qwen2-0.5b", "gemma3-12b", "granite-moe-3b-a800m")
+                 ("granite-moe-3b-a800m", 8, 3, 64),
+                 ("jamba-v0.1-52b", 8, 4, 128))
+K1_TIMED = ("qwen2-0.5b", "gemma3-12b", "granite-moe-3b-a800m",
+            "jamba-v0.1-52b")
 K1_MAIN = "gemma3-12b"
 MOE_ARCH = "granite-moe-3b-a800m"
+HYBRID_ARCH = "jamba-v0.1-52b"
 
 
 def k1_inputs(dev, seed: int = 0, KV: int = 2, G: int = 7, hd: int = 64,
@@ -881,8 +933,8 @@ def check_k1(dev) -> dict:
     ``K1_GEOMETRIES`` (and, past qwen2-0.5b's, with window 32 and softcap
     50), the edge cases of :func:`check_k1_edges`, then its timings at the
     ``K1_TIMED`` geometries.  Returns the main path's (gemma3-12b's)
-    timings, granite's under ``"moe"``, and the largest error over all
-    geometries."""
+    timings, granite's under ``"moe"``, jamba's under ``"hybrid"``, and the
+    largest error over all geometries."""
     err, timed = 0.0, {}
     for name, KV, G, hd in K1_GEOMETRIES:
         c = k1_inputs(dev, KV=KV, G=G, hd=hd)
@@ -893,7 +945,8 @@ def check_k1(dev) -> dict:
         err = max(err, check_k1_edges(c, label))
         if name in K1_TIMED:
             timed[name] = _time_k1(c, label, lns=True)
-    return dict(max_abs_err=err, moe=timed[MOE_ARCH], **timed[K1_MAIN])
+    return dict(max_abs_err=err, moe=timed[MOE_ARCH],
+                hybrid=timed[HYBRID_ARCH], **timed[K1_MAIN])
 
 
 FLOAT_K1_CASES = (("bfloat16", 0, 0.0), ("float32", 0, 0.0),
@@ -954,7 +1007,8 @@ def check_k1_float(dev) -> dict:
             c = k1_float_inputs(dev, torch.bfloat16, **geo)
             timed[name] = _time_k1(c, f"K1 float {name} (bf16 pages)",
                                    lns=False)
-    return dict(max_abs_err=err, moe=timed[MOE_ARCH], **timed[K1_MAIN])
+    return dict(max_abs_err=err, moe=timed[MOE_ARCH],
+                hybrid=timed[HYBRID_ARCH], **timed[K1_MAIN])
 
 
 SERVE_PLENS = (5, 17, 33, 64, 9, 48, 2, 26)   # the serving phases' prompts
@@ -1302,11 +1356,14 @@ def _counted_run(eng, queue, gen: int, scheduler: str = "continuous") -> dict:
     """``run`` under ``scheduler`` with every K1 count set to 0 just before
     and read just after; every step's logits checked finite and of the
     vocabulary's width.  Returns the run's outputs, stats, wall, sub-steps
-    and K1 launches of each instance (none on a dense cache)."""
+    and K1 launches of each instance (none on a dense cache; one a
+    sub-step for each attention layer, every layer of a GQA stack, one in
+    eight of jamba's)."""
     import numpy as np
     import torch
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch.serve import run
+    from repro_torch.models.model import attention_layers
 
     sync, vocab = eng.sync_logits, eng.cfg.vocab
 
@@ -1344,10 +1401,11 @@ def _counted_run(eng, queue, gen: int, scheduler: str = "continuous") -> dict:
                                  "on a cache without pages")
         run["launches"] = 0
         return run
-    if launches != eng.cfg.n_layers * run["substeps"] or other:
+    n_attn = len(attention_layers(eng.cfg))
+    if launches != n_attn * run["substeps"] or other:
         raise AssertionError(
             f"K1 {'LNS' if fp8 else 'float'} launches {launches} != "
-            f"n_layers {eng.cfg.n_layers} x sub-steps {run['substeps']}, or "
+            f"attention layers {n_attn} x sub-steps {run['substeps']}, or "
             f"{other} launches of the other instance")
     run["launches"] = launches
     return run
@@ -2085,26 +2143,34 @@ class _MoeStats:
 
 def _logits_through_k1(dev, arch: str, depth: int) -> None:
     """``arch`` at full width, depth ``depth``, float32 parameters: the
-    first-step logits (a prefill chunk and a decode step) through K1,
-    every K1 call held to its plain version on the same inputs, and
+    first-step logits (a prefill chunk and a decode step) through K1
+    (n_attn x 5 calls), every K1 call held to its plain version on the
+    same inputs, and
     through the plain attention, on both page kinds
     (:func:`_gate_logits`: within rtol = atol = 1e-3 on float32 pages,
     printed on FP8 pages)."""
+    import gc
+
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.models.model import attention_layers
 
     for policy in ("serve_fp8_paged", None):
         base = dataclasses.replace(get_config(arch, policy=policy),
                                    n_layers=depth)
         cfg = dataclasses.replace(base, param_dtype="float32")
+        n_attn = len(attention_layers(cfg))
         with _ShadowK1() as shadow:
             kern = _first_step_logits(dev, cfg)
+        gc.collect()              # one float32 engine on the card at a time
+        torch.cuda.empty_cache()
         plain = _first_step_logits(dev, dataclasses.replace(
             cfg, numerics=_plain_attention_policy(base.policy)))
+        gc.collect()
         torch.cuda.empty_cache()
-        if shadow.calls != depth * 5:     # 4 prompt + 1 decode
+        if shadow.calls != n_attn * 5:     # 4 prompt + 1 decode
             raise AssertionError(f"{shadow.calls} K1 calls, want "
-                                 f"{depth * 5}")
+                                 f"{n_attn * 5}")
         _gate_logits(kern, plain, f"{arch} depth {depth}, float32, "
                      f"{_policy_label(cfg, policy)} ({shadow.calls} K1 "
                      f"calls each within {shadow.err:.3e} of the plain "
@@ -2265,23 +2331,29 @@ def _mla_layer_mats(layer) -> list:
 
 
 def _slot_snapshot_roundtrip(dev, arch: str, cfg, params, card,
-                             leaves) -> None:
+                             leaves, make=None, queue=None,
+                             gen: int = PREFIX_GEN) -> None:
     """Save while a request sits PREEMPTED (its rows of the dense per-slot
     leaves ``leaves`` spilled to the host: MLA's latents, SSD's conv
-    inputs and states), load into a freshly built engine: every cache leaf
-    and spill tensor ``torch.equal``, the pool's state equal."""
+    inputs and states; a hybrid stack's pages and scales beside them),
+    load into a freshly built engine: every cache leaf and spill tensor
+    ``torch.equal``, the pool's state equal.  ``make()``: the engine
+    (default: the prefix phases' with ``CHAOS_PAGES`` pages), serving
+    ``queue`` (default: :func:`_prefix_queue`) for ``gen`` tokens."""
     import tempfile
     import torch
     from repro_torch.serving import (ContinuousScheduler, Request,
                                      load_snapshot, save_snapshot)
 
     def build():
-        eng = _prefix_engine(dev, cfg, params, num_pages=CHAOS_PAGES)
+        eng = (make() if make is not None else
+               _prefix_engine(dev, cfg, params, num_pages=CHAOS_PAGES))
         return eng, ContinuousScheduler(eng, chunk=4)
 
     eng, sched = build()
-    for i, prompt in enumerate(_prefix_queue(cfg)):
-        sched.add(Request(rid=i, prompt=prompt, gen=PREFIX_GEN))
+    for i, prompt in enumerate(queue if queue is not None
+                               else _prefix_queue(cfg)):
+        sched.add(Request(rid=i, prompt=prompt, gen=gen))
     while not sched.preempted:
         if not sched.pending():
             raise AssertionError("the pool never forced a preemption")
@@ -2513,6 +2585,8 @@ def mla_path(dev) -> dict:
 # The SSM family: mamba2-780m
 # --------------------------------------------------------------------------- #
 SSM_ARCH = "mamba2-780m"
+SSM_MAIN_DEPTH = 12       # both policies' 8 requests (cut for time from
+# 48: ssm_train_path runs full depth on the card)
 SSM_SHALLOW_DEPTH = 2     # the contracts, the float32 logits, K2 and K3
 SSM_K_PER_LAYER = 6       # w_z, w_x, w_B, w_C, w_dt, out_proj: all as codes
 SSM_LEAVES = ("conv", "state")
@@ -2533,21 +2607,38 @@ def _lively_ssm(eng, seed: int = 0):
     order 1: at std 0.5 that projection is ~20, dt as large, and every
     state forgets its past within one token, so a state spilled or
     restored wrongly would not show in the streams."""
+    _lively(eng, seed)
+    _mamba2_ranges(eng.params["blocks"], seed + 1)
+    for layer in eng.params["blocks"]:
+        if "mamba" in layer:
+            layer["mamba"]["w_dt"].mul_(eng.cfg.d_model ** -0.5)
+    return eng
+
+
+def _mamba2_ranges(layers, seed: int) -> float:
+    """Each SSD layer's decays and steps (its other layers skipped) as
+    Mamba2's published init draws them, in place: A uniform in [1, 16]
+    through ``A_log``, dt log-uniform in [0.001, 0.1] through
+    ``dt_bias`` (softplus' inverse).  Returns the largest A dt, the
+    decay a token of one head at its bias."""
     import torch
 
-    _lively(eng, seed)
-    g = torch.Generator(device=eng.device).manual_seed(seed + 1)
     lo, hi = math.log(1e-3), math.log(1e-1)
-    for layer in eng.params["blocks"]:
+    top, g = 0.0, None
+    for layer in layers:
+        if "mamba" not in layer:
+            continue
         m = layer["mamba"]
-        nh = m["A_log"].shape[0]
-        m["A_log"].copy_(torch.log(1.0 + 15.0 * torch.rand(
-            nh, generator=g, device=eng.device)))
+        dev, nh = m["A_log"].device, m["A_log"].shape[0]
+        if g is None:
+            g = torch.Generator(device=dev).manual_seed(seed)
+        A = 1.0 + 15.0 * torch.rand(nh, generator=g, device=dev)
         dt = torch.exp(lo + (hi - lo) * torch.rand(nh, generator=g,
-                                                    device=eng.device))
+                                                    device=dev))
+        m["A_log"].copy_(torch.log(A))
         m["dt_bias"].copy_(dt + torch.log(-torch.expm1(-dt)))
-        m["w_dt"].mul_(eng.cfg.d_model ** -0.5)
-    return eng
+        top = max(top, float((A * dt).max()))
+    return top
 
 
 def _decoded(tree):
@@ -2574,11 +2665,12 @@ def ssm_path(dev) -> dict:
     no kernel serves the mixer (the reference has none), so K1 is launched
     never.
 
-    At full depth, the serve CLI's default policy and serve_fp8_paged, the
-    continuous scheduler: every stream varied (the strict rule), both
-    policies' streams bitwise equal (an SSM stack reads none of the KV
-    settings); printed: the wall, sub-steps, the wall a sub-step, decode
-    tokens/s, the cache's bytes and the peak memory.  At depth
+    At depth ``SSM_MAIN_DEPTH``, the serve CLI's default policy and
+    serve_fp8_paged, the continuous scheduler: every stream varied (the
+    strict rule), both policies' streams bitwise equal (an
+    SSM stack reads none of the KV settings); printed: the wall,
+    sub-steps, the wall a sub-step, decode tokens/s, the cache's bytes
+    and the peak memory.  At depth
     ``SSM_SHALLOW_DEPTH``, the default policy: a rerun, a pool of
     ``PREFIX_PREEMPT_PAGES`` that preempts, unfused decode, and the
     bucketed scheduler on the paged and the dense cache, each bitwise
@@ -2605,7 +2697,8 @@ def ssm_path(dev) -> dict:
     queue = _prefix_queue(get_config(SSM_ARCH))
     params, full = None, {}
     for policy in (None, "serve_fp8_paged"):
-        cfg = get_config(SSM_ARCH, policy=policy)
+        cfg = dataclasses.replace(get_config(SSM_ARCH, policy=policy),
+                                  n_layers=SSM_MAIN_DEPTH)
         label = policy or "default policy"
         eng = _prefix_engine(dev, cfg, params)
         if params is None:
@@ -2616,8 +2709,8 @@ def ssm_path(dev) -> dict:
         run = _counted_run(eng, queue, PREFIX_GEN)
         peak = torch.cuda.max_memory_allocated()
         distinct = _require_varied(run["outputs"],
-                                   f"{SSM_ARCH} full depth {label}")
-        print(f"# {SSM_ARCH} full depth ({cfg.n_layers} layers) {label}: "
+                                   f"{SSM_ARCH} depth {cfg.n_layers} {label}")
+        print(f"# {SSM_ARCH} depth {cfg.n_layers} {label}: "
               f"{len(queue)} requests, {run['stats']['steps']} steps, "
               f"{run['substeps']} sub-steps, {run['wall']:.3f} s wall, "
               f"{run['wall'] / run['substeps'] * 1e3:.3f} ms a sub-step, "
@@ -2785,19 +2878,28 @@ def check_ssm_kernels(dev) -> dict:
     ``w_dt`` N 48, a partial tile of every K3 tile (128, 64, 32) and of
     K2's 64, and ``out_proj`` K 3,072), each at M = 4 (decode, the 4
     slots) and M = ``SSM_PREFILL_M`` (the main path's longest bucketed
-    prefill, a partial row tile), on E4M3 codes of random activations
-    times a per-tensor E4M3 weight: every element within 2 sqrt(K) 2^-24
-    sum|products| of the plain version (:class:`_ShadowMatmul`'s limit)
-    and two calls bitwise.  Then each kernel's card time on one layer's
-    six products at M = 4 beside its bound, the plain version and, for
-    K2, ``torch.matmul`` on the decoded bf16 weights
+    prefill, a partial row tile), then each kernel's card time on one
+    layer's six products at M = 4 (:func:`_ssm_kernel_checks`)."""
+    return _ssm_kernel_checks(dev, (PREFIX_SLOTS, SSM_PREFILL_M),
+                              PREFIX_SLOTS, "static", seed=30)
+
+
+def _ssm_kernel_checks(dev, rows, time_m: int, what: str,
+                       seed: int) -> dict:
+    """K3 and K2 at mamba2-780m's six products (``SSM_MATMULS``) at each M
+    of ``rows``, on E4M3 codes of random activations times a per-tensor
+    E4M3 weight: every element within 2 sqrt(K) 2^-24 sum|products| of
+    the plain version (:class:`_ShadowMatmul`'s limit) and two calls
+    bitwise.  Then each kernel's card time on one layer's six products at
+    M = ``time_m`` beside its bound, the plain version and, for K2,
+    ``torch.matmul`` on the decoded bf16 weights
     (:func:`_static_layer_ms`)."""
     import torch
     from repro_torch.core.quant import quantize
     from repro_torch.kernels import lns_matmul as lm
 
     card = card_line()
-    g = torch.Generator(device=dev).manual_seed(30)
+    g = torch.Generator(device=dev).manual_seed(seed)
     mats, res = [], {"fused_dequant": {"err": 0.0}, "lns": {"err": 0.0}}
     routes = {"fused_dequant": (
         "K2", lambda x, w: lm.dequant_matmul(
@@ -2811,7 +2913,7 @@ def check_ssm_kernels(dev) -> dict:
         q = quantize(torch.randn((K, N), generator=g, device=dev) * 0.02,
                      "e4m3")
         mats.append(q)
-        for M in (PREFIX_SLOTS, SSM_PREFILL_M):
+        for M in rows:
             x = quantize(torch.randn((M, K), generator=g, device=dev),
                          "e4m3").codes
             for impl, (kname, kernel, plain) in routes.items():
@@ -2838,10 +2940,350 @@ def check_ssm_kernels(dev) -> dict:
                       "of its plain version; two calls bitwise", flush=True)
     for impl in routes:
         res[impl].update(_static_layer_ms(
-            dev, mats, impl, PREFIX_SLOTS,
-            label=f"one {SSM_ARCH} layer (6 products)"))
-    print(f"# {SSM_ARCH}'s kernel shapes checked; [{card}]", flush=True)
+            dev, mats, impl, time_m,
+            label=f"one {SSM_ARCH} layer (6 {what} products)"))
+    print(f"# {SSM_ARCH}'s {what} kernel shapes checked; [{card}]",
+          flush=True)
     return res
+
+
+# --------------------------------------------------------------------------- #
+# Hybrid SSD + GQA + MoE: jamba-v0.1-52b
+# --------------------------------------------------------------------------- #
+# Full depth (32 layers, ~52 B parameters, ~104 GB in bf16) does not fit
+# one card; depth 8 is one period of the pattern (the floor: layer_specs
+# asserts body % period == 0), 7 SSD layers and 1 attention layer, 4 MoE
+# and 4 MLP FFNs, ~13.3 B parameters, ~26.5 GB in bf16.
+HYBRID_DEPTH = 8
+HYBRID_PAGE = 4           # the short queue's pages: 3 a request of 12 tokens
+HYBRID_SHORT_PAGES = 10   # 9 usable pages against the short queue's 12
+HYBRID_LEAVES = ("kp", "vp", "ks", "vs", "conv", "state")
+HYBRID_SHADOWED = 8       # each run's first sub-steps' K1 calls held
+# the static products of one model call at depth 8 through K2/K3: 7 SSD
+# layers' six, the attention layer's four, the 4 MLPs' three (static
+# expert weights are decoded before their products, as in the reference)
+HYBRID_PRODUCTS = 7 * SSM_K_PER_LAYER + 4 + 3 * (HYBRID_DEPTH // 2)
+# one SSD layer's six products, (K, N): w_B and w_C at N 16, a partial
+# tile of every tile
+HYBRID_SSD_MATMULS = {"w_z": (4096, 8192), "w_x": (4096, 8192),
+                      "w_B": (4096, 16), "w_C": (4096, 16),
+                      "w_dt": (4096, 128), "out_proj": (8192, 4096)}
+
+
+@contextlib.contextmanager
+def _given_params(params):
+    """Within the block, a new ``Engine`` takes ``params`` as its weights
+    instead of drawing its own: at jamba's width a second draw would hold
+    another 26.5 GB on the card.  The tree enters as it is (the leaf hook
+    is not run): a static-weight engine is handed the codes of
+    ``quantize_params``, the function its own hook calls leaf by leaf."""
+    from repro_torch.models.model import Model
+
+    real = Model.init
+    Model.init = lambda self, generator, leaf=None: params
+    try:
+        yield
+    finally:
+        Model.init = real
+
+
+def _hybrid_engine(dev, cfg, params, short: bool = False, **kw):
+    """A jamba Engine on ``params`` (on its own draw when None): the
+    prefix phases' geometry (4 slots, page 16), or with ``short`` the
+    short queue's (4 slots of ``KERNEL_PLEN`` + ``KERNEL_GEN`` tokens,
+    page ``HYBRID_PAGE``)."""
+    from repro_torch.launch.serve import Engine
+
+    given = (contextlib.nullcontext() if params is None
+             else _given_params(params))
+    if not short:
+        with given:
+            return _prefix_engine(dev, cfg, None, **kw)
+    with given:
+        return Engine(cfg, slots=PREFIX_SLOTS,
+                      max_seq=KERNEL_PLEN + KERNEL_GEN,
+                      page_size=HYBRID_PAGE, rng_seed=0, device=dev, **kw)
+
+
+def hybrid_path(dev, k1=None, k1f=None) -> dict:
+    """Phase: jamba-v0.1-52b (d_model 4096; attention at layer i % 8 == 4,
+    GQA of 32/8 heads at hd 128; 16 experts top-2 of d_ff 14,336 on odd
+    layers, an MLP of 14,336 on even ones; SSD mixers of d_state 16, 128
+    heads of 64, d_inner 8,192; vocab 65,536 untied) served at full width
+    and depth ``HYBRID_DEPTH`` (one period) on one weight set drawn on the
+    card from seed 0 and redrawn by :func:`_lively_ssm`, kept for the
+    phase (each engine takes it: :func:`_given_params`).  The attention
+    layer keeps its KV in pages (K1 at G 4, hd 128), the SSD layers their
+    ``{conv, state}`` as dense per-slot leaves of the same paged cache.
+
+    The 8 shared-prefix requests of :func:`prefix_main_path` (4 slots,
+    page 16, chunk 4) under serve_fp8_paged and the default policy (bf16
+    pages): every stream varied (the strict rule); K1 launched n_attn x sub-steps, each
+    run's first ``HYBRID_SHADOWED`` sub-steps' calls within rtol = atol =
+    1e-4 of plain; printed:
+    the parameter count, wall, sub-steps, decode tokens/s, peak memory,
+    the cache's bytes a slot and a token.  Short queues of 4 prompts of 8
+    tokens (:func:`_kernel_queue`, page ``HYBRID_PAGE``), serve_fp8_paged:
+    a rerun, unfused decode and a ``HYBRID_SHORT_PAGES``-page pool that
+    preempts, each bitwise equal to the fused run; a snapshot while a
+    request sits PREEMPTED (pages, scales and SSD leaves ``torch.equal``
+    after a load); the bucketed scheduler on the paged and the dense cache
+    (printed, as for gemma3).  Static weights (serve_fp8_paged): streams
+    bitwise equal to those of the bf16 weights decoded from the same
+    codes; the codes through K2 (continuous) and K3 (bucketed) under
+    :func:`k_static_policy`, ``HYBRID_PRODUCTS`` launches a model call
+    (the experts' weights are decoded first, as in the reference), the
+    first model call's each within 2 sqrt(K) 2^-24 sum|products| of
+    its plain version.  ``Engine(static_weights=True)`` on its own draw
+    (its leaf hook encoding each weight as it is drawn): as many codes and
+    bytes as ``quantize_params``, finite logits on the short queue, its
+    peak memory printed.  Then, the bf16 set freed, float32 parameters:
+    the first-step logits through K1 against the plain attention
+    (:func:`_logits_through_k1`: within 1e-3 on float32 pages).  ``k1``,
+    ``k1f``: :func:`check_k1`'s and :func:`check_k1_float`'s times at
+    jamba's geometry (measured here when not given)."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import attention_layers
+    from repro_torch.models.quantize import quantize_params
+    from repro_torch.optim.adamw import tree_leaves
+
+    card = card_line()
+    if k1 is None:      # run alone: K1's times at jamba's geometry here
+        geo = dict(KV=8, G=4, hd=128)
+        k1 = _time_k1(k1_inputs(dev, **geo), "K1 jamba", lns=True)
+        k1f = _time_k1(k1_float_inputs(dev, torch.bfloat16, **geo),
+                       "K1 float jamba (bf16 pages)", lns=False)
+    for what, t in (("LNS (FP8 pages)", k1), ("float (bf16 pages)", k1f)):
+        print(f"# K1 {what} at jamba's geometry (KV 8, G 4, hd 128): "
+              f"{t['ms']:.5f} ms, plain {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']}; "
+              f"{t['ms'] / t['bound_ms']:.0f}x); [{card}]", flush=True)
+
+    def config(policy=None, **kw):
+        return dataclasses.replace(get_config(HYBRID_ARCH, policy=policy),
+                                   n_layers=HYBRID_DEPTH, **kw)
+
+    n_attn = len(attention_layers(config()))
+    held_k1 = HYBRID_SHADOWED * n_attn     # each run's first K1 calls
+    queue = _prefix_queue(config())
+    params, out, errs = None, {}, []
+    for policy in ("serve_fp8_paged", None):
+        cfg = config(policy)
+        label = f"{HYBRID_ARCH} depth {HYBRID_DEPTH} {_policy_label(cfg, policy)}"
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        if params is None:
+            t0 = time.perf_counter()
+            eng = _prefix_engine(dev, cfg, None)
+            params = _lively_ssm(eng).params
+            n_params = sum(t.numel() for t in tree_leaves(params))
+            print(f"# {HYBRID_ARCH} depth {HYBRID_DEPTH}: {n_params} "
+                  f"parameters ({n_params / 1e9:.3f} B, "
+                  f"{_weight_bytes(params) / 1e9:.2f} GB of bf16), drawn "
+                  f"and redrawn in {time.perf_counter() - t0:.2f} s",
+                  flush=True)
+        else:
+            eng = _hybrid_engine(dev, cfg, params)
+        with _ShadowK1(limit=held_k1) as shadow:
+            run = _counted_run(eng, queue, PREFIX_GEN)
+        peak = torch.cuda.max_memory_allocated()
+        distinct = _require_varied(run["outputs"], label)
+        if shadow.calls != held_k1:
+            raise AssertionError(f"{label}: {shadow.calls} K1 calls held")
+        errs.append(shadow.err)
+        slot_bytes = sum(eng.cache[k][:, 0].numel()
+                         * eng.cache[k].element_size()
+                         for k in ("conv", "state"))
+        token_bytes = (2 * n_attn * cfg.n_kv_heads * cfg.hd
+                       * eng.cache["kp"].element_size())
+        print(f"# {label}: {len(queue)} requests, {run['stats']['steps']} "
+              f"steps, {run['substeps']} sub-steps, {run['launches']} K1 "
+              f"launches ({n_attn} x sub-steps; first {shadow.calls} within "
+              f"{shadow.err:.3e} of plain), {run['wall']:.3f} s wall, "
+              f"{run['wall'] / run['substeps'] * 1e3:.3f} ms a sub-step, "
+              f"{run['stats']['decode_tok_s']:.2f} decode tok/s; "
+              f"{held / 2**30:.2f} GiB allocated before the run, peak "
+              f"{peak / 2**30:.2f} GiB; SSD leaves {slot_bytes} B a slot, "
+              f"KV {token_bytes} B a token; distinct tokens per stream "
+              f"{distinct}; [{card}]", flush=True)
+        out["fp8" if policy else "bf16"] = dict(
+            launches=run["launches"], wall=run["wall"],
+            substeps=run["substeps"], peak=peak)
+        del eng
+        torch.cuda.empty_cache()
+
+    short = _kernel_queue(config())
+
+    def serve(policy="serve_fp8_paged", scheduler="continuous",
+              served=None, **kw):
+        cfg = config(policy)
+        eng = _hybrid_engine(dev, cfg, params if served is None else served,
+                             short=True, **kw)
+        with _ShadowK1(limit=held_k1) as shadow:
+            r = _counted_run(eng, short, KERNEL_GEN, scheduler=scheduler)
+        if shadow.calls != min(held_k1, r["launches"]):
+            raise AssertionError(f"{shadow.calls} K1 calls held")
+        errs.append(shadow.err)
+        print(f"# {HYBRID_ARCH} depth {HYBRID_DEPTH} "
+              f"{policy or 'default policy'}, short queue, {scheduler}, "
+              f"{eng.cache_impl} cache"
+              + (f", {kw['num_pages'] - 1} pages" if "num_pages" in kw
+                 else "")
+              + (", unfused" if kw.get("fused_decode") is False else "")
+              + f": {r['substeps']} sub-steps, {r['launches']} K1 "
+              f"launches, {r['stats'].get('preemptions', 0)} preemptions, "
+              f"{r['wall']:.3f} s wall", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+        return r
+
+    base = serve()
+    _require_varied(base["outputs"], f"{HYBRID_ARCH} short queue",
+                    constant_share=0.25)
+    again = serve()
+    unfused = serve(fused_decode=False)
+    small = serve(num_pages=HYBRID_SHORT_PAGES)
+    if small["stats"]["preemptions"] < 1 or small["stats"]["restores"] < 1:
+        raise AssertionError(f"{HYBRID_ARCH}: the small pool never "
+                             "preempted")
+    for what, r in (("a rerun", again), ("unfused decode", unfused),
+                    ("preemption", small)):
+        if r["outputs"] != base["outputs"]:
+            raise AssertionError(f"{HYBRID_ARCH}: token streams differ "
+                                 f"with {what}")
+    paged = serve(scheduler="bucketed")
+    dense = serve(scheduler="bucketed", cache_impl="dense")
+    same, first = _agreement(paged["outputs"], dense["outputs"])
+    same_c, first_c = _agreement(base["outputs"], paged["outputs"])
+    print(f"# {HYBRID_ARCH} depth {HYBRID_DEPTH} serve_fp8_paged, short "
+          f"queue: token streams bitwise equal on a rerun, with unfused "
+          f"decode and under preemption ({small['stats']['preemptions']} "
+          f"preemptions, {small['stats']['restores']} restores); bucketed "
+          f"paged vs dense {100 * same:.1f} % of tokens equal, first "
+          f"divergence {first}; continuous vs bucketed {100 * same_c:.1f} "
+          f"%, first divergence {first_c}", flush=True)
+    fp8 = config("serve_fp8_paged")
+    _slot_snapshot_roundtrip(
+        dev, HYBRID_ARCH, fp8, params, card, HYBRID_LEAVES,
+        make=lambda: _hybrid_engine(dev, fp8, params, short=True,
+                                    num_pages=HYBRID_SHORT_PAGES),
+        queue=short, gen=KERNEL_GEN)
+
+    # static weights: decoded == bf16 of the same codes; codes through K2/K3
+    codes = quantize_params(params, fp8.policy,
+                            period=fp8.layer_pattern_period)
+    params = None                       # the bf16 set freed, the codes kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    static = serve(served=codes, static_weights=True)
+    decoded = _decoded(codes)
+    plain = serve(served=decoded)
+    del decoded
+    torch.cuda.empty_cache()
+    _require_varied(static["outputs"], f"{HYBRID_ARCH} static weights",
+                    constant_share=0.25)
+    if static["outputs"] != plain["outputs"]:
+        raise AssertionError(f"{HYBRID_ARCH} static weights: token streams "
+                             "differ from the bf16 weights decoded from the "
+                             "same codes")
+    for impl, which, scheduler in (
+            ("fused_dequant", "dequant_matmul", "continuous"),
+            ("lns", "lns_product_matmul", "bucketed")):
+        kcfg = config(numerics=k_static_policy(impl))
+        eng = _hybrid_engine(dev, kcfg, codes, short=True)
+        prefills = []
+        real_prefill = eng.prefill_batch
+
+        def counted(prompts, slots, real=real_prefill, seen=prefills):
+            seen.append(len(prompts) * len(prompts[0]))
+            return real(prompts, slots)
+
+        eng.prefill_batch = counted
+        _reset_matmul_counts()
+        with _ShadowMatmul(which, limit=HYBRID_PRODUCTS) as shadow, \
+                _ShadowK1(limit=held_k1) as k1_shadow:
+            r = _counted_run(eng, short, KERNEL_GEN, scheduler)
+        k3, k2 = _matmul_counts()
+        got, other = (k2, k3) if impl == "fused_dequant" else (k3, k2)
+        calls = r["substeps"] + len(prefills)
+        want = HYBRID_PRODUCTS * calls
+        kname = "K2" if impl == "fused_dequant" else "K3"
+        errs.append(k1_shadow.err)
+        print(f"# {HYBRID_ARCH} depth {HYBRID_DEPTH} static weights through "
+              f"{kname} ({impl}), {scheduler}: {r['substeps']} sub-steps and "
+              f"{len(prefills)} batched prefills (M {prefills}), {got} "
+              f"{kname} launches ({HYBRID_PRODUCTS} a model call = {want}), "
+              f"{other} of the other; the first model call's {shadow.calls} "
+              f"calls each within {shadow.err:.3e} of the plain version (at "
+              f"most {shadow.of_limit:.4f} of the limit {SHADOW_SUM_LIMIT} "
+              f"sqrt(K) 2^-24 sum|products|) at (M, K, N) "
+              f"{sorted(shadow.shapes)}; {r['wall']:.3f} s wall; [{card}]",
+              flush=True)
+        if got != want or other or shadow.calls != HYBRID_PRODUCTS:
+            raise AssertionError(f"{kname} on {HYBRID_ARCH}'s static "
+                                 f"weights: {got} launches ({other} of the "
+                                 f"other, {shadow.calls} calls held), want "
+                                 f"{want}")
+        if scheduler == "bucketed" and prefills != [
+                PREFIX_SLOTS * KERNEL_PLEN]:
+            raise AssertionError(f"bucketed prefills {prefills}")
+        _require_varied(r["outputs"], f"{HYBRID_ARCH} static weights "
+                        f"through {kname}", constant_share=0.25)
+        out[impl] = dict(launches=got, err=shadow.err)
+        # the wrapped prefill is a bound method: it holds the engine
+        del eng, counted, real_prefill
+        torch.cuda.empty_cache()
+    ssd = next(layer["mamba"] for layer in codes["blocks"]
+               if "mamba" in layer)
+    mats = [ssd[name] for name in HYBRID_SSD_MATMULS]
+    if [tuple(q.codes.shape) for q in mats] != list(
+            HYBRID_SSD_MATMULS.values()):
+        raise AssertionError(f"jamba's SSD products {mats}")
+    for impl in ("fused_dequant", "lns"):
+        out[impl].update(_static_layer_ms(
+            dev, mats, impl, PREFIX_SLOTS,
+            label=f"one {HYBRID_ARCH} SSD layer (6 products, w_B/w_C N 16)"))
+    n_codes, code_bytes = _qtensor_count(codes), _weight_bytes(codes)
+    del codes, ssd, mats
+    gc.collect()      # the counted engines' cycles still hold the codes
+    torch.cuda.empty_cache()
+
+    # Engine(static_weights=True) on its own draw: each weight encoded by
+    # the engine's leaf hook as it is drawn, never the bf16 set at once
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = _hybrid_engine(dev, fp8, None, short=True, static_weights=True)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    own, own_bytes = _qtensor_count(eng.params), _weight_bytes(eng.params)
+    r = _counted_run(eng, short, KERNEL_GEN)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"# {HYBRID_ARCH} depth {HYBRID_DEPTH} Engine(static_weights="
+          f"True) on its own draw: {own} weights as codes "
+          f"({own_bytes / 1e9:.3f} GB of weights, {code_bytes / 1e9:.3f} GB "
+          f"through quantize_params), built in {built:.2f} s; "
+          f"{r['substeps']} "
+          f"sub-steps, finite logits; {before / 2**30:.2f} GiB allocated "
+          f"before, peak {peak / 2**30:.2f} GiB; [{card}]", flush=True)
+    if own != n_codes or own_bytes != code_bytes:
+        raise AssertionError(f"{HYBRID_ARCH}: the engine's own static draw "
+                             f"holds {own} codes ({own_bytes} B), "
+                             f"quantize_params {n_codes} ({code_bytes} B)")
+    out["own_draw"] = dict(peak=peak, weight_bytes=own_bytes)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # float32 parameters (~53 GB): K1 against the plain attention
+    _logits_through_k1(dev, HYBRID_ARCH, HYBRID_DEPTH)
+    out["k1_err"] = max(errs)
+    return out
 
 
 def _plain_attention_policy(pol):
@@ -3305,6 +3747,17 @@ def bucketed_path(dev, policy, params, continuous) -> dict:
                 k1_err=shadow.err)
 
 
+def _qtensor_count(params) -> int:
+    """The ``QTensor`` leaves of a parameter tree."""
+    from repro_torch.core.quant import QTensor
+
+    if isinstance(params, dict):
+        return sum(_qtensor_count(v) for v in params.values())
+    if isinstance(params, list):
+        return sum(_qtensor_count(v) for v in params)
+    return int(isinstance(params, QTensor))
+
+
 def _weight_bytes(params) -> int:
     from repro_torch.core.quant import QTensor
 
@@ -3430,27 +3883,38 @@ class _ShadowMatmul:
     this limit catches at every K the model has.  The kernel's output is
     what the model goes on with.  Counts the calls, their shapes, the
     largest difference, its largest share of the limit and of the call's
-    largest |plain|; the launch counters stay the wrapper's."""
+    largest |plain|; the launch counters stay the wrapper's.  ``limit``:
+    hold the first ``limit`` calls only.  A batch of expert products [E,
+    M, K] x [E, K, N] is held expert by expert."""
 
-    def __init__(self, which: str):
-        self.which = which
+    def __init__(self, which: str, limit=None):
+        self.which, self.limit = which, limit
 
     def __enter__(self):
         import torch
         from repro_torch.kernels import lns_matmul as lm
 
         self.lm, self.real = lm, getattr(lm, self.which)
-        plain = (lm.dequant_matmul_plain if self.which == "dequant_matmul"
-                 else lm.lns_matmul_plain)
+        plain2d = (lm.dequant_matmul_plain
+                   if self.which == "dequant_matmul" else lm.lns_matmul_plain)
+
+        def plain(x, w, **kw):
+            if x.ndim == 3:
+                return torch.stack([plain2d(a, b, **kw)
+                                    for a, b in zip(x, w)])
+            return plain2d(x, w, **kw)
+
         self.calls, self.err, self.shapes = 0, 0.0, {}
         self.of_limit, self.rel = 0.0, 0.0
 
         def shadowed(x, w, **kw):
             out = self.real(x, w, **kw)
+            if self.limit is not None and self.calls >= self.limit:
+                return out
             want = plain(x, w, **kw)
             absum = plain(x & 0x7F, w & 0x7F, **kw)
             diff = (out - want).abs()
-            limit = SHADOW_SUM_LIMIT * x.shape[1] ** 0.5 * 2.0**-24 * absum
+            limit = SHADOW_SUM_LIMIT * x.shape[-1] ** 0.5 * 2.0**-24 * absum
             if not torch.isfinite(out).all() or bool((diff > limit).any()):
                 raise AssertionError(f"{self.which} differs from its plain "
                                      f"version at {tuple(x.shape)} x "
@@ -3464,7 +3928,7 @@ class _ShadowMatmul:
             self.rel = max(self.rel, float(diff.max())
                            / max(float(want.abs().max()), 1e-30))
             self.calls += 1
-            key = (x.shape[0],) + tuple(w.shape)
+            key = (x.shape[-2],) + tuple(w.shape)
             self.shapes[key] = self.shapes.get(key, 0) + 1
             return out
 
@@ -3486,9 +3950,11 @@ def _gqa_mats(layer) -> list:
         [layer["ffn"][n] for n in ("w_gate", "w_up", "w_down")]
 
 
+PLAIN_EVENTS_M = 1024   # a plain K3's rows from which CUDA events time it
+
+
 def _static_layer_ms(dev, mats, impl: str, M: int,
-                     label: str = "one gemma3-12b layer (7 matmuls)"
-                     ) -> dict:
+                     label: str = "one gemma3-12b layer (7 matmuls)") -> dict:
     """Card time of one layer's static-weight matmuls ``mats`` (QTensors;
     gemma3-12b's seven, :func:`_gqa_mats`) at M rows (E4M3 codes of
     random activations times the layer's stored codes): the kernel, its
@@ -3497,7 +3963,10 @@ def _static_layer_ms(dev, mats, impl: str, M: int,
     codes, x's codes and the float32 out, once each, over the memory rate;
     against its 2 M K N operations at the card's dense rate, bf16 for K2's
     float products, 8-bit for K3's) and, for K3, its R-fold plane work
-    beside it."""
+    beside it.  A plain K3 at M >= ``PLAIN_EVENTS_M`` is timed once
+    between CUDA events (host included, :func:`cuda_ms`), not by the
+    profiler, whose record of its launches takes tens of seconds to
+    read there."""
     import torch
     from repro_torch.core.quant import quantize
     from repro_torch.kernels import lns_matmul as lm
@@ -3529,8 +3998,13 @@ def _static_layer_ms(dev, mats, impl: str, M: int,
     n = len(mats)
     ms, how = device_ms(lambda: [kern(i) for i in range(n)], iters=20,
                         only=only)
-    plain_ms, _ = device_ms(lambda: [plain(i) for i in range(n)],
-                            iters=1 if impl == "lns" else 10, warmup=1)
+    plain_events = impl == "lns" and M >= PLAIN_EVENTS_M
+    if plain_events:
+        plain_ms = cuda_ms(lambda: [plain(i) for i in range(n)], iters=1,
+                           warmup=0)
+    else:
+        plain_ms, _ = device_ms(lambda: [plain(i) for i in range(n)],
+                                iters=1 if impl == "lns" else 10, warmup=1)
     res = dict(ms=ms, plain_ms=plain_ms, how=how, library_ms=None)
     if impl == "fused_dequant":
         dec = [(code_to_f32(x, "e4m3").to(torch.bfloat16),
@@ -3558,7 +4032,9 @@ def _static_layer_ms(dev, mats, impl: str, M: int,
            f", torch.matmul on decoded bf16 {res['library_ms']:.5f} ms")
     print(f"# {'K2' if impl == 'fused_dequant' else 'K3'} static weights, "
           f"{label} at M = {M}: kernel {ms:.5f} ms "
-          f"({how}), plain {plain_ms:.4f} ms{lib}; bound "
+          f"({how}), plain {plain_ms:.4f} ms"
+          f"{' (CUDA events, host included)' if plain_events else ''}"
+          f"{lib}; bound "
           f"{res['bound_ms']:.5f} ms = max({nbytes} B / 3.35 TB/s = "
           f"{b_bytes:.5f} ms, {2 * prods} operations = {b_ops:.5f} ms) -> "
           f"{res['bound_by']} (kernel / bound "
@@ -5900,6 +6376,335 @@ def check_mla_kernels(dev) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------- #
+# SSM training: mamba2-780m through the STE products
+# --------------------------------------------------------------------------- #
+# Full depth (48 layers, ~780 M parameters: ~14 GB of float32 master
+# weights, AdamW moments and gradients, then activations) fits one card.
+SSM_TRAIN_STEPS = 4
+SSM_CHECK_DEPTH = 2        # the float32 comparisons and the K4 route
+SSM_PLAIN_BATCH = 8        # the float32 comparison's batch (x seq 128)
+SSM_TRAIN_M = 1024         # batch 8 x seq 128: the rows of every product
+EXP_LIMIT = math.log(3.4028234663852886e38)   # 88.72: float32 exp's range
+
+
+def _ssm_k3_per_step(cfg) -> int:
+    """K3 (or K2, K4) launches of one mamba2 train step: each SSD layer's
+    six STE products, forward and in the layer's checkpointed recompute:
+    2 x 6 x n_layers."""
+    return 2 * SSM_K_PER_LAYER * cfg.n_layers
+
+
+class _DecayRange:
+    """Within the block, the largest exponent that ``ssd_forward``'s
+    within-chunk decays mask out (the sum of dt |A| over a chunk's rows,
+    above the diagonal): past ``EXP_LIMIT`` the reference's ``where(mask,
+    exp(diff), 0)`` gives a NaN gradient."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import mamba2
+
+        self.mod, self.real, self.top = mamba2, mamba2.masked_decay, None
+
+        def recorded(diff, mask):
+            with torch.no_grad():   # outside the graph the checkpoint checks
+                top = diff.detach().amax()
+                self.top = top if self.top is None else self.top.maximum(top)
+            return self.real(diff, mask)
+
+        mamba2.masked_decay = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.masked_decay = self.real
+        return False
+
+
+def ssm_train_path(dev) -> dict:
+    """Phase: SSM training, mamba2-780m at full width and full depth (48
+    SSD layers, d_model 1536, d_inner 3072, 48 heads of 64, d_state 128,
+    vocab 50,280 tied; no FFN) under ``--quant fp8_lns_pallas``, the
+    model's own init: ``SSM_TRAIN_STEPS`` steps of batch 8 x seq 128
+    (``arith``) through ``runtime.fault.run_training`` and
+    ``steps.build_train_step`` (the training CLI's own pieces), one
+    checkpoint, at the last step.  Each SSD layer runs under the
+    checkpoint, so its six STE products run K3 twice a step.  Then one
+    more step with every layer's A and dt at Mamba2's init ranges
+    (:func:`_mamba2_ranges`), where the masked decays' exponents pass
+    float32's exp range (measured by :class:`_DecayRange`; the
+    reference's gradient is NaN there).  Gates: finite losses and
+    gradient norms at every step (the port's masked exponent), 0
+    restarts, K3 launches ``SSM_TRAIN_STEPS`` x 2 x 6 x 48, K2 none, the
+    decays' largest exponent past ``EXP_LIMIT`` in the last step and
+    every parameter finite after it.  Prints the step walls, the
+    checkpoint, the peak memory and the parameter count, beside the
+    card's name and power limit."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, Dataset
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import fault, steps
+
+    cfg = get_config(SSM_ARCH, quant="fp8_lns_pallas")
+    n_steps = SSM_TRAIN_STEPS
+    per_step = _ssm_k3_per_step(cfg)
+    model = Model(cfg, max_seq=128)
+    data = Dataset(DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=8,
+                              seed=0, kind="arith"))
+    marks, terms, saves = [], [], []
+    step_fn = steps.build_train_step(model, adamw.OptConfig(
+        lr=1e-3, warmup_steps=10, total_steps=100))
+
+    def train_step(state, batch):
+        state, metrics = step_fn(state, batch)
+        terms.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+        return state, metrics
+
+    def init_state():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return steps.make_train_state(model, gen)
+
+    def mark(step):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    real_save = fault.store.save
+
+    def timed_save(*a, **kw):
+        t = time.perf_counter()
+        pending = real_save(*a, **kw)
+        copied = time.perf_counter()
+        pending.add_done_callback(
+            lambda _: saves.append((copied - t, time.perf_counter() - t)))
+        return pending
+
+    def to_device(b):
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ssm_train_")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_matmul_counts()
+        fault.store.save = timed_save
+        t0 = time.perf_counter()
+        state, history = fault.run_training(
+            train_step=train_step, init_state=init_state, dataset=data,
+            max_steps=n_steps, ckpt_dir=tmp, ckpt_every=n_steps,
+            fault_hook=mark, to_device=to_device, log=lambda *a: None)
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        k3, k2 = _matmul_counts()
+        peak = torch.cuda.max_memory_allocated() - held
+        n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+        ckpt_bytes = _dir_bytes(os.path.join(tmp, f"step-{n_steps}"))
+    finally:
+        fault.store.save = real_save
+        shutil.rmtree(tmp, ignore_errors=True)
+    # one more step at Mamba2's init ranges
+    top_ad = _mamba2_ranges(state["params"]["blocks"], seed=11)
+    with _DecayRange() as decay:
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, to_device(data.batch(n_steps)))
+        torch.cuda.synchronize()
+        ranged_wall = time.perf_counter() - t1
+    ranged = (float(metrics["loss"]), float(metrics["grad_norm"]))
+    top = float(decay.top)
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in tree_leaves(state["params"]))
+    del state
+    torch.cuda.empty_cache()
+    if [h["step"] for h in history] != [n_steps] or len(terms) != n_steps:
+        raise AssertionError(f"unexpected log points {history}, {terms}")
+    if not all(math.isfinite(v) for t in terms + [ranged] for v in t):
+        raise AssertionError(f"non-finite loss or gradient norm {terms}, "
+                             f"at Mamba2's ranges {ranged}")
+    if any(h["restarts"] for h in history):
+        raise AssertionError(f"{history[-1]['restarts']} restarts")
+    if k3 != n_steps * per_step or k2 != 0:
+        raise AssertionError(f"K3 launches {k3} (want {n_steps} x 2 x "
+                             f"{SSM_K_PER_LAYER} x {cfg.n_layers} = "
+                             f"{n_steps * per_step}), K2 launches {k2}")
+    if len(saves) != 1 or ckpt_bytes <= 0:
+        raise AssertionError(f"checkpoints {saves}, {ckpt_bytes} B")
+    if not top > EXP_LIMIT or not finite:
+        raise AssertionError(f"at Mamba2's ranges: the decays' largest "
+                             f"exponent {top} (want past {EXP_LIMIT:.2f}), "
+                             f"parameters finite: {finite}")
+    walls = [b - a for a, b in zip(marks, marks[1:] + [end])]
+    print(f"# train {SSM_ARCH} fp8_lns_pallas: full width, full depth "
+          f"({cfg.n_layers} SSD layers; {n_params / 1e6:.2f} M parameters), "
+          f"batch 8 x seq 128, {n_steps} steps from the model's init; "
+          f"(loss, grad norm) at every step: {terms}; 0 restarts; {k3} K3 "
+          f"launches = {n_steps} x 2 x {SSM_K_PER_LAYER} x {cfg.n_layers} "
+          f"(forward and the checkpointed recompute), 0 K2; step walls "
+          f"{', '.join(f'{w:.3f}' for w in walls)} s (the first is the "
+          f"process's first mamba2 step; the last includes the checkpoint's "
+          f"host copy and waits for its write); checkpoint {ckpt_bytes} B, "
+          f"host copy {saves[0][0]:.2f} s, on disk after "
+          f"{saves[0][1]:.2f} s; {end - t0:.2f} s wall with init; peak "
+          f"{peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held "
+          f"before; [{card_line()}]", flush=True)
+    print(f"# train {SSM_ARCH}: one step with A and dt at Mamba2's init "
+          f"ranges (largest A dt {top_ad:.4f}): the masked decays' largest "
+          f"exponent {top:.2f}, past float32's exp range {EXP_LIMIT:.2f} "
+          f"(the reference's where(mask, exp(diff), 0) gives NaN gradients "
+          f"there); loss {ranged[0]:.6f}, grad norm {ranged[1]:.6f}, every "
+          f"parameter finite; {ranged_wall:.3f} s wall", flush=True)
+    return dict(launches=k3, walls=walls, peak=peak, top=top)
+
+
+def check_ssm_train_against_plain(dev) -> dict:
+    """Phase: the first step's loss and gradient global norm of a float32,
+    depth-``SSM_CHECK_DEPTH``, full-width mamba2-780m at batch
+    ``SSM_PLAIN_BATCH`` x seq 128, through the kernels and through their
+    plain versions, for K3 (fp8_lns_pallas) and K2 (train_fp8): loss rtol
+    1e-4, gradient norm rtol 1e-3, as :func:`check_train_against_plain`
+    (the kernel runs launch 2 x 6 x depth times, the plain runs none).
+    Returns K2's launches in its kernel run."""
+    import torch
+
+    launches = {}
+    for label, kw in (("K3 fp8_lns_pallas", dict(quant="fp8_lns_pallas")),
+                      ("K2 train_fp8", dict(policy="train_fp8"))):
+        from repro_torch.configs import get_config
+
+        cfg = dataclasses.replace(get_config(SSM_ARCH, **kw),
+                                  n_layers=SSM_CHECK_DEPTH,
+                                  param_dtype="float32")
+        want = _ssm_k3_per_step(cfg)
+        out, walls = [], []
+        for plain in (False, True):
+            state, step, batch_of = _train_setup(dev, cfg, seed=5,
+                                                 batch=SSM_PLAIN_BATCH)
+            before = _matmul_counts()
+            t0 = time.perf_counter()
+            if plain:
+                with _plain_matmuls():
+                    _, metrics = step(state, batch_of(0))
+            else:
+                _, metrics = step(state, batch_of(0))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            used = [a - b for a, b in zip(_matmul_counts(), before)]
+            if sorted(used) != ([0, 0] if plain else [0, want]):
+                raise AssertionError(f"{label}: kernel launches {used} with "
+                                     f"plain={plain}, want {want} of one")
+            if not plain:
+                launches[label[:2]] = max(used)
+            out.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+            del state, step
+            torch.cuda.empty_cache()
+        (lk, gk), (lp, gp) = out
+        if not (math.isclose(lk, lp, rel_tol=1e-4)
+                and math.isclose(gk, gp, rel_tol=1e-3)):
+            raise AssertionError(f"{SSM_ARCH} {label}: kernels {out[0]} vs "
+                                 f"plain {out[1]}")
+        print(f"# {SSM_ARCH} {label}, depth {SSM_CHECK_DEPTH} float32, full "
+              f"width, batch {SSM_PLAIN_BATCH} x seq 128, first step: loss "
+              f"{lk:.7f} (kernels, {want} launches) vs {lp:.7f} (plain), "
+              f"grad norm {gk:.6f} vs {gp:.6f}; walls {walls[0]:.2f} s vs "
+              f"{walls[1]:.2f} s", flush=True)
+    return dict(k2_launches=launches["K2"])
+
+
+def train_k4_ssm_path(dev) -> dict:
+    """Phase: one full-width mamba2-780m train step at depth
+    ``SSM_CHECK_DEPTH`` under the lns_loop policy
+    (:func:`k4_train_policy`): K4 2 x 6 x depth launches (every product
+    2-D, forward and recompute), K3 and K2 none; finite loss and gradient
+    norm."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import lns_matmul as lm
+
+    cfg = dataclasses.replace(get_config(SSM_ARCH, policy=k4_train_policy()),
+                              n_layers=SSM_CHECK_DEPTH)
+    want = _ssm_k3_per_step(cfg)
+    state, step, batch_of = _train_setup(dev, cfg)
+    before = _matmul_counts() + (lm.lns_loop_matmul.launches,)
+    t0 = time.perf_counter()
+    _, metrics = step(state, batch_of(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k3, k2, k4 = [a - b for a, b in zip(
+        _matmul_counts() + (lm.lns_loop_matmul.launches,), before)]
+    terms = [float(metrics[k]) for k in ("loss", "grad_norm")]
+    del state, step
+    torch.cuda.empty_cache()
+    if (k4, k3, k2) != (want, 0, 0) or not all(map(math.isfinite, terms)):
+        raise AssertionError(f"{SSM_ARCH} lns_loop: K4 {k4} (want {want}), "
+                             f"K3 {k3}, K2 {k2}, (loss, grad norm) {terms}")
+    print(f"# train {SSM_ARCH} lns_loop (K4), depth {cfg.n_layers}, one "
+          f"step: (loss, grad norm) {terms}; {k4} K4 launches = 2 x "
+          f"{SSM_K_PER_LAYER} x {cfg.n_layers}, 0 K3, 0 K2; {wall:.2f} s "
+          "wall", flush=True)
+    return dict(launches=k4)
+
+
+def check_ssm_train_kernels(dev) -> dict:
+    """Phase: K3, K2 and K4 at mamba2-780m's six training products
+    (``SSM_MATMULS`` at M = ``SSM_TRAIN_M``: N 3,072, 128, 48, 1,536; N
+    48 a partial tile of every tile): K3 and K2 within 2 sqrt(K) 2^-24
+    sum|products| of their plain versions and two calls bitwise
+    (:func:`_ssm_kernel_checks`), K4 bitwise its plain version (NaN as
+    NaN) and two calls bitwise; each kernel's card time on the layer's
+    six products beside the function's bound, its plain version and, for
+    K2, ``torch.matmul`` on the decoded bf16 operands."""
+    import torch
+    from repro_torch.core.quant import quantize
+    from repro_torch.kernels import lns_matmul as lm
+
+    res = _ssm_kernel_checks(dev, (SSM_TRAIN_M,), SSM_TRAIN_M,
+                             "training", seed=31)
+    g = torch.Generator(device=dev).manual_seed(32)
+    mats = [quantize(torch.randn(kn, generator=g, device=dev) * 0.02,
+                     "e4m3") for kn in SSM_MATMULS.values()]
+    xs = [quantize(torch.randn((SSM_TRAIN_M, q.codes.shape[0]), generator=g,
+                               device=dev), "e4m3").codes for q in mats]
+
+    def k4():
+        return [lm.lns_loop_matmul(x, q.codes, fmt="e4m3", mode="rne")
+                for x, q in zip(xs, mats)]
+
+    def plain():
+        return [lm.lns_loop_matmul_plain(x, q.codes, fmt="e4m3", mode="rne")
+                for x, q in zip(xs, mats)]
+
+    got, again = k4(), k4()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for (name, (K, N)), a, b, c in zip(SSM_MATMULS.items(), got, again,
+                                       want):
+        if not (_nan_aware_bitwise(a, c) and _nan_aware_bitwise(a, b)):
+            raise AssertionError(f"K4 at {SSM_ARCH} {name} "
+                                 f"{SSM_TRAIN_M}x{K}x{N}: not bitwise its "
+                                 "plain version, or two calls differ")
+    ms, how = device_ms(k4, iters=5, only="lns_loop_matmul")
+    bound = res["lns"]
+    res["lns_loop"] = dict(ms=ms, plain_ms=plain_ms, err=0.0,
+                           bound_ms=bound["bound_ms"],
+                           bound_by=bound["bound_by"], library_ms=None)
+    print(f"# K4 {SSM_ARCH} training, one layer's six products at M = "
+          f"{SSM_TRAIN_M}: bitwise its plain version, two calls bitwise; "
+          f"kernel {ms:.5f} ms ({how}), plain {plain_ms:.4f} ms (its "
+          f"checking call, host clock, host included), bound "
+          f"{bound['bound_ms']:.5f} ms (K3's: the function's; "
+          f"{ms / bound['bound_ms']:.1f}x); [{card_line()}]", flush=True)
+    return res
+
+
 def _phase(fn, *args, **kw):
     """Run one phase of :func:`main` and print its wall time."""
     t = time.perf_counter()
@@ -5977,6 +6782,8 @@ def main() -> int:
     ssm = _phase(ssm_path, dev)
     _phase(profile_main_path, dev, policy=None, arch=SSM_ARCH)
     ssm_k = _phase(check_ssm_kernels, dev)
+    hybrid = _phase(hybrid_path, dev, k1["hybrid"], k1f["hybrid"])
+    _phase(profile_main_path, dev, arch=HYBRID_ARCH, depth=HYBRID_DEPTH)
     _phase(profile_main_path, dev, arch="gemma3-12b", depth=PROFILE_DEPTH)
     _phase(profile_main_path, dev, policy=None, arch="gemma3-12b",
            depth=PROFILE_DEPTH)
@@ -6018,6 +6825,11 @@ def main() -> int:
     _phase(profile_train_step, dev, depth=MLA_TRAIN_DEPTH, arch=MLA_ARCH)
     mla_plain = _phase(check_mla_train_against_plain, dev)
     mla_k4 = _phase(train_k4_mla_path, dev)
+    ssm_train_k = _phase(check_ssm_train_kernels, dev)
+    ssm_trained = _phase(ssm_train_path, dev)
+    _phase(profile_train_step, dev, depth=SSM_MAIN_DEPTH, arch=SSM_ARCH)
+    ssm_plain = _phase(check_ssm_train_against_plain, dev)
+    ssm_k4 = _phase(train_k4_ssm_path, dev)
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -6158,6 +6970,40 @@ def main() -> int:
         launches=mla_k4["launches"], max_abs_err=k["err"], ms=k["ms"],
         plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=None))
+    for lns in (True, False):
+        t, inst = (k1, "lns") if lns else (k1f, "float")
+        kernels.append(dict(
+            name=f"{inst}_paged_partials_jamba", route="cuda",
+            source=src + "paged_attention.cu",
+            replaces="src/repro/kernels/paged_attention.py:400",
+            launches=hybrid["fp8" if lns else "bf16"]["launches"],
+            max_abs_err=max(t["max_abs_err"], hybrid["k1_err"]),
+            ms=t["hybrid"]["ms"], plain_ms=t["hybrid"]["plain_ms"],
+            bound_ms=t["hybrid"]["bound_ms"],
+            bound_by=t["hybrid"]["bound_by"], library_ms=None))
+    for impl, name, line in (("fused_dequant", "dequant_matmul", 110),
+                             ("lns", "lns_matmul", 62)):
+        k = hybrid[impl]
+        kernels.append(dict(
+            name=f"{name}_static_weights_jamba", route="cuda",
+            source=src + "lns_matmul.cu",
+            replaces=f"src/repro/kernels/lns_matmul.py:{line}",
+            launches=k["launches"], max_abs_err=k["err"], ms=k["ms"],
+            plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=k["library_ms"]))
+    for impl, name, line, launches in (
+            ("lns", "lns_matmul", 62, ssm_trained["launches"]),
+            ("fused_dequant", "dequant_matmul", 110,
+             ssm_plain["k2_launches"]),
+            ("lns_loop", "lns_loop_matmul", 91, ssm_k4["launches"])):
+        k = ssm_train_k[impl]
+        kernels.append(dict(
+            name=f"{name}_train_mamba2", route="cuda",
+            source=src + "lns_matmul.cu",
+            replaces=f"src/repro/kernels/lns_matmul.py:{line}",
+            launches=launches, max_abs_err=k["err"], ms=k["ms"],
+            plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=k["library_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ more checkouts of this repository, each checkout in its own process.
 
 A PHASE is the name of a function of ``chip_smoke.py`` that takes the
 device alone (``ssm_path``, ``check_ssm_kernels``, ``mla_path``,
-``mla_train_path``, ``check_mla_train_against_plain``, ...).  Each ROOT
+``mla_train_path``, ``check_mla_train_against_plain``, ``ssm_train_path``,
+``hybrid_path``, ...).  Each ROOT
 (default: this checkout) runs in the order given, so ``--root parent
 --root . --root . --root parent`` compares two commits on one card in
 turns.  A child process imports that checkout's ``src/repro_torch`` and

@@ -3,10 +3,11 @@
 The port runs the dense GQA family (qwen2-0.5b, qwen3-14b, gemma2-27b,
 gemma3-12b), the MoE stack with GQA attention (granite-moe-3b-a800m) and
 MLA with MoE, shared experts and a leading dense layer
-(deepseek-v2-lite-16b), each served and trained, and the attention-free
-SSM stack (mamba2-780m), served; the reference's other architectures
-(hybrid, enc-dec, VLM) arrive with later slices and are refused by name
-until then.
+(deepseek-v2-lite-16b), each served and trained, the attention-free SSM
+stack (mamba2-780m), served and trained, and the hybrid SSD + GQA + MoE
+stack (jamba-v0.1-52b), served; the reference's other architectures
+(enc-dec, VLM) arrive with later slices and are refused by name until
+then.
 """
 from __future__ import annotations
 
@@ -18,18 +19,18 @@ from .deepseek_v2_lite_16b import CONFIG as _deepseek
 from .gemma2_27b import CONFIG as _gemma2
 from .gemma3_12b import CONFIG as _gemma3
 from .granite_moe_3b import CONFIG as _granite
+from .jamba_v01_52b import CONFIG as _jamba
 from .mamba2_780m import CONFIG as _mamba2
 from .qwen2_0_5b import CONFIG as _qwen2
 from .qwen3_14b import CONFIG as _qwen3
 
 CONFIGS: Dict[str, ModelConfig] = {
     c.name: c for c in [_qwen2, _gemma2, _qwen3, _gemma3, _granite,
-                        _deepseek, _mamba2]}
+                        _deepseek, _mamba2, _jamba]}
 
 # the reference's architectures of later slices, with their ROADMAP.md
 # Queue 1 items
-_LATER = {"jamba-v0.1-52b": "11d", "whisper-base": "11e",
-          "llava-next-mistral-7b": "11f"}
+_LATER = {"whisper-base": "11e", "llava-next-mistral-7b": "11f"}
 
 
 def legacy_quant_config(quant: str) -> Dict[str, Any]:
@@ -65,9 +66,9 @@ def get_config(arch: str, *, quant: str = "none", smoke: bool = False,
     if arch not in CONFIGS:
         raise NotImplementedError(
             f"architecture {arch!r} is not ported yet; the port runs "
-            f"{sorted(CONFIGS)}; hybrid, enc-dec and VLM architectures "
-            "arrive with later slices (ROADMAP.md Queue 1 item "
-            f"{_LATER.get(arch, '11d-11f')})")
+            f"{sorted(CONFIGS)}; enc-dec and VLM architectures arrive with "
+            "later slices (ROADMAP.md Queue 1 item "
+            f"{_LATER.get(arch, '11e-11f')})")
     cfg = CONFIGS[arch]
     if smoke:
         cfg = cfg.smoke()

@@ -2,9 +2,8 @@
 
 One frozen dataclass describes every architecture of the reference's zoo;
 the port runs its dense GQA family (qwen2-0.5b, qwen3-14b, gemma2-27b,
-gemma3-12b), granite-moe-3b-a800m, deepseek-v2-lite-16b and
-mamba2-780m.  The
-legacy ``QuantConfig`` shim is not ported: ``numerics`` holds the
+gemma3-12b), granite-moe-3b-a800m, deepseek-v2-lite-16b, mamba2-780m
+and jamba-v0.1-52b.  The legacy ``QuantConfig`` shim is not ported: ``numerics`` holds the
 :class:`~repro_torch.numerics.Policy` directly.  ``smoke()`` derives the
 same reduced config as the reference for CPU tests.
 """

@@ -129,6 +129,9 @@ class QTensor:
         return decode(self.codes, self.fmt) * self.scale
 
 
+ENCODE_SLAB = 2**26     # elements a slab of :func:`quantize`'s encode
+
+
 def quantize(x, fmt: FP8Format | str = "e4m3", *,
              axis: Optional[int | tuple] = None, mode: str = "rne",
              reduce=None) -> QTensor:
@@ -142,12 +145,21 @@ def quantize(x, fmt: FP8Format | str = "e4m3", *,
     division, as the reference computes it: a multiply by the reciprocal
     would move codes).  ``reduce`` maps the absmax before the scale is
     taken (the maximum over a tensor-parallel mesh's shards of ``x``).
+
+    The encode runs ``ENCODE_SLAB`` elements at a time along the first
+    axis (elementwise, so the codes are those of one pass): its int64
+    temporaries for a whole expert stack of ~1e9 elements would take
+    ~40 GB at once.
     """
     if isinstance(fmt, str):
         fmt_obj = FORMATS[fmt]
     else:
         fmt_obj, fmt = fmt, fmt.name
-    x = torch.as_tensor(x).to(torch.float32)
+    x = torch.as_tensor(x)
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
+    # the absmax in x's own float type: abs and max are exact there, and
+    # its float32 value is the absmax of x in float32
     if axis is None:
         amax = x.abs().amax()
     else:
@@ -155,9 +167,19 @@ def quantize(x, fmt: FP8Format | str = "e4m3", *,
                                      else (axis,))}
         dims = tuple(i for i in range(x.ndim) if i not in keep)
         amax = x.abs().amax(dim=dims, keepdim=True)
+    amax = amax.to(torch.float32)
     if reduce is not None:
         amax = reduce(amax)
     amax = torch.clamp_min(amax, 1e-12)
     scale = amax / fmt_obj.max_normal
-    codes = encode(x / scale, fmt_obj, mode)
+    if x.ndim == 0 or x.numel() <= ENCODE_SLAB:
+        codes = encode(x.to(torch.float32) / scale, fmt_obj, mode)
+        return QTensor(codes=codes, scale=scale, fmt=fmt)
+    rows = max(1, ENCODE_SLAB // x[0].numel())
+    per_row = scale.ndim == x.ndim and scale.shape[0] > 1
+    codes = torch.cat([
+        encode(xs.to(torch.float32)
+               / (scale[i:i + rows] if per_row else scale), fmt_obj, mode)
+        for i, xs in zip(range(0, x.shape[0], rows), x.split(rows))])
     return QTensor(codes=codes, scale=scale, fmt=fmt)
+

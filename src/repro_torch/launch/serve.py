@@ -25,6 +25,13 @@ Port of ``repro.launch.serve`` for its single-device paths:
   sub-step (an inactive slot's kept), spliced from a bucketed prefill's
   end state, and spilled and restored verbatim, the state at the moment
   of the spill;
+* hybrid stacks (jamba-v0.1-52b: SSD layers and one GQA layer a period
+  of 8, MoE and MLP FFNs alternating) on the same paths, with the same
+  two refusals: the attention layers keep their KV in pages (K1) and the
+  SSD layers their ``{conv, state}`` as dense per-slot leaves, side by
+  side in one paged cache; a bucketed prefill splices pages for the
+  former and copies the end states of the latter, and preemption,
+  restore and snapshots move both;
 * ``static_weights=True``: the eligible weights held as FP8 codes
   (``models.quantize``), decoded before each float product or, under a
   policy that quantizes matmuls, multiplied as codes by K2
@@ -69,6 +76,8 @@ streams and the gathered cache are the TP=1 engine's bit for bit.
     python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \\
         --policy serve_fp8_paged
     python -m repro_torch.launch.serve --arch mamba2-780m
+    python -m repro_torch.launch.serve --arch jamba-v0.1-52b --smoke \\
+        --device cpu --policy serve_fp8_paged
 """
 from __future__ import annotations
 
@@ -86,7 +95,7 @@ from .. import numerics
 from ..configs import get_config
 from ..core import prng
 from ..models import Model
-from ..models.model import SLOT_LEAVES
+from ..models.model import SLOT_LEAVES, attention_layers
 from ..models.quantize import quantize_leaf
 from ..parallel import sharding
 from ..parallel.hints import serve_hint_specs, use_hints
@@ -305,8 +314,8 @@ class Engine:
     def prefix_cache_supported(cfg) -> bool:
         """Prefix caching shares pages, so every layer's KV state must live
         in the page pool: pure-GQA decoder-only stacks (every config the
-        port runs but deepseek and mamba2; the reference refuses MLA
-        latents, SSM states and cross/encoder caches, which are dense
+        port runs but deepseek, mamba2 and jamba; the reference refuses
+        MLA latents, SSM states and cross/encoder caches, which are dense
         per-slot entries)."""
         if cfg.family in ("vlm", "encdec") or cfg.attn_impl != "gqa":
             return False
@@ -564,21 +573,24 @@ class Engine:
         return {"tokens": torch.as_tensor(toks, device=self.device)}
 
     def _layer_keys(self, key: torch.Tensor) -> torch.Tensor:
-        """Per-layer keys [n_layers, 2] of one splice row's K or V key: the
-        reference splits it over its stacked blocks, so every layer
-        ``b * period + j`` of block ``b`` takes the block's key."""
+        """The attention layers' keys [n_attn, 2] of one splice row's K or
+        V key: the reference splits it over its stacked blocks, so every
+        attention layer ``b * period + j`` of block ``b`` takes the
+        block's key."""
         cfg = self.cfg
         period = cfg.layer_pattern_period
         blocks = prng.split(key, cfg.n_layers // period)
-        return blocks.repeat_interleave(period, dim=0).to(self.device)
+        per = blocks.repeat_interleave(period, dim=0)
+        return per[attention_layers(cfg)].to(self.device)
 
     def _splice(self, small, slots: List[int], page_ids: np.ndarray,
                 keys) -> None:
         """Write each prefill row's dense cache entries into its slot, in
-        place: rows of the dense cache or of the paged cache's dense
+        place: rows of the dense cache, or of the paged cache's dense
         per-slot leaves (MLA's latents, SSD's conv inputs and end state,
-        copied verbatim: the reference's ``splice_dense_leaf``), or
-        freshly allocated pages (each page's
+        copied verbatim: the reference's ``splice_dense_leaf``) and, for
+        its attention layers (all of a GQA stack's, one in eight of a
+        hybrid one's), freshly allocated pages (each page's
         scale from its whole content, the codes rescaled to it with
         stochastic carry-ins when ``keys`` is given).  Prefill row ``i``'s
         K and V take ``fold_in(keys, 2 i)`` and ``fold_in(keys, 2 i + 1)``,
@@ -586,13 +598,16 @@ class Engine:
         over every rank's KV heads, and the rescale's bits are drawn for
         every head and cut to this rank's."""
         cfg = self.cfg
-        if self.cache_impl == "paged" and "kp" not in self.cache:
+        if self.cache_impl == "paged":
             for name, leaf in self.cache.items():
+                if name not in SLOT_LEAVES:
+                    continue
                 # [L, n, ...]: the layers that hold this leaf
                 src = torch.stack([c[name] for c in small if name in c])
                 for i, slot in enumerate(slots):
                     leaf[:, slot, :src.shape[2]] = src[:, i].to(leaf.dtype)
-            return
+            if "kp" not in self.cache:
+                return
         if self.cache_impl == "dense":
             for entry, new in zip(self.cache, small):
                 for name in entry:
@@ -614,7 +629,7 @@ class Engine:
                                               ("v", "vp", "vs", 2 * i + 1)):
                 key = (None if keys is None
                        else self._layer_keys(prng.fold_in(keys, fold)))
-                src = torch.stack([c[name][i] for c in small])
+                src = torch.stack([c[name][i] for c in small if name in c])
                 amax = heads = None
                 fmt = numerics.kv_format(cfg.policy)
                 if self._tp > 1 and fmt is not None:

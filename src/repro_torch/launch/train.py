@@ -3,9 +3,9 @@
 Port of ``repro.launch.train``, single-device: the model trains on the
 card unless ``--device cpu`` is given (without a card and without that
 flag it raises).  Every architecture the port serves trains (the dense
-GQA family, granite-moe-3b-a800m, deepseek-v2-lite-16b) but mamba2-780m
-(ROADMAP.md Queue 1 item 11c-train); ``--mesh`` other than ``1x1``
-(FSDP/TP training) is not ported yet (item 12).  Examples:
+GQA family, granite-moe-3b-a800m, deepseek-v2-lite-16b, mamba2-780m) but
+jamba-v0.1-52b; that and ``--mesh`` other than ``1x1`` (FSDP/TP
+training) are not ported yet (ROADMAP.md Queue 1 item 12).  Examples:
 
   # CPU smoke run on learnable synthetic data (plain kernel versions):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
@@ -15,6 +15,11 @@ GQA family, granite-moe-3b-a800m, deepseek-v2-lite-16b) but mamba2-780m
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch deepseek-v2-lite-16b --smoke --device cpu \\
       --quant fp8_lns_pallas --steps 8 --batch 4 --seq 32 --lr 1e-2
+
+  # mamba2-780m (the SSD mixer's six projections through the STE):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \\
+      --smoke --device cpu --quant fp8_lns_pallas --steps 8 --batch 4 \\
+      --seq 32 --lr 1e-2
 
   # full-width FP8 training through the paper's LNS matmul kernel (K3):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\

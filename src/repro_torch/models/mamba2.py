@@ -33,7 +33,8 @@ import torch.nn.functional as F
 
 from .layers import qlinear, rms_norm
 
-__all__ = ["dims", "mamba2_init", "ssd_forward", "ssd_decode"]
+__all__ = ["dims", "mamba2_init", "masked_decay", "ssd_forward",
+           "ssd_decode"]
 
 
 def dims(cfg) -> Tuple[int, int, int, int]:
@@ -83,6 +84,21 @@ def mamba2_init(generator: torch.Generator, cfg, put=None, path=()):
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: ``logaddexp(x, 0)`` at every x."""
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def masked_decay(diff: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``exp(diff)`` where ``mask``, else 0: the within-chunk decays.
+
+    Above the diagonal ``diff`` is positive and may pass float32's ``exp``
+    range (dt |A| summed over a chunk reaches ~200 at Mamba2's init
+    ranges).  The reference's ``where(mask, exp(diff), 0)`` has the same
+    forward, but there its untaken branch's gradient is 0 x inf = NaN.
+    ``exp(-inf)`` is exactly 0, so masking the exponent instead keeps
+    every forward bit and gives a gradient that is finite wherever the
+    taken branch's is."""
+    return torch.exp(torch.where(
+        mask, diff, torch.full((), -torch.inf, dtype=diff.dtype,
+                               device=diff.device)))
 
 
 def _proj(p, x, cfg, site: str = "blocks.*.mamba"):
@@ -143,12 +159,13 @@ def ssd_forward(p, x, cfg, chunk: int = 128):
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # [B,nc,L,L,nh]
     mask = torch.ones((chunk, chunk), dtype=torch.bool,
                       device=x.device).tril()
-    decay = torch.where(mask[None, None, :, :, None], torch.exp(diff),
-                        torch.zeros((), dtype=f32, device=x.device))
+    decay = masked_decay(diff, mask[None, None, :, :, None])
     cb = torch.einsum("bcin,bcjn->bcij", Cm, Bm)
     weight = cb[..., None] * decay * dt[:, :, None]         # [B,nc,L,L,nh]
     y_diag = torch.einsum("bcijh,bcjhp->bcihp", weight, xs)
 
+    # the exponents below are <= 0 (cum decreases along the chunk, since
+    # dt > 0 and A < 0), so these exponentials never overflow
     # each chunk's end state: sum_j B_j (dt_j x_j) exp(cum_end - cum_j)
     decay_end = torch.exp(cum[:, :, -1:] - cum)             # [B,nc,L,nh]
     states = torch.einsum("bcjn,bcjhp->bchpn", Bm,

@@ -7,8 +7,9 @@ family (qwen2, qwen3's qk-norm, gemma2/3's sandwich norms, embedding
 scale, local/global windows and softcaps), the MoE family (granite-moe-3b-
 a800m), served and trained (the loss adds the MoE aux terms), and MLA with
 MoE, shared experts and a leading dense layer (deepseek-v2-lite-16b),
-served and trained; and for the attention-free SSM stack (mamba2-780m),
-served.
+served and trained; for the attention-free SSM stack (mamba2-780m),
+served and trained; and for the hybrid stack (jamba-v0.1-52b: SSD layers
+with one GQA layer a period, MoE and MLP FFNs alternating), served.
 Parameters are a plain dict: ``embed`` [Vp, D], ``final_norm`` [D],
 optional ``unembed`` [D, Vp], ``blocks``, a list of per-layer dicts with
 the reference's names (``ln1``, ``attn.wq``/``bq``/..., ``ln2``,
@@ -20,7 +21,8 @@ with shared experts, ``shared``; an MLA layer's ``attn`` is ``wq``,
 ``params["prefix"]``; each an MLP of ``d_ff``).  An SSD layer is ``ln1``
 and ``mamba`` (``w_z``, ``w_x``, ``w_B``, ``w_C``, ``w_dt``, the conv
 weights and bias, float32 ``A_log``/``Dskip``/``dt_bias``, ``norm``,
-``out_proj``), with no FFN.  :func:`params_from_jax`
+``out_proj``), with an FFN where the pattern gives it one (none in
+mamba2, an MoE layer or an MLP in jamba).  :func:`params_from_jax`
 carries a reference ``Model.init`` tree across (the tests' route); the
 chip has no JAX, so :meth:`Model.init` draws the same distributions from
 a torch ``Generator``.
@@ -80,7 +82,7 @@ NEG = -1.0e30
 SLOT_LEAVES = ("ckv", "kpe") + SSD_LEAVES
 
 # families of later slices, with their ROADMAP.md Queue 1 items
-_LATER = {"hybrid": "11d", "encdec": "11e", "vlm": "11f"}
+_LATER = {"encdec": "11e", "vlm": "11f"}
 
 
 def _check_supported(cfg) -> None:
@@ -90,15 +92,25 @@ def _check_supported(cfg) -> None:
                  and (cfg.family == "dense") == (cfg.n_experts == 0))
     ssm = (cfg.family == "ssm" and cfg.attn_impl == "none"
            and not cfg.n_experts)
-    if item is not None or not (attention or ssm):
+    hybrid = (cfg.family == "hybrid" and cfg.attn_impl == "gqa"
+              and not cfg.first_dense)
+    if item is not None or not (attention or ssm or hybrid):
         raise NotImplementedError(
             f"{cfg.name!r} (family={cfg.family!r}, attn={cfg.attn_impl!r}) "
             "is not ported yet; the port runs dense GQA stacks (qwen2, "
             "qwen3, gemma2, gemma3), MoE GQA stacks (granite), MLA with "
-            "MoE, shared experts and leading dense layers (deepseek) and "
-            "SSM stacks (mamba2); hybrid, enc-dec and VLM families arrive "
-            "with later slices (ROADMAP.md Queue 1 item "
-            f"{item or '11, 11d-11f'})")
+            "MoE, shared experts and leading dense layers (deepseek), SSM "
+            "stacks (mamba2) and hybrid SSD + GQA stacks with MoE or MLP "
+            "FFNs (jamba); enc-dec and VLM families arrive with later "
+            "slices (ROADMAP.md Queue 1 item "
+            f"{item or '11, 11e-11f'})")
+
+
+def attention_layers(cfg) -> list:
+    """The absolute indices of the layers whose mixer is attention, in
+    order (every layer of a dense or MoE stack; none of an SSM stack;
+    ``i % attn_period == attn_offset`` of a hybrid one)."""
+    return [i for i in range(cfg.n_layers) if mixer_kind(cfg, i) == "attn"]
 
 
 def params_from_jax(np_params, cfg) -> Dict[str, Any]:
@@ -419,12 +431,15 @@ class Model:
 
     # ------------------------------------------------------------------ #
     def kv_write_keys(self, key: torch.Tensor, device) -> torch.Tensor:
-        """Per-layer (K, V) write keys [n_layers, 2, 2] of a step's stream
-        key, derived exactly as the reference does: fold 0 (the block
-        stack), split over blocks, fold the pattern index, split into the
-        K and V keys; a leading dense layer ``i`` folds ``1 + i`` instead
-        of the stack's 0.  Computed on the host once per key and
-        cached."""
+        """The attention layers' (K, V) write keys [n_attn, 2, 2] of a
+        step's stream key, in layer order, derived exactly as the
+        reference does: fold 0 (the block stack), split over blocks, fold
+        the pattern index, split into the K and V keys; a leading dense
+        layer ``i`` folds ``1 + i`` instead of the stack's 0.  Layers
+        whose mixer keeps no pages (SSD) take no key: in a hybrid stack
+        attention layer ``i`` takes block ``(i - first_dense) // period``'s
+        key folded with pattern index ``(i - first_dense) % period``.
+        Computed on the host once per key and cached."""
         words = tuple(int(v) for v in key.tolist())
         if self._key_cache is not None and self._key_cache[0] == (words, device):
             return self._key_cache[1]
@@ -438,28 +453,31 @@ class Model:
                           dim=1).reshape(n_blocks * period, 2)
         if n0:
             per = torch.cat([prng.fold_in(k, torch.arange(1, 1 + n0)), per])
-        keys = prng.split(per, 2).to(device)                    # [L, 2, 2]
+        per = per[attention_layers(cfg)]
+        keys = prng.split(per, 2).to(device)                    # [A, 2, 2]
         self._key_cache = ((words, device), keys)
         return keys
 
     def kv_noise(self, key, positions: torch.Tensor):
         """Stochastic-rounding noise of every KV write of a step, in one
         batched draw: positions [..., B] (each slot's write position) ->
-        int64 [..., n_layers, 2, B, KV, hd].  Equal to the reference's
-        ``randint(fold_in(k_or_v_key, position), (KV, hd), ...)``.  None
-        without a key, when the pages are float (their writes draw no
-        noise) or when no layer keeps its KV in pages (MLA's latents are
-        dense rows, encoded RNE; an SSM stack has no KV).  On a mesh: this
-        rank's KV heads of the whole draw, the bits the reference's
-        partitionable threefry gives a shard."""
+        int64 [..., n_attn, 2, B, KV, hd], one entry per attention layer
+        in order (``stack_decode`` indexes it by the attention layers' own
+        count).  Equal to the reference's ``randint(fold_in(k_or_v_key,
+        position), (KV, hd), ...)``.  None without a key, when the pages
+        are float (their writes draw no noise) or when no layer keeps its
+        KV in pages (MLA's latents are dense rows, encoded RNE; an SSM
+        stack has no KV).  On a mesh: this rank's KV heads of the whole
+        draw, the bits the reference's partitionable threefry gives a
+        shard."""
         cfg = self.cfg
         if (key is None or not numerics.kv_quantized(cfg.policy)
                 or cfg.attn_impl != "gqa"):
             return None
-        keys = self.kv_write_keys(key, positions.device)        # [L, 2, 2]
+        keys = self.kv_write_keys(key, positions.device)        # [A, 2, 2]
         lead = positions.shape[:-1]
         pos = positions.reshape(*lead, 1, 1, positions.shape[-1])
-        slot_keys = prng.fold_in(keys[..., None, :], pos)       # [.., L,2,B,2]
+        slot_keys = prng.fold_in(keys[..., None, :], pos)       # [.., A,2,B,2]
         fmt = numerics.kv_format(cfg.policy)
         return tp_local(kv_noise(slot_keys, (cfg.n_kv_heads, cfg.hd), fmt),
                         -2)

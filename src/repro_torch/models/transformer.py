@@ -225,8 +225,8 @@ def stack_decode(layers, cache, x, cfg, *, paged=None, noise=None,
     """Run every layer.  Paged (``paged`` given): ``cache`` is the paged
     cache, each mixer's tensors stacked over that mixer's layers only on
     the leading axis ({"kp", "vp", "ks", "vs"}, MLA's dense per-slot
-    {"ckv", "kpe"}, or SSD's {"conv", "state"}), and ``noise`` [n_layers,
-    2, B, KV, hd] or None.  Dense: ``cache`` is one
+    {"ckv", "kpe"}, or SSD's {"conv", "state"}), and ``noise`` [n_attn,
+    2, B, KV, hd] (the attention layers' own, in order) or None.  Dense: ``cache`` is one
     dict per layer and ``pos`` [B] the new tokens' positions.  Returns the
     new x."""
     if paged is None:
@@ -242,7 +242,8 @@ def stack_decode(layers, cache, x, cfg, *, paged=None, noise=None,
         ssd = kw["mixer"] == "mamba"
         layer_cache = {name: t[j] for name, t in cache.items()
                        if (name in SSD_LEAVES) == ssd}
-        layer_paged = dict(paged, noise=None if noise is None else noise[j])
+        layer_paged = dict(paged, noise=None if noise is None or ssd
+                           else noise[j])
         x = sublayer_decode(p, x, cfg, cache=layer_cache, paged=layer_paged,
                             **kw)
     return x

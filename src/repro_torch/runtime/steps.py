@@ -31,14 +31,14 @@ def make_train_state(model: Model, generator: Optional[torch.Generator] = None,
 
 
 def check_trainable(cfg) -> None:
-    """Raise for a config the port serves but does not train yet: the SSM
-    family, whose straight-through products and the gradient of the SSD
-    mixer's masked decays (the reference's ``where(mask, exp(diff), 0)``)
-    come with ROADMAP.md Queue 1 item 11c-train."""
-    if cfg.family == "ssm":
+    """Raise for a config the port serves but does not train yet: the
+    hybrid family (jamba), whose training is held against JAX by no test
+    and which fits one card only as a slice (~210 GB under AdamW at depth
+    8), so it waits for FSDP (ROADMAP.md Queue 1 item 12)."""
+    if cfg.family == "hybrid":
         raise NotImplementedError(
-            f"training {cfg.name!r} (family='ssm') is not ported yet; the "
-            "port serves it (ROADMAP.md Queue 1 item 11c-train)")
+            f"training {cfg.name!r} (family='hybrid') is not ported yet; "
+            "the port serves it (ROADMAP.md Queue 1 item 12)")
 
 
 def build_train_step(model: Model, opt_cfg: adamw.OptConfig) -> Callable:
@@ -46,11 +46,12 @@ def build_train_step(model: Model, opt_cfg: adamw.OptConfig) -> Callable:
     {tokens, labels} on the state's device.  ``metrics`` holds the loss,
     its terms (ce, and the MoE aux losses, zeros without experts) and
     AdamW's statistics.  Every config the port serves trains, MLA,
-    shared experts and leading dense layers included, but the SSM family
-    (mamba2), whose training is ROADMAP.md Queue 1 item 11c-train; what
-    stays refused besides is FSDP/TP training (``launch.train``'s
-    ``--mesh`` beyond 1x1) and ``remat_policy="dots"``
-    (``models.transformer.stack_forward``), both item 12."""
+    shared experts, leading dense layers and the SSD mixer (mamba2)
+    included, but the hybrid family (:func:`check_trainable`); what stays
+    refused besides is FSDP/TP training (``launch.train``'s ``--mesh``
+    beyond 1x1) and ``remat_policy="dots"``
+    (``models.transformer.stack_forward``), all ROADMAP.md Queue 1 item
+    12."""
     cfg = model.cfg
     check_trainable(cfg)
 

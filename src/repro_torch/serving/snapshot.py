@@ -10,7 +10,9 @@ hard kill:
     pages, ``cfg.pdtype`` rows on float pages), or the dense per-slot
     leaves: MLA's latents ``{ckv, kpe}`` ([n_layers, slots, S, ...],
     codes or floats), SSD's ``{conv, state}`` ([n_layers, slots, ...],
-    bf16 conv inputs and float32 states), and each PREEMPTED request's
+    bf16 conv inputs and float32 states), or both, a hybrid stack's
+    pages and scales beside its SSD leaves (``[n_attn, P, ...]`` and
+    ``[n_ssd, slots, ...]``), and each PREEMPTED request's
     spill tensors (``Engine.preempt_slot``'s host copies: its pages, or
     its rows of the per-slot leaves ``[n_layers, 1, ...]``), as
     leaves of :mod:`repro_torch.checkpoint.store` under the keys

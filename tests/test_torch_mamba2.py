@@ -30,7 +30,7 @@ that streams follow the context), each bitwise: a rerun, preempt/restore
 == a worst-case pool, bucketed on the paged cache == on the dense cache,
 fused == unfused, a chaos kill's survivors; a snapshot round trip while
 PREEMPTED; and what is refused: the prefix cache and a mesh (as in the
-reference), training (ROADMAP.md Queue 1 item 11c-train).
+reference).  Training: ``test_torch_mamba2_train.py``.
 """
 import dataclasses
 
@@ -49,7 +49,7 @@ from repro.numerics import as_policy as jas_policy
 from repro_torch.configs import get_config
 from repro_torch.core.quant import QTensor
 from repro_torch.kernels import lns_matmul as lm
-from repro_torch.launch import serve, train
+from repro_torch.launch import serve
 from repro_torch.models import Model, mamba2, params_from_jax, transformer
 from repro_torch.models.quantize import quantize_params
 from repro_torch.optim import adamw
@@ -570,11 +570,12 @@ def test_cli_serves_mamba2(capsys):
 # --------------------------------------------------------------------------- #
 # What is refused
 # --------------------------------------------------------------------------- #
-def test_prefix_cache_mesh_and_training_are_refused(tmp_path):
+def test_prefix_cache_mesh_and_training_are_refused():
     """As in the reference: the prefix cache and mesh serving need a
     pure-GQA paged cache (an SSM keeps dense per-slot states).  Training
-    mamba2 is ROADMAP.md Queue 1 item 11c-train: ``build_train_step`` and
-    the training CLI raise, naming it."""
+    mamba2, refused here until ROADMAP.md Queue 1 item 11c-train, trains
+    since: ``test_torch_mamba2_train.py`` holds it against JAX and runs
+    the training CLI."""
     jcfg, cfg = _cfgs()
     for eng_cls, c, kw in ((jserve.Engine, jcfg, {}),
                            (serve.Engine, cfg, dict(device="cpu"))):
@@ -583,9 +584,4 @@ def test_prefix_cache_mesh_and_training_are_refused(tmp_path):
     for mod, c in ((jserve, jcfg), (serve, cfg)):
         with pytest.raises(ValueError, match="pure-GQA paged cache"):
             mod.Engine._validate_mesh(c, _stand_in(2), "paged")
-    model = Model(cfg)
-    with pytest.raises(NotImplementedError, match="11c-train"):
-        steps.build_train_step(model, adamw.OptConfig())
-    with pytest.raises(NotImplementedError, match="11c-train"):
-        train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                    "--steps", "1", "--ckpt-dir", str(tmp_path)])
+    steps.build_train_step(Model(cfg), adamw.OptConfig())

@@ -60,11 +60,14 @@ def test_config_equal_reference(smoke):
 
 
 def test_unported_architectures_raise():
-    """jamba-v0.1-52b (ROADMAP.md Queue 1 item 11d) is refused by name;
-    deepseek-v2-lite-16b (item 11b) and mamba2-780m (item 11c), refused
-    here before, are served since."""
-    with pytest.raises(NotImplementedError, match="11d"):
-        get_config("jamba-v0.1-52b")
+    """whisper-base (ROADMAP.md Queue 1 item 11e) and llava-next-mistral-7b
+    (item 11f) are refused by name; deepseek-v2-lite-16b (item 11b),
+    mamba2-780m (item 11c) and jamba-v0.1-52b (item 11d), refused here
+    before, are served since."""
+    for arch, item in (("whisper-base", "11e"),
+                       ("llava-next-mistral-7b", "11f")):
+        with pytest.raises(NotImplementedError, match=item):
+            get_config(arch)
 
 
 def test_rms_norm_and_rope_match_reference():

@@ -44,3 +44,4 @@ def test_every_port_module_imports_without_jax():
     modules = lines[1].split()[1:]
     assert "repro_torch.models.moe" in modules, modules
     assert "repro_torch.models.mamba2" in modules, modules
+    assert "repro_torch.configs.jamba_v01_52b" in modules, modules

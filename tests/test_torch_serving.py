@@ -339,20 +339,21 @@ def test_engine_defaults_to_cuda_and_refuses_a_cpu_only_host():
         serve.Engine(cfg, slots=1, max_seq=8)
 
 
-@pytest.mark.parametrize("kw", [dict(family="hybrid", attn_period=8,
-                                     attn_offset=4, ssm_state=16)])
+@pytest.mark.parametrize("kw", [dict(family="encdec", n_enc_layers=2,
+                                     enc_context=32)])
 def test_later_slice_features_raise(kw):
     """The model families of ROADMAP.md Queue 1 item 11 still raise
-    (hybrid stacks: jamba, item 11d).  The dense cache
+    (encoder-decoder stacks: whisper, item 11e).  The dense cache
     (``tests/test_torch_bucketed.py``), tensor-parallel serving (item 9,
     ``tests/test_torch_mesh.py``), experts (granite, item 11a,
     ``tests/test_torch_moe.py``), MLA attention (deepseek, item 11b,
-    ``tests/test_torch_mla.py``) and SSM stacks (mamba2, item 11c,
-    ``tests/test_torch_mamba2.py``), which raised here before, are served
+    ``tests/test_torch_mla.py``), SSM stacks (mamba2, item 11c,
+    ``tests/test_torch_mamba2.py``) and hybrid stacks (jamba, item 11d,
+    ``tests/test_torch_jamba.py``), which raised here before, are served
     since."""
     cfg = dataclasses.replace(
         get_config("qwen2-0.5b", smoke=True, policy="serve_fp8_paged"), **kw)
-    with pytest.raises(NotImplementedError, match="item 11d"):
+    with pytest.raises(NotImplementedError, match="item 11e"):
         serve.Engine(cfg, slots=1, max_seq=8, device="cpu")
 
 
